@@ -1,0 +1,24 @@
+"""repro_torch: the MemANNS/UpANNS IVF-PQ retrieval system in PyTorch + CUDA.
+
+A port of the JAX/Pallas package `repro` to one NVIDIA H100.  It keeps the
+reference's layout (`core/`, `kernels/`, `retrieval/`, `data/`) and imports
+neither JAX nor `repro`: pure-numpy host logic (placement, scheduling) is
+carried as its own copy.  The three kernels of the online query path (LUT
+build, pruned tile scan, exact re-rank) are hand-written CUDA C++ for
+sm_90a under `csrc/`, built with nvcc on first use and bound with ctypes.
+
+Every entry point runs on `cuda` unless the caller passes `device="cpu"`;
+without a GPU it raises instead of falling back.  On the CPU each kernel
+wrapper runs its plain PyTorch version, which is how the tests run.
+
+Numerics: importing this package sets `torch.backends.cuda.matmul.allow_tf32`
+and `torch.backends.cudnn.allow_tf32` to False.  Every float32 product on
+the card (coarse assignment, k-means, PQ encoding) then runs in full f32, as
+the reference does; TF32 keeps about three decimal digits, which would move
+cluster assignments.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

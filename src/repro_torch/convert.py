@@ -1,0 +1,90 @@
+"""Carry a trained reference index and placement into this package.
+
+The reference's k-means and PQ training draw from `jax.random`, so the two
+packages can only be held to the same answers over the same trained state.
+These functions build the port's objects from plain numpy arrays, or read
+a reference `save_index` directory (`index/*.npy` + `meta.json`) without
+importing the reference.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from repro_torch.core.index import IVFPQIndex
+from repro_torch.core.placement import Placement
+
+_INDEX_FIELDS = ("centroids", "codebook", "codes", "vec_ids", "offsets")
+
+
+def _own(a, dtype) -> np.ndarray:
+    """A contiguous, writable array of `dtype` (copied only when needed)."""
+    arr = np.ascontiguousarray(a, dtype)
+    return arr if arr.flags.writeable else arr.copy()
+
+
+def index_from_arrays(
+    centroids,
+    codebook,
+    codes,
+    vec_ids,
+    offsets,
+    rotation=None,
+) -> IVFPQIndex:
+    """An `IVFPQIndex` from the arrays of a trained index (validated)."""
+    return IVFPQIndex(
+        centroids=_own(centroids, np.float32),
+        codebook=_own(codebook, np.float32),
+        codes=_own(codes, np.uint8),
+        vec_ids=_own(vec_ids, np.int32),
+        offsets=_own(offsets, np.int64),
+        rotation=None if rotation is None else _own(rotation, np.float32),
+    ).validate()
+
+
+def placement_from_arrays(
+    replicas, dev_load, dev_vectors, dev_clusters, w_bar: float
+) -> Placement:
+    """A `Placement` from the lists and arrays of an Algorithm-1 result."""
+    return Placement(
+        replicas=[[int(d) for d in r] for r in replicas],
+        dev_load=np.asarray(dev_load, np.float64).copy(),
+        dev_vectors=np.asarray(dev_vectors, np.int64).copy(),
+        dev_clusters=[[int(c) for c in cl] for cl in dev_clusters],
+        w_bar=float(w_bar),
+    )
+
+
+def load_index_dir(path: str) -> tuple[IVFPQIndex, dict]:
+    """Read a reference `save_index` checkpoint directory, read-only.
+
+    Returns (index, extra) where `extra` is the layout metadata the writer
+    stored.  A checkpoint with a delta buffer (buffered inserts or
+    tombstones) is refused: the mutable path is not ported yet.
+    """
+    path = path.rstrip("/")
+    if not os.path.exists(path) and os.path.exists(path + ".old"):
+        path = path + ".old"
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        arrays = {
+            f: np.load(os.path.join(path, "index", f + ".npy"), allow_pickle=False)
+            for f in _INDEX_FIELDS
+        }
+        rot = os.path.join(path, "index", "rotation.npy")
+        if os.path.exists(rot):
+            arrays["rotation"] = np.load(rot, allow_pickle=False)
+    except (OSError, ValueError) as e:
+        raise ValueError(
+            f"unreadable save_index checkpoint at {path!r}: {type(e).__name__}: {e}"
+        ) from e
+    if meta.get("has_delta"):
+        raise NotImplementedError(
+            f"{path!r} holds a delta buffer; the mutable path is not ported to "
+            "repro_torch yet (ROADMAP.md queue A item 9)"
+        )
+    return index_from_arrays(**arrays), meta.get("extra", {})

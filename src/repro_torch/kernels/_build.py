@@ -1,0 +1,141 @@
+"""Build the CUDA kernels under `csrc/` with nvcc and load them with ctypes.
+
+Route (b) of the port's kernel guide: each `csrc/*.cu` has a plain C
+interface (no PyTorch headers), so nvcc compiles it in seconds.  The
+sources compile in parallel, one nvcc process each, into objects that are
+linked into one shared library under `<repo>/build/repro_torch_kernels/`,
+named by a hash of the sources and flags so an edited source rebuilds.
+Nothing is built at import time: the first kernel launch builds.  A failed
+build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C signature of every launcher; each returns cudaGetLastError() as int
+SIGNATURES = {
+    # codebook, qmc, rows (may be null), out, n_pairs, m, dsub, stream
+    "lut_build_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # luts, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
+    # tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v, out_i, stats,
+    # n_pairs, pairs_per_dev, cap, m, k, block_n, stream
+    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L, _I, _I, _I, _P],
+    # queries, cand, id_dev, id_row, row_base, vectors, out,
+    # q, k, d, ids_cap, vec_is_bf16, block_k, stream
+    "rerank_launch": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
+        "the repro_torch CUDA kernels are built from csrc/ on first use"
+    )
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: list[pathlib.Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> pathlib.Path:
+    """Compile every csrc/*.cu (in parallel) and link one .so; return its path.
+
+    Reuses an existing library of the same source hash.  The ptxas report
+    (registers, shared memory, spills per kernel) is kept next to it as
+    `<lib>.ptxas.txt`.
+    """
+    srcs = _sources()
+    lib = BUILD_DIR / f"librepro_torch_kernels-{_digest(srcs)}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}"
+    objs, procs = [], []
+    for s in srcs:
+        obj = BUILD_DIR / f"{s.stem}-{tag}.o"
+        objs.append(obj)
+        procs.append(
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+        )
+    report, failed = [], []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        report.append(f"== {s.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"nvcc failed on {s.name} (rc {p.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = BUILD_DIR / f"{lib.name}.{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (rc {link.returncode}):\n{link.stdout}")
+    (BUILD_DIR / f"{lib.name}.ptxas.txt").write_text("\n".join(report))
+    os.replace(tmp, lib)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call), argtypes declared."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ptxas_report() -> str:
+    """nvcc's -Xptxas -v output of the current build ('' before a build)."""
+    p = BUILD_DIR / f"librepro_torch_kernels-{_digest(_sources())}.so.ptxas.txt"
+    return p.read_text() if p.exists() else ""
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launcher returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")

@@ -1,0 +1,437 @@
+"""MemANNSEngine: the end-to-end system of paper Fig. 5 behind one object.
+
+Offline (build): IVF+PQ index -> frequency estimation from a historical query
+log -> Algorithm-1 placement (with replication + co-location) -> per-device
+packed shards (+ the raw-vector store for the exact re-rank).
+
+Online (search): cluster filtering on the card, Algorithm-2 scheduling and
+the tile queue on the host, then one device step over a leading
+logical-device axis (LUT build, pruned tile scan, hierarchical merge) and,
+with `rerank="exact"`, the re-rank of the overfetched candidates.
+
+This slice ports the default path: `scan="tiles"`, `path="gather"`, plain
+codes, immutable.  The other knobs raise NotImplementedError naming the
+ROADMAP item that will bring them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import IVFPQIndex, build_index, filter_clusters
+from repro_torch.core.placement import Placement, estimate_frequencies, place_clusters
+from repro_torch.core.scheduling import (
+    ArraySchedule,
+    count_tiles,
+    densify_schedule,
+    emit_tiles,
+    residual_bounds,
+    schedule_queries,
+    subspace_code_norms,
+    warm_start_bounds,
+)
+from repro_torch.device import resolve_device
+from repro_torch.retrieval.layout import (
+    DeviceShards,
+    RawStore,
+    build_raw_store,
+    build_shards,
+)
+from repro_torch.retrieval.search import InFlightSearch, sharded_rerank, sharded_search
+
+
+def round_capacity(max_pairs: int, floor: int = 8) -> int:
+    """Round a count up to the next power-of-two capacity bucket."""
+    return max(floor, 1 << math.ceil(math.log2(max(max_pairs, 1))))
+
+
+def _not_ported(knob: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{knob} is not ported to repro_torch yet; see ROADMAP.md queue A {item}"
+    )
+
+
+def _check_knobs(scan: str, path: str, rerank: str, use_cooc: bool, mutable: bool,
+                 opq_iters: int) -> None:
+    """Refuse, before any expensive work, what this slice does not port."""
+    if scan == "windows":
+        raise _not_ported('scan="windows"', "item 8")
+    if scan != "tiles":
+        raise ValueError(f"scan must be 'tiles', got {scan!r}")
+    if path == "flat":
+        raise _not_ported('path="flat"', "item 8")
+    if path != "gather":
+        raise ValueError(f"path must be 'gather', got {path!r}")
+    if rerank not in ("off", "exact"):
+        raise ValueError(f"rerank must be 'off' or 'exact', got {rerank!r}")
+    if use_cooc:
+        raise _not_ported("use_cooc", "item 8")
+    if mutable:
+        raise _not_ported("mutable", "item 9")
+    if opq_iters > 0:
+        raise _not_ported("opq_iters", "item 11")
+
+
+@dataclasses.dataclass
+class SearchPlan:
+    """Densified host-side plan for one device step.
+
+    Produced by `MemANNSEngine.plan_batch` (cluster filtering + Algorithm 2
+    + densify + tile queue); consumed by `dispatch_plan`.  `qmc_pairs` is
+    a tensor on the engine's device (the residuals never leave the card);
+    the index arrays are host numpy, as the reference's.
+    """
+
+    qmc_pairs: torch.Tensor  # (ndev, P, D) f32 per-pair query - centroid
+    pair_q: np.ndarray       # (ndev, P) int32 query index
+    pair_slot: np.ndarray    # (ndev, P) int32 local cluster slot
+    pair_valid: np.ndarray   # (ndev, P) bool
+    schedule: ArraySchedule
+    n_queries: int
+    pairs_per_dev: int
+    tile_pair: np.ndarray    # (ndev, T) int32, P marks dummies
+    tile_block: np.ndarray   # (ndev, T) int32 code-block index
+    tile_row0: np.ndarray    # (ndev, T) int32 window-relative first row
+    tiles_per_dev: int
+    # early-pruning bounds (None = the plan runs unpruned)
+    pair_lb: np.ndarray | None = None       # (ndev, P) f32
+    probed_ub: np.ndarray | None = None     # (Q, nprobe) f32
+    probed_sizes: np.ndarray | None = None  # (Q, nprobe) int64
+
+    def query_bounds(self, k: int) -> np.ndarray:
+        """(Q,) strict warm-start upper bounds on the k-th output distance."""
+        if self.probed_ub is None or self.probed_sizes is None:
+            return np.full(self.n_queries, np.inf, np.float32)
+        return warm_start_bounds(self.probed_ub, self.probed_sizes, k)
+
+
+@dataclasses.dataclass
+class MemANNSEngine:
+    """End-to-end engine state + the host half of the online path.
+
+    Knobs: `prune` (exact whole-tile pruning; False plans the unpruned
+    reference scan), `rerank` ("off" | "exact": overfetch `k_prime(k)` ADC
+    candidates and re-score them exactly against `raw`), `k_overfetch`
+    (k'; 0 = 4k, pow2-bucketed).  The scan is the tiles scan over plain
+    codes (`scan="tiles"`, `path="gather"`).
+
+    `device` is where the packed arrays live and the kernels run; the
+    index, placement and shards stay host numpy.
+    """
+
+    index: IVFPQIndex
+    placement: Placement
+    shards: DeviceShards
+    device: torch.device
+    prune: bool = True
+    rerank: str = "off"
+    k_overfetch: int = 0
+    freqs: np.ndarray | None = None
+    raw: RawStore | None = None
+    _dev_arrays: dict | None = None
+    _code_norms: np.ndarray | None = None
+
+    @classmethod
+    def build(
+        cls,
+        xs,
+        n_clusters: int,
+        m: int,
+        ndev: int = 8,
+        history_queries: np.ndarray | None = None,
+        nprobe_history: int = 32,
+        block_n: int = 1024,
+        kmeans_iters: int = 15,
+        pq_iters: int = 10,
+        train_subsample: int | None = None,
+        pq_train_subsample: int | None = None,
+        path: str = "gather",
+        scan: str = "tiles",
+        prune: bool = True,
+        rerank: str = "off",
+        k_overfetch: int = 0,
+        raw_dtype: str = "float32",
+        use_cooc: bool = False,
+        mutable: bool = False,
+        opq_iters: int = 0,
+        seed: int = 0,
+        device: torch.device | str | None = None,
+    ) -> "MemANNSEngine":
+        """Offline build on `device` (default cuda).
+
+        `xs` is a numpy array or a tensor (a bf16 corpus on the card is
+        trained on, encoded and packed there chunk by chunk).  `seed` seeds
+        the CPU `torch.Generator` behind the training samples and k-means
+        seeding.  `ndev` is the number of logical devices.  With
+        `rerank="exact"` the raw vectors are packed into a `RawStore` of
+        `raw_dtype`.
+        """
+        _check_knobs(scan, path, rerank, use_cooc, mutable, opq_iters)
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        index = build_index(
+            xs, n_clusters, m, kmeans_iters=kmeans_iters, pq_iters=pq_iters,
+            train_subsample=train_subsample,
+            pq_train_subsample=pq_train_subsample, generator=gen, device=dev,
+        )
+        if history_queries is not None and len(history_queries):
+            probed, _ = filter_clusters(
+                torch.as_tensor(index.centroids, device=dev),
+                torch.as_tensor(np.asarray(history_queries, np.float32), device=dev),
+                min(nprobe_history, n_clusters),
+            )
+            freqs = estimate_frequencies(probed.cpu().numpy(), n_clusters)
+        else:
+            freqs = np.ones(n_clusters) / n_clusters
+        placement = place_clusters(
+            index.cluster_sizes().astype(np.float64), freqs, ndev,
+            centroids=index.centroids,
+        )
+        return cls._assemble(
+            index, placement, dev, xs if rerank == "exact" else None,
+            block_n=block_n, raw_dtype=raw_dtype, freqs=freqs, prune=prune,
+            rerank=rerank, k_overfetch=k_overfetch,
+        )
+
+    @classmethod
+    def from_reference(
+        cls,
+        index,
+        placement,
+        xs=None,
+        *,
+        block_n: int = 1024,
+        raw_dtype: str = "float32",
+        path: str = "gather",
+        scan: str = "tiles",
+        prune: bool = True,
+        rerank: str = "off",
+        k_overfetch: int = 0,
+        freqs: np.ndarray | None = None,
+        device: torch.device | str | None = None,
+    ) -> "MemANNSEngine":
+        """An engine over an already trained index and placement.
+
+        `index` and `placement` may be this package's objects or any objects
+        with the same array attributes (the reference's `IVFPQIndex` and
+        `Placement`); they are carried over with `repro_torch.convert`.
+        `xs` are the raw vectors (ids 0..N-1); they back `rerank="exact"`
+        and may be given with `rerank="off"` to switch later.  The number
+        of logical devices is the placement's.
+        """
+        from repro_torch.convert import index_from_arrays, placement_from_arrays
+
+        _check_knobs(scan, path, rerank, False, False, 0)
+        dev = resolve_device(device)
+        idx = index_from_arrays(
+            index.centroids, index.codebook, index.codes, index.vec_ids,
+            index.offsets, getattr(index, "rotation", None),
+        )
+        if idx.rotation is not None:
+            raise _not_ported("an OPQ-rotated index", "item 11")
+        plc = placement_from_arrays(
+            placement.replicas, placement.dev_load, placement.dev_vectors,
+            placement.dev_clusters, placement.w_bar,
+        )
+        if rerank == "exact" and xs is None:
+            raise ValueError("rerank='exact' needs the raw vectors xs")
+        return cls._assemble(
+            idx, plc, dev, xs, block_n=block_n, raw_dtype=raw_dtype, freqs=freqs,
+            prune=prune, rerank=rerank, k_overfetch=k_overfetch,
+        )
+
+    @classmethod
+    def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, **knobs):
+        shards = build_shards(index, placement, block_n=block_n)
+        raw = None
+        if xs is not None:
+            raw = build_raw_store(index, placement, xs, dtype=raw_dtype, device=dev)
+        return cls(index=index, placement=placement, shards=shards, device=dev,
+                   raw=raw, **knobs)
+
+    # ------------------------------------------------------------------ #
+
+    @property
+    def ndev(self) -> int:
+        return self.shards.ndev
+
+    def _device_put(self) -> dict:
+        """The packed arrays on the engine's device (copied once, cached)."""
+        if self._dev_arrays is None:
+            s, dev = self.shards, self.device
+            self._dev_arrays = {
+                "codes": torch.as_tensor(s.codes, device=dev),
+                "vec_ids": torch.as_tensor(s.vec_ids, device=dev),
+                "slot_start": torch.as_tensor(s.slot_start, device=dev),
+                "slot_size": torch.as_tensor(s.slot_size, device=dev),
+                "codebook": torch.as_tensor(self.index.codebook, device=dev),
+                "centroids": torch.as_tensor(self.index.centroids, device=dev),
+            }
+        return self._dev_arrays
+
+    def k_prime(self, k: int) -> int:
+        """Cascade candidate count k' for a final top-`k` (pow2-bucketed):
+        `k_overfetch` when set (clamped to >= k), else 4k."""
+        want = self.k_overfetch if self.k_overfetch > 0 else 4 * k
+        return round_capacity(max(want, k), floor=max(k, 1))
+
+    def code_norms(self) -> np.ndarray:
+        """(M,) cached per-subspace max codeword norms (bound inputs)."""
+        if self._code_norms is None:
+            self._code_norms = subspace_code_norms(self.index.codebook)
+        return self._code_norms
+
+    def schedule_batch(
+        self, queries: np.ndarray, nprobe: int
+    ) -> tuple[ArraySchedule, np.ndarray, torch.Tensor]:
+        """Cluster filtering (stage a, on the card) + Algorithm 2 (host).
+
+        Returns (schedule, probed (Q, nprobe) int32 host, qmc (Q, nprobe, D)
+        f32 tensor on the engine's device).
+        """
+        dev = self._device_put()
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
+        probed_t, qmc = filter_clusters(dev["centroids"], q, nprobe)
+        probed = probed_t.cpu().numpy().astype(np.int32)
+        schedule = schedule_queries(probed, self.index.cluster_sizes(), self.placement)
+        return schedule, probed, qmc
+
+    def plan_batch(self, queries: np.ndarray, nprobe: int) -> SearchPlan:
+        """Host-side online phase: filter + schedule + densify + tile queue.
+
+        The same plan as the reference's `plan_batch` (arrays equal): pair
+        capacity and tile capacity are pow2 buckets; with pruning
+        (`self.prune`) the plan carries per-pair lower bounds and per-query
+        probed upper bounds and sizes, and the tile queue runs best-first
+        (ascending lower bound).
+        """
+        queries = np.asarray(queries, np.float32)
+        q_n = queries.shape[0]
+        ndev = self.ndev
+        schedule, probed, qmc = self.schedule_batch(queries, nprobe)
+        max_pairs = int(schedule.counts_per_dev().max(initial=0))
+        pairs_per_dev = round_capacity(max_pairs)
+
+        pair_q, pair_slot, pair_valid = densify_schedule(
+            schedule, self.shards.local_slot, pairs_per_dev
+        )
+        order, d_sorted, pos = schedule.device_positions()
+        pq, pc = schedule.pair_q[order], schedule.pair_c[order]
+        cols = np.argmax(probed[pq] == pc[:, None], axis=1)
+        qmc_pairs = torch.zeros(
+            (ndev, pairs_per_dev, queries.shape[1]), dtype=torch.float32,
+            device=self.device,
+        )
+        dst = torch.as_tensor(d_sorted * pairs_per_dev + pos, device=self.device)
+        src = torch.as_tensor(pq.astype(np.int64) * nprobe + cols, device=self.device)
+        qmc_pairs.view(-1, queries.shape[1])[dst] = qmc.reshape(-1, queries.shape[1])[src]
+
+        pair_lb = probed_ub = probed_sizes = None
+        if self.prune:
+            lb, ub = residual_bounds(qmc.cpu().numpy(), self.code_norms())
+            pair_lb = np.full((ndev, pairs_per_dev), np.inf, np.float32)
+            pair_lb[d_sorted, pos] = lb[pq, cols]
+            probed_ub = ub
+            probed_sizes = self.index.cluster_sizes()[probed]
+
+        s = self.shards
+        nv = np.take_along_axis(s.slot_size, pair_slot, axis=1)
+        max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
+        tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
+        tile_pair, tile_block, tile_row0 = emit_tiles(
+            pair_slot, pair_valid, s.slot_start, s.slot_size, s.block_n,
+            tiles_per_dev, pair_key=pair_lb,
+        )
+        return SearchPlan(
+            qmc_pairs=qmc_pairs, pair_q=pair_q, pair_slot=pair_slot,
+            pair_valid=pair_valid, schedule=schedule, n_queries=q_n,
+            pairs_per_dev=pairs_per_dev, tile_pair=tile_pair,
+            tile_block=tile_block, tile_row0=tile_row0,
+            tiles_per_dev=tiles_per_dev, pair_lb=pair_lb, probed_ub=probed_ub,
+            probed_sizes=probed_sizes,
+        )
+
+    def plan_dev_rows(self, plan: SearchPlan) -> np.ndarray:
+        """(ndev,) code rows the scan visits per device: real tiles x block_n."""
+        real = (plan.tile_pair != plan.pairs_per_dev).sum(axis=1)
+        return real.astype(np.int64) * self.shards.block_n
+
+    def scanned_rows(self, plan: SearchPlan) -> int:
+        """Total code rows of the tile queue of `plan` (all devices, dummy
+        tiles included): ndev * tiles_per_dev * block_n."""
+        return self.ndev * plan.tiles_per_dev * self.shards.block_n
+
+    def dispatch_plan(self, plan: SearchPlan, k: int) -> InFlightSearch:
+        """Enqueue the device step without waiting for its results."""
+        dev = self._device_put()
+        ndev = self.ndev
+
+        def put(a):
+            return torch.as_tensor(a, device=self.device)
+
+        pair_lb = (
+            plan.pair_lb if plan.pair_lb is not None
+            else np.full((ndev, plan.pairs_per_dev), -np.inf, np.float32)
+        )
+        query_bound = plan.query_bounds(k)
+        out_d, out_i, prune_stats = sharded_search(
+            dev["codes"], dev["vec_ids"], dev["slot_start"], dev["slot_size"],
+            dev["codebook"], plan.qmc_pairs, put(plan.pair_q),
+            put(plan.pair_slot), put(plan.pair_valid),
+            put(np.flatnonzero(plan.pair_valid).astype(np.int32)), put(plan.tile_pair),
+            put(plan.tile_block), put(plan.tile_row0), put(pair_lb),
+            put(query_bound), n_queries=plan.n_queries, k=k,
+            block_n=self.shards.block_n,
+        )
+        return InFlightSearch(
+            out_d=out_d, out_i=out_i, plan=plan,
+            dev_rows=self.plan_dev_rows(plan), prune_stats=prune_stats,
+            query_bound=query_bound,
+        ).record()
+
+    def dispatch_rerank(
+        self, handle: InFlightSearch, queries: np.ndarray, k_out: int
+    ) -> InFlightSearch:
+        """Chain the exact re-rank onto an in-flight ADC search (no host wait).
+
+        ADC lanes with +inf distance are masked to -1 before re-scoring, as
+        the reference does (they would otherwise come back as duplicates).
+        """
+        if self.raw is None:
+            raise ValueError(
+                "rerank='exact' needs a raw-vector store: build with "
+                "rerank='exact' or pass xs to from_reference"
+            )
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
+        cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1)
+        out_d, out_i = sharded_rerank(
+            self.raw, q, cand.to(torch.int32).contiguous(), k_out=k_out
+        )
+        return dataclasses.replace(handle, out_d=out_d, out_i=out_i).record()
+
+    def collect(self, handle: InFlightSearch) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for a dispatched step; return host (dists, ids)."""
+        return handle.out_d.cpu().numpy(), handle.out_i.cpu().numpy()
+
+    def execute_plan(self, plan: SearchPlan, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """`dispatch_plan` + `collect`."""
+        return self.collect(self.dispatch_plan(plan, k))
+
+    def search(
+        self, queries: np.ndarray, nprobe: int, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Full online path.  Returns (dists (Q, k), ids (Q, k)).
+
+        With `rerank="exact"` the ADC scan overfetches `k_prime(k)`
+        candidates and the re-rank re-selects the top k by exact f32
+        distance (the distances returned are then exact).
+        """
+        plan = self.plan_batch(queries, nprobe)
+        if self.rerank == "exact":
+            handle = self.dispatch_plan(plan, self.k_prime(k))
+            return self.collect(self.dispatch_rerank(handle, queries, k))
+        return self.execute_plan(plan, k)

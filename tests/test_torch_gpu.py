@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `gpu`: these tests need an NVIDIA GPU with nvcc and skip elsewhere
+(a CUDA kernel has no CPU mode).  On the card run
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Each kernel's plain version repeats its arithmetic in the same order, so
+tables, ADC distances and re-rank distances must be bit-equal; the pruned
+tile scan must equal the unpruned one after the per-query merge, and a
+whole engine on the card must return the engine-on-CPU answers.
+This file imports no JAX (the card's machine has none).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.scheduling import (  # noqa: E402
+    emit_tiles,
+    residual_bounds,
+    subspace_code_norms,
+    warm_start_bounds,
+)
+from repro_torch.kernels import adc_topk, lut_build, ops, rerank  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dsub", [4, 8])
+def test_lut_kernel_bit_equal(cuda, dsub):
+    g = torch.Generator(device=cuda).manual_seed(dsub)
+    cb = torch.randn(16, 256, dsub, device=cuda, generator=g)
+    qmc = torch.randn(1000, 16, dsub, device=cuda, generator=g)
+    ops.reset_launches()
+    got = ops.build_luts(cb, qmc)
+    torch.cuda.synchronize()
+    assert ops.launches["build_luts"] == 1
+    assert torch.equal(got, lut_build.build_luts_plain(cb, qmc))
+
+
+def test_lut_kernel_rows_bit_equal(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cb = torch.randn(16, 256, 8, device=cuda, generator=g)
+    qmc = torch.randn(1000, 16, 8, device=cuda, generator=g)
+    rows = torch.randint(0, 1000, (333,), device=cuda, generator=g).int()
+    got = ops.build_luts(cb, qmc, rows)
+    torch.cuda.synchronize()
+    assert got.shape == (333, 16, 256)
+    assert torch.equal(got, lut_build.build_luts_plain(cb, qmc[rows.long()]))
+
+
+def _tile_case(dev, seed, q=6, nprobe=8, m=16, dsub=8, block_n=128, k=32, spread=1.0):
+    rng = np.random.default_rng(seed)
+    p = q * nprobe
+    cb = rng.normal(size=(m, 256, dsub)).astype(np.float32)
+    qmc = rng.normal(0, 2, size=(q, nprobe, m * dsub)).astype(np.float32)
+    qmc *= (1.0 + spread * np.arange(nprobe, dtype=np.float32))[None, :, None]
+    sizes = rng.integers(0, 5 * block_n, p).astype(np.int32)
+    sizes[0], sizes[1] = 0, 5
+    aligned = (sizes + block_n - 1) // block_n * block_n
+    starts = np.zeros(p, np.int32)
+    starts[1:] = np.cumsum(aligned)[:-1]
+    cap = max(int(aligned.sum()), block_n)
+    codes = rng.integers(0, 256, (cap, m)).astype(np.uint8)
+    lb, ub = residual_bounds(qmc, subspace_code_norms(cb))
+    b0 = warm_start_bounds(ub, sizes.reshape(q, nprobe), k)
+    n_tiles = int(((sizes + block_n - 1) // block_n).sum())
+    tp, tb, tr = emit_tiles(
+        np.arange(p, dtype=np.int32)[None], np.ones((1, p), bool), starts[None],
+        sizes[None], block_n, n_tiles + 7, pair_key=lb.reshape(1, p),
+    )
+    luts = lut_build.build_luts_plain(
+        torch.as_tensor(cb, device=dev), torch.as_tensor(qmc.reshape(p, m, dsub), device=dev)
+    )
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    return dict(
+        luts=luts, codes=t(codes), tile_pair=t(tp[0]), tile_block=t(tb[0]),
+        tile_row0=t(tr[0]), n_valid=t(sizes), pair_q=t(np.repeat(np.arange(q), nprobe)),
+        pair_lb=t(lb.reshape(-1)), bound=t(b0), q=q, k=k, block_n=block_n,
+    )
+
+
+def _run_tiles(c, bounds, plain, lut_row=None):
+    p = c["n_valid"].shape[0]
+    dev = c["luts"].device
+    pq = torch.arange(p, dtype=torch.int32, device=dev)
+    lut_row = pq if lut_row is None else lut_row
+    if not plain:
+        kw = {}
+        if bounds:
+            kw = dict(pair_q=c["pair_q"], pair_lb=c["pair_lb"], bound=c["bound"])
+        return ops.adc_topk_tiles(
+            c["luts"], c["codes"], c["tile_pair"], c["tile_block"], c["tile_row0"],
+            c["n_valid"], c["k"], lut_row=lut_row, block_n=c["block_n"], **kw,
+        )
+    t0, t1, _ = adc_topk.pair_runs(c["tile_pair"][None], p)
+    return adc_topk.adc_topk_tiles_plain(
+        c["luts"], lut_row, c["codes"][None],
+        c["tile_block"].int(), c["tile_row0"].int(),
+        c["n_valid"].int(), pq, torch.full((p,), -torch.inf, device=dev),
+        torch.full((p,), torch.inf, device=dev), t0, t1, c["k"], c["block_n"],
+    )
+
+
+def _merge(v, i, pair_q, q, k):
+    v, i, pair_q = v.cpu().numpy(), i.cpu().numpy(), pair_q.cpu().numpy()
+    out = []
+    for qi in range(q):
+        ps = np.flatnonzero(pair_q == qi)
+        d = v[ps].reshape(-1)
+        ids = np.repeat(ps, v.shape[1]) * 1_000_000 + i[ps].reshape(-1)
+        sel = np.argsort(d, kind="stable")[:k]
+        out.append((d[sel], np.where(np.isfinite(d[sel]), ids[sel], -1)))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tiles_kernel_matches_plain(cuda, seed):
+    c = _tile_case(cuda, seed)
+    kv, ki, ks = _run_tiles(c, bounds=False, plain=False)
+    pv, pi, _ = _run_tiles(c, bounds=False, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert int(ks.sum()) == 0
+    bv, bi, bs = _run_tiles(c, bounds=True, plain=False)
+    n_tiles = (c["n_valid"] + c["block_n"] - 1) // c["block_n"]
+    assert bool((bs[:, 0] <= n_tiles).all()) and bool((bs[:, 1] <= c["n_valid"]).all())
+    for (d1, i1), (d2, i2) in zip(_merge(bv, bi, c["pair_q"], c["q"], c["k"]),
+                                  _merge(kv, ki, c["pair_q"], c["q"], c["k"])):
+        np.testing.assert_array_equal(d1, d2)
+        np.testing.assert_array_equal(i1, i2)
+
+
+def test_tiles_kernel_lut_row_matches_plain(cuda):
+    c = _tile_case(cuda, 4)
+    p = c["n_valid"].shape[0]
+    perm = torch.randperm(p, generator=torch.Generator().manual_seed(4)).to(cuda)
+    lut_row = torch.argsort(perm).int()
+    lut_row[2] = -1  # a pair without a table is not scanned
+    c["luts"] = c["luts"][perm].contiguous()  # pair j's table is row lut_row[j]
+    kv, ki, _ = _run_tiles(c, bounds=False, plain=False, lut_row=lut_row)
+    pv, pi, _ = _run_tiles(c, bounds=False, plain=True, lut_row=lut_row)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert bool(torch.isinf(kv[2]).all()) and bool((ki[2] == -1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rerank_kernel_bit_equal(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, kc, d, rows = 50, 64, 128, 5000
+    queries = torch.randn(q, d, device=cuda, generator=g)
+    vectors = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    ids_cap = 8192
+    id_dev = torch.full((ids_cap,), -1, dtype=torch.int32, device=cuda)
+    id_row = torch.zeros(ids_cap, dtype=torch.int32, device=cuda)
+    id_dev[:rows] = (torch.arange(rows, device=cuda) % 2).int()
+    id_row[:rows] = (torch.arange(rows, device=cuda) // 2).int()
+    row_base = torch.tensor([0, (rows + 1) // 2], dtype=torch.int64, device=cuda)
+    cand = torch.randint(-1, rows + 10, (q, kc), device=cuda, generator=g).int()
+    want = rerank.rerank_dists_plain(queries, cand, vectors, id_dev, id_row, row_base)
+    for bk in (0, 1, 7, 64):
+        got = ops.rerank_dists(queries, cand, vectors, id_dev, id_row, row_base, block_k=bk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_engine_on_card_matches_cpu(cuda, clustered_data):
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, _, qs, hist = clustered_data
+    eng = MemANNSEngine.build(
+        xs, 32, 8, ndev=8, history_queries=hist, block_n=256, kmeans_iters=8,
+        pq_iters=6, rerank="exact", device="cpu",
+    )
+    gpu = MemANNSEngine.from_reference(
+        eng.index, eng.placement, xs, block_n=256, rerank="exact", device=cuda
+    )
+    assert np.array_equal(eng.schedule_batch(qs, 8)[1], gpu.schedule_batch(qs, 8)[1])
+    for prune in (True, False):
+        eng.prune = gpu.prune = prune
+        d1, i1 = eng.search(qs, 8, 10)
+        d2, i2 = gpu.search(qs, 8, 10)
+        np.testing.assert_array_equal(d1, d2)
+        np.testing.assert_array_equal(i1, i2)

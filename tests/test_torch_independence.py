@@ -1,0 +1,112 @@
+"""The port stands alone: no JAX, no reference package, no silent CPU.
+
+A fresh interpreter imports every module of `repro_torch` and must end
+with no `jax*` and no `repro` / `repro.*` entry in `sys.modules`.  Without
+a GPU, entry points called without `device=` raise instead of falling back
+to the CPU.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), ",".join(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, check=True,
+    ).stdout.strip()
+    n_modules, bad = out.split(" ", 1) if " " in out else (out, "")
+    assert int(n_modules) >= 15
+    assert bad == "", f"repro_torch pulled in: {bad}"
+
+
+def test_entry_points_refuse_cpu_fallback(clustered_data):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: cuda is a valid default here")
+    from repro_torch.core.placement import place_clusters
+    from repro_torch.convert import index_from_arrays
+    from repro_torch.device import resolve_device
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs = clustered_data[0]
+    sizes = np.array([6000, 6000], np.int64)
+    index = index_from_arrays(
+        np.zeros((2, 32), np.float32), np.zeros((8, 256, 4), np.float32),
+        np.zeros((12000, 8), np.uint8), np.arange(12000, dtype=np.int32),
+        np.array([0, 6000, 12000]),
+    )
+    placement = place_clusters(sizes, np.ones(2), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MemANNSEngine.from_reference(index, placement)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MemANNSEngine.build(xs, 4, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    # and with device="cpu" it works
+    MemANNSEngine.from_reference(index, placement, device="cpu")
+
+
+def _tiny_index():
+    from repro_torch.convert import index_from_arrays
+
+    return index_from_arrays(
+        np.zeros((2, 32), np.float32), np.zeros((8, 256, 4), np.float32),
+        np.zeros((10, 8), np.uint8), np.arange(10, dtype=np.int32), np.array([0, 4, 10]),
+    )
+
+
+def _call(name):
+    from repro_torch.core import index as tindex
+    from repro_torch.core.placement import place_clusters
+    from repro_torch.data import vectors
+    from repro_torch.retrieval import layout
+
+    idx = _tiny_index()
+    xs = np.zeros((10, 32), np.float32)
+    calls = {
+        "build_index": lambda: tindex.build_index(xs, 2, 8),
+        "encode_index": lambda: tindex.encode_index(idx.centroids, idx.codebook, xs),
+        "assign_clusters": lambda: tindex.assign_clusters(idx.centroids, xs),
+        "encode_vectors": lambda: tindex.encode_vectors(
+            idx.codebook, idx.centroids, xs, np.zeros(10, np.int64)),
+        "search": lambda: tindex.search(idx, xs[:2], 1, 3),
+        "brute_force": lambda: tindex.brute_force(xs, xs[:2], 3),
+        "generate_clustered": lambda: vectors.generate_clustered(10, 32, 2),
+        "build_raw_store": lambda: layout.build_raw_store(
+            idx, place_clusters(np.array([4, 6]), np.ones(2), 2), xs),
+    }
+    return calls[name]()
+
+
+@pytest.mark.parametrize("name", [
+    "build_index", "encode_index", "assign_clusters", "encode_vectors", "search",
+    "brute_force", "generate_clustered", "build_raw_store",
+])
+def test_index_and_data_entry_points_refuse_cpu_fallback(name):
+    """The index, data and raw-store functions default to cuda as the engine
+    does: on a host without a GPU they raise, never compute on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: cuda is a valid default here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _call(name)
