@@ -4,24 +4,42 @@
     python3 chip_smoke.py [--n 100000000] [--batches 5] [--seed 0]
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
-It builds the three CUDA kernels of the query path from
-`src/repro_torch/csrc/`, generates a SIFT1B-geometry corpus on the card
-(D = 128, M = 16 uint8 codes, IVF 4096, nprobe 64, k = 10, 1000-query
-batches, 8 logical devices, bf16 raw store; N = 100M rows by default, the
-paper's 1e9 cut so the raw store fits one card), builds the engine with the
-port's own k-means and PQ, and then:
+It builds the CUDA kernels of the query paths from `src/repro_torch/csrc/`,
+generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
+codes, IVF 4096, nprobe 64, k = 10, 1000-query batches, 8 logical devices,
+bf16 raw store; N = 100M rows by default, the paper's 1e9 cut so the raw
+store fits one card), builds the engine with the port's own k-means and
+PQ, and then, on the main path (tiles scan, plain codes, prune, exact
+re-rank):
 
   1. times 1000-query `MemANNSEngine.search` batches (QPS, ms per batch),
      with every kernel's launch count reset just before and read just after;
   2. holds each kernel against its plain PyTorch version at the shapes of
      that path (tolerance: allclose rtol = atol = 1e-5 on distances, rows
-     and ids equal) and times kernel, plain version, bound and the one
-     PyTorch library call that computes the same function, where one exists;
+     and ids equal) and times kernel, plain version, bound and the PyTorch
+     expression that computes the same function, where there is one;
   3. holds 16 queries' engine output against a plain path (plain LUTs ->
      unpruned ADC over every probed row -> stable top-k' -> plain exact
      re-rank): distances bit-equal, ids equal outside exactly tied groups;
   4. checks that the pruned search equals the unpruned one bit for bit;
-  5. prints recall@10 against a chunked brute force (information only).
+  5. prints recall@10 against a chunked brute force (information only);
+
+then the co-occurrence slice (paper §4.3) and the windows scan:
+
+  6. `cooc_build`: co-occurrence shards from the same index and placement,
+     mined, re-encoded and packed on the card (seconds per stage, width,
+     length reduction, bytes, peak memory);
+  7. `search_cooc_tiles`, `search_windows_plain`, `search_cooc_windows`:
+     each path's batches timed as in 1, its kernels' counts reset just
+     before and read just after, plus one profiled batch;
+  8. `cooc_global_tables`: the §4.3 online table build for one shared combo
+     set (`core.cooc.build_ext_lut`, kernel B9) over the batch's LUTs;
+  9. kernel checks of B4, B9, B5 (uint8 and uint16 codes) and B2 on
+     uint16 direct addresses, as in 2;
+ 10. `equivalence`: windows == tiles bit for bit for both encodings,
+     co-occurrence pruned == unpruned, 16 queries of the co-occurrence
+     engine == a plain path, and co-occurrence vs plain ADC distances
+     within rtol 2e-4 (the reference's cross-encoding tolerance).
 
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
@@ -32,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import dataclasses
 import json
 import pathlib
 import pstats
@@ -40,7 +59,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12     # H100 SXM: FP32 outside the tensor cores
+# H100 SXM: 67 TFLOP/s of FP32 outside the tensor cores counts each FMA as
+# two flops; the kernels issue unfused adds, subs and muls, one per slot
+FP32_INSTR_PER_S = 67e12 / 2
 
 D, M, N_CLUSTERS, NPROBE, K, BATCH, NDEV, BLOCK_N = 128, 16, 4096, 64, 10, 1000, 8, 1024
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -74,8 +95,459 @@ def wall_ms(torch, fn) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    """The larger of bytes over the HBM rate and `n_ops` unfused FP32
+    instructions over the FP32 instruction rate, in ms."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_INSTR_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def profile_batch(torch, eng, plan, qb, kp) -> tuple[float, dict]:
+    """(device busy ms, ms by kernel) of one dispatched batch (torch.profiler)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as tp:
+        eng.collect(eng.dispatch_rerank(eng.dispatch_plan(plan, kp), qb, K))
+    by_kernel = {}
+    for e in tp.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            by_kernel[e.key[:60]] = us / 1e3
+    return sum(by_kernel.values()), dict(sorted(by_kernel.items(), key=lambda x: -x[1])[:8])
+
+
+def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, tables,
+               lut_row, codes, plan, dv, kp) -> dict:
+    """B2 (scan="tiles") or B5 ("windows") at a path's shapes: the pruned
+    scan as the path calls it and the unpruned scan per pair against the
+    plain version (rows equal, distances allclose), kernel times pruned and
+    unpruned, the plain version's time and the bound of what was read."""
+    import numpy as np
+
+    dev = codes.device
+    ndev, p = plan.pair_q.shape
+    pair_slot = torch.as_tensor(plan.pair_slot, device=dev).long()
+    pair_valid = torch.as_tensor(plan.pair_valid, device=dev)
+    n_valid = torch.where(pair_valid, dv["slot_size"].gather(1, pair_slot), 0).int()
+    starts = dv["slot_start"].gather(1, pair_slot).int()
+    pair_q = torch.as_tensor(plan.pair_q, device=dev)
+    pair_lb = torch.as_tensor(plan.pair_lb, device=dev)
+    qbound = torch.as_tensor(plan.query_bounds(kp), device=dev)
+    lut_row2 = lut_row.reshape(ndev, p)
+    flat_nv, flat_st = n_valid.reshape(-1), starts.reshape(-1)
+    flat_q, flat_lb = pair_q.int().reshape(-1), pair_lb.reshape(-1)
+    no_lb = torch.full_like(flat_lb, -torch.inf)
+    no_b = torch.full((ndev * p,), torch.inf, device=dev)
+    if scan == "tiles":
+        tiles = [torch.as_tensor(a, device=dev) for a in
+                 (plan.tile_pair, plan.tile_block, plan.tile_row0)]
+        _, _, ps = ops.adc_topk_tiles(tables, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
+                                        pair_q=pair_q, pair_lb=pair_lb, bound=qbound,
+                                        lut_row=lut_row2)
+        kv, ki, _ = ops.adc_topk_tiles(tables, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
+                                       lut_row=lut_row2)
+        t0, t1, order = k_topk.pair_runs(tiles[0], p)
+        tb, tr = tiles[1].int().reshape(-1), tiles[2].int().reshape(-1)
+
+        def plain():
+            return k_topk.adc_topk_tiles_plain(
+                tables, lut_row, codes, tb, tr, flat_nv,
+                torch.arange(ndev * p, dtype=torch.int32, device=dev), no_lb, no_b,
+                t0, t1, kp, BLOCK_N)
+
+        def launch(lb, b, sq, ov, oi, os_):
+            k_topk.launch(tables, lut_row, codes, order, t0, t1, tb, tr, flat_nv, flat_q,
+                          lb, b, sq, ov, oi, os_, kp, BLOCK_N)
+    else:
+        _, _, ps = ops.adc_topk_windows(tables, codes, starts, n_valid, kp,
+                                          block_n=BLOCK_N, pair_q=pair_q, pair_lb=pair_lb,
+                                          bound=qbound, lut_row=lut_row2)
+        kv, ki, _ = ops.adc_topk_windows(tables, codes, starts, n_valid, kp,
+                                         block_n=BLOCK_N, lut_row=lut_row2)
+        filled = torch.nonzero((lut_row >= 0) & (flat_nv > 0)).flatten()
+        order = filled[torch.sort(flat_lb[filled], stable=True).indices].int()
+
+        def plain():
+            return k_topk.adc_topk_windows_plain(
+                tables, lut_row, codes, flat_st, flat_nv,
+                torch.arange(ndev * p, dtype=torch.int32, device=dev), no_lb, no_b,
+                kp, BLOCK_N)
+
+        def launch(lb, b, sq, ov, oi, os_):
+            k_topk.launch_windows(tables, lut_row, codes, order, flat_st, flat_nv, flat_q,
+                                  lb, b, sq, ov, oi, os_, kp, BLOCK_N)
+    t = time.perf_counter()
+    plv, pli, _ = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    plv, pli = plv.reshape(kv.shape), pli.reshape(ki.shape)
+    if not (torch.equal(ki, pli) and torch.allclose(kv, plv, **TOL)):
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    fin = torch.isfinite(kv)
+    err = float((kv[fin] - plv[fin]).abs().max()) if bool(fin.any()) else 0.0
+    del plv, pli
+    sq = qbound.clone()
+    ov, oi, os_ = (torch.empty(ndev * p, kp, device=dev),
+                   torch.empty(ndev * p, kp, dtype=torch.int32, device=dev),
+                   torch.empty(ndev * p, 2, dtype=torch.int32, device=dev))
+
+    def run(pruned: bool):
+        sq.copy_(qbound if pruned else torch.full_like(qbound, torch.inf))
+        launch(flat_lb if pruned else no_lb,
+               qbound if pruned else torch.full_like(qbound, torch.inf), sq, ov, oi, os_)
+
+    ms = cuda_ms(torch, lambda: run(True), 10)
+    unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
+    valid_rows = int(n_valid.sum())
+    scanned = valid_rows - int(ps[..., 1].sum())
+    w, item = codes.shape[2], codes.element_size()
+    pairs_run = int(((lut_row >= 0) & (flat_nv > 0)).sum())
+    table_bytes = pairs_run * tables.shape[1] * 4
+    out_bytes = ndev * p * (kp * 8 + 8)
+    # inputs read once: the distinct (device, slot) regions the pairs probe
+    # (a cluster probed by many queries is one input), every table, and the
+    # outputs; operations: one add per entry of every row each pair scored
+    s_n = dv["slot_size"].shape[1]
+    regions = np.unique(np.nonzero(plan.pair_valid)[0] * s_n
+                        + plan.pair_slot[plan.pair_valid])
+    distinct = int(dv["slot_size"].reshape(-1)[torch.as_tensor(regions, device=dev)].sum())
+    in_bytes = distinct * w * item + table_bytes + out_bytes
+    bms, by = bound_ms(in_bytes, scanned * w)
+    tiles_total = int(((flat_nv + BLOCK_N - 1) // BLOCK_N).sum())
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None,
+        library_call="none: no PyTorch call scans codes through per-pair tables into a "
+                     "per-pair top-k with bound pruning",
+        unpruned_ms=unpruned_ms, unpruned_bound_ms=bound_ms(in_bytes, valid_rows * w)[0],
+        # what this design reads: every pair's scored rows from memory
+        per_pair_read_ms=bound_ms(scanned * w * item + table_bytes + out_bytes, 0)[0],
+        shape=dict(pairs=ndev * p, pairs_scanned=pairs_run, k=kp, code_dtype=str(codes.dtype),
+                   width=w, table_width=tables.shape[1], valid_rows=valid_rows,
+                   distinct_rows=distinct, scanned_rows=scanned, tiles=tiles_total,
+                   tiles_skipped=int(ps[..., 0].sum())),
+    )
+
+
+def drive_path(torch, np, ops, name, eng, batches, needed) -> dict:
+    """One path's timed batches (after a warm-up), its kernels' counts reset
+    just before and read just after; raises if a kernel of `needed` was
+    never launched or a result is malformed.  Prints the path's line."""
+    kp = eng.k_prime(K)
+    eng.search(batches[0], NPROBE, K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    batch_ms, results = [], []
+    for qb in batches[1:]:
+        t = time.perf_counter()
+        results.append(eng.search(qb, NPROBE, K))
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(ops.launches)
+    for kname in needed:
+        if launches[kname] <= 0:
+            raise RuntimeError(f"{name}: kernel {kname} was never launched on the path")
+    for d, i in results:
+        if d.shape != (BATCH, K) or not np.isfinite(d).all() or (i < 0).any():
+            raise RuntimeError(f"{name}: non-finite distances or missing ids")
+        if (np.diff(d, axis=1) < 0).any():
+            raise RuntimeError(f"{name}: distances are not ascending")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plan_ms = []
+    for qb in batches[1:]:
+        t = time.perf_counter()
+        eng.plan_batch(qb, NPROBE)
+        plan_ms.append((time.perf_counter() - t) * 1e3)
+    plan = eng.plan_batch(batches[1], NPROBE)
+    busy, by_kernel = profile_batch(torch, eng, plan, batches[1], kp)
+    stats = eng.dispatch_plan(plan, kp).prune_stats.cpu().numpy()
+    out = dict(
+        phase=name, batches=len(batches) - 1, queries_per_batch=BATCH, batch_ms=batch_ms,
+        mean_batch_ms=float(np.mean(batch_ms)), qps=BATCH / (np.mean(batch_ms) / 1e3),
+        host_plan_ms=plan_ms, launches={k: v for k, v in launches.items() if v},
+        peak_memory_gb=peak, device_busy_ms=busy,
+        device_busy_of_batch=busy / float(np.mean(batch_ms)), device_ms_by_kernel=by_kernel,
+        pairs_per_dev=plan.pairs_per_dev, tiles_per_dev=plan.tiles_per_dev,
+        rows_in_scope=int(eng.plan_dev_rows(plan).sum()), tiles=eng.plan_tile_count(plan),
+        tiles_skipped=int(stats[:, 0].sum()), rows_skipped=int(stats[:, 1].sum()),
+    )
+    log(**out)
+    return out
+
+
+def plain_path_check(torch, np, k_lut, k_rerank, eng, q16) -> None:
+    """The engine's answers to a few queries against a plain path: plain
+    LUTs (extended by their cluster's combos on direct-address shards) ->
+    unpruned ADC over every probed row, entries added in column order ->
+    stable top-k' -> plain exact re-rank.  ADC and re-ranked distances must
+    be bit-equal, ids equal outside exactly tied groups.  Plain codes come
+    from the index; re-encoded ones from the shards (the CPU tests hold
+    their packing equal to the reference's)."""
+    from repro_torch.core.index import filter_clusters
+
+    dev, sh, idx = eng.device, eng.shards, eng.index
+    kp = eng.k_prime(K)
+    dv = eng._device_put()
+    e_d, e_i = eng.search(q16, NPROBE, K)
+    adc_d, _ = eng.collect(eng.dispatch_plan(eng.plan_batch(q16, NPROBE), kp))
+    q = torch.as_tensor(q16, device=dev)
+    probed, qmc = filter_clusters(dv["centroids"], q, NPROBE)
+    cb = dv["codebook"]
+    m, _, dsub = cb.shape
+    luts = k_lut.build_luts_plain(cb, qmc.reshape(-1, m, dsub)).reshape(len(q16), NPROBE, -1)
+    cols = torch.arange(m, device=dev) * 256
+    wide = dv["codes"].dtype == torch.uint16  # gathered through an int16 view
+    codes = dv["codes"].view(torch.int16) if wide else dv["codes"]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    cand = torch.full((len(q16), kp), -1, dtype=torch.int32, device=dev)
+    plain_adc = np.full((len(q16), kp), np.inf, np.float32)
+    for qi in range(len(q16)):
+        ds_, ids_ = [], []
+        for j, c in enumerate(probed[qi].tolist()):
+            lo, hi = int(idx.offsets[c]), int(idx.offsets[c + 1])
+            if hi == lo:
+                continue
+            if sh.add_offsets:
+                table = luts[qi, j]
+                addr = torch.as_tensor(idx.codes[lo:hi], device=dev).long() + cols
+                ids = torch.as_tensor(idx.vec_ids[lo:hi], device=dev)
+            else:
+                d = eng.placement.replicas[c][0]
+                s = int(sh.local_slot[d, c])
+                r0 = int(sh.slot_start[d, s])
+                table = k_lut.ext_lut_pairs_plain(
+                    luts[qi, j][None], dv["combo_addrs"][d, s][None], zero, sh.table_size)[0]
+                addr = codes[d, r0 : r0 + hi - lo].long()
+                addr = addr & 0xFFFF if wide else addr
+                ids = dv["vec_ids"][d, r0 : r0 + hi - lo]
+            g = table[addr]
+            dd = torch.zeros(hi - lo, device=dev)
+            for w in range(addr.shape[1]):
+                dd = dd + g[:, w]
+            ds_.append(dd)
+            ids_.append(ids)
+        dq, iq = torch.cat(ds_), torch.cat(ids_)
+        sel = torch.sort(dq, stable=True).indices[:kp]
+        plain_adc[qi, : sel.numel()] = dq[sel].cpu().numpy()
+        cand[qi, : sel.numel()] = iq[sel].int()
+    if not np.array_equal(np.sort(adc_d, axis=1), plain_adc):
+        raise RuntimeError("engine ADC top-k' differs from the plain unpruned scan")
+    raw = eng.raw
+    ex = k_rerank.rerank_dists_plain(q, cand, raw.vectors, raw.id_dev, raw.id_row,
+                                     raw.row_base)
+    sel = torch.sort(ex, dim=1, stable=True).indices[:, :K]
+    p_d = ex.gather(1, sel).cpu().numpy()
+    p_i = torch.where(torch.isfinite(ex.gather(1, sel)), cand.gather(1, sel), -1).cpu().numpy()
+    if not np.array_equal(e_d, p_d):
+        raise RuntimeError(f"engine re-ranked distances differ from the plain path:\n"
+                           f"{e_d[:2]}\n{p_d[:2]}")
+    for row_d, a, b in zip(e_d, e_i, p_i):
+        for v in np.unique(row_d):
+            if set(a[row_d == v]) != set(b[row_d == v]):
+                raise RuntimeError("engine ids differ from the plain path")
+
+
+def plan_tables(torch, np, ops, eng, plan):
+    """The path's tables for `plan`: B1 LUTs of the filled pairs, extended
+    by B4 with each pair's cluster combos on direct-address shards.
+    Returns (tables (R, A), lut_row (ndev*P,), luts (R, M, 256), combo
+    sets (n_sets, n_combos, L) or None, set_idx (R,) or None)."""
+    dv = eng._device_put()
+    dev = eng.device
+    ndev, p = plan.pair_q.shape
+    cb = dv["codebook"]
+    m, _, dsub = cb.shape
+    rows = torch.as_tensor(np.flatnonzero(plan.pair_valid).astype(np.int32), device=dev)
+    lut_row = torch.full((ndev * p,), -1, dtype=torch.int32, device=dev)
+    lut_row[rows.long()] = torch.arange(rows.shape[0], dtype=torch.int32, device=dev)
+    luts = ops.build_luts(cb, plan.qmc_pairs.reshape(ndev * p, m, dsub), rows)
+    if eng.shards.add_offsets:
+        return luts.reshape(rows.shape[0], -1), lut_row, luts, None, None
+    s_n, n_combos, combo_len = dv["combo_addrs"].shape[1:]
+    slot = torch.as_tensor(plan.pair_slot, device=dev).reshape(-1)
+    set_idx = ((rows.long() // p) * s_n + slot[rows.long()]).int()
+    combo = dv["combo_addrs"].reshape(ndev * s_n, n_combos, combo_len)
+    return ops.build_ext_luts_pairs(luts, combo, set_idx), lut_row, luts, combo, set_idx
+
+
+def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
+                     plain_search, plain_adc) -> list[dict]:
+    """The second slice's phases: co-occurrence build, its paths and the
+    windows scan, the new kernels' checks, and the equivalences.  Returns
+    the kernels' rows for the JSON line."""
+    from repro_torch.core import cooc
+    from repro_torch.core.index import filter_clusters
+    from repro_torch.retrieval.layout import build_shards
+
+    kp = eng.k_prime(K)
+    qb = batches[1]
+
+    # -- co-occurrence shards from the same index and placement -------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    t = time.perf_counter()
+    cshards = build_shards(eng.index, eng.placement, use_cooc=True, block_n=BLOCK_N,
+                           device=dev, stats=st)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    ceng = dataclasses.replace(eng, shards=cshards, scan="tiles",
+                               _dev_arrays=None)
+    ceng._device_put()
+    log(phase="cooc_build", seconds=t_build, n_combos=cshards.n_combos,
+        code_dtype=str(cshards.codes.dtype), code_shape=list(cshards.codes.shape),
+        shard_gb=cshards.codes.numel() * cshards.codes.element_size() / 1e9,
+        plain_shard_gb=eng.shards.codes.nbytes / 1e9, table_width=cshards.table_size,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **st)
+
+    # -- the new paths: each driven with its counts reset just before -------
+    paths = {}
+    paths["search_cooc_tiles"] = drive_path(
+        torch, np, ops, "search_cooc_tiles", ceng, batches,
+        ("build_luts", "build_ext_luts_pairs", "adc_topk_tiles", "rerank_dists"))
+    eng.scan = "windows"
+    paths["search_windows_plain"] = drive_path(
+        torch, np, ops, "search_windows_plain", eng, batches,
+        ("build_luts", "adc_topk_windows", "rerank_dists"))
+    ceng.scan = "windows"
+    paths["search_cooc_windows"] = drive_path(
+        torch, np, ops, "search_cooc_windows", ceng, batches,
+        ("build_luts", "build_ext_luts_pairs", "adc_topk_windows", "rerank_dists"))
+
+    # -- §4.3 online tables for one shared combo set (kernel B9) ------------
+    dv = eng._device_put()
+    cb = dv["codebook"]
+    dsub = cb.shape[2]
+    qt = torch.as_tensor(qb, device=dev)
+    _, qmc1 = filter_clusters(dv["centroids"], qt, 1)
+    luts9 = ops.build_luts(cb, qmc1.reshape(BATCH, M, dsub).contiguous())
+    c_big = int(np.argmax(eng.index.cluster_sizes()))
+    d_big = eng.placement.replicas[c_big][0]
+    caddr9 = torch.as_tensor(
+        cshards.combo_addrs[d_big, cshards.local_slot[d_big, c_big]], device=dev)
+    cols9, codes9 = (caddr9 // 256).cpu().numpy(), (caddr9 % 256).cpu().numpy()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ext9 = cooc.build_ext_lut(luts9, cols9, codes9)
+    torch.cuda.synchronize()
+    n9 = ops.launches["build_ext_luts"]
+    if n9 <= 0:
+        raise RuntimeError("cooc_global_tables: kernel build_ext_luts was never launched")
+    log(phase="cooc_global_tables", queries=BATCH, cluster=c_big,
+        n_combos=int(caddr9.shape[0]), launches=n9, table_width=int(ext9.shape[1]))
+
+    kernels = []
+    # -- B4 at the co-occurrence tiles path's shapes ------------------------
+    ceng.scan = "tiles"
+    cplan = ceng.plan_batch(qb, NPROBE)
+    ext, c_lut_row, cluts, combo, set_idx = plan_tables(torch, np, ops, ceng, cplan)
+    r_n, a_w = ext.shape
+    cl2 = cluts.reshape(r_n, -1)
+    want = k_lut.ext_lut_pairs_plain(cl2, combo, set_idx, a_w)
+    if not torch.allclose(ext, want, **TOL):
+        raise RuntimeError("ext_lut_pairs disagrees with its plain version")
+    err = float((ext - want).abs().max())
+    del want
+    out4 = torch.empty_like(ext)
+    n_sets = int(torch.unique(set_idx).numel())
+    nc, cl = combo.shape[1:]
+    bms, by = bound_ms(4 * (cl2.numel() + r_n + n_sets * nc * cl + ext.numel()),
+                       r_n * nc * cl)
+    kernels.append(dict(
+        name="ext_lut_pairs", route="cuda", source=f"{SRC_ROOT}/csrc/ext_lut.cu",
+        replaces="src/repro/kernels/lut_build.py:61",
+        launches=paths["search_cooc_tiles"]["launches"]["build_ext_luts_pairs"],
+        max_abs_err=err, ms=cuda_ms(torch, lambda: k_lut.launch_ext(cl2, combo, set_idx, out4), 20),
+        plain_ms=wall_ms(torch, lambda: k_lut.ext_lut_pairs_plain(cl2, combo, set_idx, a_w)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        library_call="none: no single PyTorch call gathers each row's combo entries, sums "
+                     "them and writes them after the row's table",
+        shape=dict(rows=r_n, table_width=a_w, n_combos=nc, combo_len=cl, combo_sets=n_sets),
+    ))
+    del out4
+
+    # -- B9 on the batch's tables with one combo set ------------------------
+    l9 = luts9.reshape(BATCH, -1)
+    c9 = caddr9.contiguous()
+    want = k_lut.ext_lut_plain(l9, c9, ext9.shape[1])
+    if not torch.allclose(ext9, want, **TOL):
+        raise RuntimeError("ext_lut disagrees with its plain version")
+    err = float((ext9 - want).abs().max())
+    out9 = torch.empty_like(ext9)
+    bms, by = bound_ms(4 * (l9.numel() + c9.numel() + ext9.numel()), BATCH * c9.numel())
+    kernels.append(dict(
+        name="ext_lut", route="cuda", source=f"{SRC_ROOT}/csrc/ext_lut.cu",
+        replaces="src/repro/kernels/lut_build.py:110", launches=n9, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: k_lut.launch_ext(l9, c9[None], None, out9), 50),
+        plain_ms=wall_ms(torch, lambda: k_lut.ext_lut_plain(l9, c9, ext9.shape[1])),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        library_call="none: as ext_lut_pairs, with one combo set",
+        shape=dict(rows=BATCH, table_width=int(ext9.shape[1]), n_combos=int(c9.shape[0]),
+                   combo_len=int(c9.shape[1])),
+    ))
+
+    # -- B2 on uint16 direct addresses, B5 on both code types ---------------
+    kernels.append(check_scan(
+        torch, ops, k_topk, name="adc_topk_tiles_direct", scan="tiles",
+        source=f"{SRC_ROOT}/csrc/adc_topk_tiles.cu",
+        replaces="src/repro/kernels/adc_topk.py:397",
+        launches=paths["search_cooc_tiles"]["launches"]["adc_topk_tiles"],
+        tables=ext, lut_row=c_lut_row, codes=ceng._device_put()["codes"], plan=cplan,
+        dv=ceng._device_put(), kp=kp))
+    ceng.scan = "windows"
+    cwplan = ceng.plan_batch(qb, NPROBE)
+    ext_w, cw_lut_row, _, _, _ = plan_tables(torch, np, ops, ceng, cwplan)
+    kernels.append(check_scan(
+        torch, ops, k_topk, name="adc_topk_windows_direct", scan="windows",
+        source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
+        replaces="src/repro/kernels/adc_topk.py:592",
+        launches=paths["search_cooc_windows"]["launches"]["adc_topk_windows"],
+        tables=ext_w, lut_row=cw_lut_row, codes=ceng._device_put()["codes"], plan=cwplan,
+        dv=ceng._device_put(), kp=kp))
+    del ext, ext_w, cluts
+    wplan = eng.plan_batch(qb, NPROBE)  # eng.scan is "windows"
+    w_tab, w_lut_row, _, _, _ = plan_tables(torch, np, ops, eng, wplan)
+    kernels.append(check_scan(
+        torch, ops, k_topk, name="adc_topk_windows", scan="windows",
+        source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
+        replaces="src/repro/kernels/adc_topk.py:592",
+        launches=paths["search_windows_plain"]["launches"]["adc_topk_windows"],
+        tables=w_tab, lut_row=w_lut_row, codes=dv["codes"], plan=wplan, dv=dv, kp=kp))
+    del w_tab
+    torch.cuda.empty_cache()
+
+    # -- equivalence on one 1000-query batch --------------------------------
+    def both(e):
+        return e.search(qb, NPROBE, K) + e.collect(e.dispatch_plan(e.plan_batch(qb, NPROBE), kp))
+
+    compared = 0
+    for label, e in (("plain", eng), ("cooc", ceng)):
+        ref_out = plain_search + plain_adc if label == "plain" else None
+        for scan in ("tiles", "windows"):
+            for prune in (True, False):
+                e.scan, e.prune = scan, prune
+                out = both(e)
+                if ref_out is None:
+                    ref_out = out
+                    continue
+                for a, b in zip(out, ref_out):
+                    if not np.array_equal(a, b):
+                        raise RuntimeError(f"{label}: scan={scan} prune={prune} differs "
+                                           "from tiles, pruned, bit for bit")
+                compared += 1
+        e.scan, e.prune = "tiles", True
+    # cross-encoding: ADC top-k distances agree to f32 reassociation
+    p_adc = eng.collect(eng.dispatch_plan(eng.plan_batch(qb, NPROBE), K))[0]
+    c_adc = ceng.collect(ceng.dispatch_plan(ceng.plan_batch(qb, NPROBE), K))[0]
+    if not np.allclose(c_adc, p_adc, rtol=2e-4, atol=0.0):
+        raise RuntimeError("co-occurrence and plain ADC distances differ beyond rtol 2e-4")
+    cross_rel = float(np.max(np.abs(c_adc - p_adc) / np.maximum(np.abs(p_adc), 1e-30)))
+
+    # 16 queries: co-occurrence engine == a plain path
+    plain_path_check(torch, np, k_lut, k_rerank, ceng, qb[:16])
+    log(phase="equivalence", queries=BATCH, bit_identical_runs=compared,
+        cross_encoding_max_rel=cross_rel, cooc_plain_path_queries=16, adc_equal=True,
+        rerank_equal=True)
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -98,7 +570,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.core.index import brute_force, filter_clusters, recall_at_k
+    from repro_torch.core.index import brute_force, recall_at_k
     from repro_torch.data.vectors import SkewedVectorDataset, generate_clustered
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import adc_topk as k_topk
@@ -160,31 +632,9 @@ def main(argv=None) -> int:
     # -- the main path: 1000-query search batches ---------------------------
     kp = eng.k_prime(K)
     batches = [queries[i * BATCH : (i + 1) * BATCH] for i in range(args.batches + 1)]
-    eng.search(batches[0], NPROBE, K)  # warm-up (allocator, library load)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    batch_ms, results = [], []
-    for qb in batches[1:]:
-        t = time.perf_counter()
-        results.append(eng.search(qb, NPROBE, K))
-        batch_ms.append((time.perf_counter() - t) * 1e3)
-    launches = dict(ops.launches)
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"kernel {name} was never launched on the main path")
-    for d, i in results:
-        if d.shape != (BATCH, K) or not np.isfinite(d).all() or (i < 0).any():
-            raise RuntimeError("search returned non-finite distances or missing ids")
-        if (np.diff(d, axis=1) < 0).any():
-            raise RuntimeError("search distances are not ascending")
-    # where a batch's time goes: host planning (profiled by function) and the
-    # device step (kernel time summed by the torch profiler)
-    plan_ms = []
-    for qb in batches[1:]:
-        t = time.perf_counter()
-        eng.plan_batch(qb, NPROBE)
-        plan_ms.append((time.perf_counter() - t) * 1e3)
+    launches = drive_path(torch, np, ops, "search", eng, batches,
+                          ("build_luts", "adc_topk_tiles", "rerank_dists"))["launches"]
+    # where the host plan's time goes, by function
     prof = cProfile.Profile()
     prof.runcall(eng.plan_batch, batches[1], NPROBE)
     host_top = sorted(
@@ -193,31 +643,9 @@ def main(argv=None) -> int:
          if "repro_torch" in f or "numpy" in f),
         key=lambda x: -x[1],
     )[:12]
+    log(phase="breakdown", host_plan_ms_by_function_profiled=host_top)
     plan = eng.plan_batch(batches[1], NPROBE)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as tp:
-        t = time.perf_counter()
-        eng.collect(eng.dispatch_rerank(eng.dispatch_plan(plan, kp), batches[1], K))
-        step_ms = (time.perf_counter() - t) * 1e3
-    by_kernel = {}
-    for e in tp.key_averages():
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            by_kernel[e.key[:60]] = us / 1e3
-    busy = sum(by_kernel.values())
-    log(phase="breakdown", host_plan_ms_by_function_profiled=host_top, device_step_wall_ms=step_ms,
-        device_busy_ms=busy, device_busy_of_batch=busy / float(np.mean(batch_ms)),
-        device_ms_by_kernel=dict(sorted(by_kernel.items(), key=lambda x: -x[1])[:10]))
     handle = eng.dispatch_plan(plan, kp)
-    stats = handle.prune_stats.cpu().numpy()
-    real_tiles = int((plan.tile_pair != plan.pairs_per_dev).sum())
-    log(phase="search", batches=args.batches, queries_per_batch=BATCH,
-        batch_ms=batch_ms, mean_batch_ms=float(np.mean(batch_ms)),
-        qps=BATCH / (np.mean(batch_ms) / 1e3), host_plan_ms=plan_ms,
-        launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        pairs_per_dev=plan.pairs_per_dev, tiles_per_dev=plan.tiles_per_dev,
-        rows_in_tiles=int(eng.plan_dev_rows(plan).sum()), real_tiles=real_tiles,
-        tiles_skipped=int(stats[:, 0].sum()), rows_skipped=int(stats[:, 1].sum()))
 
     # -- each kernel against its plain version at the path's shapes ---------
     dv = eng._device_put()
@@ -229,14 +657,6 @@ def main(argv=None) -> int:
     n_rows = rows.shape[0]
     lut_row = torch.full((ndev * p,), -1, dtype=torch.int32, device=dev)
     lut_row[rows.long()] = torch.arange(n_rows, dtype=torch.int32, device=dev)
-    pair_slot = torch.as_tensor(plan.pair_slot, device=dev).long()
-    pair_valid = torch.as_tensor(plan.pair_valid, device=dev)
-    n_valid = torch.where(pair_valid, dv["slot_size"].gather(1, pair_slot), 0).int()
-    tiles = [torch.as_tensor(a, device=dev) for a in
-             (plan.tile_pair, plan.tile_block, plan.tile_row0)]
-    pair_q = torch.as_tensor(plan.pair_q, device=dev)
-    pair_lb = torch.as_tensor(plan.pair_lb, device=dev)
-    qbound = torch.as_tensor(plan.query_bounds(kp), device=dev)
     kernels = []
 
     # B1: LUT build, one table per valid pair (the rows the path passes)
@@ -257,67 +677,19 @@ def main(argv=None) -> int:
         max_abs_err=err, ms=b1_ms,
         plain_ms=wall_ms(torch, lambda: k_lut.build_luts_plain(cb, qmc[rows.long()])),
         bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: torch.cdist(
-            qmc_rows.transpose(0, 1), cb, compute_mode="donot_use_mm_for_euclid_dist"), 5),
-        library_call="torch.cdist over the valid pairs' residuals, batched over m "
-                     "(Euclidean: adds a sqrt the kernel does not take)",
+        library_ms=cuda_ms(torch, lambda: ((cb[None] - qmc_rows[:, :, None, :]) ** 2).sum(-1), 5),
+        library_call="((codebook[None] - qmc_rows[:, :, None, :]) ** 2).sum(-1) over the "
+                     "valid pairs' residuals (squared, no sqrt: the kernel's function)",
         shape=dict(pairs=n_rows, pair_slots=ndev * p, m=M, dsub=dsub),
     ))
 
     # B2: pruned tile scan, as the path calls it and unpruned per pair
-    codes = dv["codes"]
-    lut_row2 = lut_row.reshape(ndev, p)
-    pv, pi, ps = ops.adc_topk_tiles(luts, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
-                                    pair_q=pair_q, pair_lb=pair_lb, bound=qbound,
-                                    lut_row=lut_row2)
-    kv, ki, _ = ops.adc_topk_tiles(luts, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
-                                   lut_row=lut_row2)
-    t0, t1, order = k_topk.pair_runs(tiles[0], p)
-    flat = dict(tb=tiles[1].int().reshape(-1), tr=tiles[2].int().reshape(-1),
-                nv=n_valid.reshape(-1))
-    plain_args = (luts, lut_row, codes, flat["tb"], flat["tr"], flat["nv"],
-                  torch.arange(ndev * p, dtype=torch.int32, device=dev),
-                  torch.full((ndev * p,), -torch.inf, device=dev),
-                  torch.full((ndev * p,), torch.inf, device=dev), t0, t1, kp, BLOCK_N)
-    t = time.perf_counter()
-    plv, pli, _ = k_topk.adc_topk_tiles_plain(*plain_args)
-    torch.cuda.synchronize()
-    b2_plain_ms = (time.perf_counter() - t) * 1e3
-    plv, pli = plv.reshape(kv.shape), pli.reshape(ki.shape)
-    if not (torch.equal(ki, pli) and torch.allclose(kv, plv, **TOL)):
-        raise RuntimeError("adc_topk_tiles disagrees with its plain version")
-    fin = torch.isfinite(kv)
-    err = float((kv[fin] - plv[fin]).abs().max()) if bool(fin.any()) else 0.0
-    sq = qbound.clone()
-    ov, oi, os_ = (torch.empty(ndev * p, kp, device=dev),
-                   torch.empty(ndev * p, kp, dtype=torch.int32, device=dev),
-                   torch.empty(ndev * p, 2, dtype=torch.int32, device=dev))
-    flat_q, flat_lb = pair_q.int().reshape(-1), pair_lb.reshape(-1)
-
-    def run_b2(pruned: bool):
-        sq.copy_(qbound if pruned else torch.full_like(qbound, torch.inf))
-        k_topk.launch(luts, lut_row, codes, order, t0, t1, flat["tb"],
-                      flat["tr"], flat["nv"], flat_q,
-                      flat_lb if pruned else torch.full_like(flat_lb, -torch.inf),
-                      qbound if pruned else torch.full_like(qbound, torch.inf),
-                      sq, ov, oi, os_, kp, BLOCK_N)
-
-    b2_ms = cuda_ms(torch, lambda: run_b2(True), 10)
-    b2_unpruned_ms = cuda_ms(torch, lambda: run_b2(False), 10)
-    valid_rows = int(n_valid.sum())
-    scanned = valid_rows - int(ps[..., 1].sum())
-    pairs_run = int((t1 > t0).sum())
-    bms, by = bound_ms(scanned * M + pairs_run * M * 256 * 4 + ndev * p * (kp * 8 + 8),
-                       scanned * M)
-    kernels.append(dict(
-        name="adc_topk_tiles", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_tiles.cu",
+    kernels.append(check_scan(
+        torch, ops, k_topk, name="adc_topk_tiles", scan="tiles",
+        source=f"{SRC_ROOT}/csrc/adc_topk_tiles.cu",
         replaces="src/repro/kernels/adc_topk.py:397", launches=launches["adc_topk_tiles"],
-        max_abs_err=err, ms=b2_ms, plain_ms=b2_plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None, unpruned_ms=b2_unpruned_ms,
-        unpruned_bound_ms=bound_ms(valid_rows * M + pairs_run * M * 256 * 4, 0)[0],
-        shape=dict(pairs=ndev * p, pairs_with_tiles=pairs_run, k=kp,
-                   valid_rows=valid_rows, scanned_rows=scanned,
-                   tiles=real_tiles, tiles_skipped=int(ps[..., 0].sum())),
+        tables=luts.reshape(n_rows, -1), lut_row=lut_row, codes=dv["codes"], plan=plan,
+        dv=dv, kp=kp,
     ))
 
     # B3: exact re-rank with the fused gather, on this batch's candidates
@@ -335,7 +707,6 @@ def main(argv=None) -> int:
     b3_ms = cuda_ms(torch, lambda: k_rerank.launch(
         qt, cand, raw.vectors, raw.id_dev, raw.id_row, raw.row_base, out3, 0), 50)
     rows, _ = k_rerank.candidate_rows(cand, raw.id_dev, raw.id_row, raw.row_base)
-    gathered = raw.vectors[rows].float()
     n_c = cand.numel()
     bms, by = bound_ms(n_c * (D * 2 + 4 + 4 + 4 + 4) + qt.numel() * 4, 3 * n_c * D)
     kernels.append(dict(
@@ -345,56 +716,16 @@ def main(argv=None) -> int:
         plain_ms=wall_ms(torch, lambda: k_rerank.rerank_dists_plain(
             qt, cand, raw.vectors, raw.id_dev, raw.id_row, raw.row_base)),
         bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: torch.cdist(qt[:, None, :], gathered), 20),
-        library_call="torch.cdist on rows gathered beforehand (Euclidean: adds a "
-                     "sqrt; leaves out the id-map lookup and the gather)",
+        library_ms=cuda_ms(
+            torch, lambda: ((raw.vectors[rows].float() - qt[:, None, :]) ** 2).sum(-1), 20),
+        library_call="((vectors[rows].float() - queries[:, None, :]) ** 2).sum(-1), the "
+                     "gather included (rows from the id map; squared, no sqrt)",
         shape=dict(queries=qt.shape[0], candidates=kp, dim=D, store="bfloat16"),
     ))
-    del gathered, luts_plain, plv, pli
+    del luts_plain
 
     # -- 16 queries: engine == plain path at full scale ---------------------
-    q16 = batches[1][:16]
-    e_d, e_i = eng.search(q16, NPROBE, K)
-    adc_d, _ = eng.collect(eng.dispatch_plan(eng.plan_batch(q16, NPROBE), kp))
-    q16_t = torch.as_tensor(q16, device=dev)
-    probed, qmc16 = filter_clusters(dv["centroids"], q16_t, NPROBE)
-    l16 = k_lut.build_luts_plain(cb, qmc16.reshape(-1, M, dsub)).reshape(16, NPROBE, -1)
-    cols = torch.arange(M, device=dev) * 256
-    idx = eng.index
-    cand16 = torch.full((16, kp), -1, dtype=torch.int32, device=dev)
-    plain_adc = np.full((16, kp), np.inf, np.float32)
-    for qi in range(16):
-        ds_, ids_ = [], []
-        for j, c in enumerate(probed[qi].tolist()):
-            lo, hi = int(idx.offsets[c]), int(idx.offsets[c + 1])
-            if hi == lo:
-                continue
-            codes_c = torch.as_tensor(idx.codes[lo:hi], device=dev).long() + cols
-            g = l16[qi, j][codes_c]
-            dd = torch.zeros(hi - lo, device=dev)
-            for mm in range(M):
-                dd = dd + g[:, mm]
-            ds_.append(dd)
-            ids_.append(torch.as_tensor(idx.vec_ids[lo:hi], device=dev))
-        dq, iq = torch.cat(ds_), torch.cat(ids_)
-        sel = torch.sort(dq, stable=True).indices[:kp]
-        plain_adc[qi, : sel.numel()] = dq[sel].cpu().numpy()
-        cand16[qi, : sel.numel()] = iq[sel].int()
-    if not np.array_equal(np.sort(adc_d, axis=1), plain_adc):
-        raise RuntimeError("engine ADC top-k' differs from the plain unpruned scan")
-    ex = k_rerank.rerank_dists_plain(q16_t, cand16, raw.vectors, raw.id_dev, raw.id_row,
-                                     raw.row_base)
-    sel = torch.sort(ex, dim=1, stable=True).indices[:, :K]
-    p_d = ex.gather(1, sel).cpu().numpy()
-    p_i = torch.where(torch.isfinite(ex.gather(1, sel)), cand16.gather(1, sel), -1)
-    p_i = p_i.cpu().numpy()
-    if not np.array_equal(e_d, p_d):
-        raise RuntimeError(f"engine re-ranked distances differ from the plain path:\n"
-                           f"{e_d[:2]}\n{p_d[:2]}")
-    for row_d, a, b in zip(e_d, e_i, p_i):
-        for v in np.unique(row_d):
-            if set(a[row_d == v]) != set(b[row_d == v]):
-                raise RuntimeError("engine ids differ from the plain path")
+    plain_path_check(torch, np, k_lut, k_rerank, eng, batches[1][:16])
     log(phase="scale_check", queries=16, adc_equal=True, rerank_equal=True)
 
     # -- pruned == unpruned, bit for bit ------------------------------------
@@ -420,6 +751,10 @@ def main(argv=None) -> int:
     recall = recall_at_k(pruned[1][:n_gt], gt)
     adc_recall = recall_at_k(adc_pruned[1][:n_gt, :K], gt)
     log(phase="recall", queries=n_gt, recall_at_10=recall, adc_only_recall_at_10=adc_recall)
+
+    # == the co-occurrence slice (§4.3) and the windows scan ================
+    kernels += cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches,
+                                dev, pruned, adc_pruned)
 
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

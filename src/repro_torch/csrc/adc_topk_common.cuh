@@ -1,0 +1,334 @@
+// Device code shared by the two pruned ADC scans, B2 (adc_topk_tiles.cu,
+// a flat queue of tiles) and B5 (adc_topk_windows.cu, per-pair windows):
+// the row distance for each code format, the skip rule, the shared-memory
+// top-k merge and the query bound `sq`.  Both scans run one block per pair
+// through `scan_pair` and differ only in where a pair's tiles come from,
+// so the two cannot drift apart.
+//
+// Code formats (template parameters of `scan_pair`):
+//   * uint8_t, OFFSETS = true:  raw PQ codes, the column offset m * 256 is
+//     added here (the reference's `add_offsets`);
+//   * uint16_t / int32_t, OFFSETS = false: direct addresses into the
+//     pair's flat table [LUT (M*256) | combo sums | 0] (paper §4.3); the
+//     sentinel address is the last entry, which holds 0.0.
+// A row of W entries is loaded with the widest aligned vector loads its
+// byte width allows (16 bytes per load for W = 16 uint8 or W = 8 uint16),
+// and its W table entries are added in column order with no contraction
+// (__fadd_rn), bit-equal to the plain versions in kernels/adc_topk.py.
+//
+// Pruning (the reference's rule, kernels/adc_topk.py module docstring): a
+// tile is skipped iff `lb >= pair k-th` or `lb > min(b0, sq[q])`, and a row
+// is kept only if `d < k-th` (a row equal to the k-th has a larger row index
+// and would lose the tie) and `d <= min(b0, sq[q])`.  Whatever is dropped
+// lies strictly beyond the query's final k-th, so every pair's list agrees
+// with the unpruned scan on all entries up to that k-th, and the merged
+// per-query output is the same in any execution order.  `sq[q]`, the least
+// k-th seen among query q's pairs, is shared by all the query's blocks
+// through atomicMin on the float's bit pattern (distances are >= 0, so int
+// order is float order).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace repro_adc {
+
+constexpr int NCODES = 256;
+constexpr int THREADS = 256;
+constexpr int ROWS_PER_THREAD = 4;
+constexpr int PASS = THREADS * ROWS_PER_THREAD;  // rows scored per merge
+
+__device__ __forceinline__ bool key_less(float av, int ar, float bv, int br) {
+  return av < bv || (av == bv && ar < br);
+}
+
+// Element m of a row held as 32-bit words.
+template <typename CodeT>
+__device__ __forceinline__ uint32_t word_elem(const uint32_t* w, int m) {
+  if constexpr (sizeof(CodeT) == 1) return (w[m >> 2] >> ((m & 3) * 8)) & 0xffu;
+  else if constexpr (sizeof(CodeT) == 2) return (w[m >> 1] >> ((m & 1) * 16)) & 0xffffu;
+  else return w[m];
+}
+
+// Table address of entry m of a row.
+template <bool OFFSETS>
+__device__ __forceinline__ uint32_t addr_of(uint32_t e, int m) {
+  if constexpr (OFFSETS) return static_cast<uint32_t>(m) * NCODES + e;
+  else return e;
+}
+
+// ADC distance of one row: sum of its W table entries, in column order.
+// WT > 0 is the width known at compile time; WT == 0 reads w_rt entries.
+template <typename CodeT, bool OFFSETS, int WT>
+__device__ __forceinline__ float adc_row(const float* table,
+                                         const CodeT* __restrict__ row,
+                                         int w_rt) {
+  constexpr int BYTES = WT * static_cast<int>(sizeof(CodeT));
+  if constexpr (WT > 0 && BYTES % 4 == 0) {
+    uint32_t w[BYTES / 4];
+    if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+      for (int q = 0; q < BYTES / 16; ++q) {
+        const uint4 v = reinterpret_cast<const uint4*>(row)[q];
+        w[4 * q] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+    } else if constexpr (BYTES % 8 == 0) {
+#pragma unroll
+      for (int q = 0; q < BYTES / 8; ++q) {
+        const uint2 v = reinterpret_cast<const uint2*>(row)[q];
+        w[2 * q] = v.x;
+        w[2 * q + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < BYTES / 4; ++q)
+        w[q] = reinterpret_cast<const uint32_t*>(row)[q];
+    }
+    float d = 0.f;
+#pragma unroll
+    for (int m = 0; m < WT; ++m)
+      d = __fadd_rn(d, table[addr_of<OFFSETS>(word_elem<CodeT>(w, m), m)]);
+    return d;
+  } else {
+    float d = 0.f;
+    for (int m = 0; m < w_rt; ++m)
+      d = __fadd_rn(d, table[addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m)]);
+    return d;
+  }
+}
+
+// Merge the c candidates in cand_* into the ascending top-k list top_*.
+// Every thread of the block calls it; it ends with a barrier.
+__device__ inline void merge_candidates(float* top_v, int* top_i, float* nxt_v,
+                                        int* nxt_i, float* cand_v, int* cand_i,
+                                        int c, int k) {
+  const int tid = threadIdx.x;
+  int n2 = 1;
+  while (n2 < c) n2 <<= 1;
+  for (int i = c + tid; i < n2; i += THREADS) {
+    cand_v[i] = CUDART_INF_F;
+    cand_i[i] = INT_MAX;
+  }
+  __syncthreads();
+  // bitonic sort of the candidates, ascending by (distance, row)
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < n2; i += THREADS) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const float vi = cand_v[i], vj = cand_v[j];
+          const int ri = cand_i[i], rj = cand_i[j];
+          const bool up = (i & size) == 0;
+          if (up ? key_less(vj, rj, vi, ri) : key_less(vi, ri, vj, rj)) {
+            cand_v[i] = vj;
+            cand_v[j] = vi;
+            cand_i[i] = rj;
+            cand_i[j] = ri;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // merge path: each element's output slot is its own index plus the
+  // number of elements of the other list that precede it.  Keys are
+  // unique across the two lists (rows differ; candidates are finite).
+  const int cb = min(c, k);
+  for (int i = tid; i < k; i += THREADS) {
+    const float v = top_v[i];
+    const int r = top_i[i];
+    int lo = 0, hi = cb;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (key_less(cand_v[mid], cand_i[mid], v, r)) lo = mid + 1; else hi = mid;
+    }
+    if (i + lo < k) {
+      nxt_v[i + lo] = v;
+      nxt_i[i + lo] = r;
+    }
+  }
+  for (int j = tid; j < cb; j += THREADS) {
+    const float v = cand_v[j];
+    const int r = cand_i[j];
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (key_less(top_v[mid], top_i[mid], v, r)) lo = mid + 1; else hi = mid;
+    }
+    if (j + lo < k) {
+      nxt_v[j + lo] = v;
+      nxt_i[j + lo] = r;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < k; i += THREADS) {
+    top_v[i] = nxt_v[i];
+    top_i[i] = nxt_i[i];
+  }
+  __syncthreads();
+}
+
+// Dynamic shared memory of one scan block: the pair's table (A floats),
+// the top-k list and its merge buffer (4k), the candidates (2 * PASS).
+inline size_t scan_smem_bytes(int table_width, int k) {
+  return (static_cast<size_t>(table_width) + 4 * k + 2 * PASS) * 4;
+}
+
+// Blocks per SM the scan kernels are compiled for.  Six hold the uint8
+// and uint16 scans to 40 registers (without the bound the raw-code scan
+// of a compile-time width takes 48, five blocks, and runs slower); int32
+// addresses need 48.
+template <typename CodeT>
+constexpr int scan_min_blocks() { return sizeof(CodeT) < 4 ? 6 : 5; }
+
+struct TileRef {
+  int row0;  // first window row of the tile
+  int blk;   // block index of the tile in the device's code array
+};
+
+// One pair's scan, by the whole block: load its table row into shared
+// memory, walk its n_tiles tiles (tile_at(t) -> TileRef, ascending rows),
+// skip, score, merge, tighten sq, and write the pair's (k) outputs and its
+// [tiles skipped, rows avoided] counters.  `cdev` is the pair's device's
+// (cap, W) codes.  Raw codes of a compile-time width address only the
+// first WT * 256 entries, so that many are loaded, a compile-time count
+// that also fixes the shared-memory offsets of the lists behind the table.
+template <typename CodeT, bool OFFSETS, int WT, typename TileAt>
+__device__ void scan_pair(const float* __restrict__ table_row, int table_width_rt,
+                          const CodeT* __restrict__ cdev, int w_rt,
+                          int n_tiles, TileAt tile_at, int nv, int qi,
+                          float lb, float b0, float* sq, int k, int block_n,
+                          float* __restrict__ out_v, int* __restrict__ out_i,
+                          int* __restrict__ stats) {
+  const int table_width = OFFSETS && WT > 0 ? WT * NCODES : table_width_rt;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* table = reinterpret_cast<float*>(smem);
+  float* top_v = table + table_width;
+  int* top_i = reinterpret_cast<int*>(top_v + k);
+  float* nxt_v = reinterpret_cast<float*>(top_i + k);
+  int* nxt_i = reinterpret_cast<int*>(nxt_v + k);
+  float* cand_v = reinterpret_cast<float*>(nxt_i + k);
+  int* cand_i = reinterpret_cast<int*>(cand_v + PASS);
+  __shared__ int s_ncand;
+  __shared__ int s_skip;
+  __shared__ float s_qb;
+
+  const int W = WT > 0 ? WT : w_rt;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < table_width; i += THREADS) table[i] = table_row[i];
+  for (int i = tid; i < k; i += THREADS) {
+    top_v[i] = CUDART_INF_F;
+    top_i[i] = -1;
+  }
+  int n_skip = 0, n_avoid = 0;
+  __syncthreads();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const TileRef tr = tile_at(t);
+    if (tid == 0) {
+      const float qb = fminf(b0, __ldcg(sq + qi));
+      const float kth = top_v[k - 1];
+      const int skip = (lb >= kth) || (lb > qb);
+      if (skip) {
+        const int rows = min(max(nv - tr.row0, 0), block_n);
+        n_skip += rows > 0;
+        n_avoid += rows;
+      }
+      s_skip = skip;
+      s_qb = qb;
+    }
+    __syncthreads();
+    if (!s_skip) {
+      const float qb = s_qb;
+      const int n_rows = min(block_n, nv - tr.row0);
+      const CodeT* tile = cdev + static_cast<size_t>(tr.blk) * block_n * W;
+      for (int base = 0; base < n_rows; base += PASS) {
+        const float kth = top_v[k - 1];
+        float d[ROWS_PER_THREAD];
+#pragma unroll
+        for (int j = 0; j < ROWS_PER_THREAD; ++j) {
+          const int i = base + j * THREADS + tid;
+          d[j] = i < n_rows ? adc_row<CodeT, OFFSETS, WT>(
+                                  table, tile + static_cast<size_t>(i) * W, W)
+                            : CUDART_INF_F;
+        }
+        if (tid == 0) s_ncand = 0;
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < ROWS_PER_THREAD; ++j) {
+          const int i = base + j * THREADS + tid;
+          if (i < n_rows && d[j] < kth && d[j] <= qb) {
+            const int s = atomicAdd(&s_ncand, 1);
+            cand_v[s] = d[j];
+            cand_i[s] = tr.row0 + i;
+          }
+        }
+        __syncthreads();
+        const int c = s_ncand;
+        if (c > 0)
+          merge_candidates(top_v, top_i, nxt_v, nxt_i, cand_v, cand_i, c, k);
+      }
+    }
+    if (tid == 0) {
+      const float kth = top_v[k - 1];
+      if (kth < CUDART_INF_F)
+        atomicMin(reinterpret_cast<int*>(sq + qi), __float_as_int(kth));
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < k; i += THREADS) {
+    out_v[i] = top_v[i];
+    out_i[i] = top_i[i];
+  }
+  if (tid == 0) {
+    stats[0] = n_skip;
+    stats[1] = n_avoid;
+  }
+}
+
+// Raise the dynamic shared-memory limit of `kernel` when a block needs
+// more than the default 48 KB.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace repro_adc
+
+// Instantiate LAUNCH(CodeT, OFFSETS, WT) for the code format `fmt`
+// (0: uint8 + offsets, 1: uint16 direct, 2: int32 direct) and width w,
+// with compile-time widths for the common cases.
+#define REPRO_ADC_DISPATCH(fmt, w, LAUNCH)                         \
+  switch (fmt) {                                                  \
+    case 0:                                                       \
+      switch (w) {                                                \
+        case 8: return LAUNCH(uint8_t, true, 8);                  \
+        case 16: return LAUNCH(uint8_t, true, 16);                \
+        case 32: return LAUNCH(uint8_t, true, 32);                \
+        default: return LAUNCH(uint8_t, true, 0);                 \
+      }                                                           \
+    case 1:                                                       \
+      switch (w) {                                                \
+        case 8: return LAUNCH(uint16_t, false, 8);                \
+        case 16: return LAUNCH(uint16_t, false, 16);              \
+        default: return LAUNCH(uint16_t, false, 0);               \
+      }                                                           \
+    case 2:                                                       \
+      switch (w) {                                                \
+        case 8: return LAUNCH(int32_t, false, 8);                 \
+        case 16: return LAUNCH(int32_t, false, 16);               \
+        default: return LAUNCH(int32_t, false, 0);                \
+      }                                                           \
+    default:                                                      \
+      return static_cast<int>(cudaErrorInvalidValue);             \
+  }

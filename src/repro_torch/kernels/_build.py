@@ -32,10 +32,17 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # codebook, qmc, rows (may be null), out, n_pairs, m, dsub, stream
     "lut_build_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # luts, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
+    # luts, set_idx (may be null), caddr, out, n_rows, ma, n_combos,
+    # combo_len, t_pad, stream
+    "ext_lut_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # tables, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
     # tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v, out_i, stats,
-    # n_pairs, pairs_per_dev, cap, m, k, block_n, stream
-    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L, _I, _I, _I, _P],
+    # n_pairs, pairs_per_dev, cap, w, table_width, code_fmt, k, block_n, stream
+    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L, _I, _I, _I, _I, _I, _P],
+    # tables, lut_row, codes, pair_order, starts, n_valid, pair_q, pair_lb,
+    # bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
+    # table_width, code_fmt, k, block_n, stream
+    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L, _I, _I, _I, _I, _I, _P],
     # queries, cand, id_dev, id_row, row_base, vectors, out,
     # q, k, d, ids_cap, vec_is_bf16, block_k, stream
     "rerank_launch": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _P],

@@ -1,15 +1,22 @@
-"""Kernel B2 (pruned tile scan): run planning, plain version, CUDA launcher.
+"""Kernels B2 (pruned tile scan) and B5 (pruned windows scan): run
+planning, plain versions, CUDA launchers.
 
-The CUDA source is `csrc/adc_topk_tiles.cu`; `ops.adc_topk_tiles` is the
-wrapper.  Arrays carry a leading logical-device axis `ndev` (the JAX
-`"dpu"` mesh axis): codes (ndev, cap, M) raw uint8 codes, the tile queue
-(ndev, T) from `core.scheduling.emit_tiles`, and the per-pair arrays
-(ndev, P).  A flat pair id is `dev * P + p`; its table is row
-`lut_row[pair]` of the (R, M, 256) tables (-1: none, the pair is not
-scanned).
+The CUDA sources are `csrc/adc_topk_tiles.cu` and `csrc/adc_topk_windows.cu`
+(their common device code in `csrc/adc_topk_common.cuh`);
+`ops.adc_topk_tiles` and `ops.adc_topk_windows` are the wrappers.  Arrays
+carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
+codes (ndev, cap, W), the tile queue (ndev, T) from
+`core.scheduling.emit_tiles`, and the per-pair arrays (ndev, P).  A flat
+pair id is `dev * P + p`; its table is row `lut_row[pair]` of the (R, A)
+tables (-1: none, the pair is not scanned).
+
+Codes are raw uint8 PQ codes (the column offset m * 256 is added when a
+row is scored, the reference's `add_offsets`; A >= M * 256) or uint16 /
+int32 direct addresses into [LUT | combo sums | 0] tables (§4.3; the
+sentinel address reads the table's final 0.0).
 
 Soundness of the pruning (why the merged per-query output does not depend
-on the order pairs run in) is set out in the CUDA source; in short, every
+on the order pairs run in) is set out in the CUDA header; in short, every
 skipped tile and every dropped row lies strictly beyond the query's final
 k-th distance.
 """
@@ -65,6 +72,15 @@ def pair_runs(
     return t0.to(torch.int32), t1.to(torch.int32), order.to(torch.int32)
 
 
+def code_format(codes: torch.Tensor) -> int:
+    """The kernels' code format: 0 raw uint8 (+ column offsets), 1 uint16
+    direct addresses, 2 int32 direct addresses."""
+    fmt = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}.get(codes.dtype)
+    if fmt is None:
+        raise TypeError(f"codes: expected uint8, uint16 or int32, got {codes.dtype}")
+    return fmt
+
+
 def adc_topk_tiles_plain(
     luts: torch.Tensor,
     lut_row: torch.Tensor,
@@ -90,7 +106,9 @@ def adc_topk_tiles_plain(
     them into the pair's top-k by a stable sort (current entries, whose
     rows are lower, before the tile's).  After the step, `sq` takes the
     least k-th of each query's pairs.  Inputs are flat over (dev, pair)
-    except `luts` (R, M, 256), `codes` (ndev, cap, M) and `bound` (Q,).
+    except `luts` (R, A) tables, `codes` (ndev, cap, W) and `bound` (Q,).
+    uint8 codes get the column offset m * 256; uint16 / int32 codes are
+    the table addresses themselves.
 
     Returns (vals (ndev*P, k) f32, rows (ndev*P, k) int32, stats (ndev*P, 2)
     int32); pairs with no tiles or no table keep (+inf, -1, 0).
@@ -101,13 +119,18 @@ def adc_topk_tiles_plain(
     p = n_pairs // ndev
     lut_flat = luts.reshape(luts.shape[0], -1)
     lut_row = lut_row.long()
+    fmt = code_format(codes)
+    # uint16 addresses are gathered through an int16 view (torch's uint16
+    # has few kernels) and masked back to 0..65535 once widened
     codes_flat = codes.reshape(ndev * cap, m)
+    if fmt == 1:
+        codes_flat = codes_flat.view(torch.int16)
     top_v = torch.full((n_pairs, k), torch.inf, dtype=torch.float32, device=dev_t)
     top_i = torch.full((n_pairs, k), -1, dtype=torch.int32, device=dev_t)
     stats = torch.zeros((n_pairs, 2), dtype=torch.int32, device=dev_t)
     sq = bound.float().clone()
     ntiles = torch.where(lut_row >= 0, (t1.long() - t0.long()).clamp_min(0), 0)
-    cols = torch.arange(m, device=dev_t) * 256
+    cols = torch.arange(m, device=dev_t) * 256 if fmt == 0 else 0
     lane = torch.arange(block_n, device=dev_t)
     for s in range(int(ntiles.max()) if n_pairs else 0):
         act = torch.nonzero(ntiles > s).flatten()
@@ -130,7 +153,8 @@ def adc_topk_tiles_plain(
             pr = act[sel]
             dev = pr // p
             code_rows = dev[:, None] * cap + blk[sel, None] * block_n + lane
-            addr = codes_flat[code_rows].long() + cols             # (R, bn, M)
+            addr = codes_flat[code_rows].long()                   # (R, bn, W)
+            addr = addr & 0xFFFF if fmt == 1 else addr + cols
             g = lut_flat[lut_row[pr]].gather(1, addr.reshape(pr.shape[0], -1))
             g = g.reshape(addr.shape)
             d = torch.zeros(addr.shape[:2], dtype=torch.float32, device=dev_t)
@@ -156,15 +180,69 @@ def launch(
     luts, lut_row, codes, order, t0, t1, tile_block, tile_row0, n_valid, pair_q,
     pair_lb, bound, sq, out_v, out_i, stats, k: int, block_n: int,
 ) -> None:
-    """Enqueue `csrc/adc_topk_tiles.cu` on the current stream (checked inputs)."""
-    ndev, cap, m = codes.shape
+    """Enqueue `csrc/adc_topk_tiles.cu` on the current stream (checked inputs;
+    `luts` (R, A) contiguous)."""
+    ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
     err = _build.library().adc_topk_tiles_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
         t0.data_ptr(), t1.data_ptr(), tile_block.data_ptr(), tile_row0.data_ptr(),
         n_valid.data_ptr(), pair_q.data_ptr(), pair_lb.data_ptr(),
         bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        stats.data_ptr(), n_pairs, n_pairs // ndev, cap, m, k, block_n,
-        torch.cuda.current_stream(luts.device).cuda_stream,
+        stats.data_ptr(), n_pairs, n_pairs // ndev, cap, w, luts.shape[1],
+        code_format(codes), k, block_n, torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_tiles")
+
+
+def window_runs(
+    starts: torch.Tensor, n_valid: torch.Tensor, lut_row: torch.Tensor, block_n: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The windows scan written as tile runs: pair i's tiles are the blocks
+    0 .. ceil(n_valid[i] / block_n) - 1 of its window (row0 = t * block_n,
+    block = starts[i] / block_n + t); pairs without a table or rows get
+    none.  All inputs flat (n_pairs,).  Returns (t0, t1, tile_block,
+    tile_row0) int32 over the concatenated runs."""
+    nt = torch.where(lut_row >= 0, (n_valid.long() + block_n - 1) // block_n, 0)
+    nt = nt.clamp_min(0)
+    t1 = torch.cumsum(nt, 0)
+    t0 = t1 - nt
+    pair = torch.repeat_interleave(torch.arange(nt.numel(), device=nt.device), nt)
+    t = torch.arange(pair.numel(), device=nt.device) - t0[pair]
+    blk = starts.long()[pair] // block_n + t
+    i32 = torch.int32
+    return t0.to(i32), t1.to(i32), blk.to(i32), (t * block_n).to(i32)
+
+
+def adc_topk_windows_plain(
+    luts, lut_row, codes, starts, n_valid, pair_q, pair_lb, bound, k: int,
+    block_n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B5's contract in plain tensor code: each filled pair's window blocks
+    as a tile run (`window_runs`), scanned by `adc_topk_tiles_plain` in
+    lockstep -- one valid execution order of the kernel's blocks.  Inputs
+    flat over (dev, pair) as there; returns the same triple."""
+    t0, t1, blk, row0 = window_runs(starts, n_valid, lut_row, block_n)
+    return adc_topk_tiles_plain(
+        luts, lut_row, codes, blk, row0, n_valid, pair_q, pair_lb, bound, t0, t1,
+        k, block_n,
+    )
+
+
+def launch_windows(
+    luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound, sq,
+    out_v, out_i, stats, k: int, block_n: int,
+) -> None:
+    """Enqueue `csrc/adc_topk_windows.cu` on the current stream (checked
+    inputs): one block per entry of `order` (the filled pairs)."""
+    ndev, cap, w = codes.shape
+    n_pairs = lut_row.shape[0]
+    err = _build.library().adc_topk_windows_launch(
+        luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
+        starts.data_ptr(), n_valid.data_ptr(), pair_q.data_ptr(),
+        pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), stats.data_ptr(), order.shape[0], n_pairs // ndev, cap,
+        w, luts.shape[-1], code_format(codes), k, block_n,
+        torch.cuda.current_stream(luts.device).cuda_stream,
+    )
+    _build.check(err, "adc_topk_windows")

@@ -1,9 +1,12 @@
 """Wrappers of the query path's kernels: checks, outputs, dispatch, counts.
 
 API:
-  build_luts(codebook, qmc, rows=None)          B1: (N or R, M, 256) f32 tables
-  adc_topk_tiles(luts, codes, ..., lut_row=)    B2: pruned tile scan + top-k
-  rerank_dists(queries, cand, vectors, ...)     B3: exact re-rank, fused gather
+  build_luts(codebook, qmc, rows=None)                B1: (N or R, M, 256) tables
+  build_ext_luts_pairs(luts, combo_addrs, set_idx)    B4: per-row combo sets
+  build_ext_luts(luts, combo_cols, combo_codes)       B9: one shared combo set
+  adc_topk_tiles(tables, codes, ..., lut_row=)        B2: pruned tile scan + top-k
+  adc_topk_windows(tables, codes, starts, ...)        B5: pruned windows scan + top-k
+  rerank_dists(queries, cand, vectors, ...)           B3: exact re-rank, fused gather
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either launches its CUDA kernel on the current stream
@@ -23,7 +26,10 @@ from repro_torch.kernels import rerank as _rerank
 NCODES = 256
 
 # kernel launches per wrapper since the last `reset_launches()`
-launches = {"build_luts": 0, "adc_topk_tiles": 0, "rerank_dists": 0}
+launches = {
+    "build_luts": 0, "build_ext_luts_pairs": 0, "build_ext_luts": 0,
+    "adc_topk_tiles": 0, "adc_topk_windows": 0, "rerank_dists": 0,
+}
 
 
 def reset_launches() -> None:
@@ -80,6 +86,86 @@ def build_luts(
     return out
 
 
+def _ext_check(luts: torch.Tensor, t_pad: int | None, n_combos: int) -> tuple:
+    dev = luts.device
+    if luts.dim() == 3:
+        luts = luts.reshape(luts.shape[0], -1)
+    _check(luts, "luts", torch.float32, 2, dev)
+    ma = luts.shape[1]
+    if ma % NCODES:
+        raise ValueError(f"luts: width {ma} is not M * {NCODES}")
+    need = ma + n_combos + 1
+    t_pad = need if t_pad is None else t_pad
+    if t_pad < need:
+        raise ValueError(f"t_pad={t_pad} < M*256 + n_combos + 1 = {need}")
+    return luts, t_pad
+
+
+def build_ext_luts_pairs(
+    luts: torch.Tensor,
+    combo_addrs: torch.Tensor,
+    set_idx: torch.Tensor,
+    t_pad: int | None = None,
+) -> torch.Tensor:
+    """Extended tables, each row with its own combo set (kernel B4).
+
+    luts (R, M, 256) or (R, M*256) f32 (B1's rows); combo_addrs
+    (n_sets, n_combos, L) int32 flat addresses col * 256 + code; set_idx
+    (R,) int32, the combo set of each row.  Returns (R, t_pad) f32 rows
+    [table | combo sums | 0], t_pad >= M*256 + n_combos + 1 (default that).
+    """
+    dev = luts.device
+    _check(combo_addrs, "combo_addrs", torch.int32, 3, dev)
+    luts, t_pad = _ext_check(luts, t_pad, combo_addrs.shape[1])
+    _check(set_idx, "set_idx", torch.int32, 1, dev)
+    if set_idx.shape[0] != luts.shape[0]:
+        raise ValueError(f"set_idx: {set_idx.shape[0]} rows, luts {luts.shape[0]}")
+    if not _on_gpu(dev):
+        return _lut.ext_lut_pairs_plain(luts, combo_addrs, set_idx, t_pad)
+    out = torch.empty((luts.shape[0], t_pad), dtype=torch.float32, device=dev)
+    _lut.launch_ext(luts, combo_addrs, set_idx, out)
+    launches["build_ext_luts_pairs"] += 1
+    return out
+
+
+def build_ext_luts(
+    luts: torch.Tensor, combo_cols: torch.Tensor, combo_codes: torch.Tensor
+) -> torch.Tensor:
+    """Extended tables with one combo set for every row (kernel B9).
+
+    luts (Q, M, 256) f32; combo_cols / combo_codes (n_combos, L) int32.
+    Returns (Q, A) f32, A = M*256 + n_combos + 1 exactly (the sentinel is
+    the last slot).
+    """
+    dev = luts.device
+    _check(combo_cols, "combo_cols", torch.int32, 2, dev)
+    _check(combo_codes, "combo_codes", torch.int32, 2, dev)
+    if combo_cols.shape != combo_codes.shape:
+        raise ValueError("combo_cols and combo_codes differ in shape")
+    caddr = (combo_cols * NCODES + combo_codes).contiguous()
+    luts, t_pad = _ext_check(luts, None, caddr.shape[0])
+    if not _on_gpu(dev):
+        return _lut.ext_lut_plain(luts, caddr, t_pad)
+    out = torch.empty((luts.shape[0], t_pad), dtype=torch.float32, device=dev)
+    _lut.launch_ext(luts, caddr[None], None, out)
+    launches["build_ext_luts"] += 1
+    return out
+
+
+def _tables_2d(tables: torch.Tensor, codes: torch.Tensor, dev) -> torch.Tensor:
+    """(R, A) f32 tables, from (R, A) or (R, M, 256); raw uint8 codes need
+    A >= M * 256 (their addresses are m * 256 + code)."""
+    if tables.dim() == 3:
+        tables = tables.reshape(tables.shape[0], -1)
+    _check(tables, "luts", torch.float32, 2, dev)
+    w = codes.shape[-1]
+    if _topk.code_format(codes) == 0 and tables.shape[1] < w * NCODES:
+        raise ValueError(
+            f"luts: width {tables.shape[1]} < {w} * {NCODES} for raw uint8 codes"
+        )
+    return tables
+
+
 def adc_topk_tiles(
     luts: torch.Tensor,
     codes: torch.Tensor,
@@ -95,12 +181,14 @@ def adc_topk_tiles(
     pair_lb: torch.Tensor | None = None,
     bound: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Flat work-queue fused ADC scan + per-pair top-k over raw uint8 codes.
+    """Flat work-queue fused ADC scan + per-pair top-k (kernel B2).
 
     Shapes, with an optional leading logical-device axis (drop it for one
-    device): luts (R, M, 256) f32 tables; lut_row (ndev, P) int32, the
-    table row of each pair (-1: none, the pair is not scanned); codes
-    (ndev, cap, M) uint8; tile_pair / tile_block / tile_row0 (ndev, T) from
+    device): luts (R, A) f32 tables (or (R, M, 256)); lut_row (ndev, P)
+    int32, the table row of each pair (-1: none, the pair is not scanned);
+    codes (ndev, cap, W): raw uint8 PQ codes (the column offset is added
+    in the scan; A >= M * 256), or uint16 / int32 direct addresses into
+    the tables (§4.3); tile_pair / tile_block / tile_row0 (ndev, T) from
     `emit_tiles` (pair id P marks dummy tiles, which are never launched);
     n_valid (ndev, P).
 
@@ -122,16 +210,13 @@ def adc_topk_tiles(
         pair_q = None if pair_q is None else pair_q[None]
         pair_lb = None if pair_lb is None else pair_lb[None]
     dev = codes.device
-    _check(codes, "codes", torch.uint8, 3, dev)
-    ndev, cap, m = codes.shape
-    _check(luts, "luts", torch.float32, 3, dev)
+    _check(codes, "codes", codes.dtype, 3, dev)
+    ndev, cap, _ = codes.shape
+    luts = _tables_2d(luts, codes, dev)
     _check(lut_row, "lut_row", torch.int32, 2, dev)
     p = lut_row.shape[1]
-    if luts.shape[1:] != (m, NCODES) or lut_row.shape[0] != ndev:
-        raise ValueError(
-            f"luts {tuple(luts.shape)} / lut_row {tuple(lut_row.shape)}: expected "
-            f"(R, {m}, {NCODES}) / ({ndev}, P)"
-        )
+    if lut_row.shape[0] != ndev:
+        raise ValueError(f"lut_row {tuple(lut_row.shape)}: expected ({ndev}, P)")
     lut_row = lut_row.reshape(-1)
     if cap % block_n:
         raise ValueError(f"code capacity {cap} is not a multiple of block_n={block_n}")
@@ -180,6 +265,90 @@ def adc_topk_tiles(
     vals = vals.reshape(ndev, p, k)
     idx = idx.reshape(ndev, p, k)
     stats = stats.reshape(ndev, p, 2)
+    if single:
+        return vals[0], idx[0], stats[0]
+    return vals, idx, stats
+
+
+def adc_topk_windows(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    starts: torch.Tensor,
+    n_valid: torch.Tensor,
+    k: int,
+    *,
+    lut_row: torch.Tensor,
+    block_n: int = 1024,
+    pair_q: torch.Tensor | None = None,
+    pair_lb: torch.Tensor | None = None,
+    bound: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused ADC scan + per-pair top-k over per-pair windows (kernel B5).
+
+    Pair p scans rows [starts[p], starts[p] + n_valid[p]) of its device's
+    codes (block-aligned starts, the layout's `slot_start`), tile by tile
+    of `block_n` rows.  Shapes as `adc_topk_tiles` (leading `ndev` axis
+    optional): luts (R, A) f32, lut_row (ndev, P) int32 (-1: not
+    scanned), codes (ndev, cap, W) uint8 / uint16 / int32, starts and
+    n_valid (ndev, P).  `pair_q` + `bound` and `pair_lb` drive the pruning
+    as there.  Filled pairs (a table and rows) run best-first by `pair_lb`.
+
+    Returns ((ndev, P, k) f32 distances, (ndev, P, k) int32 window rows,
+    (ndev, P, 2) int32 [tiles skipped, rows avoided]); other pairs read
+    (+inf, -1) and (0, 0).
+    """
+    single = codes.dim() == 2
+    if single:
+        codes, lut_row, starts, n_valid = codes[None], lut_row[None], starts[None], n_valid[None]
+        pair_q = None if pair_q is None else pair_q[None]
+        pair_lb = None if pair_lb is None else pair_lb[None]
+    dev = codes.device
+    _check(codes, "codes", codes.dtype, 3, dev)
+    ndev, cap, _ = codes.shape
+    luts = _tables_2d(luts, codes, dev)
+    _check(lut_row, "lut_row", torch.int32, 2, dev)
+    p = lut_row.shape[1]
+    for name, t in (("lut_row", lut_row), ("starts", starts), ("n_valid", n_valid)):
+        if t.shape != (ndev, p):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != ({ndev}, {p})")
+    if cap % block_n:
+        raise ValueError(f"code capacity {cap} is not a multiple of block_n={block_n}")
+    if not 1 <= k <= 4096:
+        raise ValueError(f"k={k} outside [1, 4096]")
+
+    def i32(t):
+        return t.to(device=dev, dtype=torch.int32).contiguous().reshape(-1)
+
+    lut_row, starts, n_valid = i32(lut_row), i32(starts), i32(n_valid)
+    if pair_q is None:
+        pair_q = torch.arange(ndev * p, dtype=torch.int32, device=dev)
+        bound = torch.full((ndev * p,), torch.inf, dtype=torch.float32, device=dev)
+    elif bound is None:
+        raise ValueError("adc_topk_windows: pair_q needs the (Q,) query bounds `bound`")
+    else:
+        pair_q = i32(pair_q)
+    if pair_lb is None:
+        pair_lb = torch.full((ndev * p,), -torch.inf, dtype=torch.float32, device=dev)
+    pair_lb = pair_lb.to(device=dev, dtype=torch.float32).contiguous().reshape(-1)
+    bound = bound.to(device=dev, dtype=torch.float32).contiguous()
+
+    if not _on_gpu(dev):
+        vals, idx, stats = _topk.adc_topk_windows_plain(
+            luts, lut_row, codes, starts, n_valid, pair_q, pair_lb, bound, k, block_n,
+        )
+    else:
+        filled = torch.nonzero((lut_row >= 0) & (n_valid > 0)).flatten()
+        order = filled[torch.sort(pair_lb[filled], stable=True).indices].to(torch.int32)
+        vals = torch.full((ndev * p, k), torch.inf, dtype=torch.float32, device=dev)
+        idx = torch.full((ndev * p, k), -1, dtype=torch.int32, device=dev)
+        stats = torch.zeros((ndev * p, 2), dtype=torch.int32, device=dev)
+        sq = bound.clone()
+        _topk.launch_windows(
+            luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound,
+            sq, vals, idx, stats, k, block_n,
+        )
+        launches["adc_topk_windows"] += 1
+    vals, idx, stats = vals.reshape(ndev, p, k), idx.reshape(ndev, p, k), stats.reshape(ndev, p, 2)
     if single:
         return vals[0], idx[0], stats[0]
     return vals, idx, stats

@@ -4,14 +4,18 @@ Offline (build): IVF+PQ index -> frequency estimation from a historical query
 log -> Algorithm-1 placement (with replication + co-location) -> per-device
 packed shards (+ the raw-vector store for the exact re-rank).
 
-Online (search): cluster filtering on the card, Algorithm-2 scheduling and
-the tile queue on the host, then one device step over a leading
-logical-device axis (LUT build, pruned tile scan, hierarchical merge) and,
-with `rerank="exact"`, the re-rank of the overfetched candidates.
+Online (search): cluster filtering on the card, Algorithm-2 scheduling
+(and, for `scan="tiles"`, the tile queue) on the host, then one device step
+over a leading logical-device axis (LUT build, extended tables for
+co-occurrence shards, pruned scan, hierarchical merge) and, with
+`rerank="exact"`, the re-rank of the overfetched candidates.
 
-This slice ports the default path: `scan="tiles"`, `path="gather"`, plain
-codes, immutable.  The other knobs raise NotImplementedError naming the
-ROADMAP item that will bring them.
+Ported knobs: `scan` "tiles" | "windows", `path` "gather" | "flat",
+`use_cooc` (§4.3 co-occurrence shards, with `n_combos`, `combo_len`,
+`mine_rows`, `min_length_reduction`), `prune`, `rerank` "off" | "exact",
+`k_overfetch`; immutable only.  `mutable`, `opq_iters` and the onehot
+path raise NotImplementedError naming the ROADMAP item that will bring
+them.
 """
 
 from __future__ import annotations
@@ -51,29 +55,30 @@ def round_capacity(max_pairs: int, floor: int = 8) -> int:
 
 def _not_ported(knob: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{knob} is not ported to repro_torch yet; see ROADMAP.md queue A {item}"
+        f"{knob} is not ported to repro_torch yet; see ROADMAP.md {item}"
     )
 
 
-def _check_knobs(scan: str, path: str, rerank: str, use_cooc: bool, mutable: bool,
+def _check_knobs(scan: str, path: str, rerank: str, mutable: bool,
                  opq_iters: int) -> None:
-    """Refuse, before any expensive work, what this slice does not port."""
-    if scan == "windows":
-        raise _not_ported('scan="windows"', "item 8")
-    if scan != "tiles":
-        raise ValueError(f"scan must be 'tiles', got {scan!r}")
-    if path == "flat":
-        raise _not_ported('path="flat"', "item 8")
-    if path != "gather":
-        raise ValueError(f"path must be 'gather', got {path!r}")
+    """Refuse, before any expensive work, what the port does not take.
+
+    `path` names the addressing ("gather" for raw codes, "flat" for direct
+    addresses), as in the reference; it is checked and not kept, since
+    the kernels follow the shards' codes either way.
+    """
+    if scan not in ("tiles", "windows"):
+        raise ValueError(f"scan must be 'tiles' or 'windows', got {scan!r}")
+    if path == "onehot":
+        raise _not_ported('path="onehot"', "queue D item 2")
+    if path not in ("gather", "flat"):
+        raise ValueError(f"path must be 'gather' or 'flat', got {path!r}")
     if rerank not in ("off", "exact"):
         raise ValueError(f"rerank must be 'off' or 'exact', got {rerank!r}")
-    if use_cooc:
-        raise _not_ported("use_cooc", "item 8")
     if mutable:
-        raise _not_ported("mutable", "item 9")
+        raise _not_ported("mutable", "queue A item 9")
     if opq_iters > 0:
-        raise _not_ported("opq_iters", "item 11")
+        raise _not_ported("opq_iters", "queue A item 11")
 
 
 @dataclasses.dataclass
@@ -81,9 +86,10 @@ class SearchPlan:
     """Densified host-side plan for one device step.
 
     Produced by `MemANNSEngine.plan_batch` (cluster filtering + Algorithm 2
-    + densify + tile queue); consumed by `dispatch_plan`.  `qmc_pairs` is
-    a tensor on the engine's device (the residuals never leave the card);
-    the index arrays are host numpy, as the reference's.
+    + densify + the tile queue on the tiles scan); consumed by
+    `dispatch_plan`.  `qmc_pairs` is a tensor on the engine's device (the
+    residuals never leave the card); the index arrays are host numpy, as
+    the reference's.
     """
 
     qmc_pairs: torch.Tensor  # (ndev, P, D) f32 per-pair query - centroid
@@ -93,14 +99,20 @@ class SearchPlan:
     schedule: ArraySchedule
     n_queries: int
     pairs_per_dev: int
-    tile_pair: np.ndarray    # (ndev, T) int32, P marks dummies
-    tile_block: np.ndarray   # (ndev, T) int32 code-block index
-    tile_row0: np.ndarray    # (ndev, T) int32 window-relative first row
-    tiles_per_dev: int
+    # tile queue (scan="tiles" only; None on the windows scan)
+    tile_pair: np.ndarray | None = None   # (ndev, T) int32, P marks dummies
+    tile_block: np.ndarray | None = None  # (ndev, T) int32 code-block index
+    tile_row0: np.ndarray | None = None   # (ndev, T) int32 window-relative row
+    tiles_per_dev: int = 0
     # early-pruning bounds (None = the plan runs unpruned)
     pair_lb: np.ndarray | None = None       # (ndev, P) f32
     probed_ub: np.ndarray | None = None     # (Q, nprobe) f32
     probed_sizes: np.ndarray | None = None  # (Q, nprobe) int64
+
+    @property
+    def scan(self) -> str:
+        """The scan this plan was built for."""
+        return "tiles" if self.tile_pair is not None else "windows"
 
     def query_bounds(self, k: int) -> np.ndarray:
         """(Q,) strict warm-start upper bounds on the k-th output distance."""
@@ -113,20 +125,24 @@ class SearchPlan:
 class MemANNSEngine:
     """End-to-end engine state + the host half of the online path.
 
-    Knobs: `prune` (exact whole-tile pruning; False plans the unpruned
-    reference scan), `rerank` ("off" | "exact": overfetch `k_prime(k)` ADC
-    candidates and re-score them exactly against `raw`), `k_overfetch`
-    (k'; 0 = 4k, pow2-bucketed).  The scan is the tiles scan over plain
-    codes (`scan="tiles"`, `path="gather"`).
+    Knobs: `scan` ("tiles": a flat queue of the probed code tiles, kernel
+    B2; "windows": each filled pair scans its cluster slot, kernel B5; the
+    two give bit-identical results), `prune`
+    (exact whole-tile pruning; False plans the unpruned reference scan),
+    `rerank` ("off" | "exact": overfetch `k_prime(k)` ADC candidates and
+    re-score them exactly against `raw`), `k_overfetch` (k'; 0 = 4k,
+    pow2-bucketed).  Co-occurrence encoding is a property of the shards
+    (`build(use_cooc=True)`).
 
     `device` is where the packed arrays live and the kernels run; the
-    index, placement and shards stay host numpy.
+    index, placement and shard metadata stay host numpy.
     """
 
     index: IVFPQIndex
     placement: Placement
     shards: DeviceShards
     device: torch.device
+    scan: str = "tiles"
     prune: bool = True
     rerank: str = "off"
     k_overfetch: int = 0
@@ -156,6 +172,10 @@ class MemANNSEngine:
         k_overfetch: int = 0,
         raw_dtype: str = "float32",
         use_cooc: bool = False,
+        n_combos: int = 256,
+        combo_len: int = 3,
+        mine_rows: int = 50_000,
+        min_length_reduction: float = 0.0,
         mutable: bool = False,
         opq_iters: int = 0,
         seed: int = 0,
@@ -168,9 +188,11 @@ class MemANNSEngine:
         the CPU `torch.Generator` behind the training samples and k-means
         seeding.  `ndev` is the number of logical devices.  With
         `rerank="exact"` the raw vectors are packed into a `RawStore` of
-        `raw_dtype`.
+        `raw_dtype`.  `use_cooc=True` packs co-occurrence shards (§4.3;
+        `n_combos`, `combo_len`, `mine_rows`, `min_length_reduction` as in
+        `retrieval.layout.build_shards`).
         """
-        _check_knobs(scan, path, rerank, use_cooc, mutable, opq_iters)
+        _check_knobs(scan, path, rerank, mutable, opq_iters)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         index = build_index(
@@ -193,8 +215,11 @@ class MemANNSEngine:
         )
         return cls._assemble(
             index, placement, dev, xs if rerank == "exact" else None,
-            block_n=block_n, raw_dtype=raw_dtype, freqs=freqs, prune=prune,
-            rerank=rerank, k_overfetch=k_overfetch,
+            block_n=block_n, raw_dtype=raw_dtype,
+            cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
+                      mine_rows=mine_rows, min_length_reduction=min_length_reduction),
+            freqs=freqs, scan=scan, prune=prune, rerank=rerank,
+            k_overfetch=k_overfetch,
         )
 
     @classmethod
@@ -211,6 +236,11 @@ class MemANNSEngine:
         prune: bool = True,
         rerank: str = "off",
         k_overfetch: int = 0,
+        use_cooc: bool = False,
+        n_combos: int = 256,
+        combo_len: int = 3,
+        mine_rows: int = 50_000,
+        min_length_reduction: float = 0.0,
         freqs: np.ndarray | None = None,
         device: torch.device | str | None = None,
     ) -> "MemANNSEngine":
@@ -221,18 +251,19 @@ class MemANNSEngine:
         `Placement`); they are carried over with `repro_torch.convert`.
         `xs` are the raw vectors (ids 0..N-1); they back `rerank="exact"`
         and may be given with `rerank="off"` to switch later.  The number
-        of logical devices is the placement's.
+        of logical devices is the placement's.  The co-occurrence knobs
+        are `build`'s.
         """
         from repro_torch.convert import index_from_arrays, placement_from_arrays
 
-        _check_knobs(scan, path, rerank, False, False, 0)
+        _check_knobs(scan, path, rerank, False, 0)
         dev = resolve_device(device)
         idx = index_from_arrays(
             index.centroids, index.codebook, index.codes, index.vec_ids,
             index.offsets, getattr(index, "rotation", None),
         )
         if idx.rotation is not None:
-            raise _not_ported("an OPQ-rotated index", "item 11")
+            raise _not_ported("an OPQ-rotated index", "queue A item 11")
         plc = placement_from_arrays(
             placement.replicas, placement.dev_load, placement.dev_vectors,
             placement.dev_clusters, placement.w_bar,
@@ -240,13 +271,16 @@ class MemANNSEngine:
         if rerank == "exact" and xs is None:
             raise ValueError("rerank='exact' needs the raw vectors xs")
         return cls._assemble(
-            idx, plc, dev, xs, block_n=block_n, raw_dtype=raw_dtype, freqs=freqs,
-            prune=prune, rerank=rerank, k_overfetch=k_overfetch,
+            idx, plc, dev, xs, block_n=block_n, raw_dtype=raw_dtype,
+            cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
+                      mine_rows=mine_rows, min_length_reduction=min_length_reduction),
+            freqs=freqs, scan=scan, prune=prune, rerank=rerank,
+            k_overfetch=k_overfetch,
         )
 
     @classmethod
-    def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, **knobs):
-        shards = build_shards(index, placement, block_n=block_n)
+    def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, cooc, **knobs):
+        shards = build_shards(index, placement, block_n=block_n, device=dev, **cooc)
         raw = None
         if xs is not None:
             raw = build_raw_store(index, placement, xs, dtype=raw_dtype, device=dev)
@@ -268,6 +302,7 @@ class MemANNSEngine:
                 "vec_ids": torch.as_tensor(s.vec_ids, device=dev),
                 "slot_start": torch.as_tensor(s.slot_start, device=dev),
                 "slot_size": torch.as_tensor(s.slot_size, device=dev),
+                "combo_addrs": torch.as_tensor(s.combo_addrs, device=dev),
                 "codebook": torch.as_tensor(self.index.codebook, device=dev),
                 "centroids": torch.as_tensor(self.index.centroids, device=dev),
             }
@@ -301,13 +336,14 @@ class MemANNSEngine:
         return schedule, probed, qmc
 
     def plan_batch(self, queries: np.ndarray, nprobe: int) -> SearchPlan:
-        """Host-side online phase: filter + schedule + densify + tile queue.
+        """Host-side online phase: filter + schedule + densify (+ tile queue).
 
         The same plan as the reference's `plan_batch` (arrays equal): pair
         capacity and tile capacity are pow2 buckets; with pruning
         (`self.prune`) the plan carries per-pair lower bounds and per-query
         probed upper bounds and sizes, and the tile queue runs best-first
-        (ascending lower bound).
+        (ascending lower bound).  On `scan="windows"` no tile queue is
+        built: the windows kernel reads each pair's slot directly.
         """
         queries = np.asarray(queries, np.float32)
         q_n = queries.shape[0]
@@ -338,14 +374,17 @@ class MemANNSEngine:
             probed_ub = ub
             probed_sizes = self.index.cluster_sizes()[probed]
 
-        s = self.shards
-        nv = np.take_along_axis(s.slot_size, pair_slot, axis=1)
-        max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
-        tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
-        tile_pair, tile_block, tile_row0 = emit_tiles(
-            pair_slot, pair_valid, s.slot_start, s.slot_size, s.block_n,
-            tiles_per_dev, pair_key=pair_lb,
-        )
+        tile_pair = tile_block = tile_row0 = None
+        tiles_per_dev = 0
+        if self.scan == "tiles":
+            s = self.shards
+            nv = np.take_along_axis(s.slot_size, pair_slot, axis=1)
+            max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
+            tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
+            tile_pair, tile_block, tile_row0 = emit_tiles(
+                pair_slot, pair_valid, s.slot_start, s.slot_size, s.block_n,
+                tiles_per_dev, pair_key=pair_lb,
+            )
         return SearchPlan(
             qmc_pairs=qmc_pairs, pair_q=pair_q, pair_slot=pair_slot,
             pair_valid=pair_valid, schedule=schedule, n_queries=q_n,
@@ -355,15 +394,36 @@ class MemANNSEngine:
             probed_sizes=probed_sizes,
         )
 
+    def _plan_n_valid(self, plan: SearchPlan) -> np.ndarray:
+        nv = np.take_along_axis(self.shards.slot_size, plan.pair_slot, axis=1)
+        return np.where(plan.pair_valid, nv, 0)
+
     def plan_dev_rows(self, plan: SearchPlan) -> np.ndarray:
-        """(ndev,) code rows the scan visits per device: real tiles x block_n."""
-        real = (plan.tile_pair != plan.pairs_per_dev).sum(axis=1)
-        return real.astype(np.int64) * self.shards.block_n
+        """(ndev,) code rows the scan visits per device: real tiles x block_n
+        on the tiles scan, the scheduled pairs' valid rows on windows."""
+        if plan.scan == "tiles":
+            real = (plan.tile_pair != plan.pairs_per_dev).sum(axis=1)
+            return real.astype(np.int64) * self.shards.block_n
+        return self._plan_n_valid(plan).sum(axis=1).astype(np.int64)
+
+    def plan_tile_count(self, plan: SearchPlan) -> int:
+        """Non-empty code tiles `plan` scans (all devices): the real tiles
+        of the queue, or the window tiles holding a valid row."""
+        if plan.scan == "tiles":
+            return int((plan.tile_pair != plan.pairs_per_dev).sum())
+        bn = self.shards.block_n
+        return int(((self._plan_n_valid(plan) + bn - 1) // bn).sum())
 
     def scanned_rows(self, plan: SearchPlan) -> int:
-        """Total code rows of the tile queue of `plan` (all devices, dummy
-        tiles included): ndev * tiles_per_dev * block_n."""
-        return self.ndev * plan.tiles_per_dev * self.shards.block_n
+        """The reference's row count of one execution of `plan` (all
+        devices): the tile queue including dummy tiles (ndev *
+        tiles_per_dev * block_n), or on the windows scan every pair slot
+        padded to the window (ndev * pairs_per_dev * window) -- what the
+        TPU kernel streams; the windows kernel here reads only the filled
+        pairs' valid blocks (`plan_tile_count` tiles)."""
+        if plan.scan == "tiles":
+            return self.ndev * plan.tiles_per_dev * self.shards.block_n
+        return self.ndev * plan.pairs_per_dev * self.shards.window
 
     def dispatch_plan(self, plan: SearchPlan, k: int) -> InFlightSearch:
         """Enqueue the device step without waiting for its results."""
@@ -371,7 +431,7 @@ class MemANNSEngine:
         ndev = self.ndev
 
         def put(a):
-            return torch.as_tensor(a, device=self.device)
+            return None if a is None else torch.as_tensor(a, device=self.device)
 
         pair_lb = (
             plan.pair_lb if plan.pair_lb is not None
@@ -380,12 +440,12 @@ class MemANNSEngine:
         query_bound = plan.query_bounds(k)
         out_d, out_i, prune_stats = sharded_search(
             dev["codes"], dev["vec_ids"], dev["slot_start"], dev["slot_size"],
-            dev["codebook"], plan.qmc_pairs, put(plan.pair_q),
+            dev["combo_addrs"], dev["codebook"], plan.qmc_pairs, put(plan.pair_q),
             put(plan.pair_slot), put(plan.pair_valid),
             put(np.flatnonzero(plan.pair_valid).astype(np.int32)), put(plan.tile_pair),
             put(plan.tile_block), put(plan.tile_row0), put(pair_lb),
             put(query_bound), n_queries=plan.n_queries, k=k,
-            block_n=self.shards.block_n,
+            block_n=self.shards.block_n, scan=plan.scan,
         )
         return InFlightSearch(
             out_d=out_d, out_i=out_i, plan=plan,

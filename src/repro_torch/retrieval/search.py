@@ -6,10 +6,14 @@ one card and each stage runs for all logical devices at once:
 
   1. build LUTs for the (query, cluster) pairs Algorithm 2 assigned to each
      logical device, one table per filled pair slot (kernel B1);
-  2. fused ADC scan + per-pair running top-k over each device's flat tile
-     queue, with exact whole-tile pruning (kernel B2);
-  3. per-query merge of each device's pair results;
-  4. merge across logical devices (the reference's all-gather + top-k
+  2. for direct-address codes (co-occurrence shards, §4.3), extend each
+     table with its cluster's combo partial sums (kernel B4);
+  3. fused ADC scan + per-pair running top-k with exact whole-tile
+     pruning, over each device's flat tile queue (`scan="tiles"`, kernel
+     B2) or over each filled pair's window of its cluster slot
+     (`scan="windows"`, kernel B5);
+  4. per-query merge of each device's pair results;
+  5. merge across logical devices (the reference's all-gather + top-k
      becomes a reshape + top-k).
 
 The exact re-rank (`sharded_rerank`) gathers each candidate's raw row from
@@ -94,53 +98,78 @@ def _group_topk(
 
 
 def sharded_search(
-    codes: torch.Tensor,        # (ndev, cap, M) uint8
+    codes: torch.Tensor,        # (ndev, cap, W) uint8 / uint16 / int32
     vec_ids: torch.Tensor,      # (ndev, cap) int32
     slot_start: torch.Tensor,   # (ndev, S) int32
     slot_size: torch.Tensor,    # (ndev, S) int32
+    combo_addrs: torch.Tensor,  # (ndev, S, n_combos, L) int32
     codebook: torch.Tensor,     # (M, 256, dsub) f32
     qmc: torch.Tensor,          # (ndev, P, D) f32 per-pair residuals
     pair_q: torch.Tensor,       # (ndev, P) int32
     pair_slot: torch.Tensor,    # (ndev, P) int32
     pair_valid: torch.Tensor,   # (ndev, P) bool
     pair_rows: torch.Tensor,    # (R,) int32 flat dev * P + p of each valid pair
-    tile_pair: torch.Tensor,    # (ndev, T) int32
-    tile_block: torch.Tensor,   # (ndev, T) int32
-    tile_row0: torch.Tensor,    # (ndev, T) int32
+    tile_pair: torch.Tensor | None,   # (ndev, T) int32 (scan="tiles")
+    tile_block: torch.Tensor | None,  # (ndev, T) int32
+    tile_row0: torch.Tensor | None,   # (ndev, T) int32
     pair_lb: torch.Tensor,      # (ndev, P) f32
     query_bound: torch.Tensor,  # (Q,) f32
     *,
     n_queries: int,
     k: int,
     block_n: int,
+    scan: str = "tiles",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One search step for every logical device (the tiles scan).
+    """One search step for every logical device.
 
     `pair_rows` lists the valid pairs (ascending), so tables are built for
-    them alone and not for the padding of the pair capacity.
-    `pair_lb` / `query_bound` drive the whole-tile pruning; (-inf, +inf)
-    sentinels run the scan unpruned.  Returns (out_d (Q, k) f32, out_i
-    (Q, k) int32 global ids, prune_stats (ndev, 2) int32).
+    them alone and not for the padding of the pair capacity.  uint8 codes
+    are raw PQ codes scanned against the (R, M*256) LUTs; uint16 / int32
+    codes are direct addresses scanned against [LUT | combo sums | 0]
+    tables, each pair's combos being those of its cluster slot
+    (`combo_addrs[dev, pair_slot]`; n_combos may be 0).  `scan` picks the
+    tile queue (B2; `tile_*` given) or the per-pair windows (B5; no
+    queue).  `pair_lb` / `query_bound` drive the whole-tile pruning;
+    (-inf, +inf) sentinels run the scan unpruned.  Returns (out_d (Q, k)
+    f32, out_i (Q, k) int32 global ids, prune_stats (ndev, 2) int32).
     """
     ndev, p, d_dim = qmc.shape
     m, _, dsub = codebook.shape
+    dev = qmc.device
 
     # stage (b): one LUT per valid pair; lut_row maps a pair slot to its table
     luts = ops.build_luts(codebook, qmc.reshape(ndev * p, m, dsub), pair_rows)
-    lut_row = torch.full((ndev * p,), -1, dtype=torch.int32, device=qmc.device)
-    lut_row[pair_rows.long()] = torch.arange(
-        pair_rows.shape[0], dtype=torch.int32, device=qmc.device
-    )
-
-    # stages (c)+(d): pruned tile scan, per-pair top-k
+    lut_row = torch.full((ndev * p,), -1, dtype=torch.int32, device=dev)
+    lut_row[pair_rows.long()] = torch.arange(pair_rows.shape[0], dtype=torch.int32, device=dev)
     pair_slot = pair_slot.long()
+    if codes.dtype == torch.uint8:
+        tables = luts.reshape(luts.shape[0], -1)
+    else:
+        # §4.3: [LUT | this pair's cluster's combo sums | 0], one row per table
+        s_n, n_combos, combo_len = combo_addrs.shape[1:]
+        rows = pair_rows.long()
+        set_idx = (rows // p) * s_n + pair_slot.reshape(-1)[rows]
+        tables = ops.build_ext_luts_pairs(
+            luts, combo_addrs.reshape(ndev * s_n, n_combos, combo_len),
+            set_idx.to(torch.int32),
+        )
+
+    # stages (c)+(d): pruned scan, per-pair top-k
     starts = slot_start.gather(1, pair_slot)
     n_valid = torch.where(pair_valid, slot_size.gather(1, pair_slot), 0)
-    tv, ti, prune = ops.adc_topk_tiles(
-        luts, codes, tile_pair, tile_block, tile_row0, n_valid, k,
-        block_n=block_n, pair_q=pair_q, pair_lb=pair_lb, bound=query_bound,
-        lut_row=lut_row.reshape(ndev, p),
-    )
+    if scan == "tiles":
+        tv, ti, prune = ops.adc_topk_tiles(
+            tables, codes, tile_pair, tile_block, tile_row0, n_valid, k,
+            block_n=block_n, pair_q=pair_q, pair_lb=pair_lb, bound=query_bound,
+            lut_row=lut_row.reshape(ndev, p),
+        )
+    elif scan == "windows":
+        tv, ti, prune = ops.adc_topk_windows(
+            tables, codes, starts, n_valid, k, lut_row=lut_row.reshape(ndev, p),
+            block_n=block_n, pair_q=pair_q, pair_lb=pair_lb, bound=query_bound,
+        )
+    else:
+        raise ValueError(f"scan must be 'tiles' or 'windows', got {scan!r}")
     prune_dev = prune.sum(dim=1, dtype=torch.int32)
 
     rows = starts[:, :, None].long() + ti.long()

@@ -186,8 +186,8 @@ def test_load_index_dir(engines, clustered_data, tmp_path):
 
 @pytest.mark.parametrize(
     "knob",
-    [dict(scan="windows"), dict(path="flat"), dict(use_cooc=True), dict(mutable=True),
-     dict(opq_iters=2)],
+    [dict(path="onehot"), dict(use_cooc=True, mutable=True),
+     dict(scan="windows", mutable=True), dict(mutable=True), dict(opq_iters=2)],
 )
 def test_unported_knobs_raise(clustered_data, knob):
     xs = clustered_data[0]

@@ -6,9 +6,11 @@ Marked `gpu`: these tests need an NVIDIA GPU with nvcc and skip elsewhere
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel's plain version repeats its arithmetic in the same order, so
-tables, ADC distances and re-rank distances must be bit-equal; the pruned
-tile scan must equal the unpruned one after the per-query merge, and a
-whole engine on the card must return the engine-on-CPU answers.
+tables (B1, B4, B9), ADC distances (B2 and B5, raw uint8 codes and
+uint16 / int32 direct addresses) and re-rank distances (B3) must be
+bit-equal; the pruned scans must equal the unpruned ones after the
+per-query merge, and a whole engine on the card (plain or co-occurrence
+shards, either scan) must return the engine-on-CPU answers.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -84,7 +86,8 @@ def _tile_case(dev, seed, q=6, nprobe=8, m=16, dsub=8, block_n=128, k=32, spread
     t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
     return dict(
         luts=luts, codes=t(codes), tile_pair=t(tp[0]), tile_block=t(tb[0]),
-        tile_row0=t(tr[0]), n_valid=t(sizes), pair_q=t(np.repeat(np.arange(q), nprobe)),
+        tile_row0=t(tr[0]), n_valid=t(sizes), starts=t(starts),
+        pair_q=t(np.repeat(np.arange(q), nprobe)),
         pair_lb=t(lb.reshape(-1)), bound=t(b0), q=q, k=k, block_n=block_n,
     )
 
@@ -192,3 +195,114 @@ def test_engine_on_card_matches_cpu(cuda, clustered_data):
         d2, i2 = gpu.search(qs, 8, 10)
         np.testing.assert_array_equal(d1, d2)
         np.testing.assert_array_equal(i1, i2)
+
+
+def test_ext_lut_kernels_bit_equal(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    r, m, n_combos, combo_len, n_sets = 1000, 16, 256, 3, 37
+    luts = torch.randn(r, m, 256, device=cuda, generator=g).abs()
+    caddr = torch.randint(0, m * 256, (n_sets, n_combos, combo_len), device=cuda,
+                          generator=g).int()
+    set_idx = torch.randint(0, n_sets, (r,), device=cuda, generator=g).int()
+    ops.reset_launches()
+    got = ops.build_ext_luts_pairs(luts, caddr, set_idx)
+    got9 = ops.build_ext_luts(luts, caddr[0] // 256, caddr[0] % 256)
+    torch.cuda.synchronize()
+    assert ops.launches["build_ext_luts_pairs"] == ops.launches["build_ext_luts"] == 1
+    flat = luts.reshape(r, -1)
+    t_pad = m * 256 + n_combos + 1
+    assert torch.equal(got, lut_build.ext_lut_pairs_plain(flat, caddr, set_idx, t_pad))
+    assert torch.equal(got9, lut_build.ext_lut_plain(flat, caddr[0], t_pad))
+    assert bool((got[:, -1] == 0).all())
+
+
+def _direct(c, dtype):
+    """Case `c` with direct addresses (col * 256 + code, then two sentinel
+    columns) against [LUT | 5 entries | 0] tables."""
+    p, m = c["luts"].shape[0], c["codes"].shape[1]
+    dev = c["codes"].device
+    off = torch.arange(m, device=dev, dtype=torch.int32) * 256
+    sentinel = m * 256 + 5
+    addr = torch.cat([c["codes"].int() + off,
+                      torch.full((c["codes"].shape[0], 2), sentinel, dtype=torch.int32,
+                                 device=dev)], 1)
+    tables = torch.cat([c["luts"].reshape(p, -1), torch.rand(p, 5, device=dev),
+                        torch.zeros(p, 1, device=dev)], 1)
+    return dict(c, codes=addr.to(dtype).contiguous(), luts=tables.contiguous())
+
+
+def _run_windows(c, bounds, plain):
+    p = c["n_valid"].shape[0]
+    dev = c["luts"].device
+    lut_row = torch.arange(p, dtype=torch.int32, device=dev)
+    if not plain:
+        kw = {}
+        if bounds:
+            kw = dict(pair_q=c["pair_q"], pair_lb=c["pair_lb"], bound=c["bound"])
+        return ops.adc_topk_windows(
+            c["luts"], c["codes"], c["starts"], c["n_valid"], c["k"], lut_row=lut_row,
+            block_n=c["block_n"], **kw,
+        )
+    return adc_topk.adc_topk_windows_plain(
+        c["luts"], lut_row, c["codes"][None], c["starts"].int(), c["n_valid"].int(),
+        lut_row, torch.full((p,), -torch.inf, device=dev),
+        torch.full((p,), torch.inf, device=dev), c["k"], c["block_n"],
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_windows_kernel_matches_plain(cuda, seed, dtype):
+    c = _tile_case(cuda, seed)
+    if dtype != torch.uint8:
+        c = _direct(c, dtype)
+    ops.reset_launches()
+    kv, ki, ks = _run_windows(c, bounds=False, plain=False)
+    pv, pi, _ = _run_windows(c, bounds=False, plain=True)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk_windows"] == 1
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert int(ks.sum()) == 0
+    bv, bi, bs = _run_windows(c, bounds=True, plain=False)
+    tv, ti, _ = _run_tiles(c, bounds=True, plain=False)
+    n_tiles = (c["n_valid"] + c["block_n"] - 1) // c["block_n"]
+    assert bool((bs[:, 0] <= n_tiles).all()) and bool((bs[:, 1] <= c["n_valid"]).all())
+    want = _merge(kv, ki, c["pair_q"], c["q"], c["k"])
+    for got in (_merge(bv, bi, c["pair_q"], c["q"], c["k"]),
+                _merge(tv, ti, c["pair_q"], c["q"], c["k"])):
+        for (d1, i1), (d2, i2) in zip(got, want):
+            np.testing.assert_array_equal(d1, d2)
+            np.testing.assert_array_equal(i1, i2)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+def test_direct_tiles_kernel_matches_plain(cuda, dtype):
+    raw = _tile_case(cuda, 5)
+    c = _direct(raw, dtype)
+    kv, ki, _ = _run_tiles(c, bounds=False, plain=False)
+    pv, pi, _ = _run_tiles(c, bounds=False, plain=True)
+    rv, ri, _ = _run_tiles(raw, bounds=False, plain=False)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)  # sentinel columns add 0.0
+
+
+def test_cooc_engine_on_card_matches_cpu(cuda, clustered_data):
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, _, qs, hist = clustered_data
+    kw = dict(block_n=256, rerank="exact", use_cooc=True, n_combos=32, path="flat")
+    eng = MemANNSEngine.build(xs, 32, 8, ndev=8, history_queries=hist, kmeans_iters=8,
+                              pq_iters=6, device="cpu", **kw)
+    gpu = MemANNSEngine.from_reference(eng.index, eng.placement, xs, device=cuda, **kw)
+    np.testing.assert_array_equal(np.asarray(eng.shards.codes),
+                                  gpu.shards.codes.cpu().numpy())
+    np.testing.assert_array_equal(eng.shards.combo_addrs, gpu.shards.combo_addrs)
+    for scan in ("tiles", "windows"):
+        for prune in (True, False):
+            eng.scan = gpu.scan = scan
+            eng.prune = gpu.prune = prune
+            d1, i1 = eng.search(qs, 8, 10)
+            d2, i2 = gpu.search(qs, 8, 10)
+            np.testing.assert_array_equal(d1, d2)
+            np.testing.assert_array_equal(i1, i2)

@@ -156,8 +156,8 @@ def test_build_shards_equal(index_pair, ndev):
         np.testing.assert_array_equal(getattr(r, f), getattr(t, f))
     assert (r.window, r.block_n) == (t.window, t.block_n)
     assert rlayout.default_slack(256, True) == tlayout.default_slack(256, True)
-    with pytest.raises(NotImplementedError):
-        tlayout.build_shards(port, tp, use_cooc=True)
+    with pytest.raises(NotImplementedError):  # co-occurrence + mutable slack
+        tlayout.build_shards(port, tp, use_cooc=True, cap_slack=0.5, device="cpu")
 
 
 @pytest.mark.parametrize("ndev", [1, 8])

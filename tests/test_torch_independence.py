@@ -26,6 +26,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
+new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.kernels.ops"]
+assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """
 
@@ -36,7 +38,7 @@ def test_port_imports_neither_jax_nor_reference():
         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, check=True,
     ).stdout.strip()
     n_modules, bad = out.split(" ", 1) if " " in out else (out, "")
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 16
     assert bad == "", f"repro_torch pulled in: {bad}"
 
 
@@ -77,6 +79,7 @@ def _tiny_index():
 
 
 def _call(name):
+    from repro_torch.core import cooc
     from repro_torch.core import index as tindex
     from repro_torch.core.placement import place_clusters
     from repro_torch.data import vectors
@@ -84,7 +87,13 @@ def _call(name):
 
     idx = _tiny_index()
     xs = np.zeros((10, 32), np.float32)
+    codes = np.zeros((10, 8), np.uint8)
     calls = {
+        "mine_combos": lambda: cooc.mine_combos(codes),
+        "reencode": lambda: cooc.reencode(codes, cooc._empty(3)),
+        "max_combo_frequency": lambda: cooc.max_combo_frequency(codes),
+        "build_shards_cooc": lambda: layout.build_shards(
+            idx, place_clusters(np.array([4, 6]), np.ones(2), 2), use_cooc=True),
         "build_index": lambda: tindex.build_index(xs, 2, 8),
         "encode_index": lambda: tindex.encode_index(idx.centroids, idx.codebook, xs),
         "assign_clusters": lambda: tindex.assign_clusters(idx.centroids, xs),
@@ -101,11 +110,13 @@ def _call(name):
 
 @pytest.mark.parametrize("name", [
     "build_index", "encode_index", "assign_clusters", "encode_vectors", "search",
-    "brute_force", "generate_clustered", "build_raw_store",
+    "brute_force", "generate_clustered", "build_raw_store", "mine_combos", "reencode",
+    "max_combo_frequency", "build_shards_cooc",
 ])
 def test_index_and_data_entry_points_refuse_cpu_fallback(name):
-    """The index, data and raw-store functions default to cuda as the engine
-    does: on a host without a GPU they raise, never compute on the CPU."""
+    """The index, data, co-occurrence and shard functions default to cuda as
+    the engine does: on a host without a GPU they raise, never compute on
+    the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: cuda is a valid default here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
