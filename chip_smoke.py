@@ -39,7 +39,24 @@ then the co-occurrence slice (paper §4.3) and the windows scan:
  10. `equivalence`: windows == tiles bit for bit for both encodings,
      co-occurrence pruned == unpruned, 16 queries of the co-occurrence
      engine == a plain path, and co-occurrence vs plain ADC distances
-     within rtol 2e-4 (the reference's cross-encoding tolerance).
+     within rtol 2e-4 (the reference's cross-encoding tolerance);
+
+then the kernel-level ADC API (the reference's `repro.kernels.ops`) over
+all N codes of the same index, and the flat baseline search:
+
+ 11. `kernel_api_scan`: B8 (`ops.adc_scan`) over every raw uint8 code row
+     with one table, and (`ops.adc_scan_flat`) over one device's §4.3
+     uint16 addresses;
+ 12. `kernel_api_topk`: B6 (`ops.adc_topk`) over every code row for
+     Q = 1, 4, 16 tables at k = 10 and k = 1, 100 at Q = 1, plus one launch
+     with a finite per-query bound;
+ 13. `kernel_api_pairs`: B7 (`ops.adc_topk_pairs`) over the 64 probed
+     clusters of one query, materialised as int32 windows;
+ 14. `flat_search`: `core.index.search` (B1 + B6, one launch per probed
+     cluster) for 16 queries, against the engine with the re-rank off:
+     distances bit-equal, ids equal outside exactly tied groups.
+Each kernel is held against its plain version and timed as in 2, with a
+chunked PyTorch expression of its function as the library yardstick.
 
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
@@ -547,6 +564,235 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     log(phase="equivalence", queries=BATCH, bit_identical_runs=compared,
         cross_encoding_max_rel=cross_rel, cooc_plain_path_queries=16, adc_equal=True,
         rerank_equal=True)
+    # for the kernel-level API: device d_big's uint16 addresses and one
+    # extended table (query 0's, with cluster c_big's combos)
+    return kernels, cshards.codes[d_big].clone(), ext9[0].clone()
+
+
+def check_kernel(torch, name, got, want) -> float:
+    """Max abs error of `got` against the plain version's `want` (tuples of
+    distances and, for the top-k kernels, row indices); raises unless the
+    distances are allclose and the indices equal."""
+    gv, wv = got[0], want[0]
+    if not torch.allclose(gv, wv, **TOL) or (len(got) > 1 and not torch.equal(got[1], want[1])):
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    fin = torch.isfinite(wv)
+    return float((gv[fin] - wv[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def chunked_topk(torch, tables, addr_of, n_rows, k, chunk):
+    """Library yardstick for B6: per chunk of rows, gather + sum, then
+    torch.topk(largest=False); one more topk over the chunks' winners."""
+    vals, rows = [], []
+    for s0 in range(0, n_rows, chunk):
+        d = tables[:, addr_of(s0, min(s0 + chunk, n_rows))].sum(-1)
+        v, i = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
+        vals.append(v)
+        rows.append(i + s0)
+    v, i = torch.topk(torch.cat(vals, 1), k, dim=1, largest=False)
+    return v, torch.cat(rows, 1).gather(1, i)
+
+
+def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direct_codes,
+                        direct_table) -> list[dict]:
+    """The third slice's phases: B8, B6 and B7 through `ops` over the whole
+    index's codes, and the flat search on B1 + B6.  Each call is counted
+    with the counts reset just before it; returns the kernels' rows."""
+    from repro_torch.core.index import filter_clusters, search
+
+    idx = eng.index
+    dv = eng._device_put()
+    cb = dv["codebook"]
+    dsub = cb.shape[2]
+    n = idx.n_vectors
+    codes = torch.as_tensor(idx.codes, device=dev)                    # (N, M) uint8
+    cols = torch.arange(M, device=dev) * 256
+    q16 = batches[1][:16]
+    qt = torch.as_tensor(q16, device=dev)
+    _, qmc1 = filter_clusters(dv["centroids"], qt, 1)
+    tables16 = ops.build_luts(cb, qmc1.reshape(16, M, dsub).contiguous()).reshape(16, -1)
+    kernels = []
+
+    def counted(kname, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if ops.launches[kname] <= 0:
+            raise RuntimeError(f"kernel {kname} was never launched")
+        return out, ops.launches[kname]
+
+    def plain_timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # -- B8 over every code row, raw and direct ------------------------------
+    scan_rows = []
+    for label, table, src, direct in (
+        ("adc_scan", tables16[0].contiguous(), codes, False),
+        ("adc_scan_direct", direct_table, direct_codes, True),
+    ):
+        if direct:
+            got, n8 = counted("adc_scan", lambda: ops.adc_scan_flat(table, src))
+        else:
+            got, n8 = counted("adc_scan", lambda: ops.adc_scan(table.reshape(M, 256), src))
+        want, plain_ms = plain_timed(lambda: k_scan.adc_scan_plain(table, src))
+        err = check_kernel(torch, label, (got,), (want,))
+        del want
+        out = torch.empty_like(got)
+        rows, w = src.shape
+        item = src.element_size()
+        bms, by = bound_ms(rows * w * item + rows * 4 + table.numel() * 4, rows * w)
+
+        def lib(table=table, src=src, direct=direct):
+            for s0 in range(0, src.shape[0], 1 << 23):
+                a = src[s0 : s0 + (1 << 23)]
+                a = (a.view(torch.int16).long() & 0xFFFF) if direct else a.long() + cols
+                out[s0 : s0 + a.shape[0]] = table[a].sum(-1)
+
+        kernels.append(dict(
+            name=label, route="cuda", source=f"{SRC_ROOT}/csrc/adc_scan.cu",
+            replaces="src/repro/kernels/adc_scan.py:81", launches=n8, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out), 20),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=cuda_ms(torch, lib, 3),
+            library_call="table[addresses].sum(-1) in 8M-row chunks (addresses "
+                         + ("from uint16 codes" if direct else "codes + m * 256") + ")",
+            shape=dict(rows=rows, width=w, code_dtype=str(src.dtype),
+                       table_width=table.numel()),
+        ))
+        scan_rows.append(dict(label=label, launches=n8, rows=rows))
+        del got, out
+    log(phase="kernel_api_scan", calls=scan_rows)
+
+    # -- B6 over every code row: Fig. 16's Q and Fig. 17's k ----------------
+    def addr_raw(s0, s1):
+        return codes[s0:s1].long() + cols
+
+    topk_rows = []
+    for q_n, k in ((1, 10), (4, 10), (16, 10), (1, 1), (1, 100)):
+        tab = tables16[:q_n].contiguous()
+        got, n6 = counted("adc_topk", lambda: ops.adc_topk(tab, codes, k, block_n=BLOCK_N))
+        inf = torch.full((q_n,), torch.inf, device=dev)
+        want, plain_ms = plain_timed(
+            lambda: k_topk.adc_topk_plain(tab, codes, inf, k, BLOCK_N))
+        err = check_kernel(torch, f"adc_topk q={q_n} k={k}", got, want)
+        ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+        bms, by = bound_ms(n * M + tab.numel() * 4 + q_n * k * 8, q_n * n * M)
+        lib_ms = cuda_ms(torch, lambda: chunked_topk(
+            torch, tab, addr_raw, n, k, max(1 << 18, (1 << 24) // q_n)), 2)
+        splits, per = k_topk.topk_splits(n, q_n, BLOCK_N)
+        kernels.append(dict(
+            name=f"adc_topk_q{q_n}_k{k}", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
+            replaces="src/repro/kernels/adc_topk.py:702", launches=n6, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: k_topk.launch_topk(tab, codes, None, ov, oi, k,
+                                                         BLOCK_N), 10),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_call="tables[:, codes + m * 256].sum(-1) then torch.topk(largest=False) "
+                         "per chunk of rows, one more torch.topk over the chunks",
+            shape=dict(queries=q_n, k=k, rows=n, width=M, block_n=BLOCK_N, splits=splits,
+                       tiles_per_split=per),
+        ))
+        topk_rows.append(dict(queries=q_n, k=k, launches=n6))
+        del got, want
+    # one launch with a finite per-query bound: each query's own k-th
+    # distance, so every tile above it is dropped and the result is unchanged
+    q_n, k = 4, 10
+    tab = tables16[:q_n].contiguous()
+    free = ops.adc_topk(tab, codes, k, block_n=BLOCK_N)
+    bound = free[0][:, -1].contiguous()
+    got, nb = counted("adc_topk", lambda: ops.adc_topk(tab, codes, k, block_n=BLOCK_N,
+                                                      bound=bound))
+    want, _ = plain_timed(lambda: k_topk.adc_topk_plain(tab, codes, bound, k, BLOCK_N))
+    check_kernel(torch, "adc_topk with a bound", got, want)
+    if not (torch.equal(got[0], free[0]) and torch.equal(got[1], free[1])):
+        raise RuntimeError("adc_topk: a bound at the k-th distance changed the result")
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    bounded_ms = cuda_ms(torch, lambda: k_topk.launch_topk(tab, codes, bound, ov, oi, k,
+                                                           BLOCK_N), 10)
+    log(phase="kernel_api_topk", calls=topk_rows, bounded=dict(
+        queries=q_n, k=k, launches=nb, ms=bounded_ms, equal_to_unbounded=True))
+    del codes
+    torch.cuda.empty_cache()
+
+    # -- B7 on the 64 probed clusters of one query, as int32 windows --------
+    kp = eng.k_prime(K)
+    cids, qmc = filter_clusters(dv["centroids"], qt[:1], NPROBE)
+    cl = cids[0].tolist()
+    tables = ops.build_luts(cb, qmc.reshape(NPROBE, M, dsub).contiguous()).reshape(NPROBE, -1)
+    sizes = idx.cluster_sizes()[cl]
+    win = max(BLOCK_N, -(-int(sizes.max()) // BLOCK_N) * BLOCK_N)
+    addrs = torch.zeros((NPROBE, win, M), dtype=torch.int32, device=dev)
+    for j, c in enumerate(cl):
+        seg = torch.as_tensor(idx.cluster_codes(c), device=dev)
+        addrs[j, : seg.shape[0]] = seg.int() + cols.int()
+    n_valid = torch.as_tensor(sizes.astype(np.int32), device=dev)
+    got, n7 = counted("adc_topk_pairs", lambda: ops.adc_topk_pairs(
+        tables, addrs, n_valid, kp, block_n=BLOCK_N))
+    want, plain_ms = plain_timed(
+        lambda: k_topk.adc_topk_pairs_plain(tables, addrs, n_valid, kp))
+    err = check_kernel(torch, "adc_topk_pairs", got, want)
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    valid = int(sizes.sum())
+    bms, by = bound_ms(valid * M * 4 + tables.numel() * 4 + NPROBE * (kp * 8 + 4),
+                       valid * M)
+    lane = torch.arange(win, device=dev)
+
+    def lib_pairs():
+        for s0 in range(0, NPROBE, 8):
+            a = addrs[s0 : s0 + 8].long()
+            d = tables[s0 : s0 + 8].gather(1, a.reshape(a.shape[0], -1))
+            d = d.reshape(a.shape).sum(-1)
+            d = torch.where(lane < n_valid[s0 : s0 + 8, None], d, torch.inf)
+            torch.topk(d, kp, dim=1, largest=False)
+
+    kernels.append(dict(
+        name="adc_topk_pairs", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_pairs.cu",
+        replaces="src/repro/kernels/adc_topk.py:642", launches=n7, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: k_topk.launch_pairs(tables, addrs, n_valid, ov, oi, kp,
+                                                      BLOCK_N), 10),
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib_pairs, 3),
+        library_call="tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
+                     "torch.topk(largest=False), 8 pairs at a time",
+        shape=dict(pairs=NPROBE, window=win, width=M, k=kp, valid_rows=valid,
+                   window_gb=addrs.numel() * 4 / 1e9),
+    ))
+    log(phase="kernel_api_pairs", pairs=NPROBE, window=win, valid_rows=valid, k=kp,
+        launches=n7)
+    del addrs, got, want
+    torch.cuda.empty_cache()
+
+    # -- the flat search on B1 + B6, against the engine without re-rank -----
+    flat_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        f_d, f_i = search(idx, q16, NPROBE, K, device=dev)
+        flat_ms.append((time.perf_counter() - t) * 1e3)
+        flat_launches = {kn: v for kn, v in ops.launches.items() if v}
+    for kname in ("build_luts", "adc_topk"):
+        if flat_launches.get(kname, 0) <= 0:
+            raise RuntimeError(f"flat_search: kernel {kname} was never launched")
+    if f_d.shape != (16, K) or not np.isfinite(f_d).all() or (f_i < 0).any():
+        raise RuntimeError("flat_search: non-finite distances or missing ids")
+    eng.rerank = "off"
+    e_d, e_i = eng.search(q16, NPROBE, K)
+    eng.rerank = "exact"
+    if not np.array_equal(f_d, e_d):
+        raise RuntimeError(f"flat search distances differ from the engine's ADC top-k:\n"
+                           f"{f_d[:2]}\n{e_d[:2]}")
+    for row_d, a, b in zip(f_d, f_i, e_i):
+        for v in np.unique(row_d):
+            if set(a[row_d == v]) != set(b[row_d == v]):
+                raise RuntimeError("flat search ids differ from the engine's")
+    probed, _ = filter_clusters(dv["centroids"], qt, NPROBE)
+    log(phase="flat_search", queries=16, nprobe=NPROBE, k=K, wall_ms=flat_ms,
+        launches=flat_launches, distinct_clusters=int(torch.unique(probed).numel()),
+        equal_to_engine_rerank_off=True)
     return kernels
 
 
@@ -573,6 +819,7 @@ def main(argv=None) -> int:
     from repro_torch.core.index import brute_force, recall_at_k
     from repro_torch.data.vectors import SkewedVectorDataset, generate_clustered
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import adc_scan as k_scan
     from repro_torch.kernels import adc_topk as k_topk
     from repro_torch.kernels import lut_build as k_lut
     from repro_torch.kernels import rerank as k_rerank
@@ -753,8 +1000,14 @@ def main(argv=None) -> int:
     log(phase="recall", queries=n_gt, recall_at_10=recall, adc_only_recall_at_10=adc_recall)
 
     # == the co-occurrence slice (§4.3) and the windows scan ================
-    kernels += cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches,
-                                dev, pruned, adc_pruned)
+    cooc_kernels, direct_codes, direct_table = cooc_and_windows(
+        torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev, pruned, adc_pruned)
+    kernels += cooc_kernels
+    torch.cuda.empty_cache()
+
+    # == the kernel-level ADC API (B8, B6, B7) and the flat search ==========
+    kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
+                                   direct_codes, direct_table)
 
     log(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)

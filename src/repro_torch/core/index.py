@@ -17,10 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.kmeans import _pairwise_sq_l2, kmeans, nearest
-from repro_torch.core.lut import build_lut
 from repro_torch.core.pq import pq_encode, train_pq
-from repro_torch.core.search import adc_scan, masked_topk_smallest
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 # rows per assignment / encoding chunk (bounds the (chunk, C) distance block)
 _CHUNK = 1 << 16
@@ -261,38 +260,53 @@ def search(
     """Flat (single-device) IVFPQ search -- the CPU-Faiss-style baseline.
 
     Returns (dists (Q, k), ids (Q, k)) of approximate nearest neighbours
-    (ADC distances).  A probed cluster smaller than k contributes all its
-    rows: its scan asks for min(k, rows) candidates (the reference asks
-    for k and crashes there, ROADMAP C1).
+    (ADC distances), (+inf, -1) in lanes without a row.  The tables of all
+    (query, probe) pairs come from one B1 launch (`ops.build_luts`); the
+    scans are grouped by probed cluster: one B6 launch (`ops.adc_topk`) per
+    distinct non-empty cluster, with one table per (query, probe) that
+    probes it, over the cluster's codes (uploaded once for the batch).  A
+    probed cluster smaller than k contributes all its rows: its scan asks
+    for min(k, rows) candidates (the reference asks for k and crashes
+    there, ROADMAP C1).  Each query's per-probe lists are merged in probe
+    order by one stable sort, which equals the reference's iterated stable
+    merges.
     """
     device = resolve_device(device)
     q = torch.as_tensor(index.rotate(np.asarray(queries, np.float32)), device=device)
     cids, qmc = filter_clusters(torch.as_tensor(index.centroids, device=device), q, nprobe)
-    cids_np = cids.cpu().numpy()
+    q_n, n_probe = cids.shape
     codebook = torch.as_tensor(index.codebook, device=device)
+    m, _, dsub = codebook.shape
+    luts = ops.build_luts(codebook, qmc.reshape(q_n * n_probe, m, dsub))
+    luts = luts.reshape(q_n * n_probe, m * 256)
 
-    q_n = q.shape[0]
-    out_d = np.full((q_n, k), np.inf, np.float32)
-    out_i = np.full((q_n, k), -1, np.int64)
-    for qi in range(q_n):
-        best_d = np.full(k, np.inf, np.float32)
-        best_i = np.full(k, -1, np.int64)
-        for pi, c in enumerate(cids_np[qi]):
-            seg = index.cluster_codes(int(c))
-            if len(seg) == 0:
-                continue
-            kk = min(k, len(seg))
-            lut = build_lut(codebook, qmc[qi, pi])
-            seg_t = torch.as_tensor(seg, device=device)
-            valid = torch.ones(len(seg), dtype=torch.bool, device=device)
-            d, li = masked_topk_smallest(adc_scan(lut, seg_t), valid, kk)
-            gi = index.cluster_ids(int(c))[li.cpu().numpy()]
-            md = np.concatenate([best_d, d.cpu().numpy()])
-            mi = np.concatenate([best_i, gi])
-            sel = np.argsort(md, kind="stable")[:k]
-            best_d, best_i = md[sel], mi[sel]
-        out_d[qi], out_i[qi] = best_d, best_i
-    return out_d, out_i
+    # pairs grouped by cluster (stable: ascending pair index within a group)
+    pair_c = cids.reshape(-1).cpu().numpy()
+    order = np.argsort(pair_c, kind="stable")
+    clusters, first, count = np.unique(pair_c[order], return_index=True, return_counts=True)
+    sizes = index.cluster_sizes()[clusters]
+    seg = np.zeros(len(clusters) + 1, np.int64)
+    np.cumsum(sizes, out=seg[1:])
+    # the probed clusters' CSR rows, one after the other, in one upload
+    rows = np.repeat(index.offsets[clusters] - seg[:-1], sizes) + np.arange(seg[-1])
+    codes = torch.as_tensor(index.codes[rows], device=device)
+    ids = torch.as_tensor(index.vec_ids[rows], device=device).long()
+    order_t = torch.as_tensor(order, device=device)
+    out_v = torch.full((q_n * n_probe, k), torch.inf, dtype=torch.float32, device=device)
+    out_i = torch.full((q_n * n_probe, k), -1, dtype=torch.int64, device=device)
+    for j in np.flatnonzero(sizes):
+        pairs = order_t[first[j] : first[j] + count[j]]
+        kk = min(k, int(sizes[j]))
+        v, r = ops.adc_topk(luts[pairs], codes[seg[j] : seg[j + 1]], kk)
+        out_v[pairs, :kk] = v
+        out_i[pairs, :kk] = torch.where(r >= 0, ids[seg[j] : seg[j + 1]][r.long()], -1)
+
+    # per query, its probes' lists in probe order, one stable sort
+    v = out_v.reshape(q_n, n_probe * k)
+    sel = torch.sort(v, dim=1, stable=True).indices[:, :k]
+    out_d = v.gather(1, sel)
+    ids_q = out_i.reshape(q_n, n_probe * k).gather(1, sel)
+    return out_d.cpu().numpy(), ids_q.cpu().numpy()
 
 
 def brute_force(

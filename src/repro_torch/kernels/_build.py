@@ -46,6 +46,15 @@ SIGNATURES = {
     # queries, cand, id_dev, id_row, row_base, vectors, out,
     # q, k, d, ids_cap, vec_is_bf16, block_k, stream
     "rerank_launch": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _P],
+    # table, codes, out, n, w, table_width, code_fmt, stream
+    "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _P],
+    # tables, codes, bound (may be null), part_v, part_i, tmp_v, tmp_i,
+    # out_v, out_i, n_q, n_splits, tiles_per_split, n_rows, w, table_width,
+    # code_fmt, k, block_n, stream
+    "adc_topk_launch": [_P] * 9 + [_I] * 9 + [_P],
+    # tables, addrs, n_valid, out_v, out_i, n_pairs, win_len, w,
+    # table_width, code_fmt, k, block_n, stream
+    "adc_topk_pairs_launch": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _I, _P],
 }
 
 

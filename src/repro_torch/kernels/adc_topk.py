@@ -1,9 +1,12 @@
-"""Kernels B2 (pruned tile scan) and B5 (pruned windows scan): run
-planning, plain versions, CUDA launchers.
+"""The top-k ADC scans: kernels B2 (pruned tile scan), B5 (pruned windows
+scan), B6 (many tables over one code array) and B7 (materialised per-pair
+windows): run planning, plain versions, CUDA launchers.
 
-The CUDA sources are `csrc/adc_topk_tiles.cu` and `csrc/adc_topk_windows.cu`
-(their common device code in `csrc/adc_topk_common.cuh`);
-`ops.adc_topk_tiles` and `ops.adc_topk_windows` are the wrappers.  Arrays
+The CUDA sources are `csrc/adc_topk_tiles.cu`, `csrc/adc_topk_windows.cu`,
+`csrc/adc_topk.cu` and `csrc/adc_topk_pairs.cu` (their common device code
+in `csrc/adc_topk_common.cuh`); `ops.adc_topk_tiles`,
+`ops.adc_topk_windows`, `ops.adc_topk` / `ops.adc_topk_flat` and
+`ops.adc_topk_pairs` are the wrappers.  For B2 and B5, arrays
 carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
 codes (ndev, cap, W), the tile queue (ndev, T) from
 `core.scheduling.emit_tiles`, and the per-pair arrays (ndev, P).  A flat
@@ -81,6 +84,31 @@ def code_format(codes: torch.Tensor) -> int:
     return fmt
 
 
+def gatherable(codes: torch.Tensor) -> torch.Tensor:
+    """`codes` as a tensor torch can index rows of: uint16 through an int16
+    view (torch's uint16 has few kernels), masked back by `table_addresses`."""
+    return codes.view(torch.int16) if codes.dtype == torch.uint16 else codes
+
+
+def table_addresses(rows: torch.Tensor, fmt: int) -> torch.Tensor:
+    """int64 table addresses of code rows (..., W) taken from `gatherable`
+    codes of format `fmt`: m * 256 + code for raw uint8 codes, the value
+    itself (0..65535 for uint16) for direct addresses."""
+    addr = rows.long()
+    if fmt == 0:
+        return addr + torch.arange(rows.shape[-1], device=rows.device) * 256
+    return addr & 0xFFFF if fmt == 1 else addr
+
+
+def sum_columns(g: torch.Tensor) -> torch.Tensor:
+    """Table entries (..., W) added in column order from 0.0, each sum
+    rounded on its own: the kernels' `__fadd_rn` order, bit for bit."""
+    d = torch.zeros(g.shape[:-1], dtype=torch.float32, device=g.device)
+    for j in range(g.shape[-1]):
+        d = d + g[..., j]
+    return d
+
+
 def adc_topk_tiles_plain(
     luts: torch.Tensor,
     lut_row: torch.Tensor,
@@ -120,17 +148,12 @@ def adc_topk_tiles_plain(
     lut_flat = luts.reshape(luts.shape[0], -1)
     lut_row = lut_row.long()
     fmt = code_format(codes)
-    # uint16 addresses are gathered through an int16 view (torch's uint16
-    # has few kernels) and masked back to 0..65535 once widened
-    codes_flat = codes.reshape(ndev * cap, m)
-    if fmt == 1:
-        codes_flat = codes_flat.view(torch.int16)
+    codes_flat = gatherable(codes.reshape(ndev * cap, m))
     top_v = torch.full((n_pairs, k), torch.inf, dtype=torch.float32, device=dev_t)
     top_i = torch.full((n_pairs, k), -1, dtype=torch.int32, device=dev_t)
     stats = torch.zeros((n_pairs, 2), dtype=torch.int32, device=dev_t)
     sq = bound.float().clone()
     ntiles = torch.where(lut_row >= 0, (t1.long() - t0.long()).clamp_min(0), 0)
-    cols = torch.arange(m, device=dev_t) * 256 if fmt == 0 else 0
     lane = torch.arange(block_n, device=dev_t)
     for s in range(int(ntiles.max()) if n_pairs else 0):
         act = torch.nonzero(ntiles > s).flatten()
@@ -153,13 +176,9 @@ def adc_topk_tiles_plain(
             pr = act[sel]
             dev = pr // p
             code_rows = dev[:, None] * cap + blk[sel, None] * block_n + lane
-            addr = codes_flat[code_rows].long()                   # (R, bn, W)
-            addr = addr & 0xFFFF if fmt == 1 else addr + cols
+            addr = table_addresses(codes_flat[code_rows], fmt)   # (R, bn, W)
             g = lut_flat[lut_row[pr]].gather(1, addr.reshape(pr.shape[0], -1))
-            g = g.reshape(addr.shape)
-            d = torch.zeros(addr.shape[:2], dtype=torch.float32, device=dev_t)
-            for j in range(m):
-                d = d + g[..., j]
+            d = sum_columns(g.reshape(addr.shape))
             ok = (
                 (lane[None, :] < (nv[sel] - row0[sel])[:, None])
                 & (d < kth[sel, None])
@@ -246,3 +265,126 @@ def launch_windows(
         torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_windows")
+
+
+# B6 scan blocks the wrapper aims for: enough to fill the card (132 SMs,
+# about six resident blocks each) a few times over
+_TOPK_BLOCKS = 2048
+_TOPK_FAN = 32  # lists per reduce block, csrc/adc_topk.cu FAN
+
+
+def topk_splits(n_rows: int, n_q: int, block_n: int) -> tuple[int, int]:
+    """B6's (splits, tiles per split): the tiles of the N rows cut into
+    contiguous runs, about `_TOPK_BLOCKS / Q` of them, at least one tile
+    each.  The result does not depend on the split count."""
+    n_tiles = -(-n_rows // block_n)
+    want = max(1, min(n_tiles, -(-_TOPK_BLOCKS // max(n_q, 1))))
+    per = -(-n_tiles // want)
+    return -(-n_tiles // per), per
+
+
+def adc_topk_plain(
+    tables: torch.Tensor, codes: torch.Tensor, bound: torch.Tensor, k: int, block_n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B6's function in plain tensor code.
+
+    tables (Q, A) f32; codes (N, W) raw uint8 (+ column offsets) or uint16 /
+    int32 direct addresses; bound (Q,) f32.  Row r belongs to tile
+    r // block_n; a tile is kept iff its smallest distance is <= bound[q].
+    Returns the k smallest rows of the kept tiles by (distance, row):
+    ((Q, k) f32, (Q, k) int32), (+inf, -1) in lanes without a row.  Rows
+    are scored in chunks of whole tiles (entries added in column order, as
+    the kernel does) and each chunk merged into the running list by a
+    stable sort, the list first: its rows are the lower ones.
+    """
+    q_n, n = tables.shape[0], codes.shape[0]
+    dev = tables.device
+    fmt = code_format(codes)
+    src = gatherable(codes)
+    best_v = torch.full((q_n, k), torch.inf, dtype=torch.float32, device=dev)
+    best_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
+    step = max(1, _PLAIN_ROWS // max(q_n, 1) // block_n) * block_n
+    for s in range(0, n, step):
+        addr = table_addresses(src[s : s + step], fmt)           # (R, W)
+        r = addr.shape[0]
+        d = sum_columns(tables[:, addr])                          # (Q, R)
+        nt = -(-r // block_n)
+        pad = torch.full((q_n, nt * block_n - r), torch.inf, device=dev)
+        tmin = torch.cat([d, pad], 1).reshape(q_n, nt, block_n).amin(-1)
+        keep = (tmin <= bound[:, None]).repeat_interleave(block_n, 1)[:, :r]
+        d = torch.where(keep, d, torch.inf)
+        rows = torch.arange(s, s + r, dtype=torch.int32, device=dev).expand(q_n, r)
+        allv = torch.cat([best_v, d], 1)
+        alli = torch.cat([best_i, rows], 1)
+        order = torch.sort(allv, dim=1, stable=True).indices[:, :k]
+        best_v, best_i = allv.gather(1, order), alli.gather(1, order)
+    return best_v, torch.where(torch.isfinite(best_v), best_i, -1)
+
+
+def launch_topk(
+    tables, codes, bound, out_v, out_i, k: int, block_n: int
+) -> None:
+    """Enqueue `csrc/adc_topk.cu` on the current stream (checked inputs:
+    tables (Q, A), codes (N, W), bound (Q,) or None, out (Q, k)): the scan
+    over `topk_splits` runs, then the reduce of their lists.  The scratch
+    lists are allocated here."""
+    q_n, n = tables.shape[0], codes.shape[0]
+    splits, per = topk_splits(n, q_n, block_n)
+    dev = tables.device
+    if splits > 1:
+        part_v = torch.empty((q_n * splits * k,), dtype=torch.float32, device=dev)
+        part_i = torch.empty((q_n * splits * k,), dtype=torch.int32, device=dev)
+        n_tmp = q_n * -(-splits // _TOPK_FAN) * k
+        tmp_v = torch.empty((n_tmp,), dtype=torch.float32, device=dev)
+        tmp_i = torch.empty((n_tmp,), dtype=torch.int32, device=dev)
+        scratch = [part_v.data_ptr(), part_i.data_ptr(), tmp_v.data_ptr(), tmp_i.data_ptr()]
+    else:
+        scratch = [None] * 4
+    err = _build.library().adc_topk_launch(
+        tables.data_ptr(), codes.data_ptr(), None if bound is None else bound.data_ptr(),
+        *scratch, out_v.data_ptr(), out_i.data_ptr(), q_n, splits, per, n,
+        codes.shape[1], tables.shape[1], code_format(codes), k, block_n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "adc_topk")
+
+
+def adc_topk_pairs_plain(
+    tables: torch.Tensor, addrs: torch.Tensor, n_valid: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7's function in plain tensor code: tables (P, A) f32, addrs (P, L, W)
+    uint16 / int32 direct addresses, n_valid (P,) int32.  Per pair, the k
+    smallest of its rows below n_valid by (distance, row), entries added in
+    column order: ((P, k) f32, (P, k) int32), (+inf, -1) in lanes without
+    a row."""
+    p, win, _ = addrs.shape
+    dev = tables.device
+    fmt = code_format(addrs)
+    src = gatherable(addrs)
+    out_v = torch.full((p, k), torch.inf, dtype=torch.float32, device=dev)
+    out_i = torch.full((p, k), -1, dtype=torch.int32, device=dev)
+    lane = torch.arange(win, device=dev)
+    per = max(1, _PLAIN_ROWS // max(win, 1))
+    for s in range(0, p, per):
+        addr = table_addresses(src[s : s + per], fmt)              # (p', L, W)
+        g = tables[s : s + per].gather(1, addr.reshape(addr.shape[0], -1))
+        d = sum_columns(g.reshape(addr.shape))                     # (p', L)
+        d = torch.where(lane < n_valid[s : s + per, None].long(), d, torch.inf)
+        vals, idx = torch.sort(d, dim=1, stable=True)
+        kk = min(k, win)
+        out_v[s : s + per, :kk] = vals[:, :kk]
+        out_i[s : s + per, :kk] = torch.where(torch.isfinite(vals[:, :kk]), idx[:, :kk], -1).int()
+    return out_v, out_i
+
+
+def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int) -> None:
+    """Enqueue `csrc/adc_topk_pairs.cu` on the current stream (checked
+    inputs: tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)):
+    one block per pair."""
+    p, win, w = addrs.shape
+    err = _build.library().adc_topk_pairs_launch(
+        tables.data_ptr(), addrs.data_ptr(), n_valid.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), p, win, w, tables.shape[1], code_format(addrs), k, block_n,
+        torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    _build.check(err, "adc_topk_pairs")

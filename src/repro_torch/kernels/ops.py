@@ -7,6 +7,13 @@ API:
   adc_topk_tiles(tables, codes, ..., lut_row=)        B2: pruned tile scan + top-k
   adc_topk_windows(tables, codes, starts, ...)        B5: pruned windows scan + top-k
   rerank_dists(queries, cand, vectors, ...)           B3: exact re-rank, fused gather
+  adc_scan(lut, codes) / adc_scan_flat(ext, addrs)    B8: (N,) ADC distances
+  adc_topk(luts, codes, k) / adc_topk_flat(...)       B6: many tables, one code array
+  adc_topk_pairs(tables, addrs, n_valid, k)           B7: materialised per-pair windows
+
+The last three are the reference's kernel-level API (`repro.kernels.ops`);
+they take its `block_n` and `path` arguments: `path="gather"` only
+(`"onehot"` raises NotImplementedError, ROADMAP queue D item 2).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either launches its CUDA kernel on the current stream
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adc_scan as _scan
 from repro_torch.kernels import adc_topk as _topk
 from repro_torch.kernels import lut_build as _lut
 from repro_torch.kernels import rerank as _rerank
@@ -29,7 +37,11 @@ NCODES = 256
 launches = {
     "build_luts": 0, "build_ext_luts_pairs": 0, "build_ext_luts": 0,
     "adc_topk_tiles": 0, "adc_topk_windows": 0, "rerank_dists": 0,
+    "adc_scan": 0, "adc_topk": 0, "adc_topk_pairs": 0,
 }
+# largest k of B6 and B7 (the top-k list and its merge buffer live in the
+# block's shared memory beside the table)
+ADC_TOPK_K_MAX = 1024
 
 
 def reset_launches() -> None:
@@ -399,3 +411,176 @@ def rerank_dists(
     _rerank.launch(queries, cand, vectors, id_dev, id_row, row_base, out, block_k)
     launches["rerank_dists"] += 1
     return out
+
+
+def _check_path(path: str, name: str) -> None:
+    if path == "onehot":
+        raise NotImplementedError(
+            f'{name}: path="onehot" is not ported to repro_torch yet; see ROADMAP.md '
+            "queue D item 2"
+        )
+    if path != "gather":
+        raise ValueError(f"{name}: path must be 'gather', got {path!r}")
+
+
+def _check_codes(codes: torch.Tensor, name: str, ndim: int, direct: bool, dev) -> int:
+    """Code format of `codes` (raw uint8, or uint16 / int32 direct addresses)."""
+    fmt = _topk.code_format(codes)
+    if direct and fmt == 0:
+        raise TypeError(f"{name}: direct addresses are uint16 or int32, got uint8")
+    if not direct and fmt != 0:
+        raise TypeError(f"{name}: raw PQ codes are uint8, got {codes.dtype}")
+    _check(codes, name, codes.dtype, ndim, dev)
+    return fmt
+
+
+def _check_geometry(block_n: int, k: int | None, n_rows: int) -> None:
+    if block_n < 1:
+        raise ValueError(f"block_n={block_n} < 1")
+    if k is not None and not 1 <= k <= ADC_TOPK_K_MAX:
+        raise ValueError(f"k={k} outside [1, {ADC_TOPK_K_MAX}] (ADC_TOPK_K_MAX)")
+    if n_rows + block_n >= 2**31:
+        raise ValueError(f"{n_rows} rows: row indices are int32")
+
+
+def _run_scan(table: torch.Tensor, codes: torch.Tensor, block_n: int, path: str,
+              name: str) -> torch.Tensor:
+    _check_path(path, name)
+    _check_geometry(block_n, None, 0)
+    if not _on_gpu(table.device):
+        return _scan.adc_scan_plain(table, codes)
+    out = torch.empty((codes.shape[0],), dtype=torch.float32, device=table.device)
+    if codes.shape[0]:
+        _scan.launch(table, codes, out)
+        launches["adc_scan"] += 1
+    return out
+
+
+def adc_scan(
+    lut: torch.Tensor, codes: torch.Tensor, *, block_n: int = 1024, path: str = "gather"
+) -> torch.Tensor:
+    """(M, 256) f32 table x (N, M) uint8 PQ codes -> (N,) f32 ADC distances
+    (kernel B8; the column offset m * 256 is added in the kernel).
+    `block_n` is the reference's tile height; no result depends on it."""
+    dev = lut.device
+    _check(lut, "lut", torch.float32, 2, dev)
+    _check_codes(codes, "codes", 2, False, dev)
+    if lut.shape != (codes.shape[1], NCODES):
+        raise ValueError(f"adc_scan: lut {tuple(lut.shape)} vs codes {tuple(codes.shape)}")
+    return _run_scan(lut.reshape(-1), codes, block_n, path, "adc_scan")
+
+
+def adc_scan_flat(
+    ext_lut: torch.Tensor, addrs: torch.Tensor, *, block_n: int = 1024,
+    path: str = "gather",
+) -> torch.Tensor:
+    """(A,) f32 table x (N, W) uint16 / int32 direct addresses -> (N,) f32
+    (kernel B8): each row's W entries of the table added in column order."""
+    dev = ext_lut.device
+    _check(ext_lut, "ext_lut", torch.float32, 1, dev)
+    _check_codes(addrs, "addrs", 2, True, dev)
+    return _run_scan(ext_lut, addrs, block_n, path, "adc_scan_flat")
+
+
+def _run_topk(tables, codes, k, block_n, path, bound, name):
+    dev = codes.device
+    _check_path(path, name)
+    q_n, n = tables.shape[0], codes.shape[0]
+    _check_geometry(block_n, k, n)
+    if bound is not None:
+        bound = bound.to(device=dev, dtype=torch.float32).contiguous()
+        if bound.shape != (q_n,):
+            raise ValueError(f"{name}: bound {tuple(bound.shape)}, expected ({q_n},)")
+    if not _on_gpu(dev):
+        if bound is None:
+            bound = torch.full((q_n,), torch.inf, dtype=torch.float32, device=dev)
+        return _topk.adc_topk_plain(tables, codes, bound, k, block_n)
+    out_v = torch.full((q_n, k), torch.inf, dtype=torch.float32, device=dev)
+    out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
+    if q_n and n:
+        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n)
+        launches["adc_topk"] += 1
+    return out_v, out_i
+
+
+def adc_topk(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    k: int,
+    *,
+    block_n: int = 1024,
+    path: str = "gather",
+    bound: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused scan + top-k of Q tables over one code array (kernel B6).
+
+    luts (Q, M, 256) or (Q, A >= M * 256) f32; codes (N, M) uint8 PQ codes.
+    Row r lies in tile r // block_n.  `bound` ((Q,) f32, optional) is the
+    reference's per-query warm start: a tile is merged only if its smallest
+    distance is <= bound[q] (+inf: every tile).  Returns the k smallest rows
+    of the merged tiles by (distance, row): ((Q, k) f32 ascending, (Q, k)
+    int32 row indices), (+inf, -1) in lanes without a row.  k <=
+    ADC_TOPK_K_MAX.
+    """
+    dev = codes.device
+    _check_codes(codes, "codes", 2, False, dev)
+    return _run_topk(_tables_2d(luts, codes, dev), codes, k, block_n, path, bound,
+                     "adc_topk")
+
+
+def adc_topk_flat(
+    ext_luts: torch.Tensor,
+    addrs: torch.Tensor,
+    k: int,
+    *,
+    block_n: int = 1024,
+    path: str = "gather",
+    bound: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`adc_topk` over direct addresses (kernel B6): ext_luts (Q, A) f32,
+    addrs (N, W) uint16 / int32 addresses into each table."""
+    dev = addrs.device
+    _check_codes(addrs, "addrs", 2, True, dev)
+    _check(ext_luts, "ext_luts", torch.float32, 2, dev)
+    return _run_topk(ext_luts, addrs, k, block_n, path, bound, "adc_topk_flat")
+
+
+def adc_topk_pairs(
+    tables: torch.Tensor,
+    addrs: torch.Tensor,
+    n_valid: torch.Tensor,
+    k: int,
+    *,
+    block_n: int = 1024,
+    path: str = "gather",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pair fused scan + top-k over materialised windows (kernel B7).
+
+    tables (P, A) f32; addrs (P, L, W) uint16 / int32 direct addresses (L a
+    multiple of block_n, as the reference asserts); n_valid (P,) valid rows
+    of each window.  Returns per pair the k smallest of its valid rows by
+    (distance, row): ((P, k) f32, (P, k) int32 window rows), (+inf, -1) in
+    lanes without a row.
+    """
+    dev = addrs.device
+    _check_path(path, "adc_topk_pairs")
+    _check_codes(addrs, "addrs", 3, True, dev)
+    _check(tables, "tables", torch.float32, 2, dev)
+    p, win, _ = addrs.shape
+    _check_geometry(block_n, k, win)
+    if tables.shape[0] != p or n_valid.shape != (p,):
+        raise ValueError(
+            f"adc_topk_pairs: tables {tuple(tables.shape)}, addrs {tuple(addrs.shape)}, "
+            f"n_valid {tuple(n_valid.shape)}"
+        )
+    if win % block_n:
+        raise ValueError(f"window length {win} is not a multiple of block_n={block_n}")
+    n_valid = n_valid.to(device=dev, dtype=torch.int32).contiguous()
+    if not _on_gpu(dev):
+        return _topk.adc_topk_pairs_plain(tables, addrs, n_valid, k)
+    out_v = torch.full((p, k), torch.inf, dtype=torch.float32, device=dev)
+    out_i = torch.full((p, k), -1, dtype=torch.int32, device=dev)
+    if p:
+        _topk.launch_pairs(tables, addrs, n_valid, out_v, out_i, k, block_n)
+        launches["adc_topk_pairs"] += 1
+    return out_v, out_i

@@ -169,6 +169,51 @@ def test_flat_search(engines, clustered_data):
         assert len(set(live.tolist())) == len(live) and (live >= 0).all()
 
 
+def _plain_flat_search(index, qs, nprobe, k):
+    """The flat search as a loop over (query, probe) on the port's plain
+    kernel versions: B1's tables, B8's column-order sums, a stable top-min(k,
+    rows) per probe, then the reference's iterated stable merges."""
+    from repro_torch.kernels.adc_scan import adc_scan_plain
+    from repro_torch.kernels.lut_build import build_luts_plain
+
+    q = torch.as_tensor(qs)
+    cids, qmc = tindex.filter_clusters(torch.as_tensor(index.centroids), q, nprobe)
+    cb = torch.as_tensor(index.codebook)
+    m, _, dsub = cb.shape
+    out_d = np.full((len(qs), k), np.inf, np.float32)
+    out_i = np.full((len(qs), k), -1, np.int64)
+    for qi in range(len(qs)):
+        best_d, best_i = out_d[qi], out_i[qi]
+        for pi, c in enumerate(cids[qi].tolist()):
+            seg = index.cluster_codes(c)
+            if len(seg) == 0:
+                continue
+            lut = build_luts_plain(cb, qmc[qi, pi].reshape(1, m, dsub))[0]
+            d = adc_scan_plain(lut.reshape(-1), torch.as_tensor(seg)).numpy()
+            li = np.argsort(d, kind="stable")[: min(k, len(seg))]
+            md = np.concatenate([best_d, d[li]])
+            mi = np.concatenate([best_i, index.cluster_ids(c)[li]])
+            sel = np.argsort(md, kind="stable")[:k]
+            best_d, best_i = md[sel], mi[sel]
+        out_d[qi], out_i[qi] = best_d, best_i
+    return out_d, out_i
+
+
+def test_flat_search_small_clusters_equal_plain_loop(engines, clustered_data):
+    """C1: with k above the smallest probed clusters, the grouped search on
+    B1 + B6 equals the per-(query, probe) loop over the plain versions, bit
+    for bit, ids included (-1 in lanes past a query's probed rows)."""
+    _, port1, _ = engines
+    qs = clustered_data[2][:5]
+    sizes = port1.index.cluster_sizes()
+    for nprobe, k in ((3, int(sizes.min()) + 5), (1, int(sizes.max()) + 3)):
+        got = port_flat_search(port1.index, qs, nprobe, k, device="cpu")
+        want = _plain_flat_search(port1.index, qs, nprobe, k)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    assert (got[1][:, -3:] == -1).all() and np.isinf(got[0][:, -3:]).all()
+
+
 def test_load_index_dir(engines, clustered_data, tmp_path):
     ref, port1, _ = engines
     path = save_index(str(tmp_path / "ckpt"), ref.index, extra={"block_n": BLOCK_N})

@@ -10,7 +10,10 @@ tables (B1, B4, B9), ADC distances (B2 and B5, raw uint8 codes and
 uint16 / int32 direct addresses) and re-rank distances (B3) must be
 bit-equal; the pruned scans must equal the unpruned ones after the
 per-query merge, and a whole engine on the card (plain or co-occurrence
-shards, either scan) must return the engine-on-CPU answers.
+shards, either scan) must return the engine-on-CPU answers.  The
+kernel-level API -- B8 (`adc_scan`), B6 (`adc_topk`, with and without a
+finite bound) and B7 (`adc_topk_pairs`) -- is bit-equal to its plain
+versions, and the flat search on B1 + B6 equals the flat search on the CPU.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -25,7 +28,7 @@ from repro_torch.core.scheduling import (  # noqa: E402
     subspace_code_norms,
     warm_start_bounds,
 )
-from repro_torch.kernels import adc_topk, lut_build, ops, rerank  # noqa: E402
+from repro_torch.kernels import adc_scan, adc_topk, lut_build, ops, rerank  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -306,3 +309,92 @@ def test_cooc_engine_on_card_matches_cpu(cuda, clustered_data):
             d2, i2 = gpu.search(qs, 8, 10)
             np.testing.assert_array_equal(d1, d2)
             np.testing.assert_array_equal(i1, i2)
+
+
+def _api_case(dev, seed, n, w, dtype, q=3):
+    """Tables and codes for the kernel-level API: raw uint8 codes with (Q,
+    w, 256) tables, or uint16 / int32 direct addresses into (Q, w * 256 +
+    40) tables."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = w * 256 + (0 if dtype == torch.uint8 else 40)
+    tables = torch.rand(q, a, device=dev, generator=g)
+    hi = 256 if dtype == torch.uint8 else a
+    codes = torch.randint(0, hi, (n, w), device=dev, generator=g).to(dtype)
+    return tables, codes
+
+
+@pytest.mark.parametrize("dtype,w", [(torch.uint8, 16), (torch.uint8, 20),
+                                     (torch.uint16, 16), (torch.int32, 12)])
+def test_adc_scan_kernel_bit_equal(cuda, dtype, w):
+    tables, codes = _api_case(cuda, 1, 100_003, w, dtype)
+    ops.reset_launches()
+    if dtype == torch.uint8:
+        got = ops.adc_scan(tables[0].reshape(w, 256), codes)
+    else:
+        got = ops.adc_scan_flat(tables[0], codes)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_scan"] == 1
+    assert torch.equal(got, adc_scan.adc_scan_plain(tables[0], codes))
+
+
+@pytest.mark.parametrize("dtype,w", [(torch.uint8, 16), (torch.uint16, 16),
+                                     (torch.int32, 8), (torch.uint8, 12)])
+@pytest.mark.parametrize("k", [1, 100, 257])
+def test_adc_topk_kernel_bit_equal(cuda, dtype, w, k):
+    tables, codes = _api_case(cuda, k, 300_017, w, dtype)
+    q = tables.shape[0]
+    inf = torch.full((q,), torch.inf, device=cuda)
+    fn = ops.adc_topk if dtype == torch.uint8 else ops.adc_topk_flat
+    ops.reset_launches()
+    for block_n in (256, 1024):
+        got = fn(tables, codes, k, block_n=block_n)
+        want = adc_topk.adc_topk_plain(tables, codes, inf, k, block_n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # a finite bound between two tile minima drops tiles
+        d = adc_scan.adc_scan_plain(tables[0], codes)
+        n_t = -(-d.shape[0] // block_n)
+        pad = torch.full((n_t * block_n - d.shape[0],), torch.inf, device=cuda)
+        tmin = torch.sort(torch.cat([d, pad]).reshape(n_t, block_n).amin(1)).values
+        bound = inf.clone()
+        bound[0] = (tmin[n_t // 3] + tmin[n_t // 3 + 1]) / 2
+        got = fn(tables, codes, k, block_n=block_n, bound=bound)
+        want = adc_topk.adc_topk_plain(tables, codes, bound, k, block_n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.launches["adc_topk"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+@pytest.mark.parametrize("k", [10, 100])
+def test_adc_topk_pairs_kernel_bit_equal(cuda, dtype, k):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    p, win, w = 9, 4096, 16
+    a = w * 256 + 40
+    tables = torch.rand(p, a, device=cuda, generator=g)
+    addrs = torch.randint(0, a, (p, win, w), device=cuda, generator=g).to(dtype)
+    n_valid = torch.randint(0, win + 1, (p,), device=cuda, generator=g).int()
+    n_valid[0], n_valid[1] = 0, 7
+    ops.reset_launches()
+    got = ops.adc_topk_pairs(tables, addrs, n_valid, k, block_n=512)
+    want = adc_topk.adc_topk_pairs_plain(tables, addrs, n_valid, k)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk_pairs"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1][0] == -1).all()) and bool((got[1][1, 7:] == -1).all())
+
+
+def test_flat_search_on_card_matches_cpu(cuda, clustered_data):
+    from repro_torch.core.index import build_index, search
+
+    xs, _, qs, _ = clustered_data
+    index = build_index(xs, 32, 8, kmeans_iters=8, pq_iters=6, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    sizes = index.cluster_sizes()
+    for nprobe, k in ((8, 10), (3, int(sizes.min()) + 5)):
+        ops.reset_launches()
+        d_gpu, i_gpu = search(index, qs, nprobe, k, device=cuda)
+        assert ops.launches["build_luts"] == 1 and ops.launches["adc_topk"] > 0
+        d_cpu, i_cpu = search(index, qs, nprobe, k, device="cpu")
+        np.testing.assert_array_equal(d_gpu, d_cpu)
+        np.testing.assert_array_equal(i_gpu, i_cpu)

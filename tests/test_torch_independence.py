@@ -26,7 +26,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.kernels.ops"]
+new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.kernels.ops",
+       "repro_torch.kernels.adc_scan", "repro_torch.kernels.adc_topk"]
 assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """

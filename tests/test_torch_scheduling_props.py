@@ -1,0 +1,194 @@
+"""Hypothesis twin of `tests/test_scheduling_props.py` for the port.
+
+The three properties of the reference's file -- tile emission, the
+load-biased cover and the failover cover -- run through
+`repro_torch.core.scheduling` (and `repro_torch.core.placement`), and on
+every drawn input the port's arrays must also `array_equal` the
+reference's: tiles, placements, schedules (pairs, devices, loads) and the
+lost pairs.  Skipped cleanly where hypothesis is missing.
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("hypothesis")
+pytest.importorskip("jax")
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from repro.core import placement as rplacement  # noqa: E402
+from repro.core import scheduling as rsched  # noqa: E402
+from repro_torch.core.placement import place_clusters  # noqa: E402
+from repro_torch.core.scheduling import (  # noqa: E402
+    count_tiles,
+    emit_tiles,
+    schedule_queries,
+    schedule_queries_loop,
+)
+
+SETTINGS = dict(max_examples=25, deadline=None)
+
+
+def _align(x, b):
+    return -(-x // b) * b
+
+
+def _random_layout(rng, ndev, n_slots, block_n, max_size):
+    """Block-aligned per-device slot layout with zero-size slots allowed."""
+    slot_size = rng.integers(0, max_size + 1, (ndev, n_slots)).astype(np.int32)
+    slot_start = np.zeros((ndev, n_slots), np.int32)
+    for d in range(ndev):
+        cursor = 0
+        for s in range(n_slots):
+            slot_start[d, s] = cursor
+            cursor += _align(max(int(slot_size[d, s]), 1), block_n)
+    return slot_start, slot_size
+
+
+def _schedules_equal(a, b):
+    for name in ("pair_q", "pair_c", "pair_dev", "dev_load", "lost_q", "lost_c"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x is None) == (y is None), name
+        if x is not None:
+            np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def _placements(rng, c, ndev):
+    """The port's and the reference's Algorithm 1 on one drawn cluster set;
+    their replica maps and loads must be equal."""
+    sizes = (rng.zipf(1.4, c) * 20).clip(1, 20000).astype(np.int64)
+    freqs = rng.zipf(1.3, c).astype(np.float64)
+    cent = rng.normal(0, 1, (c, 8))
+    pl = place_clusters(sizes, freqs, ndev, centroids=cent)
+    rpl = rplacement.place_clusters(sizes, freqs, ndev, centroids=cent)
+    assert pl.replicas == rpl.replicas
+    np.testing.assert_array_equal(pl.dev_load, rpl.dev_load)
+    return sizes, pl, rpl
+
+
+@given(
+    ndev=st.integers(1, 4),
+    n_slots=st.integers(1, 6),
+    p_cap=st.integers(1, 12),
+    block_n=st.sampled_from([4, 8, 16]),
+    seed=st.integers(0, 10_000),
+)
+@settings(**SETTINGS)
+def test_tile_emission_properties(ndev, n_slots, p_cap, block_n, seed):
+    rng = np.random.default_rng(seed)
+    slot_start, slot_size = _random_layout(rng, ndev, n_slots, block_n, max_size=5 * block_n)
+    pair_slot = rng.integers(0, n_slots, (ndev, p_cap)).astype(np.int32)
+    pair_valid = rng.random((ndev, p_cap)) < 0.7
+    pair_key = rng.random((ndev, p_cap)).astype(np.float32)
+
+    nv = np.where(pair_valid, np.take_along_axis(slot_size, pair_slot, axis=1), 0)
+    totals = count_tiles(pair_valid, nv, block_n)
+    np.testing.assert_array_equal(totals, rsched.count_tiles(pair_valid, nv, block_n))
+    t_cap = max(int(totals.max(initial=0)) + int(rng.integers(0, 4)), 1)
+    tiles = emit_tiles(pair_slot, pair_valid, slot_start, slot_size, block_n, t_cap)
+    want = rsched.emit_tiles(pair_slot, pair_valid, slot_start, slot_size, block_n, t_cap)
+    for got, ref in zip(tiles, want):
+        np.testing.assert_array_equal(got, ref)
+    # and in best-first order
+    for got, ref in zip(
+        emit_tiles(pair_slot, pair_valid, slot_start, slot_size, block_n, t_cap,
+                   pair_key=pair_key),
+        rsched.emit_tiles(pair_slot, pair_valid, slot_start, slot_size, block_n, t_cap,
+                          pair_key=pair_key),
+    ):
+        np.testing.assert_array_equal(got, ref)
+
+    tile_pair, tile_block, tile_row0 = tiles
+    assert tile_pair.shape == tile_block.shape == tile_row0.shape == (ndev, t_cap)
+    assert (tile_row0 % block_n == 0).all()
+    for d in range(ndev):
+        real = tile_pair[d] != p_cap
+        assert int(real.sum()) == int(totals[d])
+        assert (tile_pair[d][~real] == p_cap).all()
+        assert (tile_block[d][~real] == 0).all()
+        assert (tile_row0[d][~real] == 0).all()
+        for p in range(p_cap):
+            mine = real & (tile_pair[d] == p)
+            n_t = -(-int(nv[d, p]) // block_n)
+            assert int(mine.sum()) == n_t
+            if n_t == 0:
+                continue
+            np.testing.assert_array_equal(np.sort(tile_row0[d][mine]),
+                                          np.arange(n_t) * block_n)
+            base = slot_start[d, pair_slot[d, p]] // block_n
+            np.testing.assert_array_equal(np.sort(tile_block[d][mine]),
+                                          base + np.arange(n_t))
+        seq = tile_pair[d][real]
+        if seq.size:  # pair-major contiguity
+            assert int((np.diff(seq) != 0).sum()) + 1 == len(np.unique(seq))
+
+
+@given(
+    seed=st.integers(0, 10_000),
+    q=st.integers(1, 24),
+    nprobe=st.integers(1, 8),
+    ndev=st.integers(1, 8),
+    carry_scale=st.sampled_from([0.0, 1.0, 1e3, 1e7]),
+)
+@settings(**SETTINGS)
+def test_load_biased_schedule_covers_every_pair_once(seed, q, nprobe, ndev, carry_scale):
+    rng = np.random.default_rng(seed)
+    c = max(nprobe, 16)
+    sizes, pl, rpl = _placements(rng, c, ndev)
+    probed = np.stack([rng.choice(c, nprobe, replace=False) for _ in range(q)])
+    carry = rng.random(ndev) * carry_scale
+    sch = schedule_queries(probed, sizes, pl, load_carry=carry)
+    _schedules_equal(sch, rsched.schedule_queries(probed, sizes, rpl, load_carry=carry))
+
+    got = sorted(zip(sch.pair_q.tolist(), sch.pair_c.tolist()))
+    assert got == sorted((qi, int(ci)) for qi in range(q) for ci in probed[qi])
+    for ci, d in zip(sch.pair_c, sch.pair_dev):
+        assert int(d) in pl.replicas[int(ci)]
+    blind = schedule_queries(probed, sizes, pl)
+    np.testing.assert_allclose(sch.dev_load.sum(), blind.dev_load.sum(), rtol=1e-12)
+
+
+@given(
+    seed=st.integers(0, 10_000),
+    q=st.integers(1, 24),
+    nprobe=st.integers(1, 8),
+    ndev=st.integers(2, 8),
+    n_dead=st.integers(0, 6),
+    carry_scale=st.sampled_from([0.0, 1.0, 1e5]),
+)
+@settings(**SETTINGS)
+def test_failover_schedule_covers_surviving_replicas_exactly_once(
+    seed, q, nprobe, ndev, n_dead, carry_scale
+):
+    rng = np.random.default_rng(seed)
+    c = max(nprobe, 16)
+    sizes, pl, rpl = _placements(rng, c, ndev)
+    probed = np.stack([rng.choice(c, nprobe, replace=False) for _ in range(q)])
+    carry = rng.random(ndev) * carry_scale
+    live = np.ones(ndev, bool)
+    live[rng.choice(ndev, size=min(n_dead, ndev - 1), replace=False)] = False
+
+    sch = schedule_queries(probed, sizes, pl, load_carry=carry, live=live)
+    _schedules_equal(
+        sch, rsched.schedule_queries(probed, sizes, rpl, load_carry=carry, live=live))
+
+    kept = sorted(zip(sch.pair_q.tolist(), sch.pair_c.tolist()))
+    lost = sorted(zip(sch.lost_q.tolist(), sch.lost_c.tolist()))
+    every = sorted((qi, int(ci)) for qi in range(q) for ci in probed[qi])
+    assert sorted(kept + lost) == every
+    unreachable = {ci for ci in range(c) if not any(live[d] for d in pl.replicas[ci])}
+    assert all(ci in unreachable for _, ci in lost)
+    assert all(ci not in unreachable for _, ci in kept)
+    for ci, d in zip(sch.pair_c, sch.pair_dev):
+        assert live[int(d)] and int(d) in pl.replicas[int(ci)]
+
+    oracle = schedule_queries_loop(probed, sizes, pl, live=live)
+    assert sorted((int(a), int(b)) for a, b in oracle.lost) == lost
+    roracle = rsched.schedule_queries_loop(probed, sizes, rpl, live=live)
+    assert oracle.assigned == roracle.assigned and oracle.lost == roracle.lost
+
+    blind = schedule_queries(probed, sizes, pl, load_carry=carry)
+    alive = schedule_queries(probed, sizes, pl, load_carry=carry, live=np.ones(ndev, bool))
+    for name in ("pair_q", "pair_c", "pair_dev"):
+        np.testing.assert_array_equal(getattr(blind, name), getattr(alive, name))
+    assert alive.lost_q.size == 0 and alive.lost_c.size == 0
