@@ -1,11 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's query path on one NVIDIA GPU, and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--n 100000000] [--batches 5] [--seed 0]
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
-It builds the CUDA kernels of the query paths from `src/repro_torch/csrc/`,
-generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
+It builds the CUDA kernels from `src/repro_torch/csrc/`, then first serves
+the dense LM (`lm_serve`): full-width qwen3-8b (36 layers, d 4096, GQA 32/8,
+head 128, vocab 151,936; random bf16 weights from the seed) through
+`repro_torch.launch.serve.serve` with the flash kernel on, batch 4, a
+2048-token prompt and 512 greedy decode steps against an f32 KV cache:
+prefill ms after one warm-up prefill, decode ms per step and tok/s, peak
+memory, the first generated tokens; kernel B10's launches must be 36 in
+the prefill and 0 in the decode (counts reset just before `serve`).  The
+same prompt's prefill with the flash kernel off (the chunked scan) must
+give last-position logits within `LM_E2E_REL` / `LM_E2E_MAX`, and B10 is
+held against its plain version at the prefill's shapes (bf16 q against the
+f32 cache within one bf16 ulp, an f32 q at the reference's rtol 1e-4, atol
+1e-5) and timed beside the plain version and SDPA.  The model is freed
+before the retrieval engine is built.  Then it generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
 codes, IVF 4096, nprobe 64, k = 10, 1000-query batches, 8 logical devices,
 bf16 raw store; N = 100M rows by default, the paper's 1e9 cut so the raw
 store fits one card), builds the engine with the port's own k-means and
@@ -56,7 +68,9 @@ all N codes of the same index, and the flat baseline search:
      cluster) for 16 queries, against the engine with the re-rank off:
      distances bit-equal, ids equal outside exactly tied groups.
 Each kernel is held against its plain version and timed as in 2, with a
-chunked PyTorch expression of its function as the library yardstick.
+chunked PyTorch expression of its function as the library yardstick (for
+B2 / B5 each filled pair's gather + sum + `torch.topk`, for B4 / B9 a
+gather + sum + `torch.cat`; each checked to compute the kernel's function).
 
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
@@ -82,11 +96,49 @@ FP32_INSTR_PER_S = 67e12 / 2
 
 D, M, N_CLUSTERS, NPROBE, K, BATCH, NDEV, BLOCK_N = 128, 16, 4096, 64, 10, 1000, 8, 1024
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the LM serving phase: full-width qwen3-8b, random bf16 weights, f32 cache
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "qwen3-8b", 4, 2048, 512
+# B10 vs its plain version: the reference's f32 tolerance
+# (tests/test_flash_attn.py); with a bf16 q both outputs round f32 results
+# that differ by reassociation to bf16, so they agree to one bf16 ulp
+FLASH_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+FLASH_BF16_TOL = dict(rtol=2.0**-7, atol=1e-5)
+# flash-on vs flash-off prefill logits (bf16 weights, 36 layers): the kernel
+# rounds each layer's attention output to bf16 (q's dtype), the chunked scan
+# keeps it f32 into an f32 output projection, as the reference does.  On
+# this seed the relative norm of the difference reads 0.0201 and its largest
+# entry 0.0226 of the largest logit (same on two H100 hosts); the bounds
+# leave 2.5x and 2.2x for another card's GEMM choices
+LM_E2E_REL, LM_E2E_MAX = 0.05, 0.05
 SRC_ROOT = "src/repro_torch"
 
 
 def log(**kv) -> None:
     print(json.dumps(kv, default=float), flush=True)
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel identifier + the start of its mangled template arguments:
+    'registers, spill stores'} from nvcc's -Xptxas -v report."""
+    import re
+
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            full = m.group(1)
+            ident = re.search(r"_cu_[0-9a-f]{8}(\d+)", full)  # <length><identifier>
+            if ident:
+                end = ident.end() + int(ident.group(1))
+                name = full[ident.end():end] + full[end:end + 28]
+            else:
+                name = full[:48]
+        elif name and "spill stores" in ln:
+            spill = ln.strip().split(",")[1].strip()
+        elif name and "registers" in ln:
+            out[name] = re.search(r"Used \d+ registers", ln).group(0)[5:] + ", " + spill
+            name = None
+    return out
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -118,17 +170,30 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def profile_batch(torch, eng, plan, qb, kp) -> tuple[float, dict]:
-    """(device busy ms, ms by kernel) of one dispatched batch (torch.profiler)."""
+def profile_call(torch, fn) -> tuple[float, dict, int, float]:
+    """(device busy ms, ms by kernel (top 8), device activities, wall ms) of
+    one call of `fn` under torch.profiler, synchronised at its end.  Busy
+    is the union of the device's own activities (kernels, copies, memsets)
+    in time; the CPU-side ops that launched them, which `key_averages`
+    also credits with device time, are not counted again, nor CUPTI's
+    "Command Buffer Full" overhead records (host stalls)."""
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as tp:
-        eng.collect(eng.dispatch_rerank(eng.dispatch_plan(plan, kp), qb, K))
-    by_kernel = {}
-    for e in tp.key_averages():
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            by_kernel[e.key[:60]] = us / 1e3
-    return sum(by_kernel.values()), dict(sorted(by_kernel.items(), key=lambda x: -x[1])[:8])
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    acts = [e for e in tp.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name != "Command Buffer Full"]
+    by_kernel, busy, end = {}, 0.0, -float("inf")
+    for e in sorted(acts, key=lambda e: e.time_range.start):
+        t0, t1 = e.time_range.start, e.time_range.end
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_kernel[e.name[:60]] = by_kernel.get(e.name[:60], 0.0) + (t1 - t0) / 1e3
+    top = dict(sorted(by_kernel.items(), key=lambda x: -x[1])[:8])
+    return busy / 1e3, top, len(acts), wall
 
 
 def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, tables,
@@ -213,6 +278,13 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
 
     ms = cuda_ms(torch, lambda: run(True), 10)
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
+    lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp)
+    lib_v = torch.full((ndev * p, kp), torch.inf, device=dev)
+    lib_run(lib_v)
+    if not torch.allclose(lib_v, kv.reshape(ndev * p, kp), **TOL):
+        raise RuntimeError(f"{name}: the library expression computes another function")
+    del lib_v
+    library_ms = cuda_ms(torch, lib_run, 1)
     valid_rows = int(n_valid.sum())
     scanned = valid_rows - int(ps[..., 1].sum())
     w, item = codes.shape[2], codes.element_size()
@@ -232,9 +304,10 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=launches,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None,
-        library_call="none: no PyTorch call scans codes through per-pair tables into a "
-                     "per-pair top-k with bound pruning",
+        library_ms=library_ms,
+        library_call="per filled pair, its valid rows' tables[pair][addresses].sum(-1) then "
+                     f"torch.topk(k', largest=False), pairs of like length batched "
+                     f"({lib_groups} gathers of <= 8M rows; no pruning)",
         unpruned_ms=unpruned_ms, unpruned_bound_ms=bound_ms(in_bytes, valid_rows * w)[0],
         # what this design reads: every pair's scored rows from memory
         per_pair_read_ms=bound_ms(scanned * w * item + table_bytes + out_bytes, 0)[0],
@@ -243,6 +316,48 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                    distinct_rows=distinct, scanned_rows=scanned, tiles=tiles_total,
                    tiles_skipped=int(ps[..., 0].sum())),
     )
+
+
+def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 << 23):
+    """Library yardstick for B2 / B5: each filled pair's k' smallest ADC
+    distances over its valid rows as PyTorch expressions.  Pairs sorted by
+    length are batched while (pairs x longest) <= `max_rows`; per batch one
+    gather of the codes, one of the tables, a sum and a `torch.topk`.
+    Returns (the closure, the number of batches); the grouping is host
+    bookkeeping done here, outside the timing."""
+    dev = codes.device
+    ndev, cap, w = codes.shape
+    wide = codes.dtype == torch.uint16
+    flat = (codes.view(torch.int16) if wide else codes).reshape(ndev * cap, w)
+    cols = torch.arange(w, device=dev) * 256
+    p = lut_row.shape[0] // ndev
+    filled = torch.nonzero((lut_row >= 0) & (n_valid > 0)).flatten()
+    nv, order = torch.sort(n_valid[filled].long())
+    filled = filled[order]
+    base = (filled // p) * cap + starts[filled].long()
+    trow = lut_row[filled].long()
+    nv_h = nv.cpu().numpy()
+    groups, i = [], 0
+    while i < len(nv_h):
+        j = i + 1
+        while j < len(nv_h) and (j + 1 - i) * nv_h[j] <= max_rows:
+            j += 1
+        groups.append((i, j, int(nv_h[j - 1])))
+        i = j
+
+    def run(out=None):
+        for i, j, width in groups:
+            lane = torch.arange(width, device=dev)
+            rows = (base[i:j, None] + lane).clamp_max(ndev * cap - 1)
+            c = flat[rows].long()
+            a = c & 0xFFFF if wide else c + cols
+            d = tables[trow[i:j, None, None], a].sum(-1)
+            d = torch.where(lane < nv[i:j, None], d, torch.inf)
+            v = torch.topk(d, min(kp, width), dim=1, largest=False).values
+            if out is not None:
+                out[filled[i:j], : v.shape[1]] = v
+
+    return run, len(groups)
 
 
 def drive_path(torch, np, ops, name, eng, batches, needed) -> dict:
@@ -275,7 +390,8 @@ def drive_path(torch, np, ops, name, eng, batches, needed) -> dict:
         eng.plan_batch(qb, NPROBE)
         plan_ms.append((time.perf_counter() - t) * 1e3)
     plan = eng.plan_batch(batches[1], NPROBE)
-    busy, by_kernel = profile_batch(torch, eng, plan, batches[1], kp)
+    busy, by_kernel, _, _ = profile_call(torch, lambda: eng.collect(
+        eng.dispatch_rerank(eng.dispatch_plan(plan, kp), batches[1], K)))
     stats = eng.dispatch_plan(plan, kp).prune_stats.cpu().numpy()
     out = dict(
         phase=name, batches=len(batches) - 1, queries_per_batch=BATCH, batch_ms=batch_ms,
@@ -467,6 +583,15 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     out4 = torch.empty_like(ext)
     n_sets = int(torch.unique(set_idx).numel())
     nc, cl = combo.shape[1:]
+    ma = cl2.shape[1]
+
+    def lib4():
+        sums = cl2.gather(1, combo[set_idx.long()].reshape(r_n, -1).long())
+        sums = sums.reshape(r_n, nc, cl).sum(-1)
+        return torch.cat([cl2, sums, cl2.new_zeros(r_n, a_w - ma - nc)], 1)
+
+    if not torch.allclose(lib4(), ext, **TOL):
+        raise RuntimeError("ext_lut_pairs: the library expression computes another function")
     bms, by = bound_ms(4 * (cl2.numel() + r_n + n_sets * nc * cl + ext.numel()),
                        r_n * nc * cl)
     kernels.append(dict(
@@ -475,9 +600,9 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         launches=paths["search_cooc_tiles"]["launches"]["build_ext_luts_pairs"],
         max_abs_err=err, ms=cuda_ms(torch, lambda: k_lut.launch_ext(cl2, combo, set_idx, out4), 20),
         plain_ms=wall_ms(torch, lambda: k_lut.ext_lut_pairs_plain(cl2, combo, set_idx, a_w)),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        library_call="none: no single PyTorch call gathers each row's combo entries, sums "
-                     "them and writes them after the row's table",
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib4, 10),
+        library_call="luts.gather(1, combo_addrs[set_idx]).sum over combo items, then "
+                     "torch.cat([luts, sums, zeros])",
         shape=dict(rows=r_n, table_width=a_w, n_combos=nc, combo_len=cl, combo_sets=n_sets),
     ))
     del out4
@@ -491,13 +616,22 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     err = float((ext9 - want).abs().max())
     out9 = torch.empty_like(ext9)
     bms, by = bound_ms(4 * (l9.numel() + c9.numel() + ext9.numel()), BATCH * c9.numel())
+    nc9 = c9.shape[0]
+
+    def lib9():
+        sums = l9[:, c9.reshape(-1).long()].reshape(BATCH, nc9, -1).sum(-1)
+        return torch.cat([l9, sums, l9.new_zeros(BATCH, ext9.shape[1] - l9.shape[1] - nc9)], 1)
+
+    if not torch.allclose(lib9(), ext9, **TOL):
+        raise RuntimeError("ext_lut: the library expression computes another function")
     kernels.append(dict(
         name="ext_lut", route="cuda", source=f"{SRC_ROOT}/csrc/ext_lut.cu",
         replaces="src/repro/kernels/lut_build.py:110", launches=n9, max_abs_err=err,
         ms=cuda_ms(torch, lambda: k_lut.launch_ext(l9, c9[None], None, out9), 50),
         plain_ms=wall_ms(torch, lambda: k_lut.ext_lut_plain(l9, c9, ext9.shape[1])),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        library_call="none: as ext_lut_pairs, with one combo set",
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib9, 50),
+        library_call="luts[:, combo_addrs].sum over combo items, then "
+                     "torch.cat([luts, sums, zeros]) (one combo set)",
         shape=dict(rows=BATCH, table_width=int(ext9.shape[1]), n_combos=int(c9.shape[0]),
                    combo_len=int(c9.shape[1])),
     ))
@@ -796,6 +930,160 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     return kernels
 
 
+def lm_serve(torch, np, ops, k_flash, dev, seed: int) -> dict:
+    """The fourth slice's phase: full-width qwen3-8b served through
+    `repro_torch.launch.serve.serve` (prefill on kernel B10, greedy decode),
+    its launch counts, flash-on vs flash-off prefill logits, and B10 held
+    against its plain version at the prefill's shapes.  Frees the model
+    before it returns the kernel's row."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_flash_kernel=True)
+    cfg_off = dataclasses.replace(cfg, use_flash_kernel=False)
+    max_len = LM_PROMPT + LM_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=g, device=dev)
+
+    def run_prefill(c):
+        return prefill(model, c, tokens, max_len=max_len, cache_dtype=torch.float32)
+
+    warm_ms = wall_ms(torch, lambda: run_prefill(cfg))
+
+    # -- the main path: serve() through the entry point, counts reset just before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rep = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, steps=LM_STEPS, device=dev,
+                params=model, seed=seed)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_phase = rep["kernel_launches"]
+    if (launches != {"flash_attention_fwd": cfg.n_layers}
+            or per_phase["prefill"] != {"flash_attention_fwd": cfg.n_layers}
+            or per_phase["decode"]):
+        raise RuntimeError(f"lm_serve: expected {cfg.n_layers} B10 launches in the prefill and "
+                           f"none in the decode, got {launches} ({per_phase})")
+    gen = np.asarray(rep["generated"])
+    if gen.shape != (LM_BATCH, 8) or (gen < 0).any() or (gen >= cfg.vocab_size).any():
+        raise RuntimeError(f"lm_serve: malformed generated tokens {gen.tolist()}")
+    steps = LM_STEPS - 1
+
+    # -- where the time goes: one profiled prefill and decode step
+    pre = profile_call(torch, lambda: run_prefill(cfg))
+    on, cache = run_prefill(cfg)
+    tok = on[:, -1].argmax(-1)[:, None]
+    dec = profile_call(torch, lambda: decode_step(model, cfg, tok, cache, LM_PROMPT))
+    cfg_od = dataclasses.replace(cfg, opt_decode=True)
+    opt_ms = wall_ms(torch, lambda: decode_step(model, cfg_od, tok, cache, LM_PROMPT))
+    # the cost of the port's numerics switch on one decode projection
+    x = torch.randn(LM_BATCH, cfg.d_model, device=dev, generator=g).bfloat16()
+    w = model.layers[0].mlp["w_gate"]
+    gemv = {}
+    for allow in (False, True):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allow
+        gemv[f"reduced_precision_reduction_{allow}"] = cuda_ms(torch, lambda: x @ w, 20)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    log(phase="lm_breakdown", prefill_device_busy_ms=pre[0], prefill_wall_ms=pre[3],
+        prefill_device_events=pre[2], prefill_ms_by_kernel=pre[1],
+        decode_device_busy_ms=dec[0], decode_wall_ms=dec[3], decode_device_events=dec[2],
+        decode_ms_by_kernel=dec[1], opt_decode_step_wall_ms=opt_ms,
+        decode_gate_proj_ms=gemv, decode_gate_proj_shape=[LM_BATCH, *w.shape])
+    del cache
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    off, cache = run_prefill(cfg_off)
+    torch.cuda.synchronize()
+    chunked_ms = (time.perf_counter() - t) * 1e3
+    del cache
+    a, b = on.float()[:, 0], off.float()[:, 0]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise RuntimeError("lm_serve: non-finite prefill logits")
+    rel = float((a - b).norm() / b.norm())
+    max_rel = float((a - b).abs().max() / b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    if rel > LM_E2E_REL or max_rel > LM_E2E_MAX:
+        raise RuntimeError(f"lm_serve: flash-on and flash-off logits differ: rel norm {rel}, "
+                           f"max {max_rel} of the largest logit")
+    log(phase="lm_serve", arch=cfg.name, params_b=cfg.n_params() / 1e9, weights_gb=weights_gb,
+        batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=LM_STEPS, cache_dtype="float32",
+        init_s=init_s, warmup_prefill_ms=warm_ms, prefill_ms=rep["prefill_s"] * 1e3,
+        decode_ms_per_step=rep["decode_s"] * 1e3 / steps,
+        decode_tok_per_s=rep["decode_tok_per_s"], peak_memory_gb=peak,
+        launches=launches, launches_by_phase=per_phase, generated=rep["generated"],
+        chunked_prefill_ms=chunked_ms, flash_vs_chunked_rel_norm=rel,
+        flash_vs_chunked_max_of_max=max_rel, first_token_agreement=agree,
+        first_tokens_flash=a.argmax(-1).tolist(), first_tokens_chunked=b.argmax(-1).tolist())
+    del model, on, off, a, b
+    torch.cuda.empty_cache()
+
+    # -- B10 at the prefill's shapes against its plain version ---------------
+    b_, h, kvh, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    q = torch.randn(b_, LM_PROMPT, h, hd, device=dev, generator=g).bfloat16()
+    k = torch.zeros(b_, max_len, kvh, hd, device=dev)
+    v = torch.zeros_like(k)
+    k[:, :LM_PROMPT] = torch.randn(b_, LM_PROMPT, kvh, hd, device=dev, generator=g)
+    v[:, :LM_PROMPT] = torch.randn(b_, LM_PROMPT, kvh, hd, device=dev, generator=g)
+    scale = hd**-0.5
+    blocks = (min(512, LM_PROMPT), min(512, max_len))
+    got = ops.flash_attention_fwd(q, k, v, scale=scale, kv_valid=LM_PROMPT, bq=blocks[0],
+                                  bk=blocks[1])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = k_flash.flash_attention_fwd_plain(q, k, v, scale, 0, LM_PROMPT, *blocks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL):
+        raise RuntimeError(f"flash_attention_fwd (bf16 q) disagrees with its plain version: {err}")
+    qf = q.float()
+    got32 = ops.flash_attention_fwd(qf, k, v, scale=scale, kv_valid=LM_PROMPT)
+    want32 = k_flash.flash_attention_fwd_plain(qf, k, v, scale, 0, LM_PROMPT, *blocks)
+    err32 = float((got32 - want32).abs().max())
+    if not torch.allclose(got32, want32, **FLASH_F32_TOL):
+        raise RuntimeError(f"flash_attention_fwd (f32 q) disagrees with its plain version: {err32}")
+    del want, want32
+    out = torch.empty_like(got)
+    ms = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, LM_PROMPT), 10)
+    out32 = torch.empty_like(got32)
+    ms32 = cuda_ms(torch, lambda: k_flash.launch(qf, k, v, out32, scale, 0, LM_PROMPT), 10)
+    # library yardstick: SDPA in f32 on the valid keys, heads first (made outside the timing)
+    qt = qf.transpose(1, 2).contiguous()
+    kt = k[:, :LM_PROMPT].transpose(1, 2).contiguous()
+    vt = v[:, :LM_PROMPT].transpose(1, 2).contiguous()
+    sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 10)
+    pairs = sum(min(i + 1, LM_PROMPT) for i in range(LM_PROMPT))
+    fmas = 2 * b_ * h * hd * pairs
+    n_bytes = q.numel() * 2 * 2 + 2 * b_ * LM_PROMPT * kvh * hd * 4
+    bms, by = bound_ms(n_bytes, fmas)
+    row = dict(
+        name="flash_attention_fwd", route="cuda", source=f"{SRC_ROOT}/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn.py:104", launches=launches["flash_attention_fwd"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=sdpa_ms,
+        library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, "
+                     "enable_gqa=True) in f32 on (B, H, S, hd) copies, k / v cut to kv_valid",
+        f32_q=dict(max_abs_err=err32, ms=ms32),
+        shape=dict(q=list(q.shape), kv=list(k.shape), q_dtype="bfloat16", kv_dtype="float32",
+                   kv_valid=LM_PROMPT, causal_pairs=pairs, fmas=fmas, bytes=n_bytes),
+    )
+    log(phase="lm_flash_kernel", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
+    del q, k, v, qf, qt, kt, vt, got, got32, out, out32
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000, help="corpus rows")
@@ -821,6 +1109,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import adc_scan as k_scan
     from repro_torch.kernels import adc_topk as k_topk
+    from repro_torch.kernels import flash_attn as k_flash
     from repro_torch.kernels import lut_build as k_lut
     from repro_torch.kernels import rerank as k_rerank
     from repro_torch.retrieval.engine import MemANNSEngine
@@ -839,10 +1128,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     lib = _build.build_library()
     _build.library()
-    regs = [ln.strip() for ln in _build.ptxas_report().splitlines()
-            if "registers" in ln or "spill" in ln]
+    regs = ptxas_summary(_build.ptxas_report())
     log(phase="build_kernels", seconds=time.perf_counter() - t, lib=str(lib.name),
         ptxas=regs)
+
+    # == the LM serving path (B10), before the engine takes the memory ======
+    lm_row = lm_serve(torch, np, ops, k_flash, dev, args.seed)
 
     # -- data + engine ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1009,7 +1300,8 @@ def main(argv=None) -> int:
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
                                    direct_codes, direct_table)
 
-    log(phase="done", seconds=time.perf_counter() - t_start)
+    kernels.append(lm_row)
+    log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
-"""Carry a trained reference index and placement into this package.
+"""Carry a trained reference index, placement or LM weights into this package.
 
-The reference's k-means and PQ training draw from `jax.random`, so the two
-packages can only be held to the same answers over the same trained state.
-These functions build the port's objects from plain numpy arrays, or read
-a reference `save_index` directory (`index/*.npy` + `meta.json`) without
-importing the reference.
+The reference's k-means and PQ training and its weight init draw from
+`jax.random`, so the two packages can only be held to the same answers
+over the same state.  These functions build the port's objects from plain
+numpy arrays, or read a reference `save_index` directory (`index/*.npy` +
+`meta.json`) without importing the reference.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from repro_torch.core.index import IVFPQIndex
 from repro_torch.core.placement import Placement
@@ -88,3 +89,40 @@ def load_index_dir(path: str) -> tuple[IVFPQIndex, dict]:
             "repro_torch yet (ROADMAP.md queue A item 9)"
         )
     return index_from_arrays(**arrays), meta.get("extra", {})
+
+
+def _tensor(a) -> torch.Tensor:
+    """A tensor of the array's dtype.  bf16 arrives from JAX as
+    `ml_dtypes.bfloat16`, which `torch.from_numpy` refuses: it crosses as
+    its int16 bit pattern."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_reference(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """A `DecoderLM` state dict from the reference's dense parameter tree.
+
+    `params` is `repro.models.init_params`'s tree as numpy arrays:
+    `embed`, `final_norm`, `lm_head`, and `layers` whose leaves carry a
+    leading L axis (`attn`: wq, wk, wv, wo, q_norm, k_norm; `mlp`: w_gate,
+    w_up, w_down; `ln1`, `ln2`).  The stacked arrays are split into the
+    per-layer tensors `layers.{i}.attn.wq`, ...; layouts are unchanged.
+    Load it with `DecoderLM(cfg, device="meta").load_state_dict(state,
+    assign=True)` or into an allocated model.
+    """
+    from repro_torch.models.model import check_dense
+
+    check_dense(cfg)
+    state = {n: _tensor(params[n]) for n in ("embed", "final_norm", "lm_head")}
+    layers = params["layers"]
+    if len(layers["ln1"]) != cfg.n_layers:
+        raise ValueError(f"{len(layers['ln1'])} stacked layers, config has {cfg.n_layers}")
+    for i in range(cfg.n_layers):
+        for group in ("attn", "mlp"):
+            for name, arr in layers[group].items():
+                state[f"layers.{i}.{group}.{name}"] = _tensor(arr[i])
+        for name in ("ln1", "ln2"):
+            state[f"layers.{i}.{name}"] = _tensor(layers[name][i])
+    return state

@@ -27,6 +27,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signature of every launcher; each returns cudaGetLastError() as int
 SIGNATURES = {
@@ -55,6 +56,9 @@ SIGNATURES = {
     # tables, addrs, n_valid, out_v, out_i, n_pairs, win_len, w,
     # table_width, code_fmt, k, block_n, stream
     "adc_topk_pairs_launch": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
+    # kv_is_bf16, scale, stream
+    "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
 }
 
 

@@ -10,6 +10,7 @@ API:
   adc_scan(lut, codes) / adc_scan_flat(ext, addrs)    B8: (N,) ADC distances
   adc_topk(luts, codes, k) / adc_topk_flat(...)       B6: many tables, one code array
   adc_topk_pairs(tables, addrs, n_valid, k)           B7: materialised per-pair windows
+  flash_attention_fwd(q, k, v, scale=, ...)           B10: causal GQA attention forward
 
 The last three are the reference's kernel-level API (`repro.kernels.ops`);
 they take its `block_n` and `path` arguments: `path="gather"` only
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.kernels import adc_scan as _scan
 from repro_torch.kernels import adc_topk as _topk
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import lut_build as _lut
 from repro_torch.kernels import rerank as _rerank
 
@@ -37,7 +39,7 @@ NCODES = 256
 launches = {
     "build_luts": 0, "build_ext_luts_pairs": 0, "build_ext_luts": 0,
     "adc_topk_tiles": 0, "adc_topk_windows": 0, "rerank_dists": 0,
-    "adc_scan": 0, "adc_topk": 0, "adc_topk_pairs": 0,
+    "adc_scan": 0, "adc_topk": 0, "adc_topk_pairs": 0, "flash_attention_fwd": 0,
 }
 # largest k of B6 and B7 (the top-k list and its merge buffer live in the
 # block's shared memory beside the table)
@@ -584,3 +586,55 @@ def adc_topk_pairs(
         _topk.launch_pairs(tables, addrs, n_valid, out_v, out_i, k, block_n)
         launches["adc_topk_pairs"] += 1
     return out_v, out_i
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    q_offset: int = 0,
+    kv_valid: int | None = None,
+    bq: int = 512,
+    bk: int = 512,
+) -> torch.Tensor:
+    """Causal GQA flash-attention forward (kernel B10).
+
+    q (B, Sq, H, hd) bf16 / f32; k, v (B, Sk, KV, hd) bf16 / f32 (one dtype
+    for both, which may differ from q's); H a multiple of KV.  Query row i
+    sits at absolute position q_offset + i and sees key j iff j <= q_offset
+    + i and j < kv_valid (default Sk).  Returns (B, Sq, H, hd) in q's dtype;
+    a row with no live key is 0.  `bq` / `bk` are the reference's block
+    sizes: clipped to Sq / Sk, they must divide them, as there; the plain
+    version runs on them and the kernel tiles on its own.
+    """
+    dev = q.device
+    floats = (torch.float32, torch.bfloat16)
+    if q.dtype not in floats or k.dtype not in floats or v.dtype != k.dtype:
+        raise TypeError(f"flash_attention_fwd: q {q.dtype}, k {k.dtype}, v {v.dtype}")
+    _check(q, "q", q.dtype, 4, dev)
+    _check(k, "k", k.dtype, 4, dev)
+    _check(v, "v", v.dtype, 4, dev)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if k.shape != (b, sk, kvh, hd) or v.shape != k.shape or kvh == 0 or h % kvh:
+        raise ValueError(
+            f"flash_attention_fwd: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    kv_valid = sk if kv_valid is None else int(kv_valid)
+    if not 0 <= kv_valid <= sk or q_offset < 0:
+        raise ValueError(f"kv_valid={kv_valid} outside [0, {sk}] or q_offset={q_offset} < 0")
+    bq, bk = min(bq, sq), min(bk, sk)
+    if bq <= 0 or bk <= 0 or sq % bq or sk % bk:
+        raise ValueError(f"blocks (bq={bq}, bk={bk}) do not divide (Sq={sq}, Sk={sk})")
+    if not _on_gpu(dev):
+        return _flash.flash_attention_fwd_plain(q, k, v, scale, q_offset, kv_valid, bq, bk)
+    if hd not in _flash.HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd kernel: head dim {hd} not in {_flash.HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd kernel: q, k, v must be 16-byte aligned")
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    _flash.launch(q, k, v, out, scale, q_offset, kv_valid)
+    launches["flash_attention_fwd"] += 1
+    return out

@@ -14,6 +14,9 @@ shards, either scan) must return the engine-on-CPU answers.  The
 kernel-level API -- B8 (`adc_scan`), B6 (`adc_topk`, with and without a
 finite bound) and B7 (`adc_topk_pairs`) -- is bit-equal to its plain
 versions, and the flat search on B1 + B6 equals the flat search on the CPU.
+B10 (`flash_attention_fwd`) is held to its plain version at the reference's
+f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp;
+a reduced LM's prefill through B10 equals the chunked scan and the CPU.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -28,7 +31,7 @@ from repro_torch.core.scheduling import (  # noqa: E402
     subspace_code_norms,
     warm_start_bounds,
 )
-from repro_torch.kernels import adc_scan, adc_topk, lut_build, ops, rerank  # noqa: E402
+from repro_torch.kernels import adc_scan, adc_topk, flash_attn, lut_build, ops, rerank  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -398,3 +401,76 @@ def test_flat_search_on_card_matches_cpu(cuda, clustered_data):
         d_cpu, i_cpu = search(index, qs, nprobe, k, device="cpu")
         np.testing.assert_array_equal(d_gpu, d_cpu)
         np.testing.assert_array_equal(i_gpu, i_cpu)
+
+
+FLASH_F32_TOL = dict(rtol=1e-4, atol=1e-5)  # the reference's own (test_flash_attn.py)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,hd,off", [
+    (2, 128, 128, 4, 2, 16, 0),       # the reference's four cases
+    (1, 64, 256, 8, 8, 32, 0),
+    (2, 128, 256, 4, 2, 16, 64),
+    (1, 64, 64, 4, 1, 16, 0),
+    (1, 100, 150, 8, 2, 96, 30),      # ragged against the kernel's 64-row tiles
+    (2, 512, 1024, 8, 2, 128, 0),     # qwen3's head geometry, cache longer than q
+    (1, 256, 256, 4, 4, 64, 0),
+])
+def test_flash_kernel_f32_matches_plain(cuda, b, sq, sk, h, kvh, hd, off):
+    g = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = torch.randn(b, sq, h, hd, device=cuda, generator=g)
+    k = torch.randn(b, sk, kvh, hd, device=cuda, generator=g)
+    v = torch.randn(b, sk, kvh, hd, device=cuda, generator=g)
+    kv_valid = min(sk, off + sq)
+    ops.reset_launches()
+    got = ops.flash_attention_fwd(q, k, v, scale=hd**-0.5, q_offset=off, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == 1
+    want = flash_attn.flash_attention_fwd_plain(q, k, v, hd**-0.5, off, kv_valid)
+    torch.testing.assert_close(got, want, **FLASH_F32_TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_bf16_q_matches_plain(cuda, kv_dtype):
+    """bf16 q against an f32 (the serving path) or bf16 cache: bf16 outputs
+    of f32 results that differ by reassociation agree to one bf16 ulp."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, sq, sk, h, kvh, hd = 2, 512, 640, 32, 8, 128
+    q = torch.randn(b, sq, h, hd, device=cuda, generator=g).bfloat16()
+    k = torch.zeros(b, sk, kvh, hd, device=cuda, dtype=kv_dtype)
+    v = torch.zeros_like(k)
+    k[:, :sq] = torch.randn(b, sq, kvh, hd, device=cuda, generator=g).to(kv_dtype)
+    v[:, :sq] = torch.randn(b, sq, kvh, hd, device=cuda, generator=g).to(kv_dtype)
+    got = ops.flash_attention_fwd(q, k, v, scale=hd**-0.5, kv_valid=sq, bk=128)
+    want = flash_attn.flash_attention_fwd_plain(q, k, v, hd**-0.5, 0, sq, 512, 128)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-5)
+
+
+def test_flash_kernel_no_live_key_is_zero(cuda):
+    q = torch.randn(1, 64, 4, 32, device=cuda)
+    k = torch.randn(1, 64, 2, 32, device=cuda)
+    got = ops.flash_attention_fwd(q, k, k.clone(), scale=0.2, kv_valid=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_lm_prefill_on_card_flash_vs_chunked(cuda):
+    """A reduced qwen3 (GQA) in f32 on the card: prefill through B10 equals
+    prefill through the chunked scan, and equals the same model on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init_params, prefill
+
+    cfg = reduced_config(get_config("qwen3-8b"), n_kv_heads=2)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda)
+    ops.reset_launches()
+    on, _ = prefill(model, dataclasses.replace(cfg, use_flash_kernel=True), tok, max_len=192,
+                    cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == cfg.n_layers
+    off, _ = prefill(model, cfg, tok, max_len=192, cache_dtype=torch.float32)
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
+    cpu, _ = prefill(model.cpu(), cfg, tok.cpu(), max_len=192, cache_dtype=torch.float32)
+    torch.testing.assert_close(on.cpu(), cpu, rtol=1e-4, atol=1e-4)

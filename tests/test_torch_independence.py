@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-A fresh interpreter imports every module of `repro_torch` and must end
-with no `jax*` and no `repro` / `repro.*` entry in `sys.modules`.  Without
-a GPU, entry points called without `device=` raise instead of falling back
-to the CPU.
+A fresh interpreter imports every module of `repro_torch` (the LM's
+configs, models and launcher too) and must end with no `jax*` and no
+`repro` / `repro.*` entry in `sys.modules`.  Without a GPU, entry points
+called without `device=` raise instead of falling back to the CPU.
 """
 
 import pathlib
@@ -27,7 +27,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.kernels.ops",
-       "repro_torch.kernels.adc_scan", "repro_torch.kernels.adc_topk"]
+       "repro_torch.kernels.adc_scan", "repro_torch.kernels.adc_topk",
+       "repro_torch.kernels.flash_attn", "repro_torch.models.config",
+       "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.configs",
+       "repro_torch.configs.qwen3_8b", "repro_torch.configs.memanns",
+       "repro_torch.launch.serve"]
 assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """
@@ -39,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference():
         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, check=True,
     ).stdout.strip()
     n_modules, bad = out.split(" ", 1) if " " in out else (out, "")
-    assert int(n_modules) >= 16
+    assert int(n_modules) >= 44
     assert bad == "", f"repro_torch pulled in: {bad}"
 
 
@@ -68,6 +72,22 @@ def test_entry_points_refuse_cpu_fallback(clustered_data):
     assert resolve_device("cpu").type == "cpu"
     # and with device="cpu" it works
     MemANNSEngine.from_reference(index, placement, device="cpu")
+
+
+def test_lm_entry_points_refuse_cpu_fallback():
+    """The LM's entry points default to cuda as the engine does."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: cuda is a valid default here")
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params
+
+    cfg = reduced_config(get_config("qwen3-8b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(cfg, batch=1, prompt_len=8, steps=2)
+    assert init_params(cfg, torch.Generator(), "cpu").embed.device.type == "cpu"
 
 
 def _tiny_index():
