@@ -8,10 +8,13 @@ It builds the CUDA kernels from `src/repro_torch/csrc/`, then first serves
 the dense LM (`lm_serve`): full-width qwen3-8b (36 layers, d 4096, GQA 32/8,
 head 128, vocab 151,936; random bf16 weights from the seed) through
 `repro_torch.launch.serve.serve` with the flash kernel on, batch 4, a
-2048-token prompt and 512 greedy decode steps against an f32 KV cache:
-prefill ms after one warm-up prefill, decode ms per step and tok/s, peak
-memory, the first generated tokens; kernel B10's launches must be 36 in
-the prefill and 0 in the decode (counts reset just before `serve`).  The
+2048-token prompt and 512 greedy decode steps against an f32 KV cache,
+then `--retrieval --rerank exact` on a 20,000-vector engine of the model's
+width (M = 8, so dsub 512): prefill ms after one warm-up prefill, decode ms
+per step and tok/s, peak memory, the first generated tokens; kernel B10's
+launches must be 36 in the prefill and 0 in the decode, and the search must
+launch B1, B4, B2 and B3 (counts reset just before `serve`).  B1 is held
+against its plain version at that search's shapes (the wide-dsub kernel).  The
 same prompt's prefill with the flash kernel off (the chunked scan) must
 give last-position logits within `LM_E2E_REL` / `LM_E2E_MAX`, and B10 is
 held against its plain version at the prefill's shapes (bf16 q against the
@@ -98,6 +101,8 @@ D, M, N_CLUSTERS, NPROBE, K, BATCH, NDEV, BLOCK_N = 128, 16, 4096, 64, 10, 1000,
 TOL = dict(rtol=1e-5, atol=1e-5)
 # the LM serving phase: full-width qwen3-8b, random bf16 weights, f32 cache
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "qwen3-8b", 4, 2048, 512
+# `--retrieval --rerank exact` with the reference's other defaults
+LM_RETRIEVAL = dict(vectors=20_000, rerank="exact")
 # B10 vs its plain version: the reference's f32 tolerance
 # (tests/test_flash_attn.py); with a bf16 q both outputs round f32 results
 # that differ by reassociation to bf16, so they agree to one bf16 ulp
@@ -930,14 +935,16 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     return kernels
 
 
-def lm_serve(torch, np, ops, k_flash, dev, seed: int) -> dict:
+def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
     """The fourth slice's phase: full-width qwen3-8b served through
-    `repro_torch.launch.serve.serve` (prefill on kernel B10, greedy decode),
-    its launch counts, flash-on vs flash-off prefill logits, and B10 held
-    against its plain version at the prefill's shapes.  Frees the model
-    before it returns the kernel's row."""
+    `repro_torch.launch.serve.serve` (prefill on kernel B10, greedy decode,
+    retrieval on B1 / B4 / B2 / B3), its launch counts, flash-on vs
+    flash-off prefill logits, and B1 (wide dsub) and B10 held against their
+    plain versions at the path's shapes.  Frees the model before it returns
+    the kernels' rows."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
+    from repro_torch.configs.memanns import SIFT1B, reduced_retrieval
+    from repro_torch.launch.serve import RetrievalOptions, serve
     from repro_torch.models import decode_step, init_params, prefill
 
     cfg = dataclasses.replace(get_config(LM_ARCH), use_flash_kernel=True)
@@ -963,19 +970,28 @@ def lm_serve(torch, np, ops, k_flash, dev, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     rep = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, steps=LM_STEPS, device=dev,
-                params=model, seed=seed)
+                params=model, seed=seed, retrieval=RetrievalOptions(**LM_RETRIEVAL))
     torch.cuda.synchronize()
     launches = {k: v for k, v in ops.launches.items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    per_phase = rep["kernel_launches"]
-    if (launches != {"flash_attention_fwd": cfg.n_layers}
+    ret = rep["retrieval_stats"]
+    per_phase = dict(rep["kernel_launches"], retrieval=ret["kernel_launches"])
+    ret_kernels = ("build_luts", "adc_topk_tiles", "rerank_dists") + (
+        ("build_ext_luts_pairs",) if ret["cooc"] else ())
+    if (launches.get("flash_attention_fwd") != cfg.n_layers
             or per_phase["prefill"] != {"flash_attention_fwd": cfg.n_layers}
-            or per_phase["decode"]):
-        raise RuntimeError(f"lm_serve: expected {cfg.n_layers} B10 launches in the prefill and "
-                           f"none in the decode, got {launches} ({per_phase})")
+            or per_phase["decode"]
+            or any(per_phase["retrieval"].get(n, 0) <= 0 for n in ret_kernels)):
+        raise RuntimeError(f"lm_serve: expected {cfg.n_layers} B10 launches in the prefill, "
+                           f"none in the decode and {ret_kernels} in the retrieval, got "
+                           f"{launches} ({per_phase})")
     gen = np.asarray(rep["generated"])
     if gen.shape != (LM_BATCH, 8) or (gen < 0).any() or (gen >= cfg.vocab_size).any():
         raise RuntimeError(f"lm_serve: malformed generated tokens {gen.tolist()}")
+    ids = np.asarray(rep["retrieved_ids"])
+    if (ids.shape != (LM_BATCH, 4) or (ids < 0).any()
+            or (ids >= LM_RETRIEVAL["vectors"]).any()):
+        raise RuntimeError(f"lm_serve: malformed retrieved ids {ids.tolist()}")
     steps = LM_STEPS - 1
 
     # -- where the time goes: one profiled prefill and decode step
@@ -985,19 +1001,10 @@ def lm_serve(torch, np, ops, k_flash, dev, seed: int) -> dict:
     dec = profile_call(torch, lambda: decode_step(model, cfg, tok, cache, LM_PROMPT))
     cfg_od = dataclasses.replace(cfg, opt_decode=True)
     opt_ms = wall_ms(torch, lambda: decode_step(model, cfg_od, tok, cache, LM_PROMPT))
-    # the cost of the port's numerics switch on one decode projection
-    x = torch.randn(LM_BATCH, cfg.d_model, device=dev, generator=g).bfloat16()
-    w = model.layers[0].mlp["w_gate"]
-    gemv = {}
-    for allow in (False, True):
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allow
-        gemv[f"reduced_precision_reduction_{allow}"] = cuda_ms(torch, lambda: x @ w, 20)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(phase="lm_breakdown", prefill_device_busy_ms=pre[0], prefill_wall_ms=pre[3],
         prefill_device_events=pre[2], prefill_ms_by_kernel=pre[1],
         decode_device_busy_ms=dec[0], decode_wall_ms=dec[3], decode_device_events=dec[2],
-        decode_ms_by_kernel=dec[1], opt_decode_step_wall_ms=opt_ms,
-        decode_gate_proj_ms=gemv, decode_gate_proj_shape=[LM_BATCH, *w.shape])
+        decode_ms_by_kernel=dec[1], opt_decode_step_wall_ms=opt_ms)
     del cache
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1022,9 +1029,43 @@ def lm_serve(torch, np, ops, k_flash, dev, seed: int) -> dict:
         launches=launches, launches_by_phase=per_phase, generated=rep["generated"],
         chunked_prefill_ms=chunked_ms, flash_vs_chunked_rel_norm=rel,
         flash_vs_chunked_max_of_max=max_rel, first_token_agreement=agree,
-        first_tokens_flash=a.argmax(-1).tolist(), first_tokens_chunked=b.argmax(-1).tolist())
+        first_tokens_flash=a.argmax(-1).tolist(), first_tokens_chunked=b.argmax(-1).tolist(),
+        retrieval_ms=rep["retrieval_s"] * 1e3, retrieved_ids=rep["retrieved_ids"],
+        retrieval_stats=ret)
     del model, on, off, a, b
     torch.cuda.empty_cache()
+
+    # -- B1 at the retrieval's shapes: M = 8 tables of dsub 512 per filled pair
+    rc = reduced_retrieval(SIFT1B, n_vectors=LM_RETRIEVAL["vectors"], dim=cfg.d_model)
+    dsub, n_rows = cfg.d_model // rc.m, LM_BATCH * rc.nprobe
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    cb = torch.randn(rc.m, 256, dsub, device=dev, generator=g)
+    qmc = torch.randn(n_rows, rc.m, dsub, device=dev, generator=g)
+    rows = torch.arange(n_rows, dtype=torch.int32, device=dev)
+    luts = ops.build_luts(cb, qmc, rows)
+    want = k_lut.build_luts_plain(cb, qmc)
+    err = float((luts - want).abs().max())
+    if not torch.equal(luts, want):
+        raise RuntimeError(f"lut_build (dsub {dsub}) disagrees with its plain version: {err}")
+    out = torch.empty_like(luts)
+    n_lut = luts.numel()
+    bms, by = bound_ms(4 * (cb.numel() + qmc.numel() + n_rows + n_lut), 3 * n_lut * dsub)
+    wide_row = dict(
+        name="lut_build", route="cuda", source=f"{SRC_ROOT}/csrc/lut_build.cu",
+        replaces="src/repro/kernels/lut_build.py:35",
+        launches=per_phase["retrieval"]["build_luts"], max_abs_err=err,
+        ms=cuda_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20),
+        plain_ms=wall_ms(torch, lambda: k_lut.build_luts_plain(cb, qmc)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: ((cb[None] - qmc[:, :, None, :]) ** 2).sum(-1), 5),
+        library_call="((codebook[None] - qmc[:, :, None, :]) ** 2).sum(-1) (squared, no "
+                     "sqrt: the kernel's function)",
+        shape=dict(path="lm_serve --retrieval", pairs=n_rows, m=rc.m, dsub=dsub,
+                   kernel="lut_build_kernel" if dsub in (1, 2, 4, 8, 16, 32)
+                   else "lut_build_wide_kernel"),
+    )
+    log(phase="lm_lut_wide", **{k_: v_ for k_, v_ in wide_row.items() if k_ != "source"})
+    del cb, qmc, luts, want, out
 
     # -- B10 at the prefill's shapes against its plain version ---------------
     b_, h, kvh, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -1081,7 +1122,7 @@ def lm_serve(torch, np, ops, k_flash, dev, seed: int) -> dict:
     log(phase="lm_flash_kernel", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
     del q, k, v, qf, qt, kt, vt, got, got32, out, out32
     torch.cuda.empty_cache()
-    return row
+    return [wide_row, row]
 
 
 def main(argv=None) -> int:
@@ -1133,7 +1174,7 @@ def main(argv=None) -> int:
         ptxas=regs)
 
     # == the LM serving path (B10), before the engine takes the memory ======
-    lm_row = lm_serve(torch, np, ops, k_flash, dev, args.seed)
+    lm_rows = lm_serve(torch, np, ops, k_flash, k_lut, dev, args.seed)
 
     # -- data + engine ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1300,7 +1341,7 @@ def main(argv=None) -> int:
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
                                    direct_codes, direct_table)
 
-    kernels.append(lm_row)
+    kernels += lm_rows
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(json.dumps({"ok": True, "device": {

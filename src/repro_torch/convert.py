@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.index import IVFPQIndex
 from repro_torch.core.placement import Placement
+from repro_torch.device import resolve_device
 
 _INDEX_FIELDS = ("centroids", "codebook", "codes", "vec_ids", "offsets")
 
@@ -91,17 +92,17 @@ def load_index_dir(path: str) -> tuple[IVFPQIndex, dict]:
     return index_from_arrays(**arrays), meta.get("extra", {})
 
 
-def _tensor(a) -> torch.Tensor:
-    """A tensor of the array's dtype.  bf16 arrives from JAX as
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A tensor of the array's dtype on `device`.  bf16 arrives from JAX as
     `ml_dtypes.bfloat16`, which `torch.from_numpy` refuses: it crosses as
     its int16 bit pattern."""
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
 
 
-def lm_params_from_reference(params: dict, cfg) -> dict[str, torch.Tensor]:
+def lm_params_from_reference(params: dict, cfg, device=None) -> dict[str, torch.Tensor]:
     """A `DecoderLM` state dict from the reference's dense parameter tree.
 
     `params` is `repro.models.init_params`'s tree as numpy arrays:
@@ -109,20 +110,22 @@ def lm_params_from_reference(params: dict, cfg) -> dict[str, torch.Tensor]:
     leading L axis (`attn`: wq, wk, wv, wo, q_norm, k_norm; `mlp`: w_gate,
     w_up, w_down; `ln1`, `ln2`).  The stacked arrays are split into the
     per-layer tensors `layers.{i}.attn.wq`, ...; layouts are unchanged.
+    The tensors go to `device`, cuda unless the caller asks for the CPU.
     Load it with `DecoderLM(cfg, device="meta").load_state_dict(state,
     assign=True)` or into an allocated model.
     """
     from repro_torch.models.model import check_dense
 
     check_dense(cfg)
-    state = {n: _tensor(params[n]) for n in ("embed", "final_norm", "lm_head")}
+    dev = resolve_device(device)
+    state = {n: _tensor(params[n], dev) for n in ("embed", "final_norm", "lm_head")}
     layers = params["layers"]
     if len(layers["ln1"]) != cfg.n_layers:
         raise ValueError(f"{len(layers['ln1'])} stacked layers, config has {cfg.n_layers}")
     for i in range(cfg.n_layers):
         for group in ("attn", "mlp"):
             for name, arr in layers[group].items():
-                state[f"layers.{i}.{group}.{name}"] = _tensor(arr[i])
+                state[f"layers.{i}.{group}.{name}"] = _tensor(arr[i], dev)
         for name in ("ln1", "ln2"):
-            state[f"layers.{i}.{name}"] = _tensor(layers[name][i])
+            state[f"layers.{i}.{name}"] = _tensor(layers[name][i], dev)
     return state

@@ -17,6 +17,22 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 96, 128)
 
 
+def online_softmax_step(qg, kc, vc, mask, m, l, acc, s_eq, pv_eq):
+    """One KV block of the online softmax, in f32: scores by `s_eq`, masked
+    to -inf, the running max with the -inf guard on fully masked rows, the
+    rescaled sum and accumulator (values by `pv_eq`).  Shared by this plain
+    version and the models' chunked scans."""
+    s = torch.einsum(s_eq, qg, kc.float())
+    s = torch.where(mask, s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum(pv_eq, p, vc.float())
+    return m_new, l, acc
+
+
 def flash_attention_fwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -52,20 +68,13 @@ def flash_attention_fwd_plain(
         for k0 in range(0, sk, bk):
             if not (k0 <= q_offset + q0 + bq - 1 and k0 < kv_valid):
                 continue
-            kb = k[:, k0 : k0 + bk].float()
-            vb = v[:, k0 : k0 + bk].float()
+            kb, vb = k[:, k0 : k0 + bk], v[:, k0 : k0 + bk]
             k_pos = k0 + torch.arange(kb.shape[1], device=dev)
             mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos < kv_valid)[None, :]
-            mask = mask[None, :, None, None, :]
-            s = torch.einsum("bqkgd,bckd->bqkgc", qb, kb)
-            s = torch.where(mask, s, -torch.inf)
-            m_new = torch.maximum(m, s.amax(-1))
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
-            m = m_new
+            m, l, acc = online_softmax_step(
+                qb, kb, vb, mask[None, :, None, None, :], m, l, acc,
+                "bqkgd,bckd->bqkgc", "bqkgc,bckd->bqkgd",
+            )
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
         out[:, q0 : q0 + bq] = o.reshape(b, n, h, hd).to(q.dtype)
     return out

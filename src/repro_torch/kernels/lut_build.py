@@ -13,9 +13,9 @@ import torch
 from repro_torch.kernels import _build
 
 NCODES = 256
-# pairs per chunk of the plain version: bounds its (chunk, M, 256, dsub)
-# difference tensor at about 0.5 GB for SIFT geometry
-_PLAIN_CHUNK = 4096
+# bytes of the plain version's (chunk, M, 256, dsub) difference tensor:
+# 4096 pairs at SIFT geometry (M = 16, dsub = 8)
+_PLAIN_BYTES = 1 << 29
 # rows per chunk of the extended-table plain versions
 _EXT_CHUNK = 8192
 
@@ -28,13 +28,14 @@ def build_luts_plain(codebook: torch.Tensor, qmc: torch.Tensor) -> torch.Tensor:
     sum rounded on its own -- so the result is bit-equal to the kernel.
     """
     n, m, dsub = qmc.shape
+    chunk = max(1, _PLAIN_BYTES // (m * NCODES * dsub * 4))
     out = torch.empty((n, m, NCODES), dtype=torch.float32, device=qmc.device)
-    for s in range(0, n, _PLAIN_CHUNK):
-        diff = qmc[s : s + _PLAIN_CHUNK, :, None, :] - codebook[None]
+    for s in range(0, n, chunk):
+        diff = qmc[s : s + chunk, :, None, :] - codebook[None]
         acc = torch.zeros(diff.shape[:-1], dtype=torch.float32, device=qmc.device)
         for d in range(dsub):
             acc = acc + diff[..., d] * diff[..., d]
-        out[s : s + _PLAIN_CHUNK] = acc
+        out[s : s + chunk] = acc
     return out
 
 

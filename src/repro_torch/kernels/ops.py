@@ -91,8 +91,6 @@ def build_luts(
         _check(rows, "rows", torch.int32, 1, dev)
     if not _on_gpu(dev):
         return _lut.build_luts_plain(codebook, qmc if rows is None else qmc[rows.long()])
-    if dsub not in (1, 2, 4, 8, 16, 32):
-        raise ValueError(f"build_luts kernel: dsub={dsub} not in (1, 2, 4, 8, 16, 32)")
     n_out = qmc.shape[0] if rows is None else rows.shape[0]
     out = torch.empty((n_out, m, NCODES), dtype=torch.float32, device=dev)
     _lut.launch(codebook, qmc, out, rows)

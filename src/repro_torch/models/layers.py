@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attn import online_softmax_step
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -43,20 +44,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
-
-
-def _online_softmax_step(qg, kc, vc, mask, m, l, acc, s_eq, pv_eq):
-    """One KV chunk of the online softmax (the reference's scan body)."""
-    s = torch.einsum(s_eq, qg, kc.float())
-    s = torch.where(mask, s, -torch.inf)
-    m_new = torch.maximum(m, s.amax(-1))
-    # guard fully-masked rows
-    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-    p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
-    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-    l = l * corr + p.sum(-1)
-    acc = acc * corr[..., None] + torch.einsum(pv_eq, p, vc.float())
-    return m_new, l, acc
 
 
 def _flash_chunk_scan(
@@ -90,7 +77,7 @@ def _flash_chunk_scan(
         mask = kpos[None, None, :] <= q_pos[:, :, None]          # (B, Sq, chunk)
         if kv_valid_len is not None:
             mask = mask & (kpos[None, None, :] < kv_valid_len[:, None, None])
-        m, l, acc = _online_softmax_step(
+        m, l, acc = online_softmax_step(
             qg, kc, vc, mask[:, :, None, None, :], m, l, acc,
             "bqkgd,bckd->bqkgc", "bqkgc,bckd->bqkgd",
         )
@@ -122,7 +109,7 @@ def _flash_decode(
         kc, vc = ck[:, start : start + chunk], cv[:, start : start + chunk]
         kpos = start + torch.arange(kc.shape[1], device=dev)
         mask = kpos[None, :] < valid_len[:, None]                # (B, chunk)
-        m, l, acc = _online_softmax_step(
+        m, l, acc = online_softmax_step(
             qg, kc, vc, mask[:, None, None, :], m, l, acc,
             "bkgd,bckd->bkgc", "bkgc,bckd->bkgd",
         )

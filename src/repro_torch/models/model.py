@@ -92,8 +92,9 @@ class DenseLayer(nn.Module):
 class DecoderLM(nn.Module):
     """`embed` (V, d), `layers`, `final_norm` (d,), untied `lm_head` (d, V).
 
-    Parameters are allocated uninitialised (`device="meta"` allocates
-    nothing); `init_params` fills them from a generator and
+    Parameters are allocated uninitialised on `device` (None means cuda, as
+    for every entry point; `device="meta"` allocates nothing);
+    `init_params` fills them from a generator and
     `load_state_dict(convert.lm_params_from_reference(...))` from the
     reference's tree.
     """
@@ -101,6 +102,8 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
         check_dense(cfg)
+        if device is None or torch.device(device).type != "meta":
+            device = resolve_device(device)
         dtype = torch_dtype(dtype or cfg.dtype)
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = _param((v, d), device, dtype)
@@ -164,8 +167,10 @@ def forward_train(params: DecoderLM, cfg: ModelConfig,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device=None) -> dict:
-    """The (empty) dense KV cache: {"k", "v"} of (L, B, max_len, KV, hd)."""
+    """The (empty) dense KV cache: {"k", "v"} of (L, B, max_len, KV, hd),
+    on cuda unless `device` says otherwise."""
     check_dense(cfg)
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {n: torch.zeros(shape, dtype=torch_dtype(dtype), device=device) for n in ("k", "v")}
 

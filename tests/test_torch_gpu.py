@@ -43,11 +43,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dsub", [4, 8])
+@pytest.mark.parametrize("dsub", [4, 8, 48, 512])
 def test_lut_kernel_bit_equal(cuda, dsub):
+    """dsub 48 and 512 take the wide kernel (slices of 32, a ragged tail)."""
     g = torch.Generator(device=cuda).manual_seed(dsub)
     cb = torch.randn(16, 256, dsub, device=cuda, generator=g)
-    qmc = torch.randn(1000, 16, dsub, device=cuda, generator=g)
+    qmc = torch.randn(1000 if dsub <= 48 else 100, 16, dsub, device=cuda, generator=g)
     ops.reset_launches()
     got = ops.build_luts(cb, qmc)
     torch.cuda.synchronize()

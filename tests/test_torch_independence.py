@@ -79,15 +79,25 @@ def test_lm_entry_points_refuse_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: cuda is a valid default here")
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.convert import lm_params_from_reference
     from repro_torch.launch.serve import serve
-    from repro_torch.models import init_params
+    from repro_torch.models import DecoderLM, init_decode_cache, init_params
 
     cfg = reduced_config(get_config("qwen3-8b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(cfg, batch=1, prompt_len=8, steps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_reference({}, cfg)
     assert init_params(cfg, torch.Generator(), "cpu").embed.device.type == "cpu"
+    assert DecoderLM(cfg, "cpu").embed.device.type == "cpu"
+    assert DecoderLM(cfg, "meta").embed.is_meta
+    assert init_decode_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
 
 
 def _tiny_index():

@@ -24,7 +24,7 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
-@pytest.mark.parametrize("dsub", [4, 8])
+@pytest.mark.parametrize("dsub", [4, 8, 48])
 def test_build_luts_matches_reference(dsub):
     rng = np.random.default_rng(dsub)
     m, n = 8, 37

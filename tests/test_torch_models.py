@@ -92,7 +92,8 @@ def _ref_params(rcfg):
 
 
 def _port_model(rcfg, tcfg):
-    state = lm_params_from_reference(jax.tree.map(np.asarray, _ref_params(rcfg)), tcfg)
+    state = lm_params_from_reference(
+        jax.tree.map(np.asarray, _ref_params(rcfg)), tcfg, device="cpu")
     model = tmodels.DecoderLM(tcfg, device="meta")
     model.load_state_dict(state, assign=True)
     return model

@@ -50,10 +50,10 @@ def test_serve_flash_on_off_same_tokens():
 
 @pytest.mark.parametrize("rerank", ["off", "exact"])
 def test_serve_cpu_with_retrieval(rerank):
-    opts = tserve.RetrievalOptions(vectors=4000, rerank=rerank)
+    opts = tserve.RetrievalOptions(vectors=2000, rerank=rerank)
     rep = tserve.serve(_cfg(), batch=2, prompt_len=16, steps=2, retrieval=opts, device="cpu")
     ids = np.asarray(rep["retrieved_ids"])
-    assert ids.shape == (2, 4) and (ids >= 0).all() and (ids < 4000).all()
+    assert ids.shape == (2, 4) and (ids >= 0).all() and (ids < 2000).all()
     st = rep["retrieval_stats"]
     assert st["cooc"] is True and st["nprobe"] == 8 and st["k"] == 10
     assert ("rerank" in st) == (rerank == "exact")
