@@ -32,7 +32,9 @@ re-rank):
   2. holds each kernel against its plain PyTorch version at the shapes of
      that path (tolerance: allclose rtol = atol = 1e-5 on distances, rows
      and ids equal) and times kernel, plain version, bound and the PyTorch
-     expression that computes the same function, where there is one;
+     expression that computes the same function, where there is one; for
+     B2 / B5 it also gives the lookup bound (table lookups over the SMs'
+     shared-memory rate at the SM clock read during the timing);
   3. holds 16 queries' engine output against a plain path (plain LUTs ->
      unpruned ADC over every probed row -> stable top-k' -> plain exact
      re-rank): distances bit-equal, ids equal outside exactly tied groups;
@@ -202,11 +204,14 @@ def profile_call(torch, fn) -> tuple[float, dict, int, float]:
 
 
 def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, tables,
-               lut_row, codes, plan, dv, kp) -> dict:
+               lut_row, codes, plan, dv, kp, regs) -> dict:
     """B2 (scan="tiles") or B5 ("windows") at a path's shapes: the pruned
     scan as the path calls it and the unpruned scan per pair against the
     plain version (rows equal, distances allclose), kernel times pruned and
-    unpruned, the plain version's time and the bound of what was read."""
+    unpruned, the plain version's time and the bound of what was read.
+    Beside the FP32 / byte bound it gives the lookup bound: the scored rows' W
+    table lookups each, one warp lookup per SM clock on every SM, at the
+    SM clock nvidia-smi reads while the pruned scan is timed."""
     import numpy as np
 
     dev = codes.device
@@ -275,13 +280,24 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     ov, oi, os_ = (torch.empty(ndev * p, kp, device=dev),
                    torch.empty(ndev * p, kp, dtype=torch.int32, device=dev),
                    torch.empty(ndev * p, 2, dtype=torch.int32, device=dev))
+    w, item = codes.shape[2], codes.element_size()
 
     def run(pruned: bool):
         sq.copy_(qbound if pruned else torch.full_like(qbound, torch.inf))
         launch(flat_lb if pruned else no_lb,
                qbound if pruned else torch.full_like(qbound, torch.inf), sq, ov, oi, os_)
 
-    ms = cuda_ms(torch, lambda: run(True), 10)
+    clocks = SmClock()
+    try:
+        ms = cuda_ms(torch, lambda: run(True), 20)
+    finally:
+        sm_mhz = clocks.stop()
+    lookups = (int(n_valid.sum()) - int(ps[..., 1].sum())) * w
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    extra = dict(
+        lookup_bound_ms=lookups / (n_sm * 32 * sm_mhz * 1e6) * 1e3, lookups=lookups,
+        sms=n_sm, sm_clock_mhz=sm_mhz, sm_clock_samples=clocks.samples,
+        registers=scan_registers(regs, scan, k_topk.code_format(codes), w))
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
     lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp)
     lib_v = torch.full((ndev * p, kp), torch.inf, device=dev)
@@ -292,7 +308,6 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     library_ms = cuda_ms(torch, lib_run, 1)
     valid_rows = int(n_valid.sum())
     scanned = valid_rows - int(ps[..., 1].sum())
-    w, item = codes.shape[2], codes.element_size()
     pairs_run = int(((lut_row >= 0) & (flat_nv > 0)).sum())
     table_bytes = pairs_run * tables.shape[1] * 4
     out_bytes = ndev * p * (kp * 8 + 8)
@@ -320,7 +335,43 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                    width=w, table_width=tables.shape[1], valid_rows=valid_rows,
                    distinct_rows=distinct, scanned_rows=scanned, tiles=tiles_total,
                    tiles_skipped=int(ps[..., 0].sum())),
+        **extra,
     )
+
+
+def scan_registers(regs: dict, scan: str, fmt: int, w: int) -> str | None:
+    """ptxas' registers and spills of B2 / B5 (`scan` tiles | windows) for
+    code format `fmt` and width `w` (the instantiation REPRO_ADC_DISPATCH,
+    csrc/adc_topk_common.cuh, launches: a compiled width, else 0)."""
+    ctype = {0: "h", 1: "t", 2: "i"}[fmt]
+    wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
+    want = f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}EE"
+    hits = [v for k, v in regs.items() if k.startswith(want)]
+    return hits[0] if hits else None
+
+
+class SmClock:
+    """nvidia-smi's SM clock (MHz) sampled every 100 ms from construction to
+    `stop()`, which ends the sampler and returns the largest sample (the
+    clock under load; idle samples before the first launch read lower)."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.samples: list[float] = []
+
+    def stop(self) -> float:
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.samples = [float(x) for x in out.split() if x.strip().replace(".", "").isdigit()]
+        if not self.samples:
+            raise RuntimeError("nvidia-smi gave no SM clock samples")
+        return max(self.samples)
 
 
 def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 << 23):
@@ -508,7 +559,7 @@ def plan_tables(torch, np, ops, eng, plan):
 
 
 def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
-                     plain_search, plain_adc) -> list[dict]:
+                     plain_search, plain_adc, regs) -> list[dict]:
     """The second slice's phases: co-occurrence build, its paths and the
     windows scan, the new kernels' checks, and the equivalences.  Returns
     the kernels' rows for the JSON line."""
@@ -648,7 +699,7 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         replaces="src/repro/kernels/adc_topk.py:397",
         launches=paths["search_cooc_tiles"]["launches"]["adc_topk_tiles"],
         tables=ext, lut_row=c_lut_row, codes=ceng._device_put()["codes"], plan=cplan,
-        dv=ceng._device_put(), kp=kp))
+        dv=ceng._device_put(), kp=kp, regs=regs))
     ceng.scan = "windows"
     cwplan = ceng.plan_batch(qb, NPROBE)
     ext_w, cw_lut_row, _, _, _ = plan_tables(torch, np, ops, ceng, cwplan)
@@ -658,7 +709,7 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         replaces="src/repro/kernels/adc_topk.py:592",
         launches=paths["search_cooc_windows"]["launches"]["adc_topk_windows"],
         tables=ext_w, lut_row=cw_lut_row, codes=ceng._device_put()["codes"], plan=cwplan,
-        dv=ceng._device_put(), kp=kp))
+        dv=ceng._device_put(), kp=kp, regs=regs))
     del ext, ext_w, cluts
     wplan = eng.plan_batch(qb, NPROBE)  # eng.scan is "windows"
     w_tab, w_lut_row, _, _, _ = plan_tables(torch, np, ops, eng, wplan)
@@ -667,7 +718,8 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
         replaces="src/repro/kernels/adc_topk.py:592",
         launches=paths["search_windows_plain"]["launches"]["adc_topk_windows"],
-        tables=w_tab, lut_row=w_lut_row, codes=dv["codes"], plan=wplan, dv=dv, kp=kp))
+        tables=w_tab, lut_row=w_lut_row, codes=dv["codes"], plan=wplan, dv=dv, kp=kp,
+        regs=regs))
     del w_tab
     torch.cuda.empty_cache()
 
@@ -1268,7 +1320,7 @@ def main(argv=None) -> int:
         source=f"{SRC_ROOT}/csrc/adc_topk_tiles.cu",
         replaces="src/repro/kernels/adc_topk.py:397", launches=launches["adc_topk_tiles"],
         tables=luts.reshape(n_rows, -1), lut_row=lut_row, codes=dv["codes"], plan=plan,
-        dv=dv, kp=kp,
+        dv=dv, kp=kp, regs=regs,
     ))
 
     # B3: exact re-rank with the fused gather, on this batch's candidates
@@ -1333,7 +1385,7 @@ def main(argv=None) -> int:
 
     # == the co-occurrence slice (§4.3) and the windows scan ================
     cooc_kernels, direct_codes, direct_table = cooc_and_windows(
-        torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev, pruned, adc_pruned)
+        torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev, pruned, adc_pruned, regs)
     kernels += cooc_kernels
     torch.cuda.empty_cache()
 

@@ -28,10 +28,17 @@
 // the launch order and differ from the TPU's; the merged per-query output
 // does not (adc_topk_common.cuh states why).
 //
-// What bounds it on an H100: bytes.  Every probed valid row is read once
-// from device memory (3.35 TB/s): 16 B for raw codes at M = 16, 2W B for
-// uint16 addresses; the W table lookups per row are shared-memory gathers.
-// Pruned tiles are never read.
+// What bounds it on an H100.  Not bytes: each probed valid row is read
+// once per pair (16 B for raw codes at M = 16, 2W B for uint16 addresses),
+// mostly from L2, since a cluster is probed by many queries' pairs, and
+// pruned tiles are never read.  It is bound by the shared memory's issue
+// of the W table lookups per row: a warp's 32 lookups of one sub-space
+// fall in random banks (code mod 32), ~2.2 SM clocks per warp lookup
+// measured alone against ~1.75 for 32 distinct banks
+// (tools/bench_smem_lookup.cu), ~3.2 in the whole scan.  A layout with
+// lane-private table banks and a row sum passed along a chain of lanes
+// removes the conflicts but pays a shuffle, a code load and a vote per
+// step; it measured 2.1x slower than this design (PERF.md §6).
 
 #include "adc_topk_common.cuh"
 

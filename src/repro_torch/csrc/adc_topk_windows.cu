@@ -21,9 +21,10 @@
 // filled pairs best-first (ascending lower bound), so `sq` tightens early;
 // the merged per-query output does not depend on the order.
 //
-// What bounds it on an H100: bytes, as B2 -- each valid probed row that is
-// not pruned is read once from device memory; no tile queue is built or
-// shipped.
+// What bounds it on an H100: as B2, not bytes but the shared memory's
+// issue of the table lookups (adc_topk_tiles.cu says why); each valid
+// probed row that is not pruned is read once, and no tile queue is built
+// or shipped.
 
 #include "adc_topk_common.cuh"
 

@@ -84,6 +84,33 @@ def code_format(codes: torch.Tensor) -> int:
     return fmt
 
 
+# largest k of B2 and B5: the top-k list and its merge buffer (4k floats)
+# live in the block's shared memory beside the table
+SCAN_K_MAX = 4096
+# shared memory one H100 block may use (227 KB), and what the scan blocks
+# declare statically beside the dynamic part
+SMEM_BUDGET = 232_448
+_STATIC_SMEM = 64
+# rows a B2 / B5 block scores per merge (csrc/adc_topk_common.cuh PASS)
+_SCAN_PASS = 1024
+
+
+def scan_smem(k: int, table_width: int) -> int:
+    """Dynamic shared memory of a B2 / B5 block (csrc `scan_smem_bytes`: the
+    table, the top-k lists (4k), the candidates), after checking the scans'
+    domain: raises ValueError for k outside [1, SCAN_K_MAX] and for a table
+    too wide to sit in `SMEM_BUDGET` bytes beside them."""
+    if not 1 <= k <= SCAN_K_MAX:
+        raise ValueError(f"k={k} outside [1, {SCAN_K_MAX}] (SCAN_K_MAX)")
+    smem = (table_width + 4 * k + 2 * _SCAN_PASS) * 4
+    if smem + _STATIC_SMEM > SMEM_BUDGET:
+        raise ValueError(
+            f"a table of {table_width} floats and k={k} need {smem} B of shared "
+            f"memory, over {SMEM_BUDGET}"
+        )
+    return smem
+
+
 def gatherable(codes: torch.Tensor) -> torch.Tensor:
     """`codes` as a tensor torch can index rows of: uint16 through an int16
     view (torch's uint16 has few kernels), masked back by `table_addresses`."""

@@ -17,6 +17,13 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 96, 128)
 
 
+def check_head_dim(hd: int) -> None:
+    """Raise ValueError unless the kernel is instantiated for head dim `hd`;
+    the wrapper calls it on every device, the plain version included."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: head dim {hd} not in {HEAD_DIMS}")
+
+
 def online_softmax_step(qg, kc, vc, mask, m, l, acc, s_eq, pv_eq):
     """One KV block of the online softmax, in f32: scores by `s_eq`, masked
     to -inf, the running max with the -inf guard on fully masked rows, the

@@ -44,6 +44,8 @@ launches = {
 # largest k of B6 and B7 (the top-k list and its merge buffer live in the
 # block's shared memory beside the table)
 ADC_TOPK_K_MAX = 1024
+# largest k of B2 and B5 (`adc_topk.scan_smem` checks it)
+SCAN_K_MAX = _topk.SCAN_K_MAX
 
 
 def reset_launches() -> None:
@@ -213,6 +215,13 @@ def adc_topk_tiles(
     Returns ((ndev, P, k) f32 distances, (ndev, P, k) int32 window rows,
     (ndev, P, 2) int32 [tiles skipped, rows avoided]).  Pairs that emitted
     no tiles, or have no table, read (+inf, -1) and (0, 0).
+
+    Domain (the same refusals on every device): 1 <= k <= `SCAN_K_MAX`
+    (4096: the list and its merge buffer live in the block's shared
+    memory), and the block's table of A floats must fit beside them in 227
+    KB of shared memory (`adc_topk.scan_smem`), so a direct-address table
+    wider than about 39,600 entries at k = 4096 (55,800 at k = 64) raises
+    ValueError.
     """
     single = codes.dim() == 2
     if single:
@@ -232,8 +241,7 @@ def adc_topk_tiles(
     lut_row = lut_row.reshape(-1)
     if cap % block_n:
         raise ValueError(f"code capacity {cap} is not a multiple of block_n={block_n}")
-    if not 1 <= k <= 4096:
-        raise ValueError(f"k={k} outside [1, 4096]")
+    _topk.scan_smem(k, luts.shape[1])
     for name, t in (("tile_pair", tile_pair), ("tile_block", tile_block),
                     ("tile_row0", tile_row0)):
         if t.dim() != 2 or t.shape[0] != ndev or t.shape != tile_pair.shape:
@@ -307,7 +315,10 @@ def adc_topk_windows(
 
     Returns ((ndev, P, k) f32 distances, (ndev, P, k) int32 window rows,
     (ndev, P, 2) int32 [tiles skipped, rows avoided]); other pairs read
-    (+inf, -1) and (0, 0).
+    (+inf, -1) and (0, 0).  Domain as `adc_topk_tiles`: 1 <= k <=
+    `SCAN_K_MAX` (4096) and a table that fits beside the lists in 227 KB of
+    shared memory (`adc_topk.scan_smem`), refused with ValueError on every
+    device.
     """
     single = codes.dim() == 2
     if single:
@@ -325,8 +336,7 @@ def adc_topk_windows(
             raise ValueError(f"{name}: shape {tuple(t.shape)} != ({ndev}, {p})")
     if cap % block_n:
         raise ValueError(f"code capacity {cap} is not a multiple of block_n={block_n}")
-    if not 1 <= k <= 4096:
-        raise ValueError(f"k={k} outside [1, 4096]")
+    _topk.scan_smem(k, luts.shape[1])
 
     def i32(t):
         return t.to(device=dev, dtype=torch.int32).contiguous().reshape(-1)
@@ -519,8 +529,12 @@ def adc_topk(
     reference's per-query warm start: a tile is merged only if its smallest
     distance is <= bound[q] (+inf: every tile).  Returns the k smallest rows
     of the merged tiles by (distance, row): ((Q, k) f32 ascending, (Q, k)
-    int32 row indices), (+inf, -1) in lanes without a row.  k <=
-    ADC_TOPK_K_MAX.
+    int32 row indices), (+inf, -1) in lanes without a row.
+
+    Domain: 1 <= k <= `ADC_TOPK_K_MAX` (1024: the list and its merge
+    buffer sit in shared memory beside the table); a larger k raises
+    ValueError on every device, where the reference's Pallas kernel takes
+    any k.
     """
     dev = codes.device
     _check_codes(codes, "codes", 2, False, dev)
@@ -538,7 +552,8 @@ def adc_topk_flat(
     bound: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`adc_topk` over direct addresses (kernel B6): ext_luts (Q, A) f32,
-    addrs (N, W) uint16 / int32 addresses into each table."""
+    addrs (N, W) uint16 / int32 addresses into each table.  Domain as
+    `adc_topk`: 1 <= k <= `ADC_TOPK_K_MAX` (1024), else ValueError."""
     dev = addrs.device
     _check_codes(addrs, "addrs", 2, True, dev)
     _check(ext_luts, "ext_luts", torch.float32, 2, dev)
@@ -560,7 +575,8 @@ def adc_topk_pairs(
     multiple of block_n, as the reference asserts); n_valid (P,) valid rows
     of each window.  Returns per pair the k smallest of its valid rows by
     (distance, row): ((P, k) f32, (P, k) int32 window rows), (+inf, -1) in
-    lanes without a row.
+    lanes without a row.  Domain: 1 <= k <= `ADC_TOPK_K_MAX` (1024), else
+    ValueError on every device.
     """
     dev = addrs.device
     _check_path(path, "adc_topk_pairs")
@@ -606,6 +622,10 @@ def flash_attention_fwd(
     a row with no live key is 0.  `bq` / `bk` are the reference's block
     sizes: clipped to Sq / Sk, they must divide them, as there; the plain
     version runs on them and the kernel tiles on its own.
+
+    Domain: head dims in `flash_attn.HEAD_DIMS` (16, 32, 64, 96, 128), the
+    kernel's instantiations; any other raises ValueError on every device
+    (`flash_attn.check_head_dim`), so the CPU refuses what the card would.
     """
     dev = q.device
     floats = (torch.float32, torch.bfloat16)
@@ -626,10 +646,9 @@ def flash_attention_fwd(
     bq, bk = min(bq, sq), min(bk, sk)
     if bq <= 0 or bk <= 0 or sq % bq or sk % bk:
         raise ValueError(f"blocks (bq={bq}, bk={bk}) do not divide (Sq={sq}, Sk={sk})")
+    _flash.check_head_dim(hd)
     if not _on_gpu(dev):
         return _flash.flash_attention_fwd_plain(q, k, v, scale, q_offset, kv_valid, bq, bk)
-    if hd not in _flash.HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd kernel: head dim {hd} not in {_flash.HEAD_DIMS}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_fwd kernel: q, k, v must be 16-byte aligned")
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)

@@ -6,10 +6,10 @@ Marked `gpu`: these tests need an NVIDIA GPU with nvcc and skip elsewhere
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel's plain version repeats its arithmetic in the same order, so
-tables (B1, B4, B9), ADC distances (B2 and B5, raw uint8 codes and
-uint16 / int32 direct addresses) and re-rank distances (B3) must be
-bit-equal; the pruned scans must equal the unpruned ones after the
-per-query merge, and a whole engine on the card (plain or co-occurrence
+tables (B1, B4, B9), ADC distances (B2 and B5, raw uint8 codes of width 8,
+16 and 32 at k 1, 64 and 4096, and uint16 / int32 direct addresses) and
+re-rank distances (B3) must be bit-equal; the pruned scans must equal the
+unpruned ones after the per-query merge, and a whole engine on the card (plain or co-occurrence
 shards, either scan) must return the engine-on-CPU answers.  The
 kernel-level API -- B8 (`adc_scan`), B6 (`adc_topk`, with and without a
 finite bound) and B7 (`adc_topk_pairs`) -- is bit-equal to its plain
@@ -74,7 +74,9 @@ def _tile_case(dev, seed, q=6, nprobe=8, m=16, dsub=8, block_n=128, k=32, spread
     qmc = rng.normal(0, 2, size=(q, nprobe, m * dsub)).astype(np.float32)
     qmc *= (1.0 + spread * np.arange(nprobe, dtype=np.float32))[None, :, None]
     sizes = rng.integers(0, 5 * block_n, p).astype(np.int32)
-    sizes[0], sizes[1] = 0, 5
+    # an empty pair, a pair of 5 rows, and one whose rows are a multiple of
+    # neither 32 nor block_n
+    sizes[0], sizes[1], sizes[3] = 0, 5, 2 * block_n + 33
     aligned = (sizes + block_n - 1) // block_n * block_n
     starts = np.zeros(p, np.int32)
     starts[1:] = np.cumsum(aligned)[:-1]
@@ -133,10 +135,14 @@ def _merge(v, i, pair_q, q, k):
     return out
 
 
+@pytest.mark.parametrize("k", [1, 64, 4096])
+@pytest.mark.parametrize("w", [8, 16, 32])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_tiles_kernel_matches_plain(cuda, seed):
-    c = _tile_case(cuda, seed)
+def test_tiles_kernel_matches_plain(cuda, seed, w, k):
+    c = _tile_case(cuda, seed, m=w, dsub=4, k=k)
+    ops.reset_launches()
     kv, ki, ks = _run_tiles(c, bounds=False, plain=False)
+    assert ops.launches["adc_topk_tiles"] == 1
     pv, pi, _ = _run_tiles(c, bounds=False, plain=True)
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
@@ -258,9 +264,11 @@ def _run_windows(c, bounds, plain):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("k", [1, 64, 4096])
+@pytest.mark.parametrize("w", [8, 16, 32])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_windows_kernel_matches_plain(cuda, seed, dtype):
-    c = _tile_case(cuda, seed)
+def test_windows_kernel_matches_plain(cuda, seed, w, k, dtype):
+    c = _tile_case(cuda, seed, m=w, dsub=4, k=k)
     if dtype != torch.uint8:
         c = _direct(c, dtype)
     ops.reset_launches()
