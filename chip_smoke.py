@@ -19,7 +19,12 @@ same prompt's prefill with the flash kernel off (the chunked scan) must
 give last-position logits within `LM_E2E_REL` / `LM_E2E_MAX`, and B10 is
 held against its plain version at the prefill's shapes (bf16 q against the
 f32 cache within one bf16 ulp, an f32 q at the reference's rtol 1e-4, atol
-1e-5) and timed beside the plain version and SDPA.  The model is freed
+1e-5), and with q scaled so that the largest live logit is 30 (the peaked
+case) against the same function in float64 at those tolerances (there the
+f32 plain version's own rounding exceeds the f32 tolerance), and timed
+beside the plain version and SDPA, with
+its registers, spilled bytes and shared memory, its FP32 bound and its
+tensor-core bound (the split scheme's TF32 passes).  The model is freed
 before the retrieval engine is built.  Then it generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
 codes, IVF 4096, nprobe 64, k = 10, 1000-query batches, 8 logical devices,
 bf16 raw store; N = 100M rows by default, the paper's 1e9 cut so the raw
@@ -71,7 +76,9 @@ all N codes of the same index, and the flat baseline search:
      clusters of one query, materialised as int32 windows;
  14. `flat_search`: `core.index.search` (B1 + B6, one launch per probed
      cluster) for 16 queries, against the engine with the re-rank off:
-     distances bit-equal, ids equal outside exactly tied groups.
+     distances bit-equal, ids equal outside exactly tied groups; B6's
+     launches there, their device time (one profiled search) per launch
+     and the sum of their bounds.
 Each kernel is held against its plain version and timed as in 2, with a
 chunked PyTorch expression of its function as the library yardstick (for
 B2 / B5 each filled pair's gather + sum + `torch.topk`, for B4 / B9 a
@@ -98,6 +105,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3, NVIDIA data sheet
 # H100 SXM: 67 TFLOP/s of FP32 outside the tensor cores counts each FMA as
 # two flops; the kernels issue unfused adds, subs and muls, one per slot
 FP32_INSTR_PER_S = 67e12 / 2
+# H100 SXM: dense TF32 tensor-core rate (NVIDIA data sheet)
+TF32_FLOPS = 495e12
 
 D, M, N_CLUSTERS, NPROBE, K, BATCH, NDEV, BLOCK_N = 128, 16, 4096, 64, 10, 1000, 8, 1024
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -117,6 +126,8 @@ FLASH_BF16_TOL = dict(rtol=2.0**-7, atol=1e-5)
 # entry 0.0226 of the largest logit (same on two H100 hosts); the bounds
 # leave 2.5x and 2.2x for another card's GEMM choices
 LM_E2E_REL, LM_E2E_MAX = 0.05, 0.05
+# the peaked-score case of B10: q scaled so that its largest live logit is this
+FLASH_PEAK_LOGIT = 30.0
 SRC_ROOT = "src/repro_torch"
 
 
@@ -177,8 +188,86 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def profile_call(torch, fn) -> tuple[float, dict, int, float]:
-    """(device busy ms, ms by kernel (top 8), device activities, wall ms) of
+def flash_bound_tc_ms(n_bytes: float, fmas: float, passes: tuple[int, int]) -> tuple[float, str]:
+    """B10's tensor-core bound: the larger of bytes over the HBM rate and
+    the split scheme's TF32 passes (Q.K^T, P.V) over the dense TF32 rate;
+    `fmas` counts both products once (an FMA is two flops)."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = sum(passes) * fmas / TF32_FLOPS * 1e3  # a pass of one product is fmas flops
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def peak_queries(torch, q, k, scale: float, kv_valid: int, target: float = FLASH_PEAK_LOGIT):
+    """q scaled (in f32, then back to q's dtype) so that its largest live
+    logit scale * q.k (causal from position 0, keys < kv_valid) is `target`:
+    B10's peaked-score case, where a score error costs the most in exp."""
+    b, s, h, _ = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    live = (torch.arange(kv_valid, device=q.device)[None, :]
+            <= torch.arange(s, device=q.device)[:, None])
+    top = -float("inf")
+    for bi in range(b):
+        for j in range(kvh):
+            lg = torch.einsum("sgd,kd->sgk", q[bi, :, j * g:(j + 1) * g].float(),
+                              k[bi, :kv_valid, j].float()) * scale
+            top = max(top, float(lg.masked_fill(~live[:, None, :], -torch.inf).max()))
+    return (q.float() * (target / top)).to(q.dtype)
+
+
+def flash_inputs(torch, dev, seed: int, h: int, kvh: int, hd: int):
+    """B10's inputs at the prefill's shapes: q (LM_BATCH, LM_PROMPT, h, hd)
+    bf16, k / v (LM_BATCH, LM_PROMPT + LM_STEPS, kvh, hd) f32 caches with
+    the prompt's keys filled and zeros after (as the serving path leaves
+    them), random normal from the seed."""
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    q = torch.randn(LM_BATCH, LM_PROMPT, h, hd, device=dev, generator=g).bfloat16()
+    k = torch.zeros(LM_BATCH, LM_PROMPT + LM_STEPS, kvh, hd, device=dev)
+    v = torch.zeros_like(k)
+    k[:, :LM_PROMPT] = torch.randn(LM_BATCH, LM_PROMPT, kvh, hd, device=dev, generator=g)
+    v[:, :LM_PROMPT] = torch.randn(LM_BATCH, LM_PROMPT, kvh, hd, device=dev, generator=g)
+    return q, k, v
+
+
+def flash_work(q, kv_valid: int, kvh: int) -> tuple[int, float, float]:
+    """(causal pairs per head, FMAs of both products, bytes: q in and out in
+    q's dtype, f32 K and V up to kv_valid read once) of one B10 call from
+    position 0."""
+    b, s, h, hd = q.shape
+    pairs = sum(min(i + 1, kv_valid) for i in range(s))
+    n_bytes = q.numel() * q.element_size() * 2 + 2 * b * kv_valid * kvh * hd * 4
+    return pairs, 2 * b * h * hd * pairs, n_bytes
+
+
+def flash_exact(torch, q, k, v, scale: float, kv_valid: int):
+    """B10's function in float64 (causal from position 0, keys < kv_valid),
+    one (batch, KV head) at a time: the reference of the peaked case, where
+    the f32 plain version's own rounding exceeds the f32 tolerance."""
+    b, s, h, _ = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    live = (torch.arange(kv_valid, device=q.device)[None, :]
+            <= torch.arange(s, device=q.device)[:, None])
+    for bi in range(b):
+        for j in range(kvh):
+            lg = torch.einsum("sgd,kd->sgk", q[bi, :, j * g:(j + 1) * g].double(),
+                              k[bi, :kv_valid, j].double()) * scale
+            p = torch.softmax(lg.masked_fill(~live[:, None, :], -torch.inf), -1)
+            out[bi, :, j * g:(j + 1) * g] = torch.einsum("sgk,kd->sgd", p,
+                                                         v[bi, :kv_valid, j].double())
+    return out
+
+
+def tol_ratio(got, want, tol: dict) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 inside the tolerance."""
+    d = (got.double() - want.double()).abs() / (tol["atol"] + tol["rtol"] * want.double().abs())
+    return float(d.max())
+
+
+def profile_call(torch, fn, top: int | None = 8) -> tuple[float, dict, int, float]:
+    """(device busy ms, ms by kernel (the `top` largest, all if None),
+    device activities, wall ms) of
     one call of `fn` under torch.profiler, synchronised at its end.  Busy
     is the union of the device's own activities (kernels, copies, memsets)
     in time; the CPU-side ops that launched them, which `key_averages`
@@ -199,8 +288,8 @@ def profile_call(torch, fn) -> tuple[float, dict, int, float]:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         by_kernel[e.name[:60]] = by_kernel.get(e.name[:60], 0.0) + (t1 - t0) / 1e3
-    top = dict(sorted(by_kernel.items(), key=lambda x: -x[1])[:8])
-    return busy / 1e3, top, len(acts), wall
+    ranked = dict(sorted(by_kernel.items(), key=lambda x: -x[1])[:top])
+    return busy / 1e3, ranked, len(acts), wall
 
 
 def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, tables,
@@ -981,9 +1070,25 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
             if set(a[row_d == v]) != set(b[row_d == v]):
                 raise RuntimeError("flat search ids differ from the engine's")
     probed, _ = filter_clusters(dv["centroids"], qt, NPROBE)
+    # B6 inside the flat search: one launch per distinct probed cluster (its
+    # probing queries' tables over its rows); device time of one profiled
+    # search, and the summed bound of those launches (as B6's row counts it)
+    _, by_kernel, _, _ = profile_call(torch, lambda: search(idx, q16, NPROBE, K, device=dev),
+                                      top=None)
+    b6_ms = sum(ms for name, ms in by_kernel.items()
+                if "adc_topk_scan_kernel" in name or "adc_topk_reduce_kernel" in name)
+    clusters, count = np.unique(probed.reshape(-1).cpu().numpy(), return_counts=True)
+    rows_c = idx.cluster_sizes()[clusters]
+    b6_bound = sum(bound_ms(r * M + c * M * 256 * 4 + c * min(K, r) * 8, c * r * M)[0]
+                   for c, r in zip(count.tolist(), rows_c.tolist()) if r)
+    if b6_ms <= 0:
+        raise RuntimeError(f"flat_search: no B6 kernel in the profile: {list(by_kernel)}")
+    b6_n = flat_launches["adc_topk"]
     log(phase="flat_search", queries=16, nprobe=NPROBE, k=K, wall_ms=flat_ms,
         launches=flat_launches, distinct_clusters=int(torch.unique(probed).numel()),
-        equal_to_engine_rerank_off=True)
+        equal_to_engine_rerank_off=True,
+        b6=dict(launches=b6_n, device_ms=b6_ms, ms_per_launch=b6_ms / b6_n,
+                bound_ms_sum=b6_bound, rows=int(rows_c.sum()), tables=int(count.sum())))
     return kernels
 
 
@@ -1120,13 +1225,8 @@ def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
     del cb, qmc, luts, want, out
 
     # -- B10 at the prefill's shapes against its plain version ---------------
-    b_, h, kvh, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    g = torch.Generator(device=dev).manual_seed(seed + 2)
-    q = torch.randn(b_, LM_PROMPT, h, hd, device=dev, generator=g).bfloat16()
-    k = torch.zeros(b_, max_len, kvh, hd, device=dev)
-    v = torch.zeros_like(k)
-    k[:, :LM_PROMPT] = torch.randn(b_, LM_PROMPT, kvh, hd, device=dev, generator=g)
-    v[:, :LM_PROMPT] = torch.randn(b_, LM_PROMPT, kvh, hd, device=dev, generator=g)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = flash_inputs(torch, dev, seed, h, kvh, hd)
     scale = hd**-0.5
     blocks = (min(512, LM_PROMPT), min(512, max_len))
     got = ops.flash_attention_fwd(q, k, v, scale=scale, kv_valid=LM_PROMPT, bq=blocks[0],
@@ -1146,6 +1246,26 @@ def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
     if not torch.allclose(got32, want32, **FLASH_F32_TOL):
         raise RuntimeError(f"flash_attention_fwd (f32 q) disagrees with its plain version: {err32}")
     del want, want32
+    # the peaked-score case at the same shapes (largest live logit ~30), held
+    # against the function in float64 at the same tolerances: there the f32
+    # plain version's own rounding uses more than the f32 tolerance (its
+    # share is logged beside the kernel's, and the kernel's against it)
+    peaked = {}
+    for label, qx, tol in (("bf16_q", q, FLASH_BF16_TOL), ("f32_q", qf, FLASH_F32_TOL)):
+        qp = peak_queries(torch, qx, k, scale, LM_PROMPT)
+        got_p = ops.flash_attention_fwd(qp, k, v, scale=scale, kv_valid=LM_PROMPT)
+        want_p = k_flash.flash_attention_fwd_plain(qp, k, v, scale, 0, LM_PROMPT, *blocks)
+        exact = flash_exact(torch, qp, k, v, scale, LM_PROMPT).to(qp.dtype)
+        err_p = float((got_p.float() - exact.float()).abs().max())
+        if not torch.allclose(got_p.float(), exact.float(), **tol):
+            raise RuntimeError(f"flash_attention_fwd ({label}, peaked scores) disagrees with "
+                               f"the float64 result: {err_p}")
+        peaked[label] = dict(
+            max_abs_err_vs_f64=err_p, target_logit=FLASH_PEAK_LOGIT,
+            tolerance_used=dict(kernel_vs_f64=tol_ratio(got_p, exact, tol),
+                                plain_vs_f64=tol_ratio(want_p, exact, tol),
+                                kernel_vs_plain=tol_ratio(got_p, want_p, tol)))
+        del qp, got_p, want_p, exact
     out = torch.empty_like(got)
     ms = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, LM_PROMPT), 10)
     out32 = torch.empty_like(got32)
@@ -1156,10 +1276,12 @@ def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
     vt = v[:, :LM_PROMPT].transpose(1, 2).contiguous()
     sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 10)
-    pairs = sum(min(i + 1, LM_PROMPT) for i in range(LM_PROMPT))
-    fmas = 2 * b_ * h * hd * pairs
-    n_bytes = q.numel() * 2 * 2 + 2 * b_ * LM_PROMPT * kvh * hd * 4
+    pairs, fmas, n_bytes = flash_work(q, LM_PROMPT, kvh)
     bms, by = bound_ms(n_bytes, fmas)
+    passes = k_flash.tf32_passes(q.dtype, k.dtype)
+    tc_ms, tc_by = flash_bound_tc_ms(n_bytes, fmas, passes)
+    attrs = k_flash.kernel_attributes(hd, q.dtype, k.dtype)
+    attrs32 = k_flash.kernel_attributes(hd, torch.float32, k.dtype)
     row = dict(
         name="flash_attention_fwd", route="cuda", source=f"{SRC_ROOT}/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn.py:104", launches=launches["flash_attention_fwd"],
@@ -1167,7 +1289,12 @@ def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
         library_ms=sdpa_ms,
         library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                      "enable_gqa=True) in f32 on (B, H, S, hd) copies, k / v cut to kv_valid",
-        f32_q=dict(max_abs_err=err32, ms=ms32),
+        bound_tc_ms=tc_ms, bound_tc_by=tc_by, tf32_passes=dict(qk=passes[0], pv=passes[1]),
+        kernel=attrs, peaked=peaked,
+        f32_q=dict(max_abs_err=err32, ms=ms32, kernel=attrs32,
+                   bound_tc_ms=flash_bound_tc_ms(
+                       flash_work(qf, LM_PROMPT, kvh)[2], fmas,
+                       k_flash.tf32_passes(torch.float32, k.dtype))[0]),
         shape=dict(q=list(q.shape), kv=list(k.shape), q_dtype="bfloat16", kv_dtype="float32",
                    kv_valid=LM_PROMPT, causal_pairs=pairs, fmas=fmas, bytes=n_bytes),
     )

@@ -59,6 +59,9 @@ SIGNATURES = {
     # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
     # kv_is_bf16, scale, stream
     "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
+    # hd, q_is_bf16, kv_is_bf16, out (3 ints: registers, spill bytes,
+    # dynamic shared memory bytes)
+    "flash_attn_attributes": [_I, _I, _I, _P],
 }
 
 

@@ -8,6 +8,8 @@ h // (H / KV); the output is (B, Sq, H, hd) in q's dtype.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -15,6 +17,14 @@ from repro_torch.kernels import _build
 # head dims the kernel is instantiated for (every dense config in the
 # registry: 128 for qwen3 / yi / mistral, 96 for phi3-mini, 16 reduced)
 HEAD_DIMS = (16, 32, 64, 96, 128)
+
+
+def tf32_passes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> tuple[int, int]:
+    """TF32 tensor-core passes the kernel runs for (Q.K^T, P.V): an f32
+    operand is split into hi + lo and a bf16 one is exact in TF32, so Q.K^T
+    takes 1 + (q is f32) + (k is f32) passes and P.V 2 + (v is f32)."""
+    f32q, f32kv = q_dtype == torch.float32, kv_dtype == torch.float32
+    return 1 + f32q + f32kv, 2 + f32kv
 
 
 def check_head_dim(hd: int) -> None:
@@ -85,6 +95,17 @@ def flash_attention_fwd_plain(
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
         out[:, q0 : q0 + bq] = o.reshape(b, n, h, hd).to(q.dtype)
     return out
+
+
+def kernel_attributes(hd: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> dict:
+    """The kernel instance's registers, spilled (local) bytes per thread and
+    dynamic shared memory bytes, from the CUDA runtime (builds the library)."""
+    check_head_dim(hd)
+    out = (ctypes.c_int * 3)()
+    err = _build.library().flash_attn_attributes(
+        hd, int(q_dtype == torch.bfloat16), int(kv_dtype == torch.bfloat16), out)
+    _build.check(err, "flash_attn_attributes")
+    return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
 
 
 def launch(q, k, v, out, scale: float, q_offset: int, kv_valid: int) -> None:

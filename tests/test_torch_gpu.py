@@ -15,8 +15,10 @@ kernel-level API -- B8 (`adc_scan`), B6 (`adc_topk`, with and without a
 finite bound) and B7 (`adc_topk_pairs`) -- is bit-equal to its plain
 versions, and the flat search on B1 + B6 equals the flat search on the CPU.
 B10 (`flash_attention_fwd`) is held to its plain version at the reference's
-f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp;
-a reduced LM's prefill through B10 equals the chunked scan and the CPU.
+f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp,
+over every head dim, GQA 1 / 4 / 8, each (q, kv) dtype pair, offsets, dead
+keys past kv_valid and peaked scores; a reduced LM's prefill through B10
+equals the chunked scan and the CPU.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -453,6 +455,97 @@ def test_flash_kernel_bf16_q_matches_plain(cuda, kv_dtype):
     want = flash_attn.flash_attention_fwd_plain(q, k, v, hd**-0.5, 0, sq, 512, 128)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-5)
+
+
+FLASH_BF16_TOL = dict(rtol=2**-7, atol=1e-5)  # one bf16 ulp
+FLASH_DTYPES = [(torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+def _flash_inputs(dev, seed, b, sq, sk, h, kvh, hd, q_dtype, kv_dtype, off, kv_valid,
+                  peak=None):
+    """Random q / k / v; keys from kv_valid on hold a large finite value (not
+    NaN), as a cache's dead slots may; `peak`: q scaled so that its largest
+    live logit is `peak`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, sq, h, hd, device=dev, generator=g)
+    k = torch.randn(b, sk, kvh, hd, device=dev, generator=g)
+    v = torch.randn(b, sk, kvh, hd, device=dev, generator=g)
+    k[:, kv_valid:] = 1e30
+    v[:, kv_valid:] = -1e30
+    if peak is not None:
+        qg = q.reshape(b, sq, kvh, h // kvh, hd)
+        lg = torch.einsum("bqkgd,bckd->bqkgc", qg, k[:, :kv_valid]) * hd**-0.5
+        pos = off + torch.arange(sq, device=dev)
+        live = torch.arange(kv_valid, device=dev)[None, :] <= pos[:, None]
+        q = q * (peak / lg.masked_fill(~live[None, :, None, None, :], -torch.inf).max())
+    return q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+
+
+def _flash_f64(q, k, v, off, kv_valid):
+    """B10's function in float64, in q's dtype: the reference of the peaked
+    case, where the f32 plain version's own rounding exceeds the f32
+    tolerance (`chip_smoke.py` measures both at the prefill's shape)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.double().reshape(b, sq, kvh, h // kvh, hd)
+    lg = torch.einsum("bqkgd,bckd->bqkgc", qg, k[:, :kv_valid].double()) * hd**-0.5
+    pos = off + torch.arange(sq, device=q.device)
+    live = torch.arange(kv_valid, device=q.device)[None, :] <= pos[:, None]
+    p = torch.softmax(lg.masked_fill(~live[None, :, None, None, :], -torch.inf), -1)
+    o = torch.einsum("bqkgc,bckd->bqkgd", p, v[:, :kv_valid].double())
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def _flash_check(q, k, v, off, kv_valid, f64=False):
+    """The kernel within the f32 (f32 q) or one-bf16-ulp (bf16 q) tolerance
+    of its plain version, or with `f64` of the float64 result."""
+    hd = q.shape[-1]
+    ops.reset_launches()
+    got = ops.flash_attention_fwd(q, k, v, scale=hd**-0.5, q_offset=off, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == 1 and got.dtype == q.dtype
+    if f64:
+        want = _flash_f64(q, k, v, off, kv_valid)
+    else:
+        want = flash_attn.flash_attention_fwd_plain(q, k, v, hd**-0.5, off, kv_valid)
+    assert torch.isfinite(got).all()
+    tol = FLASH_F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("hd", flash_attn.HEAD_DIMS)
+def test_flash_kernel_domain_matches_plain(cuda, hd, groups, q_dtype, kv_dtype):
+    """Every head dim, GQA 1 / 4 / 8 and dtype pair the wrapper accepts:
+    q_offset > 0, kv_valid below both Sk and the last row's position (large
+    finite values in the dead keys), 77 x groups rows (no multiple of the
+    kernel's 128-row tile)."""
+    q, k, v = _flash_inputs(cuda, hd + groups, 2, 77, 200, 2 * groups, 2, hd, q_dtype,
+                            kv_dtype, 30, 90)
+    _flash_check(q, k, v, 30, 90)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("groups", [1, 4, 8])
+def test_flash_kernel_peaked_scores_match_plain(cuda, groups, q_dtype, kv_dtype):
+    """q scaled so that the largest live logit is 30: a score error costs
+    most in exp here, so this holds the split-TF32 products to the f32
+    tolerance where it is tightest, against the float64 result."""
+    q, k, v = _flash_inputs(cuda, 7 * groups, 2, 300, 384, 8 * groups, 8, 128, q_dtype,
+                            kv_dtype, 0, 300, peak=30.0)
+    _flash_check(q, k, v, 0, 300, f64=True)
+
+
+def test_flash_kernel_attributes(cuda):
+    """Every instance fits a block's shared memory and the register file
+    (printed: registers, spilled bytes, shared memory per instance)."""
+    for hd in flash_attn.HEAD_DIMS:
+        for q_dtype, kv_dtype in FLASH_DTYPES:
+            a = flash_attn.kernel_attributes(hd, q_dtype, kv_dtype)
+            print(hd, q_dtype, kv_dtype, a)
+            assert 0 < a["registers"] <= 255 and a["smem_bytes"] <= 232448
 
 
 def test_flash_kernel_no_live_key_is_zero(cuda):
