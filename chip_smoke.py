@@ -70,15 +70,19 @@ all N codes of the same index, and the flat baseline search:
      with one table, and (`ops.adc_scan_flat`) over one device's §4.3
      uint16 addresses;
  12. `kernel_api_topk`: B6 (`ops.adc_topk`) over every code row for
-     Q = 1, 4, 16 tables at k = 10 and k = 1, 100 at Q = 1, plus one launch
-     with a finite per-query bound;
+     Q = 1, 4, 8, 16 tables at k = 10 and k = 1, 100, 1024, 4096 at Q = 1,
+     plus one launch with a finite per-query bound; each with its lookup
+     bound (Q * N * W lookups, one warp lookup per SM clock, at the SM
+     clock read while it is timed);
  13. `kernel_api_pairs`: B7 (`ops.adc_topk_pairs`) over the 64 probed
      clusters of one query, materialised as int32 windows;
- 14. `flat_search`: `core.index.search` (B1 + B6, one launch per probed
-     cluster) for 16 queries, against the engine with the re-rank off:
-     distances bit-equal, ids equal outside exactly tied groups; B6's
-     launches there, their device time (one profiled search) per launch
-     and the sum of their bounds.
+ 14. `flat_search`: `core.index.search` (one B1 and one grouped B6 launch)
+     for 16 queries, against the engine with the re-rank off: distances
+     bit-equal, ids equal outside exactly tied groups; one search under
+     cProfile (host ms by function) and one under torch.profiler (device
+     busy and idle, B6's device time), and its grouped B6 call held against
+     its plain version and timed beside it and a per-cluster PyTorch
+     expression.
 Each kernel is held against its plain version and timed as in 2, with a
 chunked PyTorch expression of its function as the library yardstick (for
 B2 / B5 each filled pair's gather + sum + `torch.topk`, for B4 / B9 a
@@ -173,6 +177,20 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def clocked_ms(torch, fn, reps: int, min_ms: float = 1000.0) -> tuple[float, float]:
+    """(mean device ms of `fn`, the SM clock in MHz under it): `cuda_ms`
+    over at least `reps` launches and at least `min_ms` of work, so that
+    nvidia-smi's 100 ms samples (`SmClock`) see the card under load."""
+    est = cuda_ms(torch, fn, 2)
+    reps = max(reps, int(min_ms / max(est, 1e-3)) + 1)
+    clocks = SmClock()
+    try:
+        ms = cuda_ms(torch, fn, reps)
+    finally:
+        sm_mhz = clocks.stop()
+    return ms, sm_mhz
+
+
 def wall_ms(torch, fn) -> float:
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -263,6 +281,19 @@ def tol_ratio(got, want, tol: dict) -> float:
     """max |got - want| / (atol + rtol |want|): at most 1 inside the tolerance."""
     d = (got.double() - want.double()).abs() / (tol["atol"] + tol["rtol"] * want.double().abs())
     return float(d.max())
+
+
+def host_by_function(fn, top: int = 12) -> list:
+    """[(function, cumulative ms, own ms)] of the `top` functions of the
+    port, numpy and torch by cumulative time in one call of `fn` under
+    cProfile.  A wait for the device shows in the call that blocks on it
+    (e.g. `.cpu()`); numpy indexing counts in its caller's own time."""
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    rows = [(name if f == "~" else f"{pathlib.Path(f).name}:{name}", v[3] * 1e3, v[2] * 1e3)
+            for (f, _, name), v in pstats.Stats(prof).stats.items()
+            if "repro_torch" in f or "numpy" in f or (f == "~" and "torch" in name)]
+    return sorted(rows, key=lambda x: -x[1])[:top]
 
 
 def profile_call(torch, fn, top: int | None = 8) -> tuple[float, dict, int, float]:
@@ -376,16 +407,12 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
         launch(flat_lb if pruned else no_lb,
                qbound if pruned else torch.full_like(qbound, torch.inf), sq, ov, oi, os_)
 
-    clocks = SmClock()
-    try:
-        ms = cuda_ms(torch, lambda: run(True), 20)
-    finally:
-        sm_mhz = clocks.stop()
+    ms, sm_mhz = clocked_ms(torch, lambda: run(True), 20)
     lookups = (int(n_valid.sum()) - int(ps[..., 1].sum())) * w
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     extra = dict(
         lookup_bound_ms=lookups / (n_sm * 32 * sm_mhz * 1e6) * 1e3, lookups=lookups,
-        sms=n_sm, sm_clock_mhz=sm_mhz, sm_clock_samples=clocks.samples,
+        sms=n_sm, sm_clock_mhz=sm_mhz,
         registers=scan_registers(regs, scan, k_topk.code_format(codes), w))
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
     lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp)
@@ -435,6 +462,17 @@ def scan_registers(regs: dict, scan: str, fmt: int, w: int) -> str | None:
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
     wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
     want = f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}EE"
+    hits = [v for k, v in regs.items() if k.startswith(want)]
+    return hits[0] if hits else None
+
+
+def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int) -> str | None:
+    """ptxas' registers and spills of B6 (`adc_topk_kernel`, G tables) or B7
+    (`adc_topk_pairs_kernel`) for code format `fmt` and width `w`."""
+    ctype = {0: "h", 1: "t", 2: "i"}[fmt]
+    wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
+    want = f"{kernel}I{ctype}Lb{int(fmt == 0)}ELi{wt}E" + (f"Li{g}E" if "pairs" not in kernel
+                                                            else "")
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
@@ -874,11 +912,11 @@ def chunked_topk(torch, tables, addr_of, n_rows, k, chunk):
 
 
 def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direct_codes,
-                        direct_table) -> list[dict]:
+                        direct_table, regs) -> list[dict]:
     """The third slice's phases: B8, B6 and B7 through `ops` over the whole
     index's codes, and the flat search on B1 + B6.  Each call is counted
     with the counts reset just before it; returns the kernels' rows."""
-    from repro_torch.core.index import filter_clusters, search
+    from repro_torch.core.index import filter_clusters, probe_groups, search
 
     idx = eng.index
     dv = eng._device_put()
@@ -952,32 +990,41 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     def addr_raw(s0, s1):
         return codes[s0:s1].long() + cols
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     topk_rows = []
-    for q_n, k in ((1, 10), (4, 10), (16, 10), (1, 1), (1, 100)):
+    for q_n, k in ((1, 10), (4, 10), (8, 10), (16, 10), (1, 1), (1, 100), (1, 1024),
+                   (1, 4096)):
         tab = tables16[:q_n].contiguous()
         got, n6 = counted("adc_topk", lambda: ops.adc_topk(tab, codes, k, block_n=BLOCK_N))
         inf = torch.full((q_n,), torch.inf, device=dev)
         want, plain_ms = plain_timed(
             lambda: k_topk.adc_topk_plain(tab, codes, inf, k, BLOCK_N))
         err = check_kernel(torch, f"adc_topk q={q_n} k={k}", got, want)
+        del want
         ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
         bms, by = bound_ms(n * M + tab.numel() * 4 + q_n * k * 8, q_n * n * M)
         lib_ms = cuda_ms(torch, lambda: chunked_topk(
             torch, tab, addr_raw, n, k, max(1 << 18, (1 << 24) // q_n)), 2)
-        splits, per = k_topk.topk_splits(n, q_n, BLOCK_N)
+        g = k_topk.topk_group_size([q_n], [n], k, 0, M, tab.shape[1])
+        ms, sm_mhz = clocked_ms(torch, lambda: k_topk.launch_topk(tab, codes, None, ov, oi, k,
+                                                                  BLOCK_N, g), 10)
+        if not (torch.equal(ov, got[0]) and torch.equal(oi, got[1])):
+            raise RuntimeError(f"adc_topk q={q_n} k={k}: a repeated launch changed the result")
         kernels.append(dict(
             name=f"adc_topk_q{q_n}_k{k}", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
             replaces="src/repro/kernels/adc_topk.py:702", launches=n6, max_abs_err=err,
-            ms=cuda_ms(torch, lambda: k_topk.launch_topk(tab, codes, None, ov, oi, k,
-                                                         BLOCK_N), 10),
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
             library_call="tables[:, codes + m * 256].sum(-1) then torch.topk(largest=False) "
                          "per chunk of rows, one more torch.topk over the chunks",
-            shape=dict(queries=q_n, k=k, rows=n, width=M, block_n=BLOCK_N, splits=splits,
-                       tiles_per_split=per),
+            # the Q * N * W table lookups, one warp lookup per SM clock
+            lookup_bound_ms=q_n * n * M / (n_sm * 32 * sm_mhz * 1e6) * 1e3,
+            sm_clock_mhz=sm_mhz, registers=topk_registers(regs, "adc_topk_kernel", 0, M, g),
+            shape=dict(queries=q_n, k=k, rows=n, width=M, block_n=BLOCK_N, tables_per_block=g,
+                       units=-(-q_n // g), blocks=k_topk._grid(dev, "adc_topk_blocks_per_sm",
+                                                               0, M, tab.shape[1], k, g)),
         ))
-        topk_rows.append(dict(queries=q_n, k=k, launches=n6))
-        del got, want
+        topk_rows.append(dict(queries=q_n, k=k, launches=n6, ms=ms, tables_per_block=g))
+        del got
     # one launch with a finite per-query bound: each query's own k-th
     # distance, so every tile above it is dropped and the result is unchanged
     q_n, k = 4, 10
@@ -991,8 +1038,9 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     if not (torch.equal(got[0], free[0]) and torch.equal(got[1], free[1])):
         raise RuntimeError("adc_topk: a bound at the k-th distance changed the result")
     ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    g = k_topk.topk_group_size([q_n], [n], k, 0, M, tab.shape[1])
     bounded_ms = cuda_ms(torch, lambda: k_topk.launch_topk(tab, codes, bound, ov, oi, k,
-                                                           BLOCK_N), 10)
+                                                           BLOCK_N, g), 10)
     log(phase="kernel_api_topk", calls=topk_rows, bounded=dict(
         queries=q_n, k=k, launches=nb, ms=bounded_ms, equal_to_unbounded=True))
     del codes
@@ -1015,7 +1063,8 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     want, plain_ms = plain_timed(
         lambda: k_topk.adc_topk_pairs_plain(tables, addrs, n_valid, kp))
     err = check_kernel(torch, "adc_topk_pairs", got, want)
-    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    ov = torch.full_like(got[0], torch.inf)
+    oi = torch.full_like(got[1], -1)
     valid = int(sizes.sum())
     bms, by = bound_ms(valid * M * 4 + tables.numel() * 4 + NPROBE * (kp * 8 + 4),
                        valid * M)
@@ -1029,19 +1078,24 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
             d = torch.where(lane < n_valid[s0 : s0 + 8, None], d, torch.inf)
             torch.topk(d, kp, dim=1, largest=False)
 
+    ms7, sm_mhz = clocked_ms(torch, lambda: k_topk.launch_pairs(tables, addrs, n_valid, ov,
+                                                                oi, kp, BLOCK_N), 10)
     kernels.append(dict(
         name="adc_topk_pairs", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_pairs.cu",
         replaces="src/repro/kernels/adc_topk.py:642", launches=n7, max_abs_err=err,
-        ms=cuda_ms(torch, lambda: k_topk.launch_pairs(tables, addrs, n_valid, ov, oi, kp,
-                                                      BLOCK_N), 10),
-        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib_pairs, 3),
+        ms=ms7, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(torch, lib_pairs, 3),
         library_call="tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
                      "torch.topk(largest=False), 8 pairs at a time",
+        lookup_bound_ms=valid * M / (n_sm * 32 * sm_mhz * 1e6) * 1e3, sm_clock_mhz=sm_mhz,
+        registers=topk_registers(regs, "adc_topk_pairs_kernel", 2, M, 1),
         shape=dict(pairs=NPROBE, window=win, width=M, k=kp, valid_rows=valid,
-                   window_gb=addrs.numel() * 4 / 1e9),
+                   window_gb=addrs.numel() * 4 / 1e9,
+                   blocks=k_topk._grid(dev, "adc_topk_pairs_blocks_per_sm", 2, M,
+                                       tables.shape[1], kp)),
     ))
     log(phase="kernel_api_pairs", pairs=NPROBE, window=win, valid_rows=valid, k=kp,
-        launches=n7)
+        launches=n7, ms=ms7)
     del addrs, got, want
     torch.cuda.empty_cache()
 
@@ -1054,9 +1108,8 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         f_d, f_i = search(idx, q16, NPROBE, K, device=dev)
         flat_ms.append((time.perf_counter() - t) * 1e3)
         flat_launches = {kn: v for kn, v in ops.launches.items() if v}
-    for kname in ("build_luts", "adc_topk"):
-        if flat_launches.get(kname, 0) <= 0:
-            raise RuntimeError(f"flat_search: kernel {kname} was never launched")
+    if flat_launches.get("build_luts", 0) != 1 or flat_launches.get("adc_topk", 0) != 1:
+        raise RuntimeError(f"flat_search: expected one B1 and one B6 launch: {flat_launches}")
     if f_d.shape != (16, K) or not np.isfinite(f_d).all() or (f_i < 0).any():
         raise RuntimeError("flat_search: non-finite distances or missing ids")
     eng.rerank = "off"
@@ -1069,26 +1122,64 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         for v in np.unique(row_d):
             if set(a[row_d == v]) != set(b[row_d == v]):
                 raise RuntimeError("flat search ids differ from the engine's")
-    probed, _ = filter_clusters(dv["centroids"], qt, NPROBE)
-    # B6 inside the flat search: one launch per distinct probed cluster (its
-    # probing queries' tables over its rows); device time of one profiled
-    # search, and the summed bound of those launches (as B6's row counts it)
-    _, by_kernel, _, _ = profile_call(torch, lambda: search(idx, q16, NPROBE, K, device=dev),
-                                      top=None)
-    b6_ms = sum(ms for name, ms in by_kernel.items()
-                if "adc_topk_scan_kernel" in name or "adc_topk_reduce_kernel" in name)
-    clusters, count = np.unique(probed.reshape(-1).cpu().numpy(), return_counts=True)
-    rows_c = idx.cluster_sizes()[clusters]
-    b6_bound = sum(bound_ms(r * M + c * M * 256 * 4 + c * min(K, r) * 8, c * r * M)[0]
-                   for c, r in zip(count.tolist(), rows_c.tolist()) if r)
-    if b6_ms <= 0:
+    # where the wall time goes: the host by function (one search under
+    # cProfile) and the device (one search under torch.profiler)
+    host_top = host_by_function(lambda: search(idx, q16, NPROBE, K, device=dev))
+    busy, by_kernel, n_acts, prof_wall = profile_call(
+        torch, lambda: search(idx, q16, NPROBE, K, device=dev), top=None)
+    b6_prof = sum(ms for name, ms in by_kernel.items() if "adc_topk_kernel" in name)
+    if b6_prof <= 0:
         raise RuntimeError(f"flat_search: no B6 kernel in the profile: {list(by_kernel)}")
-    b6_n = flat_launches["adc_topk"]
+    # that search's grouped B6 call, against its plain version and timed alone
+    qrot = torch.as_tensor(idx.rotate(np.asarray(q16, np.float32)), device=dev)
+    cids, qmc = filter_clusters(torch.as_tensor(idx.centroids, device=dev), qrot, NPROBE)
+    luts = ops.build_luts(torch.as_tensor(idx.codebook, device=dev),
+                          qmc.reshape(16 * NPROBE, M, dsub)).reshape(16 * NPROBE, M * 256)
+    order, row_off, tab_off, rows = probe_groups(idx, cids)
+    codes_t = torch.as_tensor(idx.codes[rows], device=dev)
+    lsorted = luts[torch.as_tensor(order, device=dev)]
+    got = ops.adc_topk_grouped(lsorted, codes_t, K, row_off, tab_off)
+    inf = torch.full((lsorted.shape[0],), torch.inf, device=dev)
+    want, plain_ms = plain_timed(lambda: k_topk.adc_topk_grouped_plain(
+        lsorted, codes_t, inf, K, BLOCK_N, row_off, tab_off))
+    err = check_kernel(torch, "adc_topk grouped (flat search)", got, want)
+    g = k_topk.topk_group_size(np.diff(tab_off), np.diff(row_off), K, 0, M, lsorted.shape[1])
+    units = k_topk.topk_units(row_off, tab_off, g).to(dev)
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    b6_kernel_ms, sm_mhz = clocked_ms(torch, lambda: k_topk.launch_topk(
+        lsorted, codes_t, None, ov, oi, K, BLOCK_N, g, units), 20)
+
+    def lib_flat():
+        for j in range(len(row_off) - 1):
+            r0, r1, t0, t1 = row_off[j], row_off[j + 1], tab_off[j], tab_off[j + 1]
+            if r1 > r0:
+                d = lsorted[t0:t1][:, codes_t[r0:r1].long() + cols].sum(-1)
+                torch.topk(d, min(K, r1 - r0), dim=1, largest=False)
+
+    counts = np.diff(tab_off)
+    rows_c = np.diff(row_off)
+    n_rows, n_tables = int(rows_c.sum()), int(counts.sum())
+    lookups = int((counts * rows_c).sum()) * M
+    bms, by = bound_ms(n_rows * M + n_tables * M * 256 * 4 + n_tables * K * 8, lookups)
+    kernels.append(dict(
+        name="adc_topk_flat_search", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
+        replaces="src/repro/kernels/adc_topk.py:702", launches=flat_launches["adc_topk"],
+        max_abs_err=err, ms=b6_kernel_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(torch, lib_flat, 3),
+        library_call="per probed cluster, its tables[:, codes + m * 256].sum(-1) then "
+                     "torch.topk(min(k, rows), largest=False)",
+        lookup_bound_ms=lookups / (n_sm * 32 * sm_mhz * 1e6) * 1e3, sm_clock_mhz=sm_mhz,
+        shape=dict(groups=len(counts), rows=n_rows, tables=n_tables, k=K, tables_per_block=g,
+                   units=int(units.shape[0])),
+    ))
     log(phase="flat_search", queries=16, nprobe=NPROBE, k=K, wall_ms=flat_ms,
-        launches=flat_launches, distinct_clusters=int(torch.unique(probed).numel()),
+        launches=flat_launches, distinct_clusters=len(counts),
         equal_to_engine_rerank_off=True,
-        b6=dict(launches=b6_n, device_ms=b6_ms, ms_per_launch=b6_ms / b6_n,
-                bound_ms_sum=b6_bound, rows=int(rows_c.sum()), tables=int(count.sum())))
+        host_ms_by_function_profiled=host_top,
+        profiled=dict(wall_ms=prof_wall, device_busy_ms=busy, device_idle_ms=prof_wall - busy,
+                      device_activities=n_acts, b6_device_ms=b6_prof),
+        b6=dict(launches=flat_launches["adc_topk"], device_ms=b6_prof, kernel_ms=b6_kernel_ms,
+                bound_ms=bms, rows=n_rows, tables=n_tables, tables_per_block=g))
     return kernels
 
 
@@ -1393,15 +1484,8 @@ def main(argv=None) -> int:
     launches = drive_path(torch, np, ops, "search", eng, batches,
                           ("build_luts", "adc_topk_tiles", "rerank_dists"))["launches"]
     # where the host plan's time goes, by function
-    prof = cProfile.Profile()
-    prof.runcall(eng.plan_batch, batches[1], NPROBE)
-    host_top = sorted(
-        ((f"{pathlib.Path(f).name}:{fn}", v[3] * 1e3)
-         for (f, _, fn), v in pstats.Stats(prof).stats.items()
-         if "repro_torch" in f or "numpy" in f),
-        key=lambda x: -x[1],
-    )[:12]
-    log(phase="breakdown", host_plan_ms_by_function_profiled=host_top)
+    log(phase="breakdown", host_plan_ms_by_function_profiled=host_by_function(
+        lambda: eng.plan_batch(batches[1], NPROBE)))
     plan = eng.plan_batch(batches[1], NPROBE)
     handle = eng.dispatch_plan(plan, kp)
 
@@ -1518,7 +1602,7 @@ def main(argv=None) -> int:
 
     # == the kernel-level ADC API (B8, B6, B7) and the flat search ==========
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
-                                   direct_codes, direct_table)
+                                   direct_codes, direct_table, regs)
 
     kernels += lm_rows
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

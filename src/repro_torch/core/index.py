@@ -250,6 +250,25 @@ def filter_clusters(
     return cids, qmc
 
 
+def probe_groups(
+    index: IVFPQIndex, cids: torch.Tensor
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The flat search's groups, on the host: the (query, probe) pairs
+    sorted by probed cluster (stable, so ascending pair index within a
+    cluster), one group per distinct probed cluster.  Returns (order (P,)
+    pair indices in group order, row_offsets and table_offsets (groups + 1,)
+    into the concatenated cluster rows and the sorted pairs, rows (the CSR
+    rows of the probed clusters, one cluster after the other))."""
+    pair_c = cids.reshape(-1).cpu().numpy()
+    order = np.argsort(pair_c, kind="stable")
+    clusters, first = np.unique(pair_c[order], return_index=True)
+    sizes = index.cluster_sizes()[clusters]
+    row_off = np.zeros(len(clusters) + 1, np.int64)
+    np.cumsum(sizes, out=row_off[1:])
+    rows = np.repeat(index.offsets[clusters] - row_off[:-1], sizes) + np.arange(row_off[-1])
+    return order, row_off, np.concatenate([first, [len(order)]]), rows
+
+
 def search(
     index: IVFPQIndex,
     queries: np.ndarray,
@@ -261,12 +280,12 @@ def search(
 
     Returns (dists (Q, k), ids (Q, k)) of approximate nearest neighbours
     (ADC distances), (+inf, -1) in lanes without a row.  The tables of all
-    (query, probe) pairs come from one B1 launch (`ops.build_luts`); the
-    scans are grouped by probed cluster: one B6 launch (`ops.adc_topk`) per
-    distinct non-empty cluster, with one table per (query, probe) that
-    probes it, over the cluster's codes (uploaded once for the batch).  A
-    probed cluster smaller than k contributes all its rows: its scan asks
-    for min(k, rows) candidates (the reference asks for k and crashes
+    (query, probe) pairs come from one B1 launch (`ops.build_luts`), the
+    scans from one B6 launch (`ops.adc_topk_grouped`): one group per
+    distinct probed cluster, its rows (the probed clusters' codes uploaded
+    once, one after the other) scanned by the tables of the (query, probe)
+    pairs that probe it.  A probed cluster smaller than k contributes all
+    its rows, (+inf, -1) after them (the reference asks for k and crashes
     there, ROADMAP C1).  Each query's per-probe lists are merged in probe
     order by one stable sort, which equals the reference's iterated stable
     merges.
@@ -280,26 +299,20 @@ def search(
     luts = ops.build_luts(codebook, qmc.reshape(q_n * n_probe, m, dsub))
     luts = luts.reshape(q_n * n_probe, m * 256)
 
-    # pairs grouped by cluster (stable: ascending pair index within a group)
-    pair_c = cids.reshape(-1).cpu().numpy()
-    order = np.argsort(pair_c, kind="stable")
-    clusters, first, count = np.unique(pair_c[order], return_index=True, return_counts=True)
-    sizes = index.cluster_sizes()[clusters]
-    seg = np.zeros(len(clusters) + 1, np.int64)
-    np.cumsum(sizes, out=seg[1:])
-    # the probed clusters' CSR rows, one after the other, in one upload
-    rows = np.repeat(index.offsets[clusters] - seg[:-1], sizes) + np.arange(seg[-1])
+    order, row_off, tab_off, rows = probe_groups(index, cids)
     codes = torch.as_tensor(index.codes[rows], device=device)
     ids = torch.as_tensor(index.vec_ids[rows], device=device).long()
     order_t = torch.as_tensor(order, device=device)
-    out_v = torch.full((q_n * n_probe, k), torch.inf, dtype=torch.float32, device=device)
-    out_i = torch.full((q_n * n_probe, k), -1, dtype=torch.int64, device=device)
-    for j in np.flatnonzero(sizes):
-        pairs = order_t[first[j] : first[j] + count[j]]
-        kk = min(k, int(sizes[j]))
-        v, r = ops.adc_topk(luts[pairs], codes[seg[j] : seg[j + 1]], kk)
-        out_v[pairs, :kk] = v
-        out_i[pairs, :kk] = torch.where(r >= 0, ids[seg[j] : seg[j + 1]][r.long()], -1)
+    # each sorted pair's group: its first code row
+    row_base = torch.as_tensor(np.repeat(row_off[:-1], np.diff(tab_off)), device=device)
+    v, r = ops.adc_topk_grouped(luts[order_t], codes, k, row_off, tab_off)
+    out_v = torch.empty_like(v)
+    out_i = torch.empty(v.shape, dtype=torch.int64, device=device)
+    out_v[order_t] = v
+    if ids.numel():
+        out_i[order_t] = torch.where(r >= 0, ids[(row_base[:, None] + r).clamp_min(0)], -1)
+    else:
+        out_i.fill_(-1)
 
     # per query, its probes' lists in probe order, one stable sort
     v = out_v.reshape(q_n, n_probe * k)

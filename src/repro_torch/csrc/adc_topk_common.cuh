@@ -1,13 +1,13 @@
 // Device code shared by the ADC scans: the two pruned scans B2
 // (adc_topk_tiles.cu, a flat queue of tiles) and B5 (adc_topk_windows.cu,
-// per-pair windows), the unpruned top-k scans B6 (adc_topk.cu, many tables
-// over one code array) and B7 (adc_topk_pairs.cu, materialised windows),
-// and the plain scan B8 (adc_scan.cu): the row distance for each code
-// format, the skip rule, the shared-memory top-k merge and the query bound
-// `sq`.  B2 and B5 run one block per pair through `scan_pair` and differ
-// only in where a pair's tiles come from; B6 and B7 run `scan_range_topk`;
-// all four score and merge a tile's rows through `merge_rows`, so none of
-// them can drift from the others.
+// per-pair windows), the unpruned top-k scans B6 (adc_topk.cu) and B7
+// (adc_topk_pairs.cu), and the plain scan B8 (adc_scan.cu): the row
+// distance for each code format, the skip rule, the shared-memory top-k
+// merge and the query bound `sq`.  B2 and B5 run one block per pair through
+// `scan_pair` and differ only in where a pair's tiles come from; they score
+// and merge a tile's rows through `merge_rows`.  B6 and B7 run the
+// multi-table block of adc_topk_multi.cuh, which merges through the same
+// `merge_candidates`.
 //
 // Code formats (template parameters of `scan_pair`):
 //   * uint8_t, OFFSETS = true:  raw PQ codes, the column offset m * 256 is
@@ -313,78 +313,6 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
   if (tid == 0) {
     stats[0] = n_skip;
     stats[1] = n_avoid;
-  }
-}
-
-// Smallest of v over the block, returned to every thread (`red` holds
-// THREADS / 32 floats of shared memory; it is free again on return).
-__device__ __forceinline__ float block_min(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < THREADS / 32; ++i) r = fminf(r, red[i]);
-  __syncthreads();
-  return r;
-}
-
-// The unpruned scans B6 and B7, by the whole block: load one table into
-// shared memory, walk the tiles [tile0, tile1) of `codes` (tile t is rows
-// [t * block_n, min((t + 1) * block_n, nv)), numbered from the start of
-// `codes`), and write the k smallest rows by (distance, row) to out_v /
-// out_i, (+inf, -1) in lanes without a row.  With a finite `bound` a tile
-// whose smallest distance is above it is dropped whole, the reference's
-// merge condition `tile_min <= bound` (it costs a first scoring sweep of
-// the tile); with bound = +inf every tile is merged.  Rows of a merged
-// tile go through `merge_rows` (its `d < k-th` filter is the reference's
-// `tile_min < kth` merge skip, which changes nothing in a sequential run).
-template <typename CodeT, bool OFFSETS, int WT>
-__device__ void scan_range_topk(const float* __restrict__ table_row,
-                                int table_width_rt, const CodeT* __restrict__ codes,
-                                int w_rt, int tile0, int tile1, int nv, int block_n,
-                                float bound, int k, float* __restrict__ out_v,
-                                int* __restrict__ out_i) {
-  const int table_width = OFFSETS && WT > 0 ? WT * NCODES : table_width_rt;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* table = reinterpret_cast<float*>(smem);
-  float* top_v = table + table_width;
-  int* top_i = reinterpret_cast<int*>(top_v + k);
-  float* nxt_v = reinterpret_cast<float*>(top_i + k);
-  int* nxt_i = reinterpret_cast<int*>(nxt_v + k);
-  float* cand_v = reinterpret_cast<float*>(nxt_i + k);
-  int* cand_i = reinterpret_cast<int*>(cand_v + PASS);
-  __shared__ int s_ncand;
-  __shared__ float s_red[THREADS / 32];
-
-  const int W = WT > 0 ? WT : w_rt;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < table_width; i += THREADS) table[i] = table_row[i];
-  for (int i = tid; i < k; i += THREADS) {
-    top_v[i] = CUDART_INF_F;
-    top_i[i] = -1;
-  }
-  __syncthreads();
-
-  for (int t = tile0; t < tile1; ++t) {
-    const int row0 = t * block_n;
-    const int n_rows = min(block_n, nv - row0);
-    const CodeT* tile = codes + static_cast<size_t>(row0) * W;
-    if (bound < CUDART_INF_F) {
-      float mn = CUDART_INF_F;
-      for (int i = tid; i < n_rows; i += THREADS)
-        mn = fminf(mn, adc_row<CodeT, OFFSETS, WT>(
-                           table, tile + static_cast<size_t>(i) * W, W));
-      if (!(block_min(mn, s_red) <= bound)) continue;
-    }
-    merge_rows<CodeT, OFFSETS, WT>(table, tile, W, n_rows, row0, CUDART_INF_F, top_v,
-                                   top_i, nxt_v, nxt_i, cand_v, cand_i, &s_ncand, k);
-  }
-
-  for (int i = tid; i < k; i += THREADS) {
-    out_v[i] = top_v[i];
-    out_i[i] = top_i[i];
   }
 }
 

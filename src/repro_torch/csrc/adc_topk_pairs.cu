@@ -1,5 +1,5 @@
 // Kernel B7: fused ADC scan + per-pair top-k over materialised per-pair
-// windows, with the §4.4 merge pruning.
+// windows; one launch per call.
 //
 // Replaces: src/repro/kernels/adc_topk.py `adc_topk_pairs_kernel`
 //           (Pallas bodies `_adc_topk_pairs_kernel`, `_merge_candidates`).
@@ -9,73 +9,74 @@
 // or past n_valid[p] masked to +inf, and a tile is merged into the running
 // top-k only when its minimum is below the current k-th -- a skip that
 // changes nothing in a sequential run.  So each pair's output is the k
-// smallest of its valid rows by (distance, row).  Here one block runs one
-// pair (`scan_range_topk`, adc_topk_common.cuh, shared with B6): its table
-// in shared memory, its valid tiles 0 .. ceil(n_valid / block_n) - 1 scored
-// and merged as in B2/B5.  The padding rows of a window past n_valid are
+// smallest of its valid rows by (distance, row).
+//
+// Here each pair is one unit of B6's multi-table block with one table
+// (adc_topk_multi.cuh): its valid tiles 0 .. ceil(n_valid / block_n) - 1,
+// n_valid read on the card, are concatenated over the pairs and cut evenly
+// into runs over a grid sized from the SM count, so one long window is
+// walked by many blocks and many short ones share a block; the block that
+// finishes a pair's last run merges the pair's run lists in the same
+// launch.  A pair with n_valid = 0 has no tiles and keeps the (+inf, -1)
+// the wrapper filled in.  The padding rows of a window past n_valid are
 // never read, so they may hold anything.
 //
 // What bounds it on an H100: bytes.  Each valid window row is read once
 // (4W B of int32 addresses, 2W B of uint16); the W lookups per row are
-// shared-memory gathers.
+// shared-memory gathers (3.16 SM clocks per warp-wide lookup,
+// tools/bench_smem_lookup.cu).
 
-#include "adc_topk_common.cuh"
+#include "adc_topk_multi.cuh"
 
 namespace {
 
 using namespace repro_adc;
 
 template <typename CodeT, bool OFFSETS, int WT>
-__global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT>())
-adc_topk_pairs_kernel(const float* __restrict__ tables,  // (P, A)
-                      const CodeT* __restrict__ addrs,   // (P, L, W)
-                      const int* __restrict__ n_valid,   // (P,)
-                      float* __restrict__ out_v,         // (P, k)
-                      int* __restrict__ out_i,           // (P, k)
-                      long long win_len, int w_rt, int table_width, int k,
-                      int block_n) {
-  const int p = blockIdx.x;
-  const int W = WT > 0 ? WT : w_rt;
-  const int nv = static_cast<int>(
-      min(static_cast<long long>(max(n_valid[p], 0)), win_len));
-  scan_range_topk<CodeT, OFFSETS, WT>(
-      tables + static_cast<size_t>(p) * table_width, table_width,
-      addrs + static_cast<size_t>(p) * win_len * W, W, 0,
-      (nv + block_n - 1) / block_n, nv, block_n, CUDART_INF_F, k,
-      out_v + static_cast<size_t>(p) * k, out_i + static_cast<size_t>(p) * k);
+__global__ void __launch_bounds__(THREADS, multi_min_blocks<1>())
+adc_topk_pairs_kernel(const MultiArgs a) {
+  topk_multi<CodeT, OFFSETS, WT, 1>(a);
 }
 
 template <typename CodeT, bool OFFSETS, int WT>
-int launch(const float* tables, const void* addrs, const int* n_valid, float* out_v,
-           int* out_i, int n_pairs, long long win_len, int w, int table_width, int k,
-           int block_n, cudaStream_t stream) {
-  const int tw = OFFSETS && WT > 0 ? WT * NCODES : table_width;
-  const size_t smem = scan_smem_bytes(tw, k);
-  cudaError_t e = allow_smem(adc_topk_pairs_kernel<CodeT, OFFSETS, WT>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  adc_topk_pairs_kernel<CodeT, OFFSETS, WT><<<n_pairs, THREADS, smem, stream>>>(
-      tables, static_cast<const CodeT*>(addrs), n_valid, out_v, out_i, win_len, w,
-      table_width, k, block_n);
-  return static_cast<int>(cudaGetLastError());
+int launch(const MultiArgs& a, int n_blocks, cudaStream_t stream) {
+  return launch_multi_kernel(adc_topk_pairs_kernel<CodeT, OFFSETS, WT>, a, 1, n_blocks,
+                             multi_table_width<OFFSETS, WT>(a.table_width, a.w), stream);
+}
+
+template <typename CodeT, bool OFFSETS, int WT>
+int blocks_per_sm(int table_width, int w, int k) {
+  return multi_blocks_per_sm(adc_topk_pairs_kernel<CodeT, OFFSETS, WT>, 1,
+                             multi_table_width<OFFSETS, WT>(table_width, w), k);
 }
 
 }  // namespace
 
 // tables (P, table_width) f32; addrs (P, win_len, w) uint16 (code_fmt 1)
-// or int32 (2) direct addresses; n_valid (P,) int32; out_* (P, k).
-// Returns cudaGetLastError() after the launch.
-extern "C" int adc_topk_pairs_launch(const void* tables, const void* addrs,
-                                     const void* n_valid, void* out_v, void* out_i,
-                                     int n_pairs, long long win_len, int w,
-                                     int table_width, int code_fmt, int k,
-                                     int block_n, void* stream) {
-  if (n_pairs <= 0) return 0;
-#define REPRO_PAIRS_LAUNCH(CodeT, OFF, WT)                                        \
-  launch<CodeT, OFF, WT>(static_cast<const float*>(tables), addrs,               \
-                         static_cast<const int*>(n_valid),                       \
-                         static_cast<float*>(out_v), static_cast<int*>(out_i),   \
-                         n_pairs, win_len, w, table_width, k, block_n,           \
-                         static_cast<cudaStream_t>(stream))
+// or int32 (2) direct addresses; n_valid (P,) int32; out_* (P, k); part_*
+// hold (n_blocks + P) * k scratch entries and tickets n_blocks + 2P int32
+// zeros (left zero).  Returns cudaGetLastError() after the launch.
+extern "C" int adc_topk_pairs_launch(const void* tables, const void* addrs, const void* n_valid,
+                                     void* out_v, void* out_i, void* part_v, void* part_i,
+                                     void* tickets, int n_pairs, long long win_len, int w,
+                                     int table_width, int code_fmt, int k, int block_n,
+                                     int n_blocks, void* stream) {
+  if (n_pairs <= 0 || n_blocks <= 0) return 0;
+  MultiArgs a{static_cast<const float*>(tables), addrs, nullptr, nullptr,
+              static_cast<const int*>(n_valid), static_cast<float*>(out_v),
+              static_cast<int*>(out_i), static_cast<float*>(part_v), static_cast<int*>(part_i),
+              static_cast<int*>(tickets), win_len, n_pairs, n_pairs, 0, w, table_width, k,
+              block_n};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_PAIRS_LAUNCH(CodeT, OFF, WT) launch<CodeT, OFF, WT>(a, n_blocks, st)
   REPRO_ADC_DISPATCH(code_fmt, w, REPRO_PAIRS_LAUNCH)
 #undef REPRO_PAIRS_LAUNCH
+}
+
+// Resident blocks per SM of the instantiation `adc_topk_pairs_launch` would
+// run, or minus a cudaError_t.
+extern "C" int adc_topk_pairs_blocks_per_sm(int code_fmt, int w, int table_width, int k) {
+#define REPRO_PAIRS_OCC(CodeT, OFF, WT) blocks_per_sm<CodeT, OFF, WT>(table_width, w, k)
+  REPRO_ADC_DISPATCH(code_fmt, w, REPRO_PAIRS_OCC)
+#undef REPRO_PAIRS_OCC
 }

@@ -49,13 +49,17 @@ SIGNATURES = {
     "rerank_launch": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _P],
     # table, codes, out, n, w, table_width, code_fmt, stream
     "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _P],
-    # tables, codes, bound (may be null), part_v, part_i, tmp_v, tmp_i,
-    # out_v, out_i, n_q, n_splits, tiles_per_split, n_rows, w, table_width,
-    # code_fmt, k, block_n, stream
-    "adc_topk_launch": [_P] * 9 + [_I] * 9 + [_P],
-    # tables, addrs, n_valid, out_v, out_i, n_pairs, win_len, w,
-    # table_width, code_fmt, k, block_n, stream
-    "adc_topk_pairs_launch": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _I, _P],
+    # tables, codes, bound (may be null), units (may be null), out_v, out_i,
+    # part_v, part_i, tickets, n_units, n_q, n_rows, w, table_width,
+    # code_fmt, k, block_n, g, n_blocks, stream
+    "adc_topk_launch": [_P] * 9 + [_I] * 10 + [_P],
+    # code_fmt, w, table_width, k, g
+    "adc_topk_blocks_per_sm": [_I] * 5,
+    # tables, addrs, n_valid, out_v, out_i, part_v, part_i, tickets,
+    # n_pairs, win_len, w, table_width, code_fmt, k, block_n, n_blocks, stream
+    "adc_topk_pairs_launch": [_P] * 8 + [_I, _L] + [_I] * 6 + [_P],
+    # code_fmt, w, table_width, k
+    "adc_topk_pairs_blocks_per_sm": [_I] * 4,
     # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
     # kv_is_bf16, scale, stream
     "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _P],

@@ -4,9 +4,12 @@ windows): run planning, plain versions, CUDA launchers.
 
 The CUDA sources are `csrc/adc_topk_tiles.cu`, `csrc/adc_topk_windows.cu`,
 `csrc/adc_topk.cu` and `csrc/adc_topk_pairs.cu` (their common device code
-in `csrc/adc_topk_common.cuh`); `ops.adc_topk_tiles`,
-`ops.adc_topk_windows`, `ops.adc_topk` / `ops.adc_topk_flat` and
-`ops.adc_topk_pairs` are the wrappers.  For B2 and B5, arrays
+in `csrc/adc_topk_common.cuh`, B6 / B7's block in `csrc/adc_topk_multi.cuh`);
+`ops.adc_topk_tiles`, `ops.adc_topk_windows`, `ops.adc_topk` /
+`ops.adc_topk_flat` / `ops.adc_topk_grouped` and `ops.adc_topk_pairs` are
+the wrappers.  B6 / B7 are planned here on every device: `topk_group_size`
+(tables per block, and the refusals), `topk_units`, and `run_plan` (the
+Python twin of how the kernel cuts tiles into runs).  For B2 and B5, arrays
 carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
 codes (ndev, cap, W), the tile queue (ndev, T) from
 `core.scheduling.emit_tiles`, and the per-pair arrays (ndev, P).  A flat
@@ -26,6 +29,9 @@ k-th distance.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -294,20 +300,113 @@ def launch_windows(
     _build.check(err, "adc_topk_windows")
 
 
-# B6 scan blocks the wrapper aims for: enough to fill the card (132 SMs,
-# about six resident blocks each) a few times over
-_TOPK_BLOCKS = 2048
-_TOPK_FAN = 32  # lists per reduce block, csrc/adc_topk.cu FAN
+# -- B6 / B7: the multi-table block (csrc/adc_topk_multi.cuh) --------------
+
+# tables a B6 block may hold (G), widest first; B7 holds one
+TOPK_GROUPS = (4, 1)
+# SM clocks per warp-wide shared-memory lookup of one table's entry at
+# random addresses: LDS.32 alone (G = 1), LDS.128 of four interleaved tables
+# (G = 4) (tools/bench_smem_lookup.cu on an H100 SXM)
+_LOOKUP_CLOCKS = {1: 3.16, 4: 2.54}
+# H100 SXM: warp lookups per second at one per SM clock (132 SMs at 1.98
+# GHz) and the HBM rate, the two rates of the cost model that picks G
+_SM_LOOKUPS_PER_S = 132 * 1.98e9
+_HBM_BYTES_PER_S = 3.35e12
+# what the multi-table block declares statically beside the dynamic part
+_MULTI_STATIC_SMEM = 4096
 
 
-def topk_splits(n_rows: int, n_q: int, block_n: int) -> tuple[int, int]:
-    """B6's (splits, tiles per split): the tiles of the N rows cut into
-    contiguous runs, about `_TOPK_BLOCKS / Q` of them, at least one tile
-    each.  The result does not depend on the split count."""
-    n_tiles = -(-n_rows // block_n)
-    want = max(1, min(n_tiles, -(-_TOPK_BLOCKS // max(n_q, 1))))
-    per = -(-n_tiles // want)
-    return -(-n_tiles // per), per
+def topk_table_width(fmt: int, w: int, table_width: int) -> int:
+    """Table entries a B6 / B7 block holds per table: raw uint8 codes of
+    width W address only the first W * 256, direct addresses all A."""
+    return w * 256 if fmt == 0 else table_width
+
+
+def topk_smem(g: int, k: int, a_used: int) -> int:
+    """Dynamic shared memory of a B6 / B7 block (csrc `multi_smem_bytes`):
+    G tables of `a_used` entries, G top-k lists and one merge buffer, one
+    pass of candidates."""
+    return (g * a_used + 2 * g * k + 2 * k + 2 * _SCAN_PASS) * 4
+
+
+def topk_group_size(
+    nq, rows, k: int, fmt: int, w: int, table_width: int, groups=TOPK_GROUPS
+) -> int:
+    """G, the tables one B6 / B7 block scans together, for one launch whose
+    groups have nq[i] tables over rows[i] rows each.
+
+    Of the G in `groups` whose block fits `SMEM_BUDGET` (G tables beside
+    their lists), the one of least modelled time: per unit of G tables,
+    its rows times the larger of their code bytes over the HBM rate and
+    their W * G lookups at `_LOOKUP_CLOCKS[G]`.  The same on every device;
+    raises ValueError for k outside [1, SCAN_K_MAX] and for a table too wide
+    to fit even with G = 1 -- the refusal the card would meet.
+    """
+    if not 1 <= k <= SCAN_K_MAX:
+        raise ValueError(f"k={k} outside [1, {SCAN_K_MAX}] (ADC_TOPK_K_MAX)")
+    a_used = topk_table_width(fmt, w, table_width)
+    item = (1, 2, 4)[fmt]
+    best = best_cost = None
+    for g in groups:
+        if topk_smem(g, k, a_used) + _MULTI_STATIC_SMEM > SMEM_BUDGET:
+            continue
+        per_row = max(w * item / _HBM_BYTES_PER_S,
+                      w * g * _LOOKUP_CLOCKS[g] / 32 / _SM_LOOKUPS_PER_S)
+        cost = sum(-(-int(q) // g) * int(r) for q, r in zip(nq, rows)) * per_row
+        if best is None or cost < best_cost:
+            best, best_cost = g, cost
+    if best is None:
+        smem = topk_smem(min(groups), k, a_used) + _MULTI_STATIC_SMEM
+        raise ValueError(
+            f"a table of {a_used} floats and k={k} need {smem} B of shared memory, "
+            f"over {SMEM_BUDGET}"
+        )
+    return best
+
+
+def topk_units(row_offsets, table_offsets, g: int) -> torch.Tensor:
+    """The units of grouped B6: group i (rows [row_offsets[i],
+    row_offsets[i+1]) of the code array, table rows [table_offsets[i],
+    table_offsets[i+1])) cut into units of at most g tables.  Returns a
+    (n_units, 4) int32 CPU tensor {row0, n_rows, q0, nq}; groups without
+    rows or tables have none."""
+    units = []
+    for r0, r1, t0, t1 in zip(row_offsets[:-1], row_offsets[1:], table_offsets[:-1],
+                              table_offsets[1:]):
+        if r1 > r0:
+            units += [(r0, r1 - r0, q, min(g, t1 - q)) for q in range(t0, t1, g)]
+    return torch.tensor(units, dtype=torch.int32).reshape(-1, 4)
+
+
+def run_plan(unit_tiles, n_blocks: int) -> dict:
+    """How the B6 / B7 launch cuts the units' tiles into runs (the twin of
+    `topk_multi`, csrc/adc_topk_multi.cuh).
+
+    The units' tiles, concatenated, are T tiles; nb = min(n_blocks, T)
+    blocks take [b * T // nb, (b + 1) * T // nb) each, and a run is the part
+    of one unit in one block.  Returns numpy arrays over the runs, in tile
+    order: `block`, `unit`, the unit's tiles [`t0`, `t1`), the scratch
+    `slot` (block + unit) and the unit's `first` / `last` blocks as the
+    kernel computes them; and `nb`, `T`.
+    """
+    tiles = np.asarray(unit_tiles, np.int64)
+    starts = np.concatenate([[0], np.cumsum(tiles)])
+    t_all = int(starts[-1])
+    nb = min(int(n_blocks), t_all)
+    if nb == 0:
+        e = np.zeros(0, np.int64)
+        return dict(block=e, unit=e, t0=e, t1=e, slot=e, first=e, last=e, nb=0, T=0)
+    bstarts = np.arange(nb + 1, dtype=np.int64) * t_all // nb
+    cuts = np.union1d(starts, bstarts)
+    s0, s1 = cuts[:-1], cuts[1:]
+    unit = np.searchsorted(starts, s0, side="right") - 1
+    block = np.searchsorted(bstarts, s0, side="right") - 1
+    u_start, u_cnt = starts[unit], tiles[unit]
+    return dict(
+        block=block, unit=unit, t0=s0 - u_start, t1=s1 - u_start, slot=block + unit,
+        first=((u_start + 1) * nb - 1) // t_all, last=((u_start + u_cnt) * nb - 1) // t_all,
+        nb=nb, T=t_all,
+    )
 
 
 def adc_topk_plain(
@@ -348,29 +447,77 @@ def adc_topk_plain(
     return best_v, torch.where(torch.isfinite(best_v), best_i, -1)
 
 
+def adc_topk_grouped_plain(
+    tables: torch.Tensor, codes: torch.Tensor, bound: torch.Tensor, k: int, block_n: int,
+    row_offsets, table_offsets,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Grouped B6 in plain tensor code: for each group, `adc_topk_plain` of
+    its table rows over its rows alone (rows numbered from the group's
+    first); table rows outside every group, or of a group without rows,
+    read (+inf, -1)."""
+    q_n = tables.shape[0]
+    out_v = torch.full((q_n, k), torch.inf, dtype=torch.float32, device=tables.device)
+    out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=tables.device)
+    for r0, r1, t0, t1 in zip(row_offsets[:-1], row_offsets[1:], table_offsets[:-1],
+                              table_offsets[1:]):
+        if t1 > t0 and r1 > r0:
+            out_v[t0:t1], out_i[t0:t1] = adc_topk_plain(
+                tables[t0:t1], codes[r0:r1], bound[t0:t1], k, block_n)
+    return out_v, out_i
+
+
+# per (device, stream): the scratch lists and the zeroed tickets of B6 / B7,
+# grown as calls need and kept, so a call allocates nothing
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev: torch.device, entries: int, n_tickets: int):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    part_v, part_i, tickets = _WORKSPACE.get(key, (None, None, None))
+    if part_v is None or part_v.numel() < entries:
+        entries = max(entries, 1 << 16)
+        part_v = torch.empty((entries,), dtype=torch.float32, device=dev)
+        part_i = torch.empty((entries,), dtype=torch.int32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros((max(n_tickets, 1 << 12),), dtype=torch.int32, device=dev)
+    _WORKSPACE[key] = (part_v, part_i, tickets)
+    return part_v, part_i, tickets
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(name: str, *args: int) -> int:
+    n = getattr(_build.library(), name)(*args)
+    if n <= 0:
+        raise RuntimeError(f"{name}{args}: no resident block (cudaError_t {-n})")
+    return n
+
+
+def _grid(dev: torch.device, name: str, *args: int) -> int:
+    """Blocks of a B6 / B7 launch: the SMs times the resident blocks."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count * _blocks_per_sm(
+        name, *args)
+
+
 def launch_topk(
-    tables, codes, bound, out_v, out_i, k: int, block_n: int
+    tables, codes, bound, out_v, out_i, k: int, block_n: int, g: int, units=None
 ) -> None:
     """Enqueue `csrc/adc_topk.cu` on the current stream (checked inputs:
-    tables (Q, A), codes (N, W), bound (Q,) or None, out (Q, k)): the scan
-    over `topk_splits` runs, then the reduce of their lists.  The scratch
-    lists are allocated here."""
+    tables (Q, A), codes (N, W), bound (Q,) or None, out (Q, k), `g` from
+    `topk_group_size`; `units` a (n_units, 4) int32 tensor on the card from
+    `topk_units`, or None for ceil(Q / g) units over all N rows): one
+    launch, its split lists merged inside it."""
     q_n, n = tables.shape[0], codes.shape[0]
-    splits, per = topk_splits(n, q_n, block_n)
     dev = tables.device
-    if splits > 1:
-        part_v = torch.empty((q_n * splits * k,), dtype=torch.float32, device=dev)
-        part_i = torch.empty((q_n * splits * k,), dtype=torch.int32, device=dev)
-        n_tmp = q_n * -(-splits // _TOPK_FAN) * k
-        tmp_v = torch.empty((n_tmp,), dtype=torch.float32, device=dev)
-        tmp_i = torch.empty((n_tmp,), dtype=torch.int32, device=dev)
-        scratch = [part_v.data_ptr(), part_i.data_ptr(), tmp_v.data_ptr(), tmp_i.data_ptr()]
-    else:
-        scratch = [None] * 4
+    w, fmt = codes.shape[1], code_format(codes)
+    n_units = -(-q_n // g) if units is None else units.shape[0]
+    n_blocks = _grid(dev, "adc_topk_blocks_per_sm", fmt, w, tables.shape[1], k, g)
+    part_v, part_i, tickets = _workspace(dev, (n_blocks + n_units) * g * k,
+                                         n_blocks + 2 * n_units)
     err = _build.library().adc_topk_launch(
         tables.data_ptr(), codes.data_ptr(), None if bound is None else bound.data_ptr(),
-        *scratch, out_v.data_ptr(), out_i.data_ptr(), q_n, splits, per, n,
-        codes.shape[1], tables.shape[1], code_format(codes), k, block_n,
+        None if units is None else units.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        part_v.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), n_units, q_n, n, w,
+        tables.shape[1], fmt, k, block_n, g, n_blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "adc_topk")
@@ -406,12 +553,18 @@ def adc_topk_pairs_plain(
 
 def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int) -> None:
     """Enqueue `csrc/adc_topk_pairs.cu` on the current stream (checked
-    inputs: tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)):
-    one block per pair."""
+    inputs: tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)
+    pre-filled with (+inf, -1)): one launch, each pair's valid tiles cut
+    into runs across the grid and merged inside it."""
     p, win, w = addrs.shape
+    dev = tables.device
+    fmt = code_format(addrs)
+    n_blocks = _grid(dev, "adc_topk_pairs_blocks_per_sm", fmt, w, tables.shape[1], k)
+    part_v, part_i, tickets = _workspace(dev, (n_blocks + p) * k, n_blocks + 2 * p)
     err = _build.library().adc_topk_pairs_launch(
         tables.data_ptr(), addrs.data_ptr(), n_valid.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), p, win, w, tables.shape[1], code_format(addrs), k, block_n,
-        torch.cuda.current_stream(tables.device).cuda_stream,
+        out_i.data_ptr(), part_v.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), p, win, w,
+        tables.shape[1], fmt, k, block_n, n_blocks,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "adc_topk_pairs")

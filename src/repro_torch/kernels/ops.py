@@ -9,6 +9,7 @@ API:
   rerank_dists(queries, cand, vectors, ...)           B3: exact re-rank, fused gather
   adc_scan(lut, codes) / adc_scan_flat(ext, addrs)    B8: (N,) ADC distances
   adc_topk(luts, codes, k) / adc_topk_flat(...)       B6: many tables, one code array
+  adc_topk_grouped(luts, codes, k, rows, tables)      B6: groups of rows, their own tables
   adc_topk_pairs(tables, addrs, n_valid, k)           B7: materialised per-pair windows
   flash_attention_fwd(q, k, v, scale=, ...)           B10: causal GQA attention forward
 
@@ -41,11 +42,12 @@ launches = {
     "adc_topk_tiles": 0, "adc_topk_windows": 0, "rerank_dists": 0,
     "adc_scan": 0, "adc_topk": 0, "adc_topk_pairs": 0, "flash_attention_fwd": 0,
 }
-# largest k of B6 and B7 (the top-k list and its merge buffer live in the
-# block's shared memory beside the table)
-ADC_TOPK_K_MAX = 1024
 # largest k of B2 and B5 (`adc_topk.scan_smem` checks it)
 SCAN_K_MAX = _topk.SCAN_K_MAX
+# largest k of B6 and B7 (the top-k lists and their merge buffer live in the
+# block's shared memory beside the tables; `adc_topk.topk_group_size`
+# checks it, and the width of the tables)
+ADC_TOPK_K_MAX = _topk.SCAN_K_MAX
 
 
 def reset_launches() -> None:
@@ -449,7 +451,8 @@ def _check_geometry(block_n: int, k: int | None, n_rows: int) -> None:
         raise ValueError(f"block_n={block_n} < 1")
     if k is not None and not 1 <= k <= ADC_TOPK_K_MAX:
         raise ValueError(f"k={k} outside [1, {ADC_TOPK_K_MAX}] (ADC_TOPK_K_MAX)")
-    if n_rows + block_n >= 2**31:
+    # a B6 / B7 pass forms row indices up to 1024 (its rows) past the last row
+    if n_rows + max(block_n, 1024) >= 2**31:
         raise ValueError(f"{n_rows} rows: row indices are int32")
 
 
@@ -492,7 +495,10 @@ def adc_scan_flat(
     return _run_scan(ext_lut, addrs, block_n, path, "adc_scan_flat")
 
 
-def _run_topk(tables, codes, k, block_n, path, bound, name):
+def _run_topk(tables, codes, k, block_n, path, bound, name, groups=None):
+    """B6 over one code array (`groups` None) or over (row_offsets,
+    table_offsets) groups: checks, the plan (G, and the refusals, on every
+    device), then the plain version or one launch."""
     dev = codes.device
     _check_path(path, name)
     q_n, n = tables.shape[0], codes.shape[0]
@@ -501,14 +507,27 @@ def _run_topk(tables, codes, k, block_n, path, bound, name):
         bound = bound.to(device=dev, dtype=torch.float32).contiguous()
         if bound.shape != (q_n,):
             raise ValueError(f"{name}: bound {tuple(bound.shape)}, expected ({q_n},)")
+    fmt, w = _topk.code_format(codes), codes.shape[1]
+    if groups is None:
+        nq, rows = [q_n], [n]
+    else:
+        r_off, t_off = groups
+        nq = [b - a for a, b in zip(t_off[:-1], t_off[1:])]
+        rows = [b - a for a, b in zip(r_off[:-1], r_off[1:])]
+    g = _topk.topk_group_size(nq, rows, k, fmt, w, tables.shape[1])
     if not _on_gpu(dev):
         if bound is None:
             bound = torch.full((q_n,), torch.inf, dtype=torch.float32, device=dev)
-        return _topk.adc_topk_plain(tables, codes, bound, k, block_n)
+        if groups is None:
+            return _topk.adc_topk_plain(tables, codes, bound, k, block_n)
+        return _topk.adc_topk_grouped_plain(tables, codes, bound, k, block_n, *groups)
     out_v = torch.full((q_n, k), torch.inf, dtype=torch.float32, device=dev)
     out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
-    if q_n and n:
-        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n)
+    units = None if groups is None else _topk.topk_units(*groups, g)
+    if q_n and n and (units is None or units.shape[0]):
+        if units is not None:
+            units = units.to(dev)
+        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n, g, units)
         launches["adc_topk"] += 1
     return out_v, out_i
 
@@ -529,10 +548,12 @@ def adc_topk(
     reference's per-query warm start: a tile is merged only if its smallest
     distance is <= bound[q] (+inf: every tile).  Returns the k smallest rows
     of the merged tiles by (distance, row): ((Q, k) f32 ascending, (Q, k)
-    int32 row indices), (+inf, -1) in lanes without a row.
+    int32 row indices), (+inf, -1) in lanes without a row.  One kernel
+    launch on the card.
 
-    Domain: 1 <= k <= `ADC_TOPK_K_MAX` (1024: the list and its merge
-    buffer sit in shared memory beside the table); a larger k raises
+    Domain: 1 <= k <= `ADC_TOPK_K_MAX` (4096: the lists and their merge
+    buffer sit in shared memory beside the tables), and a table that fits
+    beside them (`adc_topk.topk_group_size`); either refusal raises
     ValueError on every device, where the reference's Pallas kernel takes
     any k.
     """
@@ -553,11 +574,57 @@ def adc_topk_flat(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`adc_topk` over direct addresses (kernel B6): ext_luts (Q, A) f32,
     addrs (N, W) uint16 / int32 addresses into each table.  Domain as
-    `adc_topk`: 1 <= k <= `ADC_TOPK_K_MAX` (1024), else ValueError."""
+    `adc_topk`: 1 <= k <= `ADC_TOPK_K_MAX` (4096) and a table of A floats
+    that fits in shared memory (a uint16 address space of 65,536 entries
+    does not), else ValueError on every device."""
     dev = addrs.device
     _check_codes(addrs, "addrs", 2, True, dev)
     _check(ext_luts, "ext_luts", torch.float32, 2, dev)
     return _run_topk(ext_luts, addrs, k, block_n, path, bound, "adc_topk_flat")
+
+
+def _offsets(x, name: str, end: int) -> list[int]:
+    """A host sequence of n_groups + 1 ascending offsets from 0 to <= end."""
+    off = [int(v) for v in (x.tolist() if hasattr(x, "tolist") else x)]
+    if len(off) < 1 or off[0] != 0 or any(b < a for a, b in zip(off[:-1], off[1:])) \
+            or off[-1] > end:
+        raise ValueError(f"{name}: expected ascending offsets from 0 to <= {end}")
+    return off
+
+
+def adc_topk_grouped(
+    luts: torch.Tensor,
+    codes: torch.Tensor,
+    k: int,
+    row_offsets,
+    table_offsets,
+    *,
+    block_n: int = 1024,
+    path: str = "gather",
+    bound: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B6 over groups, in one launch: group i is rows [row_offsets[i],
+    row_offsets[i+1]) of `codes` and table rows [table_offsets[i],
+    table_offsets[i+1]) of `luts`, and each of those table rows gets what
+    `adc_topk` (raw uint8 codes) or `adc_topk_flat` (uint16 / int32
+    addresses) would give on that group's rows alone: rows numbered from
+    the group's first, tiles of `block_n` rows from there, its `bound`
+    entry.  The offsets are host sequences (n_groups + 1, from 0);
+    table_offsets ends at Q.  Returns ((Q, k) f32, (Q, k) int32), (+inf,
+    -1) in lanes without a row.  Domain as `adc_topk`."""
+    dev = codes.device
+    _topk.code_format(codes)
+    _check(codes, "codes", codes.dtype, 2, dev)
+    tables = _tables_2d(luts, codes, dev)
+    r_off = _offsets(row_offsets, "row_offsets", codes.shape[0])
+    t_off = _offsets(table_offsets, "table_offsets", tables.shape[0])
+    if len(r_off) != len(t_off) or t_off[-1] != tables.shape[0]:
+        raise ValueError(
+            f"adc_topk_grouped: {len(r_off) - 1} row groups, {len(t_off) - 1} table groups "
+            f"ending at {t_off[-1]} of {tables.shape[0]} tables"
+        )
+    return _run_topk(tables, codes, k, block_n, path, bound, "adc_topk_grouped",
+                     (r_off, t_off))
 
 
 def adc_topk_pairs(
@@ -575,14 +642,16 @@ def adc_topk_pairs(
     multiple of block_n, as the reference asserts); n_valid (P,) valid rows
     of each window.  Returns per pair the k smallest of its valid rows by
     (distance, row): ((P, k) f32, (P, k) int32 window rows), (+inf, -1) in
-    lanes without a row.  Domain: 1 <= k <= `ADC_TOPK_K_MAX` (1024), else
-    ValueError on every device.
+    lanes without a row.  One kernel launch on the card.  Domain: 1 <= k
+    <= `ADC_TOPK_K_MAX` (4096) and a table that fits in shared memory beside
+    the lists (`adc_topk.topk_group_size` with one table), else ValueError
+    on every device.
     """
     dev = addrs.device
     _check_path(path, "adc_topk_pairs")
     _check_codes(addrs, "addrs", 3, True, dev)
     _check(tables, "tables", torch.float32, 2, dev)
-    p, win, _ = addrs.shape
+    p, win, w = addrs.shape
     _check_geometry(block_n, k, win)
     if tables.shape[0] != p or n_valid.shape != (p,):
         raise ValueError(
@@ -591,6 +660,8 @@ def adc_topk_pairs(
         )
     if win % block_n:
         raise ValueError(f"window length {win} is not a multiple of block_n={block_n}")
+    _topk.topk_group_size([1] * p, [win] * p, k, _topk.code_format(addrs), w,
+                          tables.shape[1], groups=(1,))
     n_valid = n_valid.to(device=dev, dtype=torch.int32).contiguous()
     if not _on_gpu(dev):
         return _topk.adc_topk_pairs_plain(tables, addrs, n_valid, k)

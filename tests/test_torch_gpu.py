@@ -12,8 +12,10 @@ re-rank distances (B3) must be bit-equal; the pruned scans must equal the
 unpruned ones after the per-query merge, and a whole engine on the card (plain or co-occurrence
 shards, either scan) must return the engine-on-CPU answers.  The
 kernel-level API -- B8 (`adc_scan`), B6 (`adc_topk`, with and without a
-finite bound) and B7 (`adc_topk_pairs`) -- is bit-equal to its plain
-versions, and the flat search on B1 + B6 equals the flat search on the CPU.
+finite bound, at 1 to 16 tables and k up to 4096; `adc_topk_grouped`) and B7
+(`adc_topk_pairs`) -- is bit-equal to its plain versions in one launch per
+call, and the flat search on B1 + B6 (one launch each) equals the flat
+search on the CPU.
 B10 (`flash_attention_fwd`) is held to its plain version at the reference's
 f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp,
 over every head dim, GQA 1 / 4 / 8, each (q, kv) dtype pair, offsets, dead
@@ -351,51 +353,114 @@ def test_adc_scan_kernel_bit_equal(cuda, dtype, w):
     assert torch.equal(got, adc_scan.adc_scan_plain(tables[0], codes))
 
 
-@pytest.mark.parametrize("dtype,w", [(torch.uint8, 16), (torch.uint16, 16),
-                                     (torch.int32, 8), (torch.uint8, 12)])
-@pytest.mark.parametrize("k", [1, 100, 257])
-def test_adc_topk_kernel_bit_equal(cuda, dtype, w, k):
-    tables, codes = _api_case(cuda, k, 300_017, w, dtype)
-    q = tables.shape[0]
+# B6 / B7 code formats: raw uint8 at compiled and runtime widths, uint16 and
+# int32 direct addresses
+TOPK_FORMATS = [(torch.uint8, 16), (torch.uint16, 16), (torch.int32, 8), (torch.uint8, 12)]
+
+
+def _tile_bound(tables, codes, block_n, q):
+    """Per-table bounds: +inf but for table 0, midway between two of its
+    tile minima (so some tiles are dropped)."""
+    inf = torch.full((q,), torch.inf, device=tables.device)
+    addr = adc_topk.table_addresses(adc_topk.gatherable(codes), adc_topk.code_format(codes))
+    d = adc_topk.sum_columns(tables[0][addr])
+    n_t = -(-d.shape[0] // block_n)
+    pad = torch.full((n_t * block_n - d.shape[0],), torch.inf, device=tables.device)
+    tmin = torch.sort(torch.cat([d, pad]).reshape(n_t, block_n).amin(1)).values
+    bound = inf.clone()
+    bound[0] = (tmin[n_t // 3] + tmin[n_t // 3 + 1]) / 2
+    return bound
+
+
+@pytest.mark.parametrize("dtype,w", TOPK_FORMATS)
+@pytest.mark.parametrize("q", [1, 3, 4, 5, 16])
+@pytest.mark.parametrize("k", [1, 100, 257, 4096])
+def test_adc_topk_kernel_bit_equal(cuda, dtype, w, q, k):
+    """B6 at Q = 1, 3, G (4), G + 1 and 16 tables, every code format, with and
+    without a finite bound, at two tile heights: bit-equal to the plain
+    version (distances and rows), one launch per call."""
+    tables, codes = _api_case(cuda, k + q, 100_003, w, dtype, q=q)
     inf = torch.full((q,), torch.inf, device=cuda)
     fn = ops.adc_topk if dtype == torch.uint8 else ops.adc_topk_flat
-    ops.reset_launches()
     for block_n in (256, 1024):
-        got = fn(tables, codes, k, block_n=block_n)
-        want = adc_topk.adc_topk_plain(tables, codes, inf, k, block_n)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        # a finite bound between two tile minima drops tiles
-        d = adc_scan.adc_scan_plain(tables[0], codes)
-        n_t = -(-d.shape[0] // block_n)
-        pad = torch.full((n_t * block_n - d.shape[0],), torch.inf, device=cuda)
-        tmin = torch.sort(torch.cat([d, pad]).reshape(n_t, block_n).amin(1)).values
-        bound = inf.clone()
-        bound[0] = (tmin[n_t // 3] + tmin[n_t // 3 + 1]) / 2
-        got = fn(tables, codes, k, block_n=block_n, bound=bound)
-        want = adc_topk.adc_topk_plain(tables, codes, bound, k, block_n)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert ops.launches["adc_topk"] == 4
+        for bound in (None, _tile_bound(tables, codes, block_n, q)):
+            ops.reset_launches()
+            got = fn(tables, codes, k, block_n=block_n, bound=bound)
+            torch.cuda.synchronize()
+            assert ops.launches["adc_topk"] == 1
+            want = adc_topk.adc_topk_plain(tables, codes, inf if bound is None else bound, k,
+                                           block_n)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype,w", TOPK_FORMATS)
+@pytest.mark.parametrize("k", [10, 300])
+def test_adc_topk_grouped_kernel_equals_single_calls(cuda, dtype, w, k):
+    """Grouped B6 in one launch equals one `adc_topk` / `adc_topk_flat` call
+    per group (and the grouped plain version): empty groups, groups smaller
+    than k, groups of one table and of many."""
+    sizes = [40_000, 0, 7, 5000, 123_457, 1, 2048]
+    n_tab = [5, 3, 2, 1, 9, 4, 0]
+    tables, codes = _api_case(cuda, k, sum(sizes), w, dtype, q=sum(n_tab))
+    r_off = np.concatenate([[0], np.cumsum(sizes)])
+    t_off = np.concatenate([[0], np.cumsum(n_tab)])
+    ops.reset_launches()
+    got = ops.adc_topk_grouped(tables, codes, k, r_off, t_off)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk"] == 1
+    fn = ops.adc_topk if dtype == torch.uint8 else ops.adc_topk_flat
+    for i in range(len(sizes)):
+        t0, t1, r0, r1 = t_off[i], t_off[i + 1], r_off[i], r_off[i + 1]
+        if t1 == t0:
+            continue
+        if r1 == r0:
+            assert bool(torch.isinf(got[0][t0:t1]).all()) and bool((got[1][t0:t1] == -1).all())
+            continue
+        one = fn(tables[t0:t1].contiguous(), codes[r0:r1], k)
+        assert torch.equal(got[0][t0:t1], one[0]) and torch.equal(got[1][t0:t1], one[1])
+    inf = torch.full((sum(n_tab),), torch.inf, device=cuda)
+    want = adc_topk.adc_topk_grouped_plain(tables, codes, inf, k, 1024, r_off, t_off)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
-@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("k", [10, 100, 4096])
 def test_adc_topk_pairs_kernel_bit_equal(cuda, dtype, k):
+    """B7: one giant window (all 131,072 rows valid) beside empty, 7-row and
+    partly filled ones, in one launch, bit-equal to the plain version."""
     g = torch.Generator(device=cuda).manual_seed(k)
-    p, win, w = 9, 4096, 16
+    p, win, w = 6, 131_072, 16
     a = w * 256 + 40
     tables = torch.rand(p, a, device=cuda, generator=g)
     addrs = torch.randint(0, a, (p, win, w), device=cuda, generator=g).to(dtype)
-    n_valid = torch.randint(0, win + 1, (p,), device=cuda, generator=g).int()
-    n_valid[0], n_valid[1] = 0, 7
+    n_valid = torch.tensor([0, 7, win, 3000, 0, 1025], dtype=torch.int32, device=cuda)
     ops.reset_launches()
     got = ops.adc_topk_pairs(tables, addrs, n_valid, k, block_n=512)
-    want = adc_topk.adc_topk_pairs_plain(tables, addrs, n_valid, k)
     torch.cuda.synchronize()
     assert ops.launches["adc_topk_pairs"] == 1
+    want = adc_topk.adc_topk_pairs_plain(tables, addrs, n_valid, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool((got[1][0] == -1).all()) and bool((got[1][1, 7:] == -1).all())
+
+
+@pytest.mark.parametrize("call", ["adc_topk_flat", "adc_topk_grouped", "adc_topk_pairs"])
+def test_topk_table_too_wide_refused_on_card(cuda, call):
+    """A 65,536-entry uint16 direct-address table cannot sit in a block's
+    shared memory: the card refuses it with the CPU's ValueError, before
+    any launch."""
+    tables = torch.zeros(2, 65_536, device=cuda)
+    addrs = torch.zeros(128, 4, dtype=torch.int32, device=cuda).to(torch.uint16)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="a table of 65536 floats and k=10 need .* B of "
+                                         "shared memory"):
+        if call == "adc_topk_flat":
+            ops.adc_topk_flat(tables, addrs, 10)
+        elif call == "adc_topk_grouped":
+            ops.adc_topk_grouped(tables, addrs, 10, [0, 64, 128], [0, 1, 2])
+        else:
+            ops.adc_topk_pairs(tables, addrs.reshape(2, 64, 4),
+                               torch.tensor([64, 3], device=cuda), 10, block_n=64)
+    assert ops.launches["adc_topk"] == ops.launches["adc_topk_pairs"] == 0
 
 
 def test_flat_search_on_card_matches_cpu(cuda, clustered_data):
@@ -408,7 +473,7 @@ def test_flat_search_on_card_matches_cpu(cuda, clustered_data):
     for nprobe, k in ((8, 10), (3, int(sizes.min()) + 5)):
         ops.reset_launches()
         d_gpu, i_gpu = search(index, qs, nprobe, k, device=cuda)
-        assert ops.launches["build_luts"] == 1 and ops.launches["adc_topk"] > 0
+        assert ops.launches["build_luts"] == 1 and ops.launches["adc_topk"] == 1
         d_cpu, i_cpu = search(index, qs, nprobe, k, device="cpu")
         np.testing.assert_array_equal(d_gpu, d_cpu)
         np.testing.assert_array_equal(i_gpu, i_cpu)

@@ -156,9 +156,21 @@ def test_adc_topk_finite_bound_drops_tiles(block_n):
             assert d[t * block_n:(t + 1) * block_n].min() <= bound[qi]
 
 
+def _merge_lists(vals, rows, k):
+    """The kernel's merge of run lists: the k smallest entries of the
+    concatenated lists by (distance, row)."""
+    v, i = torch.cat(vals), torch.cat(rows)
+    by_row = torch.sort(i.long(), stable=True).indices
+    sel = by_row[torch.sort(v[by_row], stable=True).indices][:k]
+    return v[sel], i[sel]
+
+
 def test_adc_topk_plain_splits_and_chunks_agree(monkeypatch):
     """The plain B6 merges rows chunk by chunk; its result does not depend
-    on the chunk, as the kernel's does not depend on its split count."""
+    on the chunk, as the kernel's does not depend on its runs: merging the
+    plain lists of every run of the launch plan (B6's units of G tables,
+    B7's windows, for several grids) gives the whole plain result, bit for
+    bit, bound included."""
     rng = _rng(17)
     luts, codes = _t(_luts(rng, 3, 8)), _t(_codes(rng, 1900, 8))
     bound = torch.tensor([np.inf, 30.0, 20.0], dtype=torch.float32)
@@ -166,9 +178,80 @@ def test_adc_topk_plain_splits_and_chunks_agree(monkeypatch):
     monkeypatch.setattr(k_topk, "_PLAIN_ROWS", 3 * 128)
     got = ops.adc_topk(luts, codes, 37, block_n=128, bound=bound)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert k_topk.topk_splits(1900, 3, 128) == (15, 1)
-    assert k_topk.topk_splits(100_000_000, 1, 1024) == (2035, 48)
-    assert k_topk.topk_splits(100_000_000, 16, 1024) == (128, 763)
+    tables, bn, k, n = luts.reshape(3, -1), 128, 37, codes.shape[0]
+    for g, n_blocks in ((1, 5), (4, 7), (1, 1000)):
+        n_units = -(-3 // g)
+        plan = k_topk.run_plan([-(-n // bn)] * n_units, n_blocks)
+        lists = {q: ([], []) for q in range(3)}
+        for u, t0, t1 in zip(plan["unit"], plan["t0"], plan["t1"]):
+            r0, r1 = int(t0) * bn, min(int(t1) * bn, n)
+            q0, q1 = int(u) * g, min(int(u) * g + g, 3)
+            v, i = k_topk.adc_topk_plain(tables[q0:q1], codes[r0:r1], bound[q0:q1], k, bn)
+            for q in range(q0, q1):
+                lists[q][0].append(v[q - q0])
+                lists[q][1].append(torch.where(i[q - q0] >= 0, i[q - q0] + r0, -1))
+        for q in range(3):
+            mv, mi = _merge_lists(*lists[q], k)
+            assert torch.equal(mv, want[0][q]) and torch.equal(mi, want[1][q])
+    # B7: one unit per window, its valid tiles only
+    p, win, w, bn, k = 5, 1024, 8, 128, 9
+    ptab = _t(rng.normal(0, 1, (p, w * 256 + 9)).astype(np.float32))
+    addrs = _t(rng.integers(0, w * 256, (p, win, w)).astype(np.int32))
+    n_valid = _t(np.array([0, 7, 1024, 300, 129], np.int32))
+    whole = k_topk.adc_topk_pairs_plain(ptab, addrs, n_valid, k)
+    for n_blocks in (1, 4, 13, 64):
+        plan = k_topk.run_plan((-(-n_valid // bn)).tolist(), n_blocks)
+        lists = {q: ([], []) for q in range(p)}
+        for u, t0, t1 in zip(plan["unit"], plan["t0"], plan["t1"]):
+            u, r0 = int(u), int(t0) * bn
+            r1 = min(int(t1) * bn, int(n_valid[u]))
+            v, i = k_topk.adc_topk_pairs_plain(
+                ptab[u : u + 1], addrs[u : u + 1, r0:r1].contiguous(),
+                torch.tensor([r1 - r0], dtype=torch.int32), k)
+            lists[u][0].append(v[0])
+            lists[u][1].append(torch.where(i[0] >= 0, i[0] + r0, -1))
+        for q in range(p):
+            if not lists[q][0]:  # no tiles: the wrapper's (+inf, -1)
+                assert bool(torch.isinf(whole[0][q]).all()) and bool((whole[1][q] == -1).all())
+                continue
+            mv, mi = _merge_lists(*lists[q], k)
+            assert torch.equal(mv, whole[0][q]) and torch.equal(mi, whole[1][q])
+    # the smoke's Q = 16 over 100M rows: four units of four tables, one wave
+    # of 396 blocks (132 SMs x 3), runs of 986-987 tiles
+    plan = k_topk.run_plan([97_657] * 4, 396)
+    per_block = np.bincount(plan["block"], weights=plan["t1"] - plan["t0"])
+    assert plan["nb"] == 396 and per_block.min() == 986 and per_block.max() == 987
+
+
+def test_adc_topk_grouped():
+    """Grouped B6 equals `adc_topk` per group (and the reference's kernel in
+    interpret mode on that group), empty groups and groups smaller than k
+    included; rows are numbered from each group's first."""
+    rng = _rng(19)
+    m, k, bn = 8, 12, 128
+    sizes = [300, 0, 5, 700, 129]
+    n_tab = [3, 2, 1, 6, 0]
+    luts = _luts(rng, sum(n_tab), m)
+    codes = _codes(rng, sum(sizes), m)
+    r_off = np.concatenate([[0], np.cumsum(sizes)])
+    t_off = np.concatenate([[0], np.cumsum(n_tab)])
+    got = ops.adc_topk_grouped(_t(luts), _t(codes), k, r_off, t_off, block_n=bn)
+    assert got[0].shape == (sum(n_tab), k)
+    for gi in range(len(sizes)):
+        t0, t1, r0, r1 = t_off[gi], t_off[gi + 1], r_off[gi], r_off[gi + 1]
+        if t1 == t0:
+            continue
+        if r1 == r0:
+            assert bool(torch.isinf(got[0][t0:t1]).all()) and bool((got[1][t0:t1] == -1).all())
+            continue
+        one = ops.adc_topk(_t(luts[t0:t1]), _t(codes[r0:r1]), k, block_n=bn)
+        assert torch.equal(got[0][t0:t1], one[0]) and torch.equal(got[1][t0:t1], one[1])
+        if r1 - r0 >= k:  # the reference's top_k needs k rows (ROADMAP C1)
+            want = jops.adc_topk(jnp.asarray(luts[t0:t1]), jnp.asarray(codes[r0:r1]), k,
+                                 block_n=bn)
+            assert_topk((got[0][t0:t1], got[1][t0:t1]), want)
+    with pytest.raises(ValueError, match="offsets"):
+        ops.adc_topk_grouped(_t(luts), _t(codes), k, [0, 10, 5], [0, 1, 2], block_n=bn)
 
 
 def test_refusals():

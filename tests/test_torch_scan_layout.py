@@ -5,9 +5,11 @@ A B2 / B5 block holds its pair's table, the top-k list and its merge buffer
 (4k floats) and a pass of candidates in shared memory
 (`adc_topk.scan_smem`); every code format at the compiled widths and at a
 runtime width fits 227 KB up to k = 4096, and a table too wide is refused.
-The refusals (k beyond 4096 for B2 / B5, beyond 1024 for B6 / B7, B10 head
-dims outside the kernel's instantiations) raise on the CPU as they do on the
-card.  The raw-code scans at each compiled width equal the reference's
+B6 / B7 blocks hold G tables beside G lists (`adc_topk.topk_group_size`):
+k up to 4096 is taken, with G = 1 where four tables no longer fit.  The
+refusals (k beyond 4096 for B2 / B5 / B6 / B7, a table too wide for the
+shared memory, B10 head dims outside the kernel's instantiations) raise on
+the CPU as they do on the card.  The raw-code scans at each compiled width equal the reference's
 Pallas kernels (interpret mode) on the same numpy inputs.
 """
 
@@ -69,17 +71,60 @@ def test_topk_k_limit_refused(call):
     lut = torch.as_tensor(rng.normal(0, 1, (1, 8 * 256)).astype(np.float32))
     codes = torch.as_tensor(rng.integers(0, 256, (64, 8)).astype(np.uint8))
     addrs = (codes.int() + torch.arange(8, dtype=torch.int32) * 256).contiguous()
-    k = ops.ADC_TOPK_K_MAX + 1
-    with pytest.raises(ValueError, match="ADC_TOPK_K_MAX"):
+
+    def run(k):
         if call == "adc_topk":
-            ops.adc_topk(lut, codes, k)
-        elif call == "adc_topk_flat":
-            ops.adc_topk_flat(lut, addrs, k)
-        else:
-            ops.adc_topk_pairs(lut, addrs[None], torch.tensor([64]), k, block_n=64)
-    # the limit itself is taken
-    v, _ = ops.adc_topk(lut, codes, ops.ADC_TOPK_K_MAX)
+            return ops.adc_topk(lut, codes, k)
+        if call == "adc_topk_flat":
+            return ops.adc_topk_flat(lut, addrs, k)
+        return ops.adc_topk_pairs(lut, addrs[None], torch.tensor([64]), k, block_n=64)
+
+    assert ops.ADC_TOPK_K_MAX == 4096 == ops.SCAN_K_MAX
+    with pytest.raises(ValueError, match="ADC_TOPK_K_MAX"):
+        run(ops.ADC_TOPK_K_MAX + 1)
+    # the limit itself is taken: 64 rows, then (+inf, -1)
+    v, i = run(ops.ADC_TOPK_K_MAX)
     assert v.shape == (1, ops.ADC_TOPK_K_MAX)
+    assert bool((i[0, :64] >= 0).all()) and bool((i[0, 64:] == -1).all())
+
+
+def test_topk_group_size():
+    """Four raw M = 16 tables fit beside their lists up to k = 1024; at k =
+    4096 the block drops to one.  Two tables cost less one by one."""
+    g = k_topk.topk_group_size
+    for k in (1, 10, 1024):
+        assert g([16], [10**8], k, 0, 16, 4096) == 4
+        assert k_topk.topk_smem(4, k, 4096) + 4096 <= BUDGET
+    assert g([16], [10**8], 4096, 0, 16, 4096) == 1
+    assert g([1], [10**8], 10, 0, 16, 4096) == 1
+    assert g([2], [10**8], 10, 0, 16, 4096) == 1
+    assert g([8], [10**8], 10, 0, 16, 4096) == 4
+    # grouped: many small groups of one or two tables pick G = 1
+    assert g([1, 2] * 50, [5000] * 100, 10, 0, 16, 4096) == 1
+
+
+@pytest.mark.parametrize("call", ["adc_topk_flat", "adc_topk_grouped", "adc_topk_pairs"])
+def test_topk_table_too_wide_refused(call):
+    """uint16 direct addresses into a 65,536-entry table (256 KB) cannot sit
+    in one block's shared memory: refused on the CPU with the message the
+    card's path raises (the same planning function), before any launch."""
+    a = 65_536
+    tables = torch.zeros(2, a)
+    addrs = torch.zeros(128, 4, dtype=torch.int32).to(torch.uint16)
+    with pytest.raises(ValueError, match=f"a table of {a} floats and k=10 need .* B of shared "
+                                         f"memory, over {BUDGET}"):
+        if call == "adc_topk_flat":
+            ops.adc_topk_flat(tables, addrs, 10)
+        elif call == "adc_topk_grouped":
+            ops.adc_topk_grouped(tables, addrs, 10, [0, 64, 128], [0, 1, 2])
+        else:
+            ops.adc_topk_pairs(tables, addrs.reshape(2, 64, 4), torch.tensor([64, 3]), 10,
+                               block_n=64)
+    # the widest direct table one block holds at k = 10 is taken
+    widest = (BUDGET - 4096) // 4 - 2 * 10 - 2 * 10 - 2 * 1024
+    assert k_topk.topk_group_size([1], [128], 10, 1, 4, widest) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        k_topk.topk_group_size([1], [128], 10, 1, 4, widest + 1)
 
 
 @pytest.mark.parametrize("hd", [8, 48, 256])

@@ -192,3 +192,53 @@ def test_failover_schedule_covers_surviving_replicas_exactly_once(
     for name in ("pair_q", "pair_c", "pair_dev"):
         np.testing.assert_array_equal(getattr(blind, name), getattr(alive, name))
     assert alive.lost_q.size == 0 and alive.lost_c.size == 0
+
+
+@given(
+    groups=st.lists(st.tuples(st.integers(0, 5000), st.integers(0, 9)), min_size=1,
+                    max_size=24),
+    g=st.sampled_from([1, 4]),
+    sms=st.integers(1, 140),
+    resident=st.integers(1, 8),
+    block_n=st.sampled_from([1, 64, 1024]),
+)
+@settings(**SETTINGS)
+def test_topk_launch_plan_covers_every_tile_once(groups, g, sms, resident, block_n):
+    """B6 / B7's launch plan (`adc_topk.topk_units` + `run_plan`, the twin
+    of the kernel's mapping): for any grid and G, every table row of a group
+    with rows lies in one unit, every tile of every unit in exactly one
+    run, a unit's runs ascend in rows and in blocks first .. last as the
+    kernel computes them, every block takes T / nb tiles (rounded) and the
+    scratch slots block + unit never repeat."""
+    from repro_torch.kernels.adc_topk import run_plan, topk_units
+
+    rows = [r for r, _ in groups]
+    r_off = np.concatenate([[0], np.cumsum(rows)]).tolist()
+    t_off = np.concatenate([[0], np.cumsum([q for _, q in groups])]).tolist()
+    units = topk_units(r_off, t_off, g).numpy()
+    covered = np.concatenate([np.arange(q0, q0 + nq) for _, _, q0, nq in units] or [[]])
+    want = np.concatenate([np.arange(t_off[i], t_off[i + 1]) for i in range(len(groups))
+                           if rows[i]] or [[]])
+    np.testing.assert_array_equal(np.sort(covered), want)
+    assert ((units[:, 3] >= 1) & (units[:, 3] <= g)).all() if len(units) else True
+
+    tiles = [-(-int(n) // block_n) for n in units[:, 1]]
+    plan = run_plan(tiles, sms * resident)
+    t_all = sum(tiles)
+    nb = min(sms * resident, t_all)
+    assert plan["T"] == t_all and plan["nb"] == nb
+    for u, n_t in enumerate(tiles):
+        sel = plan["unit"] == u
+        t0, t1, blk = plan["t0"][sel], plan["t1"][sel], plan["block"][sel]
+        if n_t == 0:
+            assert not sel.any()
+            continue
+        assert t0[0] == 0 and t1[-1] == n_t and (t1 > t0).all()
+        np.testing.assert_array_equal(t1[:-1], t0[1:])
+        np.testing.assert_array_equal(blk, np.arange(plan["first"][sel][0],
+                                                     plan["last"][sel][0] + 1))
+    if nb:
+        per_block = np.bincount(plan["block"], weights=plan["t1"] - plan["t0"], minlength=nb)
+        assert per_block.min() >= t_all // nb and per_block.max() <= -(-t_all // nb)
+    assert len(np.unique(plan["slot"])) == len(plan["slot"])
+    assert (plan["slot"] < nb + len(units)).all()

@@ -18,6 +18,19 @@
 //   +vote        and a warp vote on the result (the candidate test).
 // Prints SM clock cycles (at the device's maximum clock) per warp-step per
 // SM for each variant: the shared-memory and issue cost of 128 lookups.
+//
+// The second group prices the tables of several queries looked up at one
+// address (the B6 / B7 block, csrc/adc_topk_multi.cuh).  Each step draws 4
+// addresses per lane from a per-lane xorshift (every byte of the word is
+// random, so the banks are), one per sub-space of a 4 x 256-entry table,
+// and adds every query's entry, in column order, to that query's sum:
+//   q1           one query, 4 LDS.32 (lane per row, random banks);
+//   q4 x1        four queries, tables one after the other ([4][1024]):
+//                4 LDS.32 per address at immediate offsets;
+//   q4 x2        interleaved by 2 ([2][1024][2]): 2 LDS.64 per address;
+//   q4 x4        interleaved by 4 ([1024][4]): 1 LDS.128 per address.
+// Prints SM clock cycles per warp-wide lookup of one query's entry: 1.0 is
+// the shared-memory rate (128 bytes per SM clock).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,6 +92,68 @@ __global__ void __launch_bounds__(512, 1) step_loop(float* out, int steps, unsig
   out[blockIdx.x * blockDim.x + threadIdx.x] = d + acc;
 }
 
+// Interleave I (1, 2, 4) of NQ (1 or 4) queries' tables, layout
+// [NQ / I][1024][I]; 4 addresses a step, NQ entries each.
+template <int NQ, int I>
+__global__ void __launch_bounds__(512, 1) query_loop(float* out, int steps, unsigned seed) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  float* tab = reinterpret_cast<float*>(sm);
+  for (int i = threadIdx.x; i < NQ * 1024; i += blockDim.x) tab[i] = (i * 7 % 13) * 0.5f;
+  __syncthreads();
+  uint32_t x = (threadIdx.x + 1) * 2654435761u ^ seed;
+  float d[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) d[q] = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    x ^= x << 13;
+    x ^= x >> 17;
+    x ^= x << 5;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t a = m * 256 + ((x >> (8 * m)) & 0xffu);
+#pragma unroll
+      for (int s = 0; s < NQ / I; ++s) {
+        const float* p = tab + (s * 1024 + a) * I;
+        if constexpr (I == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(p);
+          d[4 * s] = __fadd_rn(d[4 * s], v.x);
+          d[4 * s + 1] = __fadd_rn(d[4 * s + 1], v.y);
+          d[4 * s + 2] = __fadd_rn(d[4 * s + 2], v.z);
+          d[4 * s + 3] = __fadd_rn(d[4 * s + 3], v.w);
+        } else if constexpr (I == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(p);
+          d[2 * s] = __fadd_rn(d[2 * s], v.x);
+          d[2 * s + 1] = __fadd_rn(d[2 * s + 1], v.y);
+        } else {
+          d[s] = __fadd_rn(d[s], *p);
+        }
+      }
+    }
+  }
+  float r = 0.f;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) r += d[q];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = r;
+}
+
+// SM clocks per warp-wide lookup of one query's entry.
+template <int NQ, int I>
+double cycles_per_query_lookup(float* out, int steps, int threads, int sms, double hz) {
+  const int smem = NQ * 1024 * 4;
+  query_loop<NQ, I><<<sms, threads, smem>>>(out, steps, 1);
+  cudaDeviceSynchronize();
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  cudaEventRecord(a);
+  query_loop<NQ, I><<<sms, threads, smem>>>(out, steps, 2);
+  cudaEventRecord(b);
+  cudaEventSynchronize(b);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, a, b);
+  return ms * 1e-3 * hz / (static_cast<double>(steps) * 4 * NQ * (threads / 32));
+}
+
 template <int V>
 double cycles_per_warp_step(float* out, int steps, int threads, int sms, double hz) {
   const int smem = TAB_BYTES + CODE_BYTES;
@@ -120,6 +195,16 @@ int main() {
         cycles_per_warp_step<SHUFFLE>(out, steps, threads, n, hz),
         cycles_per_warp_step<CODES>(out, steps, threads, n, hz),
         cycles_per_warp_step<VOTE>(out, steps, threads, n, hz));
+  }
+  for (int threads : {256, 512}) {
+    const int n = prop.multiProcessorCount;
+    std::printf(
+        "{\"threads\": %d, \"cycles_per_query_lookup\": {\"q1\": %.3f, \"q4 x1\": %.3f, "
+        "\"q4 x2\": %.3f, \"q4 x4\": %.3f}}\n",
+        threads, cycles_per_query_lookup<1, 1>(out, steps, threads, n, hz),
+        cycles_per_query_lookup<4, 1>(out, steps, threads, n, hz),
+        cycles_per_query_lookup<4, 2>(out, steps, threads, n, hz),
+        cycles_per_query_lookup<4, 4>(out, steps, threads, n, hz));
   }
   const cudaError_t e = cudaGetLastError();
   cudaFree(out);
