@@ -14,7 +14,10 @@ width (M = 8, so dsub 512): prefill ms after one warm-up prefill, decode ms
 per step and tok/s, peak memory, the first generated tokens; kernel B10's
 launches must be 36 in the prefill and 0 in the decode, and the search must
 launch B1, B4, B2 and B3 (counts reset just before `serve`).  B1 is held
-against its plain version at that search's shapes (the wide-dsub kernel).  The
+against its plain version at that search's shapes (the wide-dsub kernel),
+and B3 on the same engine's own candidates (D = 4096), each timed warm and
+cold (`cold_ms`: the L2 evicted before each launch, as the caller meets
+its inputs).  The
 same prompt's prefill with the flash kernel off (the chunked scan) must
 give last-position logits within `LM_E2E_REL` / `LM_E2E_MAX`, and B10 is
 held against its plain version at the prefill's shapes (bf16 q against the
@@ -36,7 +39,8 @@ re-rank):
      with every kernel's launch count reset just before and read just after;
   2. holds each kernel against its plain PyTorch version at the shapes of
      that path (tolerance: allclose rtol = atol = 1e-5 on distances, rows
-     and ids equal) and times kernel, plain version, bound and the PyTorch
+     and ids equal; B3 bit-equal) and times kernel (warm, and for B3 also
+     cold), plain version, bound and the PyTorch
      expression that computes the same function, where there is one; for
      B2 / B5 it also gives the lookup bound (table lookups over the SMs'
      shared-memory rate at the SM clock read during the timing);
@@ -133,6 +137,8 @@ LM_E2E_REL, LM_E2E_MAX = 0.05, 0.05
 # the peaked-score case of B10: q scaled so that its largest live logit is this
 FLASH_PEAK_LOGIT = 30.0
 SRC_ROOT = "src/repro_torch"
+# bytes written between two cold launches (`cold_ms`): five times the L2
+FLUSH_BYTES = 256 << 20
 
 
 def log(**kv) -> None:
@@ -164,17 +170,49 @@ def ptxas_summary(report: str) -> dict:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` launches (CUDA events), warmed."""
+    """Mean device time of `fn` over `reps` launches back to back (CUDA
+    events), warmed.  The card first spins (`torch.cuda._sleep`) for twice
+    the host time of enqueueing them, so that launches shorter than their
+    host overhead still run back to back and the events time the card, not
+    the host (a kernel of a few microseconds is shorter than its launch
+    from Python)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    # ~2e9 SM clocks a second (H100 boost 1.98 GHz); spinning longer only waits
+    torch.cuda._sleep(int(min(2 * reps * host_s + 1e-4, 0.05) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(torch, fn, reps: int) -> float:
+    """Mean device time of `fn` as a caller meets its inputs in device
+    memory: before each launch, outside its own event pair, a write of
+    `FLUSH_BYTES` evicts the 50 MB L2 (the write also keeps the card busy
+    while the host enqueues the launch), warmed."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    events = []
+    for i in range(reps):
+        flush.fill_(float(i))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    del flush
+    return sum(a.elapsed_time(b) for a, b in events) / reps
 
 
 def clocked_ms(torch, fn, reps: int, min_ms: float = 1000.0) -> tuple[float, float]:
@@ -887,6 +925,44 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     return kernels, cshards.codes[d_big].clone(), ext9[0].clone()
 
 
+def check_rerank(torch, ops, k_rerank, qt, cand, raw, *, launches: int, shape: dict) -> dict:
+    """B3 on a path's own queries and candidates: bit-equal to its plain
+    version (+inf where the plain version has it), timed warm (launches
+    back to back on the same inputs) and cold (`cold_ms`), beside the
+    plain version, the bound and the PyTorch expression of its function."""
+    args = (raw.vectors, raw.id_dev, raw.id_row, raw.row_base)
+    got = ops.rerank_dists(qt, cand, *args)
+    want = k_rerank.rerank_dists_plain(qt, cand, *args)
+    fin = torch.isfinite(want)
+    if not torch.equal(got, want):
+        raise RuntimeError(f"rerank ({shape}) disagrees with its plain version")
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    out = torch.empty_like(got)
+
+    def launch():
+        k_rerank.launch(qt, cand, *args, out, 0)
+
+    rows, _ = k_rerank.candidate_rows(cand, raw.id_dev, raw.id_row, raw.row_base)
+    n_c, d = cand.numel(), qt.shape[1]
+    # each candidate's id, id-map entry (2 x 4 B), base and row read once
+    bms, by = bound_ms(n_c * (d * raw.vectors.element_size() + 4 + 4 + 4 + 4)
+                       + qt.numel() * 4, 3 * n_c * d)
+    return dict(
+        name="rerank", route="cuda", source=f"{SRC_ROOT}/csrc/rerank.cu",
+        replaces="src/repro/kernels/rerank.py:74", launches=launches,
+        max_abs_err=err, ms=cuda_ms(torch, launch, 50), cold_ms=cold_ms(torch, launch, 20),
+        plain_ms=wall_ms(torch, lambda: k_rerank.rerank_dists_plain(qt, cand, *args)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(
+            torch, lambda: ((raw.vectors[rows].float() - qt[:, None, :]) ** 2).sum(-1), 20),
+        library_call="((vectors[rows].float() - queries[:, None, :]) ** 2).sum(-1), the "
+                     "gather included (rows from the id map; squared, no sqrt)",
+        plan=k_rerank.launch_plan(*cand.shape, d, raw.vectors.element_size(),
+                                  torch.cuda.get_device_properties(0).multi_processor_count),
+        shape=shape,
+    )
+
+
 def check_kernel(torch, name, got, want) -> float:
     """Max abs error of `got` against the plain version's `want` (tuples of
     distances and, for the top-k kernels, row indices); raises unless the
@@ -1183,16 +1259,17 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     return kernels
 
 
-def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
+def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     """The fourth slice's phase: full-width qwen3-8b served through
     `repro_torch.launch.serve.serve` (prefill on kernel B10, greedy decode,
     retrieval on B1 / B4 / B2 / B3), its launch counts, flash-on vs
-    flash-off prefill logits, and B1 (wide dsub) and B10 held against their
-    plain versions at the path's shapes.  Frees the model before it returns
-    the kernels' rows."""
+    flash-off prefill logits, and B1 (wide dsub), B3 (D = 4096, the
+    retrieval engine's own candidates) and B10 held against their plain
+    versions at the path's shapes.  Frees the model before it returns the
+    kernels' rows."""
     from repro_torch.configs import get_config
     from repro_torch.configs.memanns import SIFT1B, reduced_retrieval
-    from repro_torch.launch.serve import RetrievalOptions, serve
+    from repro_torch.launch.serve import RetrievalOptions, retrieval_engine, serve
     from repro_torch.models import decode_step, init_params, prefill
 
     cfg = dataclasses.replace(get_config(LM_ARCH), use_flash_kernel=True)
@@ -1298,22 +1375,38 @@ def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
     out = torch.empty_like(luts)
     n_lut = luts.numel()
     bms, by = bound_ms(4 * (cb.numel() + qmc.numel() + n_rows + n_lut), 3 * n_lut * dsub)
+    wide = dsub not in k_lut.TEMPLATED_DSUB
     wide_row = dict(
         name="lut_build", route="cuda", source=f"{SRC_ROOT}/csrc/lut_build.cu",
         replaces="src/repro/kernels/lut_build.py:35",
         launches=per_phase["retrieval"]["build_luts"], max_abs_err=err,
         ms=cuda_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20),
+        cold_ms=cold_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20),
         plain_ms=wall_ms(torch, lambda: k_lut.build_luts_plain(cb, qmc)),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lambda: ((cb[None] - qmc[:, :, None, :]) ** 2).sum(-1), 5),
         library_call="((codebook[None] - qmc[:, :, None, :]) ** 2).sum(-1) (squared, no "
                      "sqrt: the kernel's function)",
         shape=dict(path="lm_serve --retrieval", pairs=n_rows, m=rc.m, dsub=dsub,
-                   kernel="lut_build_kernel" if dsub in (1, 2, 4, 8, 16, 32)
-                   else "lut_build_wide_kernel"),
+                   kernel="lut_build_wide_kernel" if wide else "lut_build_kernel"),
+        plan=k_lut.wide_plan(n_rows, rc.m, dsub, torch.cuda.get_device_properties(
+            0).multi_processor_count) if wide else None,
     )
     log(phase="lm_lut_wide", **{k_: v_ for k_, v_ in wide_row.items() if k_ != "source"})
     del cb, qmc, luts, want, out
+
+    # -- B3 at the retrieval's shapes: the same engine's own candidates, D = 4096
+    reng, rcfg, qv = retrieval_engine(cfg, RetrievalOptions(**LM_RETRIEVAL), LM_BATCH, dev, seed)
+    kp = reng.k_prime(rcfg.k)
+    handle = reng.dispatch_plan(reng.plan_batch(qv, rcfg.nprobe), kp)
+    cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1).int().contiguous()
+    rerank_row = check_rerank(
+        torch, ops, k_rerank, torch.as_tensor(qv, device=dev), cand, reng.raw,
+        launches=per_phase["retrieval"]["rerank_dists"],
+        shape=dict(path="lm_serve --retrieval", queries=LM_BATCH, candidates=kp,
+                   dim=cfg.d_model, store=str(reng.raw.vectors.dtype).replace("torch.", "")))
+    log(phase="lm_rerank", **{k_: v_ for k_, v_ in rerank_row.items() if k_ != "source"})
+    del reng, handle, cand
 
     # -- B10 at the prefill's shapes against its plain version ---------------
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -1392,7 +1485,7 @@ def lm_serve(torch, np, ops, k_flash, k_lut, dev, seed: int) -> list:
     log(phase="lm_flash_kernel", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
     del q, k, v, qf, qt, kt, vt, got, got32, out, out32
     torch.cuda.empty_cache()
-    return [wide_row, row]
+    return [wide_row, rerank_row, row]
 
 
 def main(argv=None) -> int:
@@ -1444,7 +1537,7 @@ def main(argv=None) -> int:
         ptxas=regs)
 
     # == the LM serving path (B10), before the engine takes the memory ======
-    lm_rows = lm_serve(torch, np, ops, k_flash, k_lut, dev, args.seed)
+    lm_rows = lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, args.seed)
 
     # -- data + engine ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1538,32 +1631,10 @@ def main(argv=None) -> int:
     raw = eng.raw
     qt = torch.as_tensor(batches[1], device=dev)
     cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1).int().contiguous()
-    got = ops.rerank_dists(qt, cand, raw.vectors, raw.id_dev, raw.id_row, raw.row_base)
-    want = k_rerank.rerank_dists_plain(qt, cand, raw.vectors, raw.id_dev, raw.id_row,
-                                       raw.row_base)
-    fin = torch.isfinite(want)
-    if not (torch.equal(fin, torch.isfinite(got)) and torch.allclose(got, want, **TOL)):
-        raise RuntimeError("rerank disagrees with its plain version")
-    err = float((got[fin] - want[fin]).abs().max())
-    out3 = torch.empty_like(got)
-    b3_ms = cuda_ms(torch, lambda: k_rerank.launch(
-        qt, cand, raw.vectors, raw.id_dev, raw.id_row, raw.row_base, out3, 0), 50)
-    rows, _ = k_rerank.candidate_rows(cand, raw.id_dev, raw.id_row, raw.row_base)
-    n_c = cand.numel()
-    bms, by = bound_ms(n_c * (D * 2 + 4 + 4 + 4 + 4) + qt.numel() * 4, 3 * n_c * D)
-    kernels.append(dict(
-        name="rerank", route="cuda", source=f"{SRC_ROOT}/csrc/rerank.cu",
-        replaces="src/repro/kernels/rerank.py:74", launches=launches["rerank_dists"],
-        max_abs_err=err, ms=b3_ms,
-        plain_ms=wall_ms(torch, lambda: k_rerank.rerank_dists_plain(
-            qt, cand, raw.vectors, raw.id_dev, raw.id_row, raw.row_base)),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(
-            torch, lambda: ((raw.vectors[rows].float() - qt[:, None, :]) ** 2).sum(-1), 20),
-        library_call="((vectors[rows].float() - queries[:, None, :]) ** 2).sum(-1), the "
-                     "gather included (rows from the id map; squared, no sqrt)",
-        shape=dict(queries=qt.shape[0], candidates=kp, dim=D, store="bfloat16"),
-    ))
+    kernels.append(check_rerank(
+        torch, ops, k_rerank, qt, cand, raw, launches=launches["rerank_dists"],
+        shape=dict(path="search", queries=qt.shape[0], candidates=kp, dim=D,
+                   store="bfloat16")))
     del luts_plain
 
     # -- 16 queries: engine == plain path at full scale ---------------------

@@ -25,19 +25,37 @@
 // the power-of-two padding of the pair capacity costs no table.
 //
 // Wide sub-spaces (any other dsub, e.g. 512 for a 4096-wide LM hidden state
-// split into M = 8): `lut_build_wide_kernel` walks dsub in slices of 32
-// for a group of WIDE_PAIRS = 4 rows (small groups: a 4-query LM batch
-// fills only 32 pairs).  The block stages each slice of its sub-space's
-// 256 codewords, and of the group's residuals, in shared memory with
-// coalesced loads, and fetches the next slice into registers while it sums
-// the current one: the 16 slices of dsub 512 are a chain, so the block's
-// time is 16 load round trips unless they overlap.  Thread j copies the
-// slice of codeword j into registers, and each row keeps its running sum
-// in a register across slices, so the terms are still added in coordinate
-// order from 0 and the result stays bit-equal to the plain version.  Rows
-// past the last pair (np < 4) sum stale shared memory and are not written.
+// split into M = 8): `lut_build_wide_kernel`.  What bounds it: latency and
+// FP32 issue.  At the LM retrieval's 32 pairs x M = 8 x dsub 512 it does
+// 3 x 65,536 x 512 = 100.7M FP32 instructions (3.0 us on 132 SMs) over a 4 MB
+// codebook and 512 KB of residuals: too little work to hide a chain of
+// loads.  Design: the grid is cut over (sub-space m, group of CW codewords,
+// group of PG pairs), sized by the launch plan (kernels/lut_build.py
+// `wide_plan`, its Python twin) to fill the card with the least L2 traffic
+// (each codeword row is read by every pair group, each residual by every
+// codeword group): 16 x 16 and 256 blocks at the LM shape.  A block copies
+// its codeword rows and its pairs' residual sub-vectors into shared memory
+// with `cp.async` (16 bytes where addresses and dsub allow, else 8 or 4; a
+// warp per row, its lanes over the row), slice by slice of up to 128
+// coordinates, all slices that fit its budget in flight at once (the
+// codewords' before the `rows` list has been read).  Thread (tp, tc) owns
+// the entry of pair tp and codeword tc and reads four coordinates at a time
+// of each of its two rows (LDS.128; rows padded so that eight consecutive
+// rows fall on distinct banks).  One entry a thread, not a tile of them:
+// at the LM shape the 65,536 entries then make four warps on each of an
+// SM's four schedulers, which hide each other's add latencies (a 2 x 2
+// tile a thread left one warp a scheduler, and took twice as long on an
+// H100).  The running sum stays in a register across slices,
+// so every entry still adds its terms in coordinate order from 0 and the
+// result is bit-equal to the plain version.
+// Threads of pairs past the last compute on stale shared memory and write
+// nothing.
 
 #include <cuda_runtime.h>
+
+#include <climits>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -80,78 +98,96 @@ lut_build_kernel(const float* __restrict__ codebook,  // (M, 256, DSUB)
   }
 }
 
-constexpr int SLICE = 32;
-constexpr int WIDE_PAIRS = 4;
-constexpr int ROW_STEP = NCODES / SLICE;  // codeword rows staged per pass
+// the wide kernel's launch plan (kernels/lut_build.py `wide_plan`)
+struct WidePlan {
+  int pg, cw, ncw, ds, n_slices, stages, stride, g;
+};
+constexpr int WIDE_THREADS = 256;  // one entry a thread: pg x cw <= 256
 
-// Thread (c0, dl) of the block's 8 x 32 grid loads column dl of the slice
-// at d0 of codeword rows c0, c0 + 8, ..., c0 + 248, and, if c0 names one of
-// the group's rows, that residual's column dl: 33 loads in flight at once.
-__device__ __forceinline__ void fetch_slice(const float* __restrict__ cbm,
-                                            const float* __restrict__ res_row,
-                                            int dsub, int d0, int c0, int dl,
-                                            float (&cbn)[SLICE], float& rn) {
-  const bool live = dl < dsub - d0;
-#pragma unroll
-  for (int r = 0; r < SLICE; ++r)
-    cbn[r] = live ? cbm[static_cast<size_t>(c0 + r * ROW_STEP) * dsub + d0 + dl] : 0.f;
-  if (res_row != nullptr) rn = live ? res_row[d0 + dl] : 0.f;
-}
-
-__global__ void __launch_bounds__(NCODES)
+__global__ void __launch_bounds__(WIDE_THREADS)
 lut_build_wide_kernel(const float* __restrict__ codebook,  // (M, 256, dsub)
                       const float* __restrict__ qmc,       // (N, M, dsub)
                       const int* __restrict__ rows,        // (P,) or null
                       float* __restrict__ out,             // (P, M, 256)
-                      int n_pairs, int m, int dsub) {
-  __shared__ float res[WIDE_PAIRS * SLICE];
-  __shared__ float cbs[NCODES * (SLICE + 1)];  // padded: conflict-free rows
-  const int mi = blockIdx.y;
-  const int j = threadIdx.x;
-  const int p0 = blockIdx.x * WIDE_PAIRS;
-  const int np = min(WIDE_PAIRS, n_pairs - p0);
-  const int c0 = j / SLICE;
-  const int dl = j - c0 * SLICE;
-  const float* cbm = codebook + static_cast<size_t>(mi) * NCODES * dsub;
-  const float* res_row = nullptr;
-  if (c0 < np) {
-    const int src = rows ? rows[p0 + c0] : p0 + c0;
-    res_row = qmc + (static_cast<size_t>(src) * m + mi) * dsub;
+                      int n_pairs, int m, int dsub, WidePlan pl) {
+  extern __shared__ __align__(16) float sm[];  // stages x (PG + CW) rows of `stride`
+  __shared__ int s_src[32];                    // the block's residual rows
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, warps = blockDim.x >> 5;
+  const int t = blockIdx.x / pl.ncw;
+  const int j0 = (blockIdx.x - t * pl.ncw) * pl.cw;
+  const int mi = t % m;
+  const int p0 = t / m * pl.pg;
+  const int np = min(pl.pg, n_pairs - p0);
+  const int n_rows = pl.pg + pl.cw;
+  const int stage = n_rows * pl.stride;  // floats
+
+  // slice s of rows [r0, r1) of the block (pairs first, then codewords) into
+  // slot sb: a warp per row, its lanes over the row's g-byte units
+  auto issue = [&](int s, int sb, int r0, int r1) {
+    const int d0 = s * pl.ds;
+    const int bytes = min(pl.ds, dsub - d0) * 4;
+    for (int r = r0 + warp; r < r1; r += warps) {
+      const float* src;
+      if (r < pl.pg) {
+        if (r >= np) continue;
+        src = qmc + (static_cast<size_t>(s_src[r]) * m + mi) * dsub + d0;
+      } else {
+        src = codebook + (static_cast<size_t>(mi) * NCODES + j0 + r - pl.pg) * dsub + d0;
+      }
+      char* dst = reinterpret_cast<char*>(sm + sb * stage + r * pl.stride);
+      for (int o = lane * pl.g; o < bytes; o += 32 * pl.g)
+        async_copy::unit(dst + o, reinterpret_cast<const char*>(src) + o, pl.g);
+    }
+  };
+
+  const int S = pl.stages;
+  for (int s = 0; s < S; ++s) issue(s, s, pl.pg, n_rows);  // codewords: no lookup first
+  if (tid < np) s_src[tid] = rows ? rows[p0 + tid] : p0 + tid;
+  __syncthreads();
+  for (int s = 0; s < S; ++s) {  // group s: slice s's residuals (group 0 also the codewords)
+    issue(s, s, 0, pl.pg);
+    async_copy::commit();
   }
 
-  float acc[WIDE_PAIRS];
-#pragma unroll
-  for (int pp = 0; pp < WIDE_PAIRS; ++pp) acc[pp] = 0.f;
-  float cbn[SLICE];
-  float rn = 0.f;
-  fetch_slice(cbm, res_row, dsub, 0, c0, dl, cbn, rn);
-  for (int d0 = 0; d0 < dsub; d0 += SLICE) {
-    const int w = min(SLICE, dsub - d0);
-    __syncthreads();  // the previous slice is consumed
-    if (res_row != nullptr) res[j] = rn;
-#pragma unroll
-    for (int r = 0; r < SLICE; ++r) cbs[(c0 + r * ROW_STEP) * (SLICE + 1) + dl] = cbn[r];
+  // thread (tp, tc): pair tp, codeword tc; a warp's lanes share one or few pairs
+  const bool computes = tid < pl.pg * pl.cw;
+  const int tc = tid % pl.cw, tp = tid / pl.cw;
+  float acc = 0.f;
+  for (int c = 0; c < pl.n_slices; ++c) {
+    async_copy::wait(min(S - 1, pl.n_slices - 1 - c));
     __syncthreads();
-    // the next slice's loads fly while this one is summed
-    if (d0 + SLICE < dsub) fetch_slice(cbm, res_row, dsub, d0 + SLICE, c0, dl, cbn, rn);
-    float cb[SLICE];
-#pragma unroll
-    for (int d = 0; d < SLICE; ++d) cb[d] = cbs[j * (SLICE + 1) + d];
-    // coordinate-major, so the rows' sums are independent chains
-#pragma unroll
-    for (int d = 0; d < SLICE; ++d) {
-      if (d < w) {
-#pragma unroll
-        for (int pp = 0; pp < WIDE_PAIRS; ++pp) {
-          const float diff = __fsub_rn(res[pp * SLICE + d], cb[d]);
-          acc[pp] = __fadd_rn(acc[pp], __fmul_rn(diff, diff));
-        }
+    if (computes) {
+      const float* base = sm + (c % S) * stage;
+      const float* r = base + tp * pl.stride;
+      const float* cw = base + (pl.pg + tc) * pl.stride;
+      const int w = min(pl.ds, dsub - c * pl.ds);
+      int d = 0;
+#pragma unroll 4
+      for (; d + 4 <= w; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(r + d);
+        const float4 x = *reinterpret_cast<const float4*>(cw + d);
+        float diff = __fsub_rn(a.x, x.x);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+        diff = __fsub_rn(a.y, x.y);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+        diff = __fsub_rn(a.z, x.z);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+        diff = __fsub_rn(a.w, x.w);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+      }
+      for (; d < w; ++d) {
+        const float diff = __fsub_rn(r[d], cw[d]);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
       }
     }
+    __syncthreads();  // slot c % S is consumed
+    if (c + S < pl.n_slices) {
+      issue(c + S, c % S, 0, n_rows);
+      async_copy::commit();
+    }
   }
-#pragma unroll
-  for (int pp = 0; pp < WIDE_PAIRS; ++pp)
-    if (pp < np) out[(static_cast<size_t>(p0 + pp) * m + mi) * NCODES + j] = acc[pp];
+  if (computes && tp < np) out[(static_cast<size_t>(p0 + tp) * m + mi) * NCODES + j0 + tc] = acc;
 }
 
 template <int DSUB>
@@ -164,8 +200,9 @@ void launch(const float* codebook, const float* qmc, const int* rows,
 
 }  // namespace
 
-// `rows` may be null (output row i is residual row i).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// dsub in {1, 2, 4, 8, 16, 32}; `rows` may be null (output row i is
+// residual row i).  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int lut_build_launch(const void* codebook, const void* qmc,
                                 const void* rows, void* out, int n_pairs,
                                 int m, int dsub, void* stream) {
@@ -182,11 +219,37 @@ extern "C" int lut_build_launch(const void* codebook, const void* qmc,
     case 8: launch<8>(cb, r, ix, o, n_pairs, m, s); break;
     case 16: launch<16>(cb, r, ix, o, n_pairs, m, s); break;
     case 32: launch<32>(cb, r, ix, o, n_pairs, m, s); break;
-    default: {
-      if (dsub <= 0) return static_cast<int>(cudaErrorInvalidValue);
-      dim3 grid((n_pairs + WIDE_PAIRS - 1) / WIDE_PAIRS, m);
-      lut_build_wide_kernel<<<grid, NCODES, 0, s>>>(cb, r, ix, o, n_pairs, m, dsub);
-    }
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Any other dsub >= 1, cut by kernels/lut_build.py `wide_plan` (pg, cw,
+// ds, n_slices, stages, stride, g, threads, smem).  `rows` may be null.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int lut_build_wide_launch(const void* codebook, const void* qmc,
+                                     const void* rows, void* out, int n_pairs,
+                                     int m, int dsub, int pg, int cw, int ds,
+                                     int n_slices, int stages, int stride, int g,
+                                     int threads, int smem, void* stream) {
+  if (n_pairs <= 0) return 0;
+  const long long blocks =
+      static_cast<long long>(m) * (NCODES / cw) * ((n_pairs + pg - 1) / pg);
+  if (dsub <= 0 || pg < 1 || pg > 32 || cw < 1 || NCODES % cw || pg * cw > threads ||
+      threads > WIDE_THREADS || threads % 32 || stages < 1 || stages > 8 || stages > n_slices ||
+      static_cast<long long>(n_slices) * ds < dsub || stride % 4 || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_set = 48 * 1024;  // what the kernel may ask for so far
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lut_build_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem;
+  }
+  const WidePlan pl{pg, cw, NCODES / cw, ds, n_slices, stages, stride, g};
+  lut_build_wide_kernel<<<static_cast<int>(blocks), threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(codebook), static_cast<const float*>(qmc),
+      static_cast<const int*>(rows), static_cast<float*>(out), n_pairs, m, dsub, pl);
   return static_cast<int>(cudaGetLastError());
 }

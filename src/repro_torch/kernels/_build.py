@@ -33,6 +33,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # codebook, qmc, rows (may be null), out, n_pairs, m, dsub, stream
     "lut_build_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # codebook, qmc, rows (may be null), out, n_pairs, m, dsub, then
+    # `lut_build.wide_plan`'s pg, cw, ds, n_slices, stages, stride, g,
+    # threads, smem; stream
+    "lut_build_wide_launch": [_P] * 4 + [_I] * 12 + [_P],
     # luts, set_idx (may be null), caddr, out, n_rows, ma, n_combos,
     # combo_len, t_pad, stream
     "ext_lut_launch": [_P] * 4 + [_I] * 5 + [_P],
@@ -44,9 +48,10 @@ SIGNATURES = {
     # bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
     # table_width, code_fmt, k, block_n, stream
     "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L, _I, _I, _I, _I, _I, _P],
-    # queries, cand, id_dev, id_row, row_base, vectors, out,
-    # q, k, d, ids_cap, vec_is_bf16, block_k, stream
-    "rerank_launch": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _P],
+    # queries, cand, id_dev, id_row, row_base, vectors, out, q, k, d,
+    # ids_cap, ndev, vec_is_bf16, then `rerank.launch_plan`'s per, pc,
+    # n_chunks, rv, seg, segq, contig, g, qreg, cpb, nkb, stages, smem; stream
+    "rerank_launch": [_P] * 7 + [_I] * 19 + [_P],
     # table, codes, out, n, w, table_width, code_fmt, stream
     "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _P],
     # tables, codes, bound (may be null), units (may be null), out_v, out_i,
@@ -160,6 +165,29 @@ def ptxas_report() -> str:
     """nvcc's -Xptxas -v output of the current build ('' before a build)."""
     p = BUILD_DIR / f"librepro_torch_kernels-{_digest(_sources())}.so.ptxas.txt"
     return p.read_text() if p.exists() else ""
+
+
+def pow2_dividing(*xs: int) -> int:
+    """The largest power of two <= 16 that divides every x (a copy width,
+    in bytes, that addresses and sizes allow)."""
+    g = 16
+    while g > 1 and any(x % g for x in xs):
+        g //= 2
+    return g
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans' n_sm)."""
+    import torch
+
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def check(err: int, name: str) -> None:

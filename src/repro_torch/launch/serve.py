@@ -54,7 +54,11 @@ def _launch_diff(before: dict) -> dict:
     return {k: v - before[k] for k, v in ops.launches.items() if v - before[k]}
 
 
-def _retrieve(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: int) -> dict:
+def retrieval_engine(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: int):
+    """(engine, retrieval config, (batch, d_model) f32 queries) of
+    `--retrieval`: the port's `MemANNSEngine` on a synthetic corpus of the
+    model's width (the reference's arguments: the SIFT1B config reduced)
+    and one query per request, a hidden-state proxy near a corpus centre."""
     from repro_torch.configs.memanns import SIFT1B, reduced_retrieval
     from repro_torch.data.vectors import make_clustered_vectors
     from repro_torch.retrieval.engine import MemANNSEngine
@@ -67,12 +71,16 @@ def _retrieve(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: i
         n_combos=rcfg.n_combos, block_n=rcfg.block_n, rerank=opts.rerank,
         k_overfetch=opts.k_overfetch, seed=seed + 1, device=dev,
     )
-    # one query per request: a hidden-state proxy near a corpus centre
     rng = np.random.default_rng(seed + 2)
     qvecs = rng.normal(size=(batch, cfg.d_model)) + centers[rng.integers(0, len(centers), batch)]
+    return eng, rcfg, qvecs.astype(np.float32)
+
+
+def _retrieve(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: int) -> dict:
+    eng, rcfg, qvecs = retrieval_engine(cfg, opts, batch, dev, seed)
     before = dict(ops.launches)
     t0 = time.perf_counter()
-    _, ids = eng.search(qvecs.astype(np.float32), rcfg.nprobe, rcfg.k)
+    _, ids = eng.search(qvecs, rcfg.nprobe, rcfg.k)
     _sync(dev)
     stats = {"cooc": eng.shards.n_combos > 0, "device": str(dev),
              "nprobe": rcfg.nprobe, "k": rcfg.k, "kernel_launches": _launch_diff(before)}

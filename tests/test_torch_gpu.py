@@ -47,12 +47,15 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dsub", [4, 8, 48, 512])
-def test_lut_kernel_bit_equal(cuda, dsub):
-    """dsub 48 and 512 take the wide kernel (slices of 32, a ragged tail)."""
-    g = torch.Generator(device=cuda).manual_seed(dsub)
+@pytest.mark.parametrize("n_pairs", [1, 3, 32, 1000])
+@pytest.mark.parametrize("dsub", [4, 8, 7, 48, 100, 512, 1024])
+def test_lut_kernel_bit_equal(cuda, dsub, n_pairs):
+    """dsub 4 and 8 take `lut_build_kernel<dsub>`; the others the wide
+    kernel (`lut_build.wide_plan`: 4-byte copies at dsub 7, one slice at 48
+    and 100, slices of 128 in flight at 512 and 1024), one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(dsub * 7 + n_pairs)
     cb = torch.randn(16, 256, dsub, device=cuda, generator=g)
-    qmc = torch.randn(1000 if dsub <= 48 else 100, 16, dsub, device=cuda, generator=g)
+    qmc = torch.randn(n_pairs, 16, dsub, device=cuda, generator=g)
     ops.reset_launches()
     got = ops.build_luts(cb, qmc)
     torch.cuda.synchronize()
@@ -60,14 +63,23 @@ def test_lut_kernel_bit_equal(cuda, dsub):
     assert torch.equal(got, lut_build.build_luts_plain(cb, qmc))
 
 
-def test_lut_kernel_rows_bit_equal(cuda):
-    g = torch.Generator(device=cuda).manual_seed(5)
-    cb = torch.randn(16, 256, 8, device=cuda, generator=g)
-    qmc = torch.randn(1000, 16, 8, device=cuda, generator=g)
-    rows = torch.randint(0, 1000, (333,), device=cuda, generator=g).int()
+@pytest.mark.parametrize("n_pairs", [1, 3, 32, 1000])
+@pytest.mark.parametrize("dsub", [8, 7, 48, 100, 512, 1024])
+def test_lut_kernel_rows_bit_equal(cuda, dsub, n_pairs):
+    """A `rows` list with repeats picks the residuals, as the query path's
+    filled pairs do; at M = 8 and 32 pairs of dsub 512 this is the LM
+    retrieval's call."""
+    g = torch.Generator(device=cuda).manual_seed(dsub * 11 + n_pairs)
+    m = 8 if dsub >= 512 else 16
+    cb = torch.randn(m, 256, dsub, device=cuda, generator=g)
+    qmc = torch.randn(n_pairs + 5, m, dsub, device=cuda, generator=g)
+    rows = torch.randint(0, n_pairs + 5, (n_pairs,), device=cuda, generator=g).int()
+    rows[-1] = rows[0]
+    ops.reset_launches()
     got = ops.build_luts(cb, qmc, rows)
     torch.cuda.synchronize()
-    assert got.shape == (333, 16, 256)
+    assert ops.launches["build_luts"] == 1
+    assert got.shape == (n_pairs, m, 256)
     assert torch.equal(got, lut_build.build_luts_plain(cb, qmc[rows.long()]))
 
 
@@ -174,23 +186,34 @@ def test_tiles_kernel_lut_row_matches_plain(cuda):
     assert bool(torch.isinf(kv[2]).all()) and bool((ki[2] == -1).all())
 
 
+@pytest.mark.parametrize("q", [4, 1000])
+@pytest.mark.parametrize("kc", [1, 64, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rerank_kernel_bit_equal(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(3)
-    q, kc, d, rows = 50, 64, 128, 5000
+@pytest.mark.parametrize("d", [128, 100, 4096])
+def test_rerank_kernel_bit_equal(cuda, d, dtype, kc, q):
+    """Whole rows in 16-byte copies (D 128), 200- / 400-byte rows (D 100),
+    chunked 8 / 16 KB rows (D 4096); 8 devices' shards of the store, ids
+    that are -1, beyond the id map or unmapped; one launch a call, and
+    `block_k` changes no bit."""
+    g = torch.Generator(device=cuda).manual_seed(d + kc + q)
+    rows, ndev, ids_cap = 5000, 8, 5200
     queries = torch.randn(q, d, device=cuda, generator=g)
     vectors = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
-    ids_cap = 8192
     id_dev = torch.full((ids_cap,), -1, dtype=torch.int32, device=cuda)
     id_row = torch.zeros(ids_cap, dtype=torch.int32, device=cuda)
-    id_dev[:rows] = (torch.arange(rows, device=cuda) % 2).int()
-    id_row[:rows] = (torch.arange(rows, device=cuda) // 2).int()
-    row_base = torch.tensor([0, (rows + 1) // 2], dtype=torch.int64, device=cuda)
-    cand = torch.randint(-1, rows + 10, (q, kc), device=cuda, generator=g).int()
-    want = rerank.rerank_dists_plain(queries, cand, vectors, id_dev, id_row, row_base)
-    for bk in (0, 1, 7, 64):
+    mapped = torch.randperm(ids_cap, device=cuda, generator=g)[:rows]  # the rest unmapped
+    slot = torch.arange(rows, device=cuda)
+    id_dev[mapped] = (slot % ndev).int()
+    id_row[mapped] = (slot // ndev).int()
+    row_base = (torch.arange(ndev, device=cuda) * ((rows + ndev - 1) // ndev)).long()
+    cand = torch.randint(-1, ids_cap + 10, (q, kc), device=cuda, generator=g).int()
+    want = rerank.rerank_dists_plain(queries, cand, vectors, id_dev, id_row, row_base, 32)
+    assert bool(torch.isinf(want).any()) or kc == 1
+    for bk in (0, 7):
+        ops.reset_launches()
         got = ops.rerank_dists(queries, cand, vectors, id_dev, id_row, row_base, block_k=bk)
         torch.cuda.synchronize()
+        assert ops.launches["rerank_dists"] == 1
         assert torch.equal(got, want)
 
 
