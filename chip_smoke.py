@@ -39,8 +39,10 @@ re-rank):
      with every kernel's launch count reset just before and read just after;
   2. holds each kernel against its plain PyTorch version at the shapes of
      that path (tolerance: allclose rtol = atol = 1e-5 on distances, rows
-     and ids equal; B3 bit-equal) and times kernel (warm, and for B3 also
-     cold), plain version, bound and the PyTorch
+     and ids equal; B3 bit-equal) and times kernel (`ms`: launches back
+     to back from Python; `queued_ms`: the same launches queued behind a
+     device-side spin, so that no host gap between them is timed; for B3
+     also cold), plain version, bound and the PyTorch
      expression that computes the same function, where there is one; for
      B2 / B5 it also gives the lookup bound (table lookups over the SMs'
      shared-memory rate at the SM clock read during the timing);
@@ -169,23 +171,26 @@ def ptxas_summary(report: str) -> dict:
     return out
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
     """Mean device time of `fn` over `reps` launches back to back (CUDA
-    events), warmed.  The card first spins (`torch.cuda._sleep`) for twice
-    the host time of enqueueing them, so that launches shorter than their
-    host overhead still run back to back and the events time the card, not
-    the host (a kernel of a few microseconds is shorter than its launch
-    from Python)."""
+    events), warmed.  Each launch is enqueued from Python as the card runs,
+    so a kernel shorter than its host launch overhead is timed at the
+    host's pace (this is `ms` in every row, as in every run before).  With
+    `queued` (`queued_ms` in the rows) the card first spins
+    (`torch.cuda._sleep`) for twice the host time of enqueueing them, so
+    that all `reps` launches wait in the queue and the events time the
+    card alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    t = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t
-    torch.cuda.synchronize()
-    # ~2e9 SM clocks a second (H100 boost 1.98 GHz); spinning longer only waits
-    torch.cuda._sleep(int(min(2 * reps * host_s + 1e-4, 0.05) * 2e9))
+    if queued:
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        # ~2e9 SM clocks a second (H100 boost 1.98 GHz); spinning longer only waits
+        torch.cuda._sleep(int(min(2 * reps * host_s + 1e-4, 0.05) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -446,6 +451,7 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                qbound if pruned else torch.full_like(qbound, torch.inf), sq, ov, oi, os_)
 
     ms, sm_mhz = clocked_ms(torch, lambda: run(True), 20)
+    queued = cuda_ms(torch, lambda: run(True), 20, queued=True)
     lookups = (int(n_valid.sum()) - int(ps[..., 1].sum())) * w
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     extra = dict(
@@ -477,8 +483,8 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     tiles_total = int(((flat_nv + BLOCK_N - 1) // BLOCK_N).sum())
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=library_ms,
+        max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=library_ms,
         library_call="per filled pair, its valid rows' tables[pair][addresses].sum(-1) then "
                      f"torch.topk(k', largest=False), pairs of like length batched "
                      f"({lib_groups} gathers of <= 8M rows; no pruning)",
@@ -820,6 +826,8 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         replaces="src/repro/kernels/lut_build.py:61",
         launches=paths["search_cooc_tiles"]["launches"]["build_ext_luts_pairs"],
         max_abs_err=err, ms=cuda_ms(torch, lambda: k_lut.launch_ext(cl2, combo, set_idx, out4), 20),
+        queued_ms=cuda_ms(torch, lambda: k_lut.launch_ext(cl2, combo, set_idx, out4), 20,
+                          queued=True),
         plain_ms=wall_ms(torch, lambda: k_lut.ext_lut_pairs_plain(cl2, combo, set_idx, a_w)),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib4, 10),
         library_call="luts.gather(1, combo_addrs[set_idx]).sum over combo items, then "
@@ -849,6 +857,8 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         name="ext_lut", route="cuda", source=f"{SRC_ROOT}/csrc/ext_lut.cu",
         replaces="src/repro/kernels/lut_build.py:110", launches=n9, max_abs_err=err,
         ms=cuda_ms(torch, lambda: k_lut.launch_ext(l9, c9[None], None, out9), 50),
+        queued_ms=cuda_ms(torch, lambda: k_lut.launch_ext(l9, c9[None], None, out9), 50,
+                          queued=True),
         plain_ms=wall_ms(torch, lambda: k_lut.ext_lut_plain(l9, c9, ext9.shape[1])),
         bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib9, 50),
         library_call="luts[:, combo_addrs].sum over combo items, then "
@@ -950,7 +960,8 @@ def check_rerank(torch, ops, k_rerank, qt, cand, raw, *, launches: int, shape: d
     return dict(
         name="rerank", route="cuda", source=f"{SRC_ROOT}/csrc/rerank.cu",
         replaces="src/repro/kernels/rerank.py:74", launches=launches,
-        max_abs_err=err, ms=cuda_ms(torch, launch, 50), cold_ms=cold_ms(torch, launch, 20),
+        max_abs_err=err, ms=cuda_ms(torch, launch, 50),
+        queued_ms=cuda_ms(torch, launch, 50, queued=True), cold_ms=cold_ms(torch, launch, 20),
         plain_ms=wall_ms(torch, lambda: k_rerank.rerank_dists_plain(qt, cand, *args)),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(
@@ -1051,6 +1062,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
             name=label, route="cuda", source=f"{SRC_ROOT}/csrc/adc_scan.cu",
             replaces="src/repro/kernels/adc_scan.py:81", launches=n8, max_abs_err=err,
             ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out), 20),
+            queued_ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out), 20, queued=True),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=cuda_ms(torch, lib, 3),
             library_call="table[addresses].sum(-1) in 8M-row chunks (addresses "
@@ -1084,12 +1096,15 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         g = k_topk.topk_group_size([q_n], [n], k, 0, M, tab.shape[1])
         ms, sm_mhz = clocked_ms(torch, lambda: k_topk.launch_topk(tab, codes, None, ov, oi, k,
                                                                   BLOCK_N, g), 10)
+        queued = cuda_ms(torch, lambda: k_topk.launch_topk(tab, codes, None, ov, oi, k,
+                                                           BLOCK_N, g), 10, queued=True)
         if not (torch.equal(ov, got[0]) and torch.equal(oi, got[1])):
             raise RuntimeError(f"adc_topk q={q_n} k={k}: a repeated launch changed the result")
         kernels.append(dict(
             name=f"adc_topk_q{q_n}_k{k}", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
             replaces="src/repro/kernels/adc_topk.py:702", launches=n6, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib_ms,
             library_call="tables[:, codes + m * 256].sum(-1) then torch.topk(largest=False) "
                          "per chunk of rows, one more torch.topk over the chunks",
             # the Q * N * W table lookups, one warp lookup per SM clock
@@ -1156,10 +1171,12 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
 
     ms7, sm_mhz = clocked_ms(torch, lambda: k_topk.launch_pairs(tables, addrs, n_valid, ov,
                                                                 oi, kp, BLOCK_N), 10)
+    queued7 = cuda_ms(torch, lambda: k_topk.launch_pairs(tables, addrs, n_valid, ov, oi, kp,
+                                                         BLOCK_N), 10, queued=True)
     kernels.append(dict(
         name="adc_topk_pairs", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_pairs.cu",
         replaces="src/repro/kernels/adc_topk.py:642", launches=n7, max_abs_err=err,
-        ms=ms7, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        ms=ms7, queued_ms=queued7, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lib_pairs, 3),
         library_call="tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
                      "torch.topk(largest=False), 8 pairs at a time",
@@ -1224,6 +1241,8 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
     b6_kernel_ms, sm_mhz = clocked_ms(torch, lambda: k_topk.launch_topk(
         lsorted, codes_t, None, ov, oi, K, BLOCK_N, g, units), 20)
+    b6_queued_ms = cuda_ms(torch, lambda: k_topk.launch_topk(
+        lsorted, codes_t, None, ov, oi, K, BLOCK_N, g, units), 20, queued=True)
 
     def lib_flat():
         for j in range(len(row_off) - 1):
@@ -1240,7 +1259,8 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     kernels.append(dict(
         name="adc_topk_flat_search", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
         replaces="src/repro/kernels/adc_topk.py:702", launches=flat_launches["adc_topk"],
-        max_abs_err=err, ms=b6_kernel_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        max_abs_err=err, ms=b6_kernel_ms, queued_ms=b6_queued_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lib_flat, 3),
         library_call="per probed cluster, its tables[:, codes + m * 256].sum(-1) then "
                      "torch.topk(min(k, rows), largest=False)",
@@ -1381,6 +1401,7 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
         replaces="src/repro/kernels/lut_build.py:35",
         launches=per_phase["retrieval"]["build_luts"], max_abs_err=err,
         ms=cuda_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20),
+        queued_ms=cuda_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20, queued=True),
         cold_ms=cold_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20),
         plain_ms=wall_ms(torch, lambda: k_lut.build_luts_plain(cb, qmc)),
         bound_ms=bms, bound_by=by,
@@ -1452,6 +1473,8 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
         del qp, got_p, want_p, exact
     out = torch.empty_like(got)
     ms = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, LM_PROMPT), 10)
+    queued = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, LM_PROMPT), 10,
+                     queued=True)
     out32 = torch.empty_like(got32)
     ms32 = cuda_ms(torch, lambda: k_flash.launch(qf, k, v, out32, scale, 0, LM_PROMPT), 10)
     # library yardstick: SDPA in f32 on the valid keys, heads first (made outside the timing)
@@ -1469,8 +1492,8 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     row = dict(
         name="flash_attention_fwd", route="cuda", source=f"{SRC_ROOT}/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn.py:104", launches=launches["flash_attention_fwd"],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=sdpa_ms,
+        max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=sdpa_ms,
         library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                      "enable_gqa=True) in f32 on (B, H, S, hd) copies, k / v cut to kv_valid",
         bound_tc_ms=tc_ms, bound_tc_by=tc_by, tf32_passes=dict(qk=passes[0], pv=passes[1]),
@@ -1603,13 +1626,14 @@ def main(argv=None) -> int:
         raise RuntimeError(f"lut_build disagrees with its plain version: {err}")
     out = torch.empty_like(luts)
     b1_ms = cuda_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20)
+    b1_queued = cuda_ms(torch, lambda: k_lut.launch(cb, qmc, out, rows), 20, queued=True)
     n_lut = n_rows * M * 256
     bms, by = bound_ms(4 * (cb.numel() + qmc_rows.numel() + n_rows + n_lut),
                        3 * n_lut * dsub)
     kernels.append(dict(
         name="lut_build", route="cuda", source=f"{SRC_ROOT}/csrc/lut_build.cu",
         replaces="src/repro/kernels/lut_build.py:35", launches=launches["build_luts"],
-        max_abs_err=err, ms=b1_ms,
+        max_abs_err=err, ms=b1_ms, queued_ms=b1_queued,
         plain_ms=wall_ms(torch, lambda: k_lut.build_luts_plain(cb, qmc[rows.long()])),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lambda: ((cb[None] - qmc_rows[:, :, None, :]) ** 2).sum(-1), 5),

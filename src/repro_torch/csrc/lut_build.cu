@@ -239,12 +239,11 @@ extern "C" int lut_build_wide_launch(const void* codebook, const void* qmc,
       threads > WIDE_THREADS || threads % 32 || stages < 1 || stages > 8 || stages > n_slices ||
       static_cast<long long>(n_slices) * ds < dsub || stride % 4 || blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int smem_set = 48 * 1024;  // what the kernel may ask for so far
-  if (smem > smem_set) {
+  // set on every call: the attribute belongs to the current device
+  if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         lut_build_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem;
   }
   const WidePlan pl{pg, cw, NCODES / cw, ds, n_slices, stages, stride, g};
   lut_build_wide_kernel<<<static_cast<int>(blocks), threads, smem,

@@ -275,14 +275,7 @@ template <typename T, int RV, int QREG, bool FULL>
 int launch(const void* queries, const void* cand, const void* id_dev, const void* id_row,
            const void* row_base, const void* vectors, void* out, int q, int k, int d,
            int ids_cap, int ndev, const Plan& pl, int smem, cudaStream_t s) {
-  auto kern = rerank_kernel<T, RV, QREG, FULL>;
-  static int smem_set = 48 * 1024;  // what this instance may ask for so far
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem;
-  }
-  kern<<<q * pl.nkb, THREADS, smem, s>>>(
+  rerank_kernel<T, RV, QREG, FULL><<<q * pl.nkb, THREADS, smem, s>>>(
       static_cast<const float*>(queries), static_cast<const int*>(cand),
       static_cast<const int*>(id_dev), static_cast<const int*>(id_row),
       static_cast<const long long*>(row_base), static_cast<const T*>(vectors),
@@ -326,19 +319,22 @@ int launch_full(int rv, bool full, const void* queries, const void* cand, const 
 
 }  // namespace
 
-// The plan's numbers come from kernels/rerank.py `launch_plan`.  Returns
+// `plan` holds kernels/rerank.py `launch_plan`'s numbers in the order of
+// `rerank.PLAN_FIELDS`: the fields of Plan, then rv, qreg and smem (within
+// the 48 KB a launch may take without cudaFuncSetAttribute).  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int rerank_launch(const void* queries, const void* cand, const void* id_dev,
                              const void* id_row, const void* row_base, const void* vectors,
                              void* out, int q, int k, int d, int ids_cap, int ndev,
-                             int vec_is_bf16, int per, int pc, int n_chunks, int rv, int seg,
-                             int segq, int contig, int g, int qreg, int cpb, int nkb,
-                             int stages, int smem, void* stream) {
+                             int vec_is_bf16, const int* plan, void* stream) {
   if (q <= 0 || k <= 0) return 0;
-  const Plan pl{per, pc, n_chunks, seg, segq, contig, g, cpb, nkb, stages};
-  if (cpb < 1 || cpb > CAND_MAX || stages < 1 || stages > 8 || stages > n_chunks ||
-      pc > qreg || segq < pc || static_cast<long long>(q) * nkb > INT_MAX ||
-      static_cast<long long>(nkb) * cpb < k)
+  const Plan pl{plan[0], plan[1], plan[2], plan[3], plan[4],
+                plan[5], plan[6], plan[7], plan[8], plan[9]};
+  const int rv = plan[10], qreg = plan[11], smem = plan[12];
+  const int per = pl.per, pc = pl.pc, cpb = pl.cpb, nkb = pl.nkb, stages = pl.stages;
+  if (cpb < 1 || cpb > CAND_MAX || stages < 1 || stages > 8 || stages > pl.n_chunks ||
+      pc > qreg || pl.segq < pc || smem > 48 * 1024 ||
+      static_cast<long long>(q) * nkb > INT_MAX || static_cast<long long>(nkb) * cpb < k)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const bool full = d == 32 * per && per % pc == 0;

@@ -49,9 +49,9 @@ SIGNATURES = {
     # table_width, code_fmt, k, block_n, stream
     "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L, _I, _I, _I, _I, _I, _P],
     # queries, cand, id_dev, id_row, row_base, vectors, out, q, k, d,
-    # ids_cap, ndev, vec_is_bf16, then `rerank.launch_plan`'s per, pc,
-    # n_chunks, rv, seg, segq, contig, g, qreg, cpb, nkb, stages, smem; stream
-    "rerank_launch": [_P] * 7 + [_I] * 19 + [_P],
+    # ids_cap, ndev, vec_is_bf16, plan (`rerank.PLAN_FIELDS` of
+    # `rerank.launch_plan`, an int array), stream
+    "rerank_launch": [_P] * 7 + [_I] * 6 + [_P, _P],
     # table, codes, out, n, w, table_width, code_fmt, stream
     "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _P],
     # tables, codes, bound (may be null), units (may be null), out_v, out_i,

@@ -8,6 +8,7 @@ shard of a `RawStore`: row `row_base[id_dev[c]] + id_row[c]` of `vectors`.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -21,10 +22,14 @@ CAND_MAX = 64  # candidates a block (a whole query's k' on the main path): 16 a 
 LANE_CHUNK_MAX = 32
 QREG_SMALL = 8  # the kernel variant with 8 query registers, for ceil(D/32) <= 8
 STAGES_MAX = 8  # chunks in flight
-SMEM_BUDGET = 48 * 1024  # dynamic shared memory a block asks for
+SMEM_BUDGET = 48 * 1024  # dynamic shared memory a block asks for (no attribute needed)
 # a candidate's 32 lane partials, folded after the ring is consumed (36 floats
 # apart: an odd number of 16-byte quads)
 PART_BYTES = 36 * 4
+# the plan's numbers in the order `csrc/rerank.cu` reads them from the int
+# array `rerank_launch` takes
+PLAN_FIELDS = ("per", "pc", "n_chunks", "seg", "segq", "contig", "g", "cpb", "nkb", "stages",
+               "rv", "qreg", "smem")
 
 
 @functools.lru_cache(maxsize=256)
@@ -85,6 +90,17 @@ def launch_plan(
         blocks=q_n * nkb, stages=stages, stage_bytes=stage_bytes,
         smem=max(stages * stage_bytes, cpb * PART_BYTES),
     )
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(q_n: int, k: int, d: int, elem: int, block_k: int, device, addr_low: int):
+    """`launch_plan` for `device`'s SMs and a store whose address ends in
+    `addr_low` (its low four bits), as the int array `rerank_launch` reads:
+    one cached lookup a launch, so that a launch costs the host no more
+    than a plain argument list (the kernel is shorter than its launch)."""
+    plan = launch_plan(q_n, k, d, elem, _build.sm_count(device), block_k,
+                       _build.pow2_dividing(addr_low))
+    return (ctypes.c_int * len(PLAN_FIELDS))(*(int(plan[f]) for f in PLAN_FIELDS))
 
 
 def plan_block(plan: dict, b: int, k: int) -> tuple[int, int, int]:
@@ -161,15 +177,13 @@ def launch(queries, cand, vectors, id_dev, id_row, row_base, out, block_k: int) 
     if q_n == 0 or k == 0:
         return
     dev = queries.device
-    plan = launch_plan(q_n, k, d, vectors.element_size(), _build.sm_count(dev), block_k,
-                       _build.pow2_dividing(vectors.data_ptr()))
+    vp = vectors.data_ptr()
     err = _build.library().rerank_launch(
         queries.data_ptr(), cand.data_ptr(), id_dev.data_ptr(),
-        id_row.data_ptr(), row_base.data_ptr(), vectors.data_ptr(),
+        id_row.data_ptr(), row_base.data_ptr(), vp,
         out.data_ptr(), q_n, k, d, id_dev.shape[0], row_base.shape[0],
-        int(vectors.dtype == torch.bfloat16), plan["per"], plan["pc"], plan["n_chunks"],
-        plan["rv"], plan["seg"], plan["segq"], int(plan["contig"]), plan["g"], plan["qreg"],
-        plan["cpb"], plan["nkb"], plan["stages"], plan["smem"],
+        int(vectors.dtype == torch.bfloat16),
+        _plan_array(q_n, k, d, vectors.element_size(), block_k, dev, vp & 15),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "rerank")

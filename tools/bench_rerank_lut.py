@@ -4,7 +4,7 @@
 earlier designs of commit e38a342, or any sources with their C interface).
 
     python3 tools/bench_rerank_lut.py [--baseline-dir DIR] [--store-rows 25000000]
-                                      [--reps 20] [--seed 0] [--sweep] [--probe]
+                                      [--reps 20] [--seed 0] [--probe [NAME ...]]
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 It builds the port's kernels and, with `--baseline-dir`, DIR/rerank.cu and
@@ -27,20 +27,22 @@ baseline):
     f32 store of 20,000 rows (the engine's), and the same with a bf16 store;
   * B1's wide kernel at the LM retrieval's shape: 32 pairs, M = 8, dsub 512;
 
-each warm (CUDA events over `--reps` launches back to back on the same
-inputs), cold (each launch its own event pair, after a 256 MB write that
-evicts the L2) and sustained (100 launches in a CUDA graph replayed for
-0.3 s, with the median SM clock nvidia-smi read meanwhile), beside the
-byte / FP32 bound.  With `--sweep` it also
-times, to show where the time goes: B3 at the main path's shape on stores
-of 250,000, 2.5M and `--store-rows` rows, with each query's candidates
-sorted by row, and at 8 to 64 candidates a block; B1's wide kernel cut
-into other (pairs, codewords) groups and slices.  With `--probe` it builds
-edited copies of the port's sources under build/bench_rerank_lut/ -- no
-arithmetic (`nocompute`), no copies into shared memory (`nocopy`), a
-return at entry (`noop`: the launch alone), plain
-16-byte loads and stores instead of `cp.async` (`plaincopy`) -- and times
-each at the production plans (their results are not checked).  Prints the card's name
+each warm (CUDA events over `--reps` launches back to back from Python on
+the same inputs: `chip_smoke.cuda_ms`, the smoke's `ms`), queued (the same
+launches queued behind a device-side spin, so no host gap is timed: the
+smoke's `queued_ms`), cold (each launch its own event pair, after a 256 MB
+write that evicts the L2) and sustained (100 launches in a CUDA graph
+replayed for 1 s, with the median SM clock nvidia-smi read meanwhile),
+beside the byte / FP32 bound.  With `--probe` it builds edited copies of
+the port's sources under build/bench_rerank_lut/ (all of PROBES, or the
+ones named) and times each at the production plans in turns with the port
+(port, probe, probe, port), warm, queued and cold: no arithmetic
+(`nocompute`), no copies into shared memory (`nocopy`), a return at entry
+(`noop`: the launch alone), a return after the id rounds (`ids`), plain
+16-byte loads and stores instead of `cp.async` (`plaincopy`), and B3's
+bounds-checked body where the bound-free one runs (`nofull`).  Only
+`nofull` computes the same function; its results are checked, the others'
+are not.  Prints the card's name
 and power limit, the ptxas lines (registers, spills, shared memory) of the
 port's two kernels and one JSON line per case; exits non-zero without a
 GPU, or after the timings when a build disagreed with the plain version.
@@ -117,7 +119,11 @@ PROBES = {
                    "  if (g == 16) {\n    *static_cast<uint4*>(dst) = "
                    "*static_cast<const uint4*>(src);\n    return;\n  }\n"
                    "  switch (g) {\n    case 16:")],
+    "nofull": [("rerank.cu", "const bool full = d == 32 * per && per % pc == 0;",
+                "const bool full = false;")],
 }
+# probes that compute the kernels' function (their results are checked)
+EXACT_PROBES = ("nofull",)
 
 
 def build_probe(name: str):
@@ -172,8 +178,8 @@ def main(argv=None) -> int:
                     help="rows of the main-path B3 store (bf16, D 128)")
     ap.add_argument("--reps", type=int, default=20, help="launches per timed turn")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sweep", action="store_true", help="also time other cuts and stores")
-    ap.add_argument("--probe", action="store_true", help="also time edited copies of the kernels")
+    ap.add_argument("--probe", nargs="*", default=None, choices=sorted(PROBES),
+                    help="also time edited copies of the kernels (all, or the ones named)")
     args = ap.parse_args(argv)
     import torch
 
@@ -204,7 +210,7 @@ def main(argv=None) -> int:
     failed = []
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
 
-    def sustained(fn, n: int = 100, min_ms: float = 300.0) -> list:
+    def sustained(fn, n: int = 100, min_ms: float = 1000.0) -> list:
         """[ms a launch, SM MHz (median sample)] with `n` launches captured in
         a CUDA graph and replayed for at least `min_ms`: the card busy with
         no host gaps, so that its clock has risen (short, sparse launches
@@ -229,13 +235,30 @@ def main(argv=None) -> int:
             clocks.stop()
         return [ms / n, sorted(clocks.samples)[len(clocks.samples) // 2]]
 
-    def turns(builds: dict) -> dict:
-        order = ["baseline", "port", "port", "baseline"] if "baseline" in builds else ["port"] * 2
-        got = {"warm": [], "cold": [], "sustained": []}
+    def with_library(dll, fn):
+        """fn() with the port's launchers bound to `dll`."""
+        real = _build.library
+        _build.library = lambda: dll
+        try:
+            return fn()
+        finally:
+            _build.library = real
+
+    def turns(builds: dict, other: str = "baseline", libs: dict | None = None,
+              sustain: bool = True) -> dict:
+        """Each build timed in turns (other, port, port, other), each under
+        the port's launcher bound to libs[label] where given."""
+        order = [other, "port", "port", other] if other in builds else ["port"] * 2
+        got = {"warm": [], "queued": [], "cold": []} | ({"sustained": []} if sustain else {})
         for label in order:
-            got["warm"].append((label, cs.cuda_ms(torch, builds[label], args.reps)))
-            got["cold"].append((label, cs.cold_ms(torch, builds[label], args.reps)))
-            got["sustained"].append((label, *sustained(builds[label])))
+            def timed(label=label):
+                fn = builds[label]
+                got["warm"].append((label, cs.cuda_ms(torch, fn, args.reps)))
+                got["queued"].append((label, cs.cuda_ms(torch, fn, args.reps, queued=True)))
+                got["cold"].append((label, cs.cold_ms(torch, fn, args.reps)))
+                if sustain:
+                    got["sustained"].append((label, *sustained(fn)))
+            with_library(libs[label], timed) if libs and label in libs else timed()
         mean = {kind: {label: sum(t[1] for t in v if t[0] == label) / order.count(label)
                        for label in builds} for kind, v in got.items()}
         return dict(turns_ms=got, mean_ms=mean)
@@ -247,22 +270,28 @@ def main(argv=None) -> int:
         return ok
 
     # -- B3 ---------------------------------------------------------------
-    def with_library(dll, fn):
-        """fn() with the port's launchers bound to `dll`."""
-        real = _build.library
-        _build.library = lambda: dll
-        try:
-            return fn()
-        finally:
-            _build.library = real
+    names = (args.probe or sorted(PROBES)) if args.probe is not None else []
+    probes = {name: build_probe(name) for name in names}
+    # the floor of this timing: a 1 KB PyTorch op
+    tiny = torch.zeros(256, device=dev)
+    cs.log(phase="floor", warm_ms=cs.cuda_ms(torch, lambda: tiny.add_(1.0), args.reps),
+           queued_ms=cs.cuda_ms(torch, lambda: tiny.add_(1.0), args.reps, queued=True),
+           cold_ms=cs.cold_ms(torch, lambda: tiny.add_(1.0), args.reps), nvidia_smi=smi)
 
-    probes = {name: build_probe(name) for name in PROBES} if args.probe else {}
-    if probes:  # the floor of this timing: a 1 KB PyTorch op, back to back
-        tiny = torch.zeros(256, device=dev)
-        cs.log(phase="floor", warm_ms=cs.cuda_ms(torch, lambda: tiny.add_(1.0), args.reps),
-               cold_ms=cs.cold_ms(torch, lambda: tiny.add_(1.0), args.reps), nvidia_smi=smi)
+    def probe_turns(name, build, out, want) -> dict:
+        """{probe: turns with the port} for every probe, `build` launching
+        into `out`; the exact probes' results held against `want`."""
+        res = {}
+        for label, lib in probes.items():
+            if label in EXACT_PROBES:
+                out.fill_(float("nan"))
+                with_library(lib, build)
+                check(name, f"probe {label}", out, want)
+            res[label] = turns({"port": build, label: build}, other=label, libs={label: lib},
+                               sustain=False)["mean_ms"]
+        return res
 
-    def rerank_case(name, q_n, kc, d, rows, ndev, dtype, sort=False, cpbs=()):
+    def rerank_case(name, q_n, kc, d, rows, ndev, dtype):
         if dtype == torch.bfloat16:  # bf16 store filled in slices (no f32 copy of it)
             vectors = torch.empty(rows, d, dtype=dtype, device=dev)
             for s in range(0, rows, 1 << 22):
@@ -281,10 +310,6 @@ def main(argv=None) -> int:
         queries = torch.randn(q_n, d, device=dev, generator=gen)
         cand = torch.randint(0, ids_cap, (q_n, kc), device=dev, generator=gen).int()
         cand[:, -1] = -1
-        if sort:  # each query's candidates in store order (rows of a cluster are contiguous)
-            store_row = torch.where(cand >= 0, row_base[id_dev[cand.clamp_min(0)].clamp_min(
-                0).long()] + id_row[cand.clamp_min(0)], -1)
-            cand = cand.gather(1, store_row.argsort(1)).contiguous()
         args_ = (queries, cand, vectors, id_dev, id_row, row_base)
         want = k_rerank.rerank_dists_plain(*args_, 16)
         outs = {label: torch.empty_like(want) for label in ("port", "baseline")}
@@ -310,30 +335,17 @@ def main(argv=None) -> int:
                plan=k_rerank.launch_plan(q_n, kc, d, vectors.element_size(), n_sm),
                nvidia_smi=smi)
         if probes:  # edited copies of the port's kernel at the same plan
-            cs.log(phase=name + "_probe", warm_cold_ms={
-                label: with_library(probes[label], lambda: [
-                    cs.cuda_ms(torch, builds["port"], args.reps),
-                    cs.cold_ms(torch, builds["port"], args.reps)]) for label in probes},
-                nvidia_smi=smi)
-        if cpbs:  # the port at other candidates a block (block_k caps them)
-            cut = {cpb: [cs.cuda_ms(torch, lambda b=cpb: k_rerank.launch(
-                *args_, outs["port"], b), args.reps), cs.cold_ms(torch, lambda b=cpb: (
-                    k_rerank.launch(*args_, outs["port"], b)), args.reps)] for cpb in cpbs}
-            cs.log(phase=name + "_cpb", warm_cold_ms=cut, nvidia_smi=smi)
+            cs.log(phase=name + "_probe", mean_ms=probe_turns(
+                name, builds["port"], outs["port"], want), nvidia_smi=smi)
         del vectors, id_dev, id_row, want
         torch.cuda.empty_cache()
 
     rerank_case("b3_main", 1000, 64, 128, args.store_rows, 8, torch.bfloat16)
     rerank_case("b3_lm", 4, 64, 4096, 20_000, 1, torch.float32)
     rerank_case("b3_lm_bf16", 4, 64, 4096, 20_000, 1, torch.bfloat16)
-    if args.probe:  # one block's latency: B3 at 1, 8 and 132 queries (a block each)
+    if probes:  # one block's latency: B3 at 1, 8 and 132 queries (a block each)
         for q_n in (1, 8, 132):
             rerank_case(f"b3_q{q_n}", q_n, 64, 128, 2_500_000, 8, torch.bfloat16)
-    if args.sweep:
-        for rows in (250_000, 2_500_000):
-            rerank_case(f"b3_main_store{rows}", 1000, 64, 128, rows, 8, torch.bfloat16)
-        rerank_case("b3_main_sorted", 1000, 64, 128, args.store_rows, 8, torch.bfloat16,
-                    sort=True, cpbs=(8, 16, 32, 64))
 
     # -- B1, wide: the LM retrieval's 32 pairs, M = 8, dsub 512 -------------
     m, dsub, n_pairs = 8, 512, 32
@@ -355,51 +367,13 @@ def main(argv=None) -> int:
         equal[label] = check("b1_wide", label, outs[label], want)
     res = turns(builds)
     if probes:
-        got = {label: with_library(probes[label], lambda: [
-            cs.cuda_ms(torch, builds["port"], args.reps),
-            cs.cold_ms(torch, builds["port"], args.reps)]) for label in probes}
-        wp = k_lut.wide_plan(n_pairs, m, dsub, n_sm)
-
-        def noop_smem0():  # the launch alone, without dynamic shared memory
-            err = probes["noop"].lut_build_wide_launch(
-                cb.data_ptr(), qmc.data_ptr(), rows.data_ptr(), outs["port"].data_ptr(), n_pairs,
-                m, dsub, wp["pg"], wp["cw"], wp["ds"], wp["n_slices"], wp["stages"],
-                wp["stride"], wp["g"], wp["threads"], 0, stream())
-            _build.check(err, "noop probe")
-        got["noop_smem0"] = [cs.cuda_ms(torch, noop_smem0, args.reps),
-                             cs.cold_ms(torch, noop_smem0, args.reps)]
-        cs.log(phase="b1_wide_probe", warm_cold_ms=got, nvidia_smi=smi)
+        cs.log(phase="b1_wide_probe", mean_ms=probe_turns(
+            "b1_wide", builds["port"], outs["port"], want), nvidia_smi=smi)
     n_lut = want.numel()
     cs.log(phase="b1_wide", pairs=n_pairs, m=m, dsub=dsub, equal_to_plain=equal, **res,
            bound_ms=cs.bound_ms(4 * (cb.numel() + qmc.numel() + n_pairs + n_lut),
                                 3 * n_lut * dsub),
            plan=k_lut.wide_plan(n_pairs, m, dsub, n_sm), nvidia_smi=smi)
-    if args.sweep:  # other cuts of the same call: (pairs, codewords) a block, slice width
-        cuts = {}
-        for pg, cw, ds in ((16, 16, 128), (16, 16, 512), (16, 16, 32), (32, 8, 128),
-                           (8, 32, 128), (8, 16, 128), (16, 8, 128), (8, 8, 128),
-                           (4, 8, 128)):
-            stride = k_lut._wide_stride(ds)
-            n_slices = -(-dsub // ds)
-            stage = (pg + cw) * stride * 4
-            stages = max(1, min(n_slices, k_lut.WIDE_STAGES_MAX, 200 * 1024 // stage))
-            out = torch.empty_like(want)
-
-            def cut(pg=pg, cw=cw, ds=ds, n_slices=n_slices, stages=stages, stride=stride,
-                    stage=stage, out=out):
-                err = _build.library().lut_build_wide_launch(
-                    cb.data_ptr(), qmc.data_ptr(), rows.data_ptr(), out.data_ptr(), n_pairs, m,
-                    dsub, pg, cw, ds, n_slices, stages, stride, 16, max(32, pg * cw),
-                    stages * stage, stream())
-                _build.check(err, "lut_build_wide (sweep)")
-
-            cut()
-            if not torch.equal(out, want):
-                failed.append(f"port (b1_wide sweep {pg}x{cw}, ds {ds})")
-            cuts[f"{pg}x{cw}_ds{ds}_st{stages}"] = [
-                cs.cuda_ms(torch, cut, args.reps), cs.cold_ms(torch, cut, args.reps),
-                m * (256 // cw) * -(-n_pairs // pg)]
-        cs.log(phase="b1_wide_cuts", warm_cold_ms_blocks=cuts, nvidia_smi=smi)
     print(smi, flush=True)
     if failed:
         print(f"bench_rerank_lut: disagrees with the plain version: {failed}", file=sys.stderr)
