@@ -141,6 +141,9 @@ FLASH_PEAK_LOGIT = 30.0
 SRC_ROOT = "src/repro_torch"
 # bytes written between two cold launches (`cold_ms`): five times the L2
 FLUSH_BYTES = 256 << 20
+# the mutable phase: inserts and deletes below the reference's auto-compaction
+# point (0.75 of the default 4096-row delta), and the co-occurrence cell's rows
+MUT_INSERTS, MUT_DELETES, MUT_COOC_ROWS = 3000, 1000, 4_000_000
 
 
 def log(**kv) -> None:
@@ -634,33 +637,29 @@ def drive_path(torch, np, ops, name, eng, batches, needed) -> dict:
     return out
 
 
-def plain_path_check(torch, np, k_lut, k_rerank, eng, q16) -> None:
-    """The engine's answers to a few queries against a plain path: plain
-    LUTs (extended by their cluster's combos on direct-address shards) ->
-    unpruned ADC over every probed row, entries added in column order ->
-    stable top-k' -> plain exact re-rank.  ADC and re-ranked distances must
-    be bit-equal, ids equal outside exactly tied groups.  Plain codes come
-    from the index; re-encoded ones from the shards (the CPU tests hold
-    their packing equal to the reference's)."""
+def plain_adc_topk(torch, np, k_lut, eng, q, kk):
+    """A plain path's ADC candidates: plain LUTs (extended by their
+    cluster's combos on direct-address shards) -> unpruned ADC over every
+    probed row of the engine's index, entries added in column order ->
+    stable top-`kk` per query.  Returns (distances (Q, kk) host, +inf past
+    the rows; ids (Q, kk) int32 tensor, -1 there).  Plain codes come from
+    the index; re-encoded ones from the shards (the CPU tests hold their
+    packing equal to the reference's)."""
     from repro_torch.core.index import filter_clusters
 
     dev, sh, idx = eng.device, eng.shards, eng.index
-    kp = eng.k_prime(K)
     dv = eng._device_put()
-    e_d, e_i = eng.search(q16, NPROBE, K)
-    adc_d, _ = eng.collect(eng.dispatch_plan(eng.plan_batch(q16, NPROBE), kp))
-    q = torch.as_tensor(q16, device=dev)
     probed, qmc = filter_clusters(dv["centroids"], q, NPROBE)
     cb = dv["codebook"]
     m, _, dsub = cb.shape
-    luts = k_lut.build_luts_plain(cb, qmc.reshape(-1, m, dsub)).reshape(len(q16), NPROBE, -1)
+    luts = k_lut.build_luts_plain(cb, qmc.reshape(-1, m, dsub)).reshape(len(q), NPROBE, -1)
     cols = torch.arange(m, device=dev) * 256
     wide = dv["codes"].dtype == torch.uint16  # gathered through an int16 view
     codes = dv["codes"].view(torch.int16) if wide else dv["codes"]
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    cand = torch.full((len(q16), kp), -1, dtype=torch.int32, device=dev)
-    plain_adc = np.full((len(q16), kp), np.inf, np.float32)
-    for qi in range(len(q16)):
+    cand = torch.full((len(q), kk), -1, dtype=torch.int32, device=dev)
+    plain_adc = np.full((len(q), kk), np.inf, np.float32)
+    for qi in range(len(q)):
         ds_, ids_ = [], []
         for j, c in enumerate(probed[qi].tolist()):
             lo, hi = int(idx.offsets[c]), int(idx.offsets[c + 1])
@@ -686,24 +685,51 @@ def plain_path_check(torch, np, k_lut, k_rerank, eng, q16) -> None:
             ds_.append(dd)
             ids_.append(ids)
         dq, iq = torch.cat(ds_), torch.cat(ids_)
-        sel = torch.sort(dq, stable=True).indices[:kp]
+        sel = torch.sort(dq, stable=True).indices[:kk]
         plain_adc[qi, : sel.numel()] = dq[sel].cpu().numpy()
         cand[qi, : sel.numel()] = iq[sel].int()
-    if not np.array_equal(np.sort(adc_d, axis=1), plain_adc):
-        raise RuntimeError("engine ADC top-k' differs from the plain unpruned scan")
-    raw = eng.raw
+    return plain_adc, cand
+
+
+def plain_rerank(torch, k_rerank, q, cand, raw, kk):
+    """Plain exact re-rank of `cand` against a store: stable top-`kk` by
+    distance.  Returns host (distances, ids), (+inf, -1) where unmapped."""
     ex = k_rerank.rerank_dists_plain(q, cand, raw.vectors, raw.id_dev, raw.id_row,
                                      raw.row_base)
-    sel = torch.sort(ex, dim=1, stable=True).indices[:, :K]
-    p_d = ex.gather(1, sel).cpu().numpy()
-    p_i = torch.where(torch.isfinite(ex.gather(1, sel)), cand.gather(1, sel), -1).cpu().numpy()
+    sel = torch.sort(ex, dim=1, stable=True).indices[:, :kk]
+    d = ex.gather(1, sel)
+    i = torch.where(torch.isfinite(d), cand.gather(1, sel), -1)
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def same_outside_ties(np, e_d, e_i, p_d, p_i) -> bool:
+    """Distances bit-equal and, per distinct distance, the same id set."""
     if not np.array_equal(e_d, p_d):
-        raise RuntimeError(f"engine re-ranked distances differ from the plain path:\n"
-                           f"{e_d[:2]}\n{p_d[:2]}")
+        return False
     for row_d, a, b in zip(e_d, e_i, p_i):
         for v in np.unique(row_d):
             if set(a[row_d == v]) != set(b[row_d == v]):
-                raise RuntimeError("engine ids differ from the plain path")
+                return False
+    return True
+
+
+def plain_path_check(torch, np, k_lut, k_rerank, eng, q16) -> None:
+    """The engine's answers to a few queries against a plain path
+    (`plain_adc_topk` at k' -> plain exact re-rank).  ADC and re-ranked
+    distances must be bit-equal, ids equal outside exactly tied groups."""
+    kp = eng.k_prime(K)
+    e_d, e_i = eng.search(q16, NPROBE, K)
+    adc_d, _ = eng.collect(eng.dispatch_plan(eng.plan_batch(q16, NPROBE), kp))
+    q = torch.as_tensor(q16, device=eng.device)
+    plain_adc, cand = plain_adc_topk(torch, np, k_lut, eng, q, kp)
+    if not np.array_equal(np.sort(adc_d, axis=1), plain_adc):
+        raise RuntimeError("engine ADC top-k' differs from the plain unpruned scan")
+    p_d, p_i = plain_rerank(torch, k_rerank, q, cand, eng.raw, K)
+    if not np.array_equal(e_d, p_d):
+        raise RuntimeError(f"engine re-ranked distances differ from the plain path:\n"
+                           f"{e_d[:2]}\n{p_d[:2]}")
+    if not same_outside_ties(np, e_d, e_i, p_d, p_i):
+        raise RuntimeError("engine ids differ from the plain path")
 
 
 def plan_tables(torch, np, ops, eng, plan):
@@ -952,11 +978,12 @@ def check_rerank(torch, ops, k_rerank, qt, cand, raw, *, launches: int, shape: d
     def launch():
         k_rerank.launch(qt, cand, *args, out, 0)
 
-    rows, _ = k_rerank.candidate_rows(cand, raw.id_dev, raw.id_row, raw.row_base)
-    n_c, d = cand.numel(), qt.shape[1]
-    # each candidate's id, id-map entry (2 x 4 B), base and row read once
-    bms, by = bound_ms(n_c * (d * raw.vectors.element_size() + 4 + 4 + 4 + 4)
-                       + qt.numel() * 4, 3 * n_c * d)
+    rows, valid = k_rerank.candidate_rows(cand, raw.id_dev, raw.id_row, raw.row_base)
+    n_c, n_v, d = cand.numel(), int(valid.sum()), qt.shape[1]
+    # every candidate's id read once; a valid one's id-map entry (2 x 4 B),
+    # base and row too (an absent one, -1, is skipped)
+    bms, by = bound_ms(n_c * 4 + n_v * (d * raw.vectors.element_size() + 4 + 4 + 4)
+                       + qt.numel() * 4, 3 * n_v * d)
     return dict(
         name="rerank", route="cuda", source=f"{SRC_ROOT}/csrc/rerank.cu",
         replaces="src/repro/kernels/rerank.py:74", launches=launches,
@@ -970,7 +997,7 @@ def check_rerank(torch, ops, k_rerank, qt, cand, raw, *, launches: int, shape: d
                      "gather included (rows from the id map; squared, no sqrt)",
         plan=k_rerank.launch_plan(*cand.shape, d, raw.vectors.element_size(),
                                   torch.cuda.get_device_properties(0).multi_processor_count),
-        shape=shape,
+        shape=dict(shape, valid_candidates=n_v),
     )
 
 
@@ -1511,6 +1538,456 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     return [wide_row, rerank_row, row]
 
 
+def delta_store(delta, dev):
+    """The delta's vectors as a one-device store (the delta re-rank's,
+    `DeltaIndex.device_store`): candidates are buffer rows."""
+    import types
+
+    v, i_dev, i_row, base = delta.device_store(dev)
+    return types.SimpleNamespace(vectors=v, id_dev=i_dev, id_row=i_row, row_base=base)
+
+
+def delta_rows(np, delta, ids):
+    """Buffer rows of global ids (-1 where not buffered), as
+    `mutation.delta_exact_rerank` maps its candidates."""
+    buf = delta.vec_ids[: delta.n]
+    order = np.argsort(buf, kind="stable")
+    pos = np.clip(np.searchsorted(buf[order], ids), 0, buf.size - 1)
+    row = order[pos]
+    return np.where((ids >= 0) & (buf[row] == ids), row, -1).astype(np.int32)
+
+
+def mutable_engine(torch, np, eng, dev, block_n=BLOCK_N, **knobs):
+    """A mutable engine over an engine's trained index, placement and raw
+    store (no second training, no corpus): the shards re-packed with the
+    mutable slack, the store re-packed with 50 % row slack."""
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    return MemANNSEngine.from_reference(
+        eng.index, eng.placement, raw=eng.raw, block_n=block_n, mutable=True,
+        freqs=eng.freqs, device=dev, **knobs)
+
+
+def compaction_reencode_check(torch, np, meng, old_index, tomb, ins_ids, ins_x, ins_assign,
+                              chunk_rows=1 << 22) -> dict:
+    """The compacted index against a scratch re-encode of the changed
+    clusters: per changed cluster, its surviving rows (in their old order,
+    vectors from the raw store, the corpus the index was encoded from) then
+    its live inserts (insertion order, the inserted f32 vectors), assigned
+    and encoded afresh on the card; assignments, codes, ids and offsets
+    must be equal."""
+    from repro_torch.core.delta import isin_ids
+    from repro_torch.core.index import assign_clusters, encode_vectors
+
+    dev, new, raw = meng.device, meng.index, meng.raw
+    c_n = old_index.n_clusters
+    old_sizes = old_index.cluster_sizes()
+    row_cluster = np.repeat(np.arange(c_n), old_sizes)
+    dead = isin_ids(old_index.vec_ids, tomb)
+    live_ins = ~np.isin(ins_ids, tomb)
+    added = np.bincount(ins_assign[live_ins], minlength=c_n)
+    removed = np.bincount(row_cluster[dead], minlength=c_n)
+    want_sizes = old_sizes - removed + added
+    if not np.array_equal(new.cluster_sizes(), want_sizes):
+        raise RuntimeError("compaction: cluster sizes differ from survivors + inserts")
+    changed = np.flatnonzero((removed > 0) | (added > 0))
+    cent = torch.as_tensor(new.centroids, device=dev)
+    cb = torch.as_tensor(new.codebook, device=dev)
+    ins_x_t = torch.as_tensor(ins_x, device=dev)
+    rows_checked, i = 0, 0
+    while i < len(changed):
+        j, n_rows = i, 0
+        while j < len(changed) and (j == i or n_rows + want_sizes[changed[j]] <= chunk_rows):
+            n_rows += int(want_sizes[changed[j]])
+            j += 1
+        ids, is_ins, ins_pos, clus = [], [], [], []
+        for c in changed[i:j].tolist():
+            lo, hi = int(old_index.offsets[c]), int(old_index.offsets[c + 1])
+            surv = old_index.vec_ids[lo:hi][~dead[lo:hi]]
+            mine = np.flatnonzero(live_ins & (ins_assign == c))
+            ids += [surv, ins_ids[mine]]
+            is_ins += [np.zeros(surv.size, bool), np.ones(mine.size, bool)]
+            ins_pos += [np.full(surv.size, -1), mine]
+            clus.append(np.full(surv.size + mine.size, c))
+        ids, is_ins = np.concatenate(ids), np.concatenate(is_ins)
+        ins_pos, clus = np.concatenate(ins_pos), np.concatenate(clus)
+        x = torch.empty((ids.size, new.centroids.shape[1]), dtype=torch.float32, device=dev)
+        main = torch.as_tensor(np.flatnonzero(~is_ins), device=dev)
+        mid = torch.as_tensor(ids[~is_ins], device=dev)
+        rows = raw.row_base[raw.id_dev[mid].long()] + raw.id_row[mid].long()
+        x[main] = raw.vectors[rows].float()
+        x[torch.as_tensor(np.flatnonzero(is_ins), device=dev)] = ins_x_t[
+            torch.as_tensor(ins_pos[is_ins], device=dev)]
+        a = assign_clusters(cent, x, dev)
+        codes = encode_vectors(cb, cent, x, a, dev).cpu().numpy()
+        lo = np.concatenate([np.arange(new.offsets[c], new.offsets[c + 1]) for c in changed[i:j]])
+        if not np.array_equal(a.cpu().numpy(), clus):
+            raise RuntimeError("compaction: a re-encoded row lands in another cluster")
+        if not (np.array_equal(new.vec_ids[lo], ids) and np.array_equal(new.codes[lo], codes)):
+            raise RuntimeError("compaction: codes or ids differ from a scratch re-encode")
+        rows_checked += ids.size
+        i = j
+    return dict(changed_clusters=int(changed.size), rows_reencoded=rows_checked)
+
+
+def mutable_phase(torch, np, ops, k_lut, k_topk, k_rerank, meng, ds, batches, dev, seed,
+                  n_inserts=MUT_INSERTS, n_deletes=MUT_DELETES) -> list[dict]:
+    """The mutable path at the main path's geometry (tiles, plain codes,
+    prune, exact re-rank): inserts and deletes, timed batches with the delta
+    active, checks (a)-(e), the delta scan's kernels held against their
+    plain versions, and the same engine with the delta inactive after
+    compaction.  Returns the two kernel rows (B5 at the delta view, B3 at
+    the delta re-rank)."""
+    import types
+
+    from repro_torch.core.delta import (
+        delta_topk_plain,
+        delta_topk_rows,
+        merge_results,
+        plan_delta_scan,
+    )
+    from repro_torch.retrieval import mutation
+
+    t_phase = time.perf_counter()
+    n0 = meng.index.n_vectors
+    delta = meng.delta
+    ins_x = ds.queries(n_inserts, seed=seed + 3)
+    ins_ids = np.arange(n0, n0 + n_inserts, dtype=np.int64)
+    rng = np.random.default_rng(seed + 4)
+    # the first 1000 inserts stay live: check (a) looks each of them up
+    dels = np.concatenate([rng.choice(n0, n_deletes // 2, replace=False),
+                           rng.choice(ins_ids[1000:], n_deletes - n_deletes // 2,
+                                      replace=False)])
+    t = time.perf_counter()
+    meng.insert(ins_ids, ins_x)
+    insert_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    meng.delete(dels)
+    delete_ms = (time.perf_counter() - t) * 1e3
+    tomb = delta.tombstone_array()
+    k_fetch = mutation.fetch_depth(meng, K, tomb.size)
+    kd = min(k_fetch, delta.capacity)
+
+    meng.search(batches[0], NPROBE, K)  # warm-up: the view and the device copies
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    batch_ms, results = [], []
+    for qb in batches[1:]:
+        t = time.perf_counter()
+        results.append(meng.search(qb, NPROBE, K))
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for kname in ("build_luts", "adc_topk_tiles", "adc_topk_windows", "rerank_dists"):
+        if launches[kname] <= 0:
+            raise RuntimeError(f"mutable: kernel {kname} was never launched on the path")
+    for d, i in results:
+        if d.shape != (BATCH, K) or not np.isfinite(d).all() or (i < 0).any():
+            raise RuntimeError("mutable: non-finite distances or missing ids")
+        if (np.diff(d, axis=1) < 0).any():
+            raise RuntimeError("mutable: distances are not ascending")
+        if np.isin(i, tomb).any():  # check (b)
+            raise RuntimeError("mutable: a tombstoned id was returned")
+    laps, plan_ms = [], []
+    for qb in batches[1:]:
+        lap = {}
+        mutation.mutable_search(meng, qb, NPROBE, K, timings=lap)
+        laps.append(lap)
+        t = time.perf_counter()
+        meng.plan_batch(qb, NPROBE)
+        plan_ms.append((time.perf_counter() - t) * 1e3)
+    qb1 = batches[1]
+    cent, cb = meng.index.centroids, meng.index.codebook
+    q1 = torch.as_tensor(qb1, device=dev)
+    # the delta scan and its re-rank as the search runs them (on the card)
+    scan_busy, scan_by, _, scan_wall = profile_call(
+        torch, lambda: delta_topk_rows(delta, cent, cb, qb1, NPROBE, kd, device=dev))
+    _, drows = delta_topk_rows(delta, cent, cb, qb1, NPROBE, kd, device=dev)
+    rr_busy, rr_by, _, rr_wall = profile_call(
+        torch, lambda: mutation.rerank_rows(delta, q1, drows))
+    batch_busy, batch_by, _, _ = profile_call(torch, lambda: meng.search(qb1, NPROBE, K))
+    s = meng.shards
+    reckoned = dict(
+        shards_gb=s.codes.size * s.codes.itemsize / 1e9, raw_store_gb=meng.raw.nbytes() / 1e9,
+        batch_tables_gb=BATCH * NPROBE * M * 256 * 4 / 1e9)
+    log(phase="mutable", inserts=n_inserts, deletes=int(dels.size), tombstones=int(tomb.size),
+        insert_ms=insert_ms, delete_ms=delete_ms, k_fetch=k_fetch, delta_k=kd,
+        batch_ms=batch_ms, mean_batch_ms=float(np.mean(batch_ms)), host_plan_ms=plan_ms,
+        laps_ms=laps, delta_scan_device_ms=scan_busy, delta_scan_wall_ms=scan_wall,
+        delta_scan_by_kernel=scan_by, delta_rerank_device_ms=rr_busy,
+        delta_rerank_wall_ms=rr_wall, delta_rerank_by_kernel=rr_by,
+        batch_device_busy_ms=batch_busy, batch_by_kernel=batch_by,
+        launches={k: v for k, v in launches.items() if v},
+        launches_per_batch={k: v / (len(batches) - 1) for k, v in launches.items() if v},
+        reckoned_memory=reckoned, reckoned_total_gb=sum(reckoned.values()),
+        memory_allocated_gb=torch.cuda.memory_allocated() / 1e9, peak_memory_gb=peak,
+        view_rows=int(delta.view(meng.index.n_clusters, dev).codes.shape[1]),
+        view_max_count=delta.view(meng.index.n_clusters, dev).max_count)
+
+    # (a) each of 1000 inserted vectors finds its own id first
+    _, own = meng.search(ins_x[:1000], NPROBE, K)
+    if not np.array_equal(own[:, 0], ins_ids[:1000]):
+        raise RuntimeError("mutable: an inserted vector does not find itself first")
+
+    # the delta scan on the card against its plain formula, bit-equal,
+    # unbounded and bounded (the median of each query's unbounded list)
+    q16 = qb1[:16]
+    for kk in (K, kd):
+        u = mutation.engine_delta_topk(meng, q16, NPROBE, kk)
+        bound = np.nanmedian(np.where(np.isfinite(u[0]), u[0], np.nan), axis=1)
+        bound = np.nan_to_num(bound, nan=np.inf).astype(np.float32)
+        for b in (None, bound):
+            got = mutation.engine_delta_topk(meng, q16, NPROBE, kk, bound=b)
+            want = delta_topk_plain(delta, cent, cb, q16, NPROBE, kk, bound=b, device=dev)
+            if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+                raise RuntimeError(f"delta scan (k={kk}, bound={b is not None}) differs "
+                                   "from delta_topk_plain")
+
+    # (c) 16 queries against a plain path: plain LUTs -> unpruned ADC top-k_fetch
+    # over every probed main row -> plain re-rank; delta_topk_plain -> plain
+    # re-rank of the delta's candidates; merge_results with the tombstones
+    e_d, e_i = meng.search(q16, NPROBE, K)
+    q = torch.as_tensor(q16, device=dev)
+    _, cand = plain_adc_topk(torch, np, k_lut, meng, q, k_fetch)
+    m_d, m_i = plain_rerank(torch, k_rerank, q, cand, meng.raw, k_fetch)
+    pdd, pdi = delta_topk_plain(delta, cent, cb, q16, NPROBE, kd, device=dev)
+    store = delta_store(delta, dev)
+    rc = torch.as_tensor(delta_rows(np, delta, pdi), device=dev)
+    x_d, x_r = plain_rerank(torch, k_rerank, q, rc, store, kd)
+    x_i = np.where(x_r >= 0, delta.vec_ids[np.maximum(x_r, 0)], -1)
+    p_d, p_i = merge_results(m_d, m_i, x_d, x_i, tomb, K)
+    if not same_outside_ties(np, e_d, e_i, p_d, p_i):
+        raise RuntimeError("mutable: 16 queries differ from the plain path")
+
+    # (d) pruned == unpruned with the delta active
+    pr = meng.search(qb1, NPROBE, K)
+    meng.prune = False
+    un = meng.search(qb1, NPROBE, K)
+    meng.prune = True
+    if not all(np.array_equal(a, b) for a, b in zip(pr, un)):
+        raise RuntimeError("mutable: pruned search differs from the unpruned search")
+    log(phase="mutable_checks", own_id_first=1000, tombstones_absent=True,
+        delta_scan_vs_plain="bit-equal", plain_path_queries=16, pruned_equals_unpruned=BATCH)
+
+    # the kernel rows: B5 at the delta view's shape, B3 at the delta re-rank's
+    scan = plan_delta_scan(delta, cent, cb, qb1, NPROBE, kd, device=dev)
+    rows = []
+    rows.append(check_delta_scan(torch, np, ops, k_topk, scan, launches["adc_topk_windows"]))
+    rows.append(check_rerank(
+        torch, ops, k_rerank, q1, drows.int().contiguous(), store,
+        launches=len(batches) - 1,
+        shape=dict(path="mutable delta re-rank", queries=BATCH, candidates=kd, dim=D,
+                   store="float32", buffered_rows=delta.n)))
+
+    # (e) compaction; then the compacted index against a scratch re-encode,
+    # and its re-rank-off search against the same view's mutable search
+    view_off = dataclasses.replace(meng, rerank="off")
+    pre = view_off.search(qb1, NPROBE, K)
+    old_index = meng.index
+    live = delta.live_mask()[: delta.n]
+    ins_assign = np.full(n_inserts, -1, np.int64)
+    pos = np.searchsorted(ins_ids, delta.vec_ids[: delta.n])
+    ins_assign[pos] = delta.assign[: delta.n]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep = meng.compact()
+    compact_peak = torch.cuda.max_memory_allocated() / 1e9
+    if meng.mutation_active or rep.merged != int(live.sum()):
+        raise RuntimeError(f"mutable: compaction left the delta active or merged "
+                           f"{rep.merged} rows, not {int(live.sum())}")
+    t = time.perf_counter()
+    reenc = compaction_reencode_check(torch, np, meng, old_index, tomb, ins_ids, ins_x,
+                                      ins_assign)
+    reenc["seconds"] = time.perf_counter() - t
+    del old_index
+    meng.search(qb1[:8], NPROBE, K)  # the device copies, shared with the view below
+    post = dataclasses.replace(meng, rerank="off").search(qb1, NPROBE, K)
+    starved = ~np.isfinite(pre[0]).all(axis=1)
+    ok = ~starved
+    if not same_outside_ties(np, pre[0][ok], pre[1][ok], post[0][ok], post[1][ok]):
+        raise RuntimeError("mutable: the compacted engine differs from the mutable search")
+    log(phase="mutable_compaction", report=dataclasses.asdict(rep), summary=rep.summary(),
+        peak_memory_gb=compact_peak, reencode_check=reenc, starved_queries=int(starved.sum()),
+        rerank_off_equal=int(ok.sum()))
+
+    # the same engine with the delta inactive
+    inactive = drive_path(torch, np, ops, "mutable_inactive", meng, batches,
+                          ("build_luts", "adc_topk_tiles", "rerank_dists"))
+    log(phase="mutable_summary", seconds=time.perf_counter() - t_phase,
+        mean_batch_ms_delta_active=float(np.mean(batch_ms)),
+        mean_batch_ms_delta_inactive=inactive["mean_batch_ms"])
+    return rows
+
+
+def check_delta_scan(torch, np, ops, k_topk, scan, launches: int) -> dict:
+    """B5 at the delta view's shape (one pair per (query, probe slot), each
+    scanning its cluster's run of live rows, `block_n` 64, unpruned): rows
+    equal and distances bit-equal to the plain version, timed as every row."""
+    dev = scan.tables.device
+    lut_row, st, nv = (t.reshape(-1) for t in (scan.lut_row, scan.starts, scan.n_valid))
+    pq = scan.pair_q.reshape(-1)
+    codes, kk, bn = scan.view.codes, scan.k_pair, scan.view.block_n
+    no_lb = torch.full(lut_row.shape, -torch.inf, device=dev)
+    gv, gi, _ = ops.adc_topk_windows(scan.tables, codes, scan.starts, scan.n_valid, kk,
+                                     lut_row=scan.lut_row, block_n=bn, pair_q=scan.pair_q,
+                                     bound=scan.bound)
+    t = time.perf_counter()
+    wv, wi, _ = k_topk.adc_topk_windows_plain(scan.tables, lut_row, codes, st, nv, pq, no_lb,
+                                              scan.bound, kk, bn)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    gv, gi = gv.reshape(wv.shape), gi.reshape(wi.shape)
+    if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+        raise RuntimeError("adc_topk_windows (delta view) disagrees with its plain version")
+    filled = torch.nonzero((lut_row >= 0) & (nv > 0)).flatten().int()
+    sq = scan.bound.clone()
+    ov, oi = torch.empty_like(gv), torch.empty_like(gi)
+    os_ = torch.empty((lut_row.shape[0], 2), dtype=torch.int32, device=dev)
+
+    def launch():
+        sq.copy_(scan.bound)
+        k_topk.launch_windows(scan.tables, lut_row, codes, filled, st, nv, pq, no_lb,
+                              scan.bound, sq, ov, oi, os_, kk, bn)
+
+    lib_run, lib_groups = scan_library(torch, scan.tables, lut_row, codes, st, nv, kk)
+    lib_v = torch.full(gv.shape, torch.inf, device=dev)
+    lib_run(lib_v)
+    if not torch.allclose(lib_v, gv, **TOL):
+        raise RuntimeError("delta scan: the library expression computes another function")
+    rows_scored = int(nv[filled.long()].sum())
+    live_rows = int(scan.view.counts.sum())
+    m = codes.shape[2]
+    bms, by = bound_ms(live_rows * m + scan.tables.numel() * 4 + lut_row.shape[0] * kk * 8,
+                       rows_scored * m)
+    return dict(
+        name="adc_topk_windows", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
+        replaces="src/repro/kernels/adc_topk.py:592", launches=launches, max_abs_err=0.0,
+        ms=cuda_ms(torch, launch, 20), queued_ms=cuda_ms(torch, launch, 20, queued=True),
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib_run, 1),
+        library_call="per filled pair, its run's tables[pair][addresses].sum(-1) then "
+                     f"torch.topk(k_pair, largest=False), pairs of like length batched "
+                     f"({lib_groups} gathers)",
+        shape=dict(path="mutable delta scan", pairs=lut_row.shape[0],
+                   pairs_scanned=int(filled.numel()), k_pair=kk, block_n=bn,
+                   view_rows=codes.shape[1], live_rows=live_rows, rows_scored=rows_scored,
+                   table_width=scan.tables.shape[1]),
+    )
+
+
+def shards_embed(torch, np, big, small) -> bool:
+    """True when `small`'s packing (a from-scratch `build_shards`, no slack)
+    sits at the start of `big`'s arrays (the same packing grown by slack:
+    more rows, slots and columns) and the rest of `big` is padding."""
+    cap, w, s_n = small.codes.shape[1], small.codes.shape[2], small.slot_start.shape[1]
+    fill = 0 if big.add_offsets else big.sentinel
+    fill = fill - (1 << 16) if big.codes.dtype == torch.uint16 and fill >= 1 << 15 else fill
+
+    def bits(c):
+        c = torch.as_tensor(c)
+        return c.view(torch.int16) if c.dtype == torch.uint16 else c
+
+    bc, sc = bits(big.codes), bits(small.codes).to(bits(big.codes).device)
+    ok = (torch.equal(bc[:, :cap, :w], sc) and bool((bc[:, cap:] == fill).all())
+          and bool((bc[:, :, w:] == fill).all()))
+    ok &= np.array_equal(big.vec_ids[:, :cap], small.vec_ids)
+    ok &= bool((big.vec_ids[:, cap:] == -1).all())
+    for f, empty in (("slot_start", 0), ("slot_size", 0), ("slot_cluster", -1),
+                     ("combo_addrs", 0)):
+        a, b = getattr(big, f), getattr(small, f)
+        ok &= np.array_equal(a[:, :s_n], b) and bool((a[:, s_n:] == empty).all())
+    return bool(ok and np.array_equal(big.local_slot, small.local_slot))
+
+
+def mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, seed, n_rows=MUT_COOC_ROWS,
+                      n_inserts=MUT_INSERTS, n_deletes=MUT_DELETES) -> None:
+    """One windows x co-occurrence mutable cell at a reduced N (scale only;
+    the same centroids, codebook and geometry): the main index's rows with
+    ids below `n_rows`, re-placed by Algorithm 1, its raw vectors from the
+    store.  Inserts and deletes, timed batches, then a compaction whose
+    co-occurrence repack (`update_shards`) runs on the card and must hold a
+    from-scratch `build_shards` of the compacted index bit for bit
+    (`shards_embed`: the same packing, grown by the slack); the
+    compacted engine's re-rank-off distances must be those of the mutable
+    search within the cross-encoding tolerance (rtol 2e-4)."""
+    from repro_torch.convert import index_from_arrays
+    from repro_torch.core.placement import place_clusters
+    from repro_torch.retrieval.engine import MemANNSEngine
+    from repro_torch.retrieval.layout import build_shards
+
+    t_cell = time.perf_counter()
+    idx = meng.index
+    keep = idx.vec_ids < n_rows
+    sizes = np.bincount(np.repeat(np.arange(idx.n_clusters), idx.cluster_sizes())[keep],
+                        minlength=idx.n_clusters)
+    offsets = np.zeros(idx.n_clusters + 1, np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    sub = index_from_arrays(idx.centroids, idx.codebook, idx.codes[keep], idx.vec_ids[keep],
+                            offsets)
+    plc = place_clusters(sizes.astype(np.float64), meng.freqs, NDEV, centroids=sub.centroids)
+    raw = meng.raw
+    xs = torch.zeros((n_rows, D), dtype=torch.bfloat16, device=dev)
+    ids = torch.as_tensor(sub.vec_ids, device=dev).long()
+    xs[ids] = raw.vectors[raw.row_base[raw.id_dev[ids].long()] + raw.id_row[ids].long()]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ceng = MemANNSEngine.from_reference(
+        sub, plc, xs, block_n=BLOCK_N, raw_dtype="bfloat16", scan="windows", use_cooc=True,
+        rerank="exact", mutable=True, freqs=meng.freqs, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    del xs, ids
+    ins_x = ds.queries(n_inserts, seed=seed + 5)
+    ins_ids = np.arange(n_rows, n_rows + n_inserts, dtype=np.int64)
+    rng = np.random.default_rng(seed + 6)
+    dels = np.concatenate([rng.choice(sub.vec_ids, n_deletes // 2, replace=False),
+                           rng.choice(ins_ids, n_deletes - n_deletes // 2, replace=False)])
+    ceng.insert(ins_ids, ins_x)
+    ceng.delete(dels)
+    ceng.search(batches[0], NPROBE, K)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    batch_ms = []
+    for qb in batches[1:3]:
+        t = time.perf_counter()
+        d, i = ceng.search(qb, NPROBE, K)
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        if d.shape != (BATCH, K) or not np.isfinite(d).all() or np.isin(i, dels).any():
+            raise RuntimeError("mutable cooc: malformed results or a tombstoned id")
+    launches = dict(ops.launches)
+    for kname in ("build_luts", "build_ext_luts_pairs", "adc_topk_windows", "rerank_dists"):
+        if launches[kname] <= 0:
+            raise RuntimeError(f"mutable cooc: kernel {kname} was never launched")
+    view_off = dataclasses.replace(ceng, rerank="off")
+    pre = view_off.search(batches[1], NPROBE, K)
+    rep = ceng.compact()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scratch = build_shards(ceng.index, ceng.placement, use_cooc=True, block_n=BLOCK_N,
+                           device=dev)
+    scratch_s = time.perf_counter() - t
+    sh = ceng.shards
+    if not shards_embed(torch, np, sh, scratch):
+        raise RuntimeError("mutable cooc: update_shards differs from a scratch build_shards")
+    del scratch
+    # the delta scanned its rows with plain codes; compaction re-encodes them
+    # (and re-mines their clusters): the same distances up to reassociation,
+    # within the reference's cross-encoding tolerance
+    ceng.search(batches[1][:8], NPROBE, K)
+    post = dataclasses.replace(ceng, rerank="off").search(batches[1], NPROBE, K)
+    ok = np.isfinite(pre[0]).all(axis=1)
+    if not np.allclose(pre[0][ok], post[0][ok], rtol=2e-4):
+        raise RuntimeError("mutable cooc: the compacted engine's distances differ from the "
+                           "mutable search's beyond the cross-encoding tolerance")
+    same_ids = float(np.mean([len(set(a) & set(b)) / K
+                              for a, b in zip(pre[1][ok], post[1][ok])]))
+    log(phase="mutable_cooc_windows", n=n_rows, build_seconds=build_s, batch_ms=batch_ms,
+        launches={k: v for k, v in launches.items() if v}, report=dataclasses.asdict(rep),
+        scratch_build_seconds=scratch_s, update_shards_equals_scratch=True,
+        rerank_off_allclose=int(ok.sum()), rerank_off_id_overlap=same_ids, width=sh.width,
+        seconds=time.perf_counter() - t_cell)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000, help="corpus rows")
@@ -1698,6 +2175,28 @@ def main(argv=None) -> int:
     # == the kernel-level ADC API (B8, B6, B7) and the flat search ==========
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
                                    direct_codes, direct_table, regs)
+
+    # == the mutable path (inserts, deletes, compaction) =====================
+    # the immutable engine's device arrays are freed first; the mutable one
+    # reuses its index, placement and raw store (re-packed with slack)
+    del direct_codes, direct_table, dv, luts, qmc, qmc_rows, rows, lut_row, out, cand
+    del handle, qt, raw, ids_of_row, mapped, gt_rows
+    t = time.perf_counter()
+    eng._dev_arrays = None
+    torch.cuda.empty_cache()
+    meng = mutable_engine(torch, np, eng, dev, rerank="exact")
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(phase="mutable_build", seconds=time.perf_counter() - t,
+        code_rows_per_device=int(meng.shards.codes.shape[1]),
+        raw_store_gb=meng.raw.nbytes() / 1e9,
+        memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    kernels += mutable_phase(torch, np, ops, k_lut, k_topk, k_rerank, meng, ds, batches,
+                             dev, args.seed)
+    mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, args.seed)
+    del meng
+    torch.cuda.empty_cache()
 
     kernels += lm_rows
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

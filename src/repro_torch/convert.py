@@ -3,8 +3,8 @@
 The reference's k-means and PQ training and its weight init draw from
 `jax.random`, so the two packages can only be held to the same answers
 over the same state.  These functions build the port's objects from plain
-numpy arrays, or read a reference `save_index` directory (`index/*.npy` +
-`meta.json`) without importing the reference.
+numpy arrays, or read a reference `save_index` directory (`index/*.npy`,
+`delta/*.npy` + `meta.json`) without importing the reference.
 """
 
 from __future__ import annotations
@@ -15,11 +15,13 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.core.delta import DeltaIndex
 from repro_torch.core.index import IVFPQIndex
 from repro_torch.core.placement import Placement
 from repro_torch.device import resolve_device
 
 _INDEX_FIELDS = ("centroids", "codebook", "codes", "vec_ids", "offsets")
+_DELTA_FIELDS = ("codes", "assign", "vec_ids", "dead")
 
 
 def _own(a, dtype) -> np.ndarray:
@@ -60,12 +62,53 @@ def placement_from_arrays(
     )
 
 
+def delta_from_arrays(codes, assign, vec_ids, dead, n: int, tombstones,
+                      vectors=None) -> DeltaIndex:
+    """A `DeltaIndex` from the arrays of a delta buffer (e.g. the
+    reference's `DeltaIndex`): codes (cap, M), assign, vec_ids, dead (cap,),
+    the occupied row count, the tombstoned ids and the kept vectors.  The
+    arrays are copied: the new buffer's inserts must not write into the
+    source's."""
+    def copy(a, dtype):
+        return np.array(a, dtype, copy=True, order="C")
+
+    return DeltaIndex(
+        codes=copy(codes, np.uint8),
+        assign=copy(assign, np.int32),
+        vec_ids=copy(vec_ids, np.int32),
+        dead=copy(dead, bool),
+        n=int(n),
+        tombstones={int(t) for t in np.asarray(list(tombstones), np.int64).tolist()},
+        vectors=None if vectors is None else copy(vectors, np.float32),
+    )
+
+
 def load_index_dir(path: str) -> tuple[IVFPQIndex, dict]:
     """Read a reference `save_index` checkpoint directory, read-only.
 
     Returns (index, extra) where `extra` is the layout metadata the writer
     stored.  A checkpoint with a delta buffer (buffered inserts or
-    tombstones) is refused: the mutable path is not ported yet.
+    tombstones) raises: dropping the delta would lose mutations, so such a
+    checkpoint is read with `load_index_delta_dir`.
+    """
+    index, delta, extra = load_index_delta_dir(path)
+    if delta is not None:
+        raise ValueError(
+            f"{path!r} holds a delta buffer (buffered inserts or tombstones); read "
+            "it with repro_torch.convert.load_index_delta_dir, which keeps it"
+        )
+    return index, extra
+
+
+def load_index_delta_dir(path: str) -> tuple[IVFPQIndex, DeltaIndex | None, dict]:
+    """Read a reference `save_index` checkpoint directory with its delta.
+
+    Returns (index, delta or None, extra), as the reference's `load_index`
+    does: the index arrays (and an OPQ rotation), the delta buffer (its
+    codes, assignments, ids, dead mask, kept vectors and tombstones) when
+    the writer stored one, and the layout metadata.  A missing `path` falls
+    back to `path.old` (a crash between the writer's renames); a damaged
+    checkpoint raises ValueError naming it.
     """
     path = path.rstrip("/")
     if not os.path.exists(path) and os.path.exists(path + ".old"):
@@ -80,16 +123,23 @@ def load_index_dir(path: str) -> tuple[IVFPQIndex, dict]:
         rot = os.path.join(path, "index", "rotation.npy")
         if os.path.exists(rot):
             arrays["rotation"] = np.load(rot, allow_pickle=False)
-    except (OSError, ValueError) as e:
+        delta = None
+        if meta.get("has_delta"):
+            d = os.path.join(path, "delta")
+            dargs = {f: np.load(os.path.join(d, f + ".npy"), allow_pickle=False)
+                     for f in _DELTA_FIELDS}
+            vec = os.path.join(d, "vectors.npy")
+            delta = delta_from_arrays(
+                n=int(meta["delta_n"]),
+                tombstones=np.load(os.path.join(d, "tombstones.npy"), allow_pickle=False),
+                vectors=np.load(vec, allow_pickle=False) if os.path.exists(vec) else None,
+                **dargs,
+            )
+    except (OSError, ValueError, KeyError) as e:
         raise ValueError(
             f"unreadable save_index checkpoint at {path!r}: {type(e).__name__}: {e}"
         ) from e
-    if meta.get("has_delta"):
-        raise NotImplementedError(
-            f"{path!r} holds a delta buffer; the mutable path is not ported to "
-            "repro_torch yet (ROADMAP.md queue A item 9)"
-        )
-    return index_from_arrays(**arrays), meta.get("extra", {})
+    return index_from_arrays(**arrays), delta, meta.get("extra", {})
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

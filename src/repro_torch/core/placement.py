@@ -101,9 +101,10 @@ def _placement_pass(
     """The Algorithm-1 placement sweep over every unplaced cluster.
 
     Mutates the passed-in state in place.  `place_clusters` calls it with
-    empty state (the paper's offline placement); an incremental
-    re-placement would call it with a previous placement minus the changed
-    clusters, so only those clusters move.
+    empty state (the paper's offline placement); the mutation layer's
+    `update_placement` calls it with the previous placement minus the
+    changed clusters, so only those clusters move (incremental
+    re-placement).
     """
     # nearest-neighbour cluster order for co-location
     if centroids is not None:
@@ -237,6 +238,86 @@ def place_clusters(
     dev_vec = np.zeros(ndev, np.int64)
     dev_clusters: list[list[int]] = [[] for _ in range(ndev)]
     placed = np.zeros(c, bool)
+
+    _placement_pass(
+        sizes, work, w_bar, ndev, max_dev_vectors, max_replicas, thld_rate,
+        centroids, replicas, dev_load, dev_vec, dev_clusters, placed,
+    )
+    return Placement(
+        replicas=replicas,
+        dev_load=dev_load,
+        dev_vectors=dev_vec,
+        dev_clusters=dev_clusters,
+        w_bar=w_bar,
+    )
+
+
+def update_placement(
+    base: Placement,
+    sizes: np.ndarray,
+    freqs: np.ndarray,
+    changed: np.ndarray,
+    max_dev_vectors: int | None = None,
+    centroids: np.ndarray | None = None,
+    thld_rate: float = 0.02,
+    max_replicas: int | None = None,
+) -> Placement:
+    """Incremental re-placement after a compaction changed cluster sizes.
+
+    Clusters NOT in `changed` keep their replica devices (and their order
+    within each device's cluster list, so the shard packer can leave those
+    device regions untouched); changed clusters are pulled out and re-placed
+    by the same Algorithm-1 sweep (`_placement_pass`), greedily filling the
+    devices around the retained load.  Device loads/vector counts are
+    recomputed from the NEW sizes, so unchanged clusters' load contributions
+    track their current replica counts exactly (each replica carries
+    work/ncpy, the same accounting `place_clusters` uses).
+
+    Args:
+      base: the placement being updated.
+      sizes: (C,) NEW cluster sizes.
+      freqs: (C,) access frequencies (typically unchanged).
+      changed: (C,) bool mask (or int id array) of clusters to re-place.
+
+    Returns:
+      A fresh Placement (base is not mutated).
+    """
+    sizes = np.asarray(sizes, np.float64)
+    freqs = np.asarray(freqs, np.float64)
+    c = sizes.shape[0]
+    ndev = base.dev_load.shape[0]
+    changed = np.asarray(changed)
+    if changed.dtype != bool:
+        mask = np.zeros(c, bool)
+        mask[changed] = True
+        changed = mask
+    work = sizes * freqs
+    w_bar = float(work.sum()) / ndev
+    if max_dev_vectors is None:
+        max_dev_vectors = int(np.ceil(2.0 * sizes.sum() / ndev)) + int(
+            sizes.max(initial=1)
+        )
+    if max_replicas is None:
+        max_replicas = ndev
+
+    replicas: list[list[int]] = [
+        [] if changed[ci] else list(base.replicas[ci]) for ci in range(c)
+    ]
+    dev_clusters: list[list[int]] = [
+        [ci for ci in base.dev_clusters[d] if not changed[ci]]
+        for d in range(ndev)
+    ]
+    dev_load = np.zeros(ndev, np.float64)
+    dev_vec = np.zeros(ndev, np.int64)
+    for ci in range(c):
+        reps = replicas[ci]
+        if not reps:
+            continue
+        share = work[ci] / len(reps)
+        for d in reps:
+            dev_load[d] += share
+            dev_vec[d] += int(sizes[ci])
+    placed = ~changed
 
     _placement_pass(
         sizes, work, w_bar, ndev, max_dev_vectors, max_replicas, thld_rate,

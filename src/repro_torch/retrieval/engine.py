@@ -13,9 +13,10 @@ co-occurrence shards, pruned scan, hierarchical merge) and, with
 Ported knobs: `scan` "tiles" | "windows", `path` "gather" | "flat",
 `use_cooc` (§4.3 co-occurrence shards, with `n_combos`, `combo_len`,
 `mine_rows`, `min_length_reduction`), `prune`, `rerank` "off" | "exact",
-`k_overfetch`; immutable only.  `mutable`, `opq_iters` and the onehot
-path raise NotImplementedError naming the ROADMAP item that will bring
-them.
+`k_overfetch`, `mutable` (online inserts, tombstone deletes and
+compaction, `retrieval.mutation`, with `delta_capacity`).  `opq_iters`
+and the onehot path raise NotImplementedError naming the ROADMAP item
+that will bring them.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core.delta import DeltaIndex
 from repro_torch.core.index import IVFPQIndex, build_index, filter_clusters
 from repro_torch.core.placement import Placement, estimate_frequencies, place_clusters
 from repro_torch.core.scheduling import (
@@ -44,6 +46,8 @@ from repro_torch.retrieval.layout import (
     RawStore,
     build_raw_store,
     build_shards,
+    default_slack,
+    reserve_raw_store,
 )
 from repro_torch.retrieval.search import InFlightSearch, sharded_rerank, sharded_search
 
@@ -59,8 +63,7 @@ def _not_ported(knob: str, item: str) -> NotImplementedError:
     )
 
 
-def _check_knobs(scan: str, path: str, rerank: str, mutable: bool,
-                 opq_iters: int) -> None:
+def _check_knobs(scan: str, path: str, rerank: str, opq_iters: int) -> None:
     """Refuse, before any expensive work, what the port does not take.
 
     `path` names the addressing ("gather" for raw codes, "flat" for direct
@@ -75,8 +78,6 @@ def _check_knobs(scan: str, path: str, rerank: str, mutable: bool,
         raise ValueError(f"path must be 'gather' or 'flat', got {path!r}")
     if rerank not in ("off", "exact"):
         raise ValueError(f"rerank must be 'off' or 'exact', got {rerank!r}")
-    if mutable:
-        raise _not_ported("mutable", "queue A item 9")
     if opq_iters > 0:
         raise _not_ported("opq_iters", "queue A item 11")
 
@@ -114,6 +115,11 @@ class SearchPlan:
         """The scan this plan was built for."""
         return "tiles" if self.tile_pair is not None else "windows"
 
+    @property
+    def pruned(self) -> bool:
+        """True when this plan carries early-pruning bounds."""
+        return self.pair_lb is not None
+
     def query_bounds(self, k: int) -> np.ndarray:
         """(Q,) strict warm-start upper bounds on the k-th output distance."""
         if self.probed_ub is None or self.probed_sizes is None:
@@ -135,7 +141,10 @@ class MemANNSEngine:
     (`build(use_cooc=True)`).
 
     `device` is where the packed arrays live and the kernels run; the
-    index, placement and shard metadata stay host numpy.
+    index, placement and shard metadata stay host numpy.  `delta` is the
+    `core.delta.DeltaIndex` buffer of a mutable engine (`insert`,
+    `delete`, `compact`); while it is active, `search` goes through
+    `retrieval.mutation.mutable_search`.
     """
 
     index: IVFPQIndex
@@ -148,6 +157,7 @@ class MemANNSEngine:
     k_overfetch: int = 0
     freqs: np.ndarray | None = None
     raw: RawStore | None = None
+    delta: DeltaIndex | None = None
     _dev_arrays: dict | None = None
     _code_norms: np.ndarray | None = None
 
@@ -177,6 +187,7 @@ class MemANNSEngine:
         mine_rows: int = 50_000,
         min_length_reduction: float = 0.0,
         mutable: bool = False,
+        delta_capacity: int = 4096,
         opq_iters: int = 0,
         seed: int = 0,
         device: torch.device | str | None = None,
@@ -190,9 +201,13 @@ class MemANNSEngine:
         `rerank="exact"` the raw vectors are packed into a `RawStore` of
         `raw_dtype`.  `use_cooc=True` packs co-occurrence shards (§4.3;
         `n_combos`, `combo_len`, `mine_rows`, `min_length_reduction` as in
-        `retrieval.layout.build_shards`).
+        `retrieval.layout.build_shards`).  `mutable=True` allocates a
+        delta buffer of `delta_capacity` rows (pow2-bucketed) and packs the
+        shards and the raw store with the reference's growth slack
+        (`layout.default_slack`: 50 % rows, 4 slots, 2+ window blocks; the
+        raw store 50 % rows), so compactions usually keep every shape.
         """
-        _check_knobs(scan, path, rerank, mutable, opq_iters)
+        _check_knobs(scan, path, rerank, opq_iters)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         index = build_index(
@@ -219,7 +234,7 @@ class MemANNSEngine:
             cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
             freqs=freqs, scan=scan, prune=prune, rerank=rerank,
-            k_overfetch=k_overfetch,
+            k_overfetch=k_overfetch, mutable=mutable, delta_capacity=delta_capacity,
         )
 
     @classmethod
@@ -242,6 +257,10 @@ class MemANNSEngine:
         mine_rows: int = 50_000,
         min_length_reduction: float = 0.0,
         freqs: np.ndarray | None = None,
+        mutable: bool = False,
+        delta_capacity: int = 4096,
+        delta=None,
+        raw: RawStore | None = None,
         device: torch.device | str | None = None,
     ) -> "MemANNSEngine":
         """An engine over an already trained index and placement.
@@ -252,11 +271,21 @@ class MemANNSEngine:
         `xs` are the raw vectors (ids 0..N-1); they back `rerank="exact"`
         and may be given with `rerank="off"` to switch later.  The number
         of logical devices is the placement's.  The co-occurrence knobs
-        are `build`'s.
+        and `mutable` / `delta_capacity` are `build`'s.  `delta` (this
+        package's `DeltaIndex`, or any object with its arrays, e.g. the
+        reference's, as `convert.load_index_delta_dir` returns it) makes the
+        engine mutable and carries the buffered inserts and tombstones over.
+        `raw` is a `RawStore` already packed for this index and placement
+        (another engine's, used instead of `xs`; a mutable engine re-packs
+        it with slack, `layout.reserve_raw_store`).
         """
-        from repro_torch.convert import index_from_arrays, placement_from_arrays
+        from repro_torch.convert import (
+            delta_from_arrays,
+            index_from_arrays,
+            placement_from_arrays,
+        )
 
-        _check_knobs(scan, path, rerank, False, 0)
+        _check_knobs(scan, path, rerank, 0)
         dev = resolve_device(device)
         idx = index_from_arrays(
             index.centroids, index.codebook, index.codes, index.vec_ids,
@@ -268,24 +297,66 @@ class MemANNSEngine:
             placement.replicas, placement.dev_load, placement.dev_vectors,
             placement.dev_clusters, placement.w_bar,
         )
-        if rerank == "exact" and xs is None:
+        if rerank == "exact" and xs is None and raw is None:
             raise ValueError("rerank='exact' needs the raw vectors xs")
+        if delta is not None:
+            delta = delta_from_arrays(
+                delta.codes, delta.assign, delta.vec_ids, delta.dead, delta.n,
+                delta.tombstones, getattr(delta, "vectors", None),
+            )
         return cls._assemble(
             idx, plc, dev, xs, block_n=block_n, raw_dtype=raw_dtype,
             cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
             freqs=freqs, scan=scan, prune=prune, rerank=rerank,
-            k_overfetch=k_overfetch,
+            k_overfetch=k_overfetch, mutable=mutable or delta is not None,
+            delta_capacity=delta_capacity, delta=delta, raw=raw,
         )
 
     @classmethod
-    def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, cooc, **knobs):
-        shards = build_shards(index, placement, block_n=block_n, device=dev, **cooc)
-        raw = None
-        if xs is not None:
-            raw = build_raw_store(index, placement, xs, dtype=raw_dtype, device=dev)
+    def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, cooc,
+                  mutable, delta_capacity, delta=None, raw=None, **knobs):
+        cap_slack, slot_slack, window_slack = default_slack(block_n, mutable)
+        shards = build_shards(index, placement, block_n=block_n, device=dev,
+                              cap_slack=cap_slack, slot_slack=slot_slack,
+                              window_slack=window_slack, **cooc)
+        raw_slack = 0.5 if mutable else 0.0
+        if raw is not None:
+            raw = reserve_raw_store(raw, raw_slack) if mutable else raw
+        elif xs is not None:
+            raw = build_raw_store(index, placement, xs, dtype=raw_dtype, device=dev,
+                                  cap_slack=raw_slack)
+        if mutable and delta is None:
+            delta = DeltaIndex.create(index.m, delta_capacity)
         return cls(index=index, placement=placement, shards=shards, device=dev,
-                   raw=raw, **knobs)
+                   raw=raw, delta=delta, **knobs)
+
+    # ------------------------- online mutation ------------------------- #
+
+    def insert(self, ids: np.ndarray, vectors: np.ndarray) -> int:
+        """Buffer new PQ-encoded vectors; visible to the next search."""
+        from repro_torch.retrieval.mutation import insert_into
+
+        return insert_into(self, ids, vectors)
+
+    def delete(self, ids: np.ndarray) -> int:
+        """Tombstone ids; filtered from the next search onward."""
+        from repro_torch.retrieval.mutation import delete_from
+
+        return delete_from(self, ids)
+
+    def compact(self, replace_threshold: float = 0.25):
+        """Merge the delta + drop tombstones; incremental re-place + repack.
+
+        Returns a `retrieval.mutation.CompactionReport`."""
+        from repro_torch.retrieval.mutation import compact_engine
+
+        return compact_engine(self, replace_threshold=replace_threshold)
+
+    @property
+    def mutation_active(self) -> bool:
+        """True when searches must consult the delta layer."""
+        return self.delta is not None and self.delta.active
 
     # ------------------------------------------------------------------ #
 
@@ -488,8 +559,16 @@ class MemANNSEngine:
 
         With `rerank="exact"` the ADC scan overfetches `k_prime(k)`
         candidates and the re-rank re-selects the top k by exact f32
-        distance (the distances returned are then exact).
+        distance (the distances returned are then exact).  With an active
+        mutation layer (buffered inserts or tombstones) the main results
+        are overfetched, filtered and merged with the delta's top-k
+        (`retrieval.mutation.mutable_search`); otherwise this is the
+        immutable path.
         """
+        if self.mutation_active:
+            from repro_torch.retrieval.mutation import mutable_search
+
+            return mutable_search(self, queries, nprobe, k)
         plan = self.plan_batch(queries, nprobe)
         if self.rerank == "exact":
             handle = self.dispatch_plan(plan, self.k_prime(k))

@@ -172,18 +172,21 @@ def sharded_search(
         raise ValueError(f"scan must be 'tiles' or 'windows', got {scan!r}")
     prune_dev = prune.sum(dim=1, dtype=torch.int32)
 
-    rows = starts[:, :, None].long() + ti.long()
-    gids = torch.where(
-        ti >= 0, vec_ids.gather(1, rows.clamp_min(0).reshape(ndev, -1)).reshape(rows.shape), -1
-    )
-    tv = torch.where(pair_valid[:, :, None], tv, torch.inf)
-
-    # per-query merge on each logical device
-    group = torch.where(pair_valid, pair_q.long(), n_queries)[:, :, None]
-    local_d, local_i = _group_topk(
-        tv.reshape(ndev, -1), gids.reshape(ndev, -1),
-        group.expand(ndev, p, k).reshape(ndev, -1), n_queries, k,
-    )
+    # per-query merge on each logical device, one device at a time (the
+    # sort temporaries of P x k entries stay one device's: at k = 2048 all
+    # eight at once would take ~10 GB)
+    group = torch.where(pair_valid, pair_q.long(), n_queries)
+    local_d = torch.empty((ndev, n_queries, k), dtype=torch.float32, device=dev)
+    local_i = torch.empty((ndev, n_queries, k), dtype=vec_ids.dtype, device=dev)
+    for d in range(ndev):
+        rows = starts[d, :, None].long() + ti[d].long()
+        gids = torch.where(ti[d] >= 0, vec_ids[d][rows.clamp_min(0)], -1)
+        tvd = torch.where(pair_valid[d, :, None], tv[d], torch.inf)
+        ld, li = _group_topk(
+            tvd.reshape(1, -1), gids.reshape(1, -1),
+            group[d, :, None].expand(p, k).reshape(1, -1), n_queries, k,
+        )
+        local_d[d], local_i[d] = ld[0], li[0]
 
     # merge across logical devices
     all_d = local_d.permute(1, 0, 2).reshape(n_queries, ndev * k)

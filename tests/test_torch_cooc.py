@@ -254,8 +254,15 @@ def test_build_shards_cooc_narrow_width():
     with pytest.raises(ValueError, match="uint16"):
         tlayout.build_shards(wide, tplace.place_clusters(np.array([4.0]), np.ones(1), 1),
                              use_cooc=True, n_combos=256, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tlayout.build_shards(port, tp, use_cooc=True, cap_slack=0.5, device="cpu")
+    # co-occurrence shards with mutable slack (queue A item 9, ported):
+    # the full plain width reserved, equal to the reference's
+    kw = dict(use_cooc=True, n_combos=64, combo_len=2, block_n=64, cap_slack=0.5,
+              slot_slack=4, window_slack=2)
+    r = rlayout.build_shards(ref, rp, **kw)
+    t = tlayout.build_shards(port, tp, device="cpu", **kw)
+    assert r.width == t.width == ref.m
+    np.testing.assert_array_equal(r.codes, np.asarray(t.codes))
+    np.testing.assert_array_equal(r.combo_addrs, t.combo_addrs)
 
 
 @pytest.fixture(scope="module")

@@ -235,9 +235,23 @@ def test_load_index_dir(engines, clustered_data, tmp_path):
      dict(scan="windows", mutable=True), dict(mutable=True), dict(opq_iters=2)],
 )
 def test_unported_knobs_raise(clustered_data, knob):
-    xs = clustered_data[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MemANNSEngine.build(xs, 32, 8, device="cpu", **knob)
+    """`path="onehot"` and `opq_iters` still raise, naming their ROADMAP
+    item; the three `mutable=True` cases (plain tiles, plain windows and
+    co-occurrence shards) are ported now (queue A item 9) and build a
+    mutable engine whose inserts the next search finds."""
+    xs, _, qs, _ = clustered_data
+    if not knob.get("mutable"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MemANNSEngine.build(xs, 32, 8, device="cpu", **knob)
+        return
+    eng = MemANNSEngine.build(xs, 32, 8, device="cpu", kmeans_iters=3, pq_iters=3,
+                              n_combos=32, block_n=BLOCK_N, delta_capacity=64, **knob)
+    assert eng.delta is not None and eng.delta.capacity == 64 and not eng.mutation_active
+    assert eng.shards.codes.shape[2] == 8  # co-occurrence shards reserve the full width
+    ids = np.arange(xs.shape[0], xs.shape[0] + 4)
+    eng.insert(ids, qs[:4])
+    _, got = eng.search(qs[:4], NPROBE, K)
+    np.testing.assert_array_equal(got[:, 0], ids)
 
 
 def test_index_assembly_matches_reference(engines, clustered_data):

@@ -10,7 +10,9 @@ tables (B1, B4, B9), ADC distances (B2 and B5, raw uint8 codes of width 8,
 16 and 32 at k 1, 64 and 4096, and uint16 / int32 direct addresses) and
 re-rank distances (B3) must be bit-equal; the pruned scans must equal the
 unpruned ones after the per-query merge, and a whole engine on the card (plain or co-occurrence
-shards, either scan) must return the engine-on-CPU answers.  The
+shards, either scan) must return the engine-on-CPU answers, a mutable
+one too (inserts, deletes, compaction), and the delta scan (B1 + B5 over
+the cluster-sorted view) must equal `delta_topk_plain` bit for bit.  The
 kernel-level API -- B8 (`adc_scan`), B6 (`adc_topk`, with and without a
 finite bound, at 1 to 16 tables and k up to 4096; `adc_topk_grouped`) and B7
 (`adc_topk_pairs`) -- is bit-equal to its plain versions in one launch per
@@ -348,6 +350,88 @@ def test_cooc_engine_on_card_matches_cpu(cuda, clustered_data):
             d2, i2 = gpu.search(qs, 8, 10)
             np.testing.assert_array_equal(d1, d2)
             np.testing.assert_array_equal(i1, i2)
+
+
+def _delta_case(dev, seed, c=64, d=32, m=8, n=3000, n_del=500):
+    """A delta buffer of `n` inserts (encoded on `dev`), `n_del` of them
+    tombstoned, over random centroids and codebook; and 100 queries."""
+    from repro_torch.core.delta import DeltaIndex
+
+    rng = np.random.default_rng(seed)
+    cent = rng.normal(0, 5, (c, d)).astype(np.float32)
+    cb = rng.normal(size=(m, 256, d // m)).astype(np.float32)
+    vecs = (cent[rng.integers(0, c, n)] + rng.normal(0, 1, (n, d))).astype(np.float32)
+    delta = DeltaIndex.create(m, 4096)
+    delta.insert(cent, cb, np.arange(n), vecs, device=dev)
+    delta.delete(rng.choice(n, n_del, replace=False))
+    qs = (cent[rng.integers(0, c, 100)] + rng.normal(0, 1, (100, d))).astype(np.float32)
+    return delta, cent, cb, qs
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 2048])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_delta_scan_on_card_matches_plain(cuda, k, bounded):
+    """The delta scan on the card (one B1 and one B5 launch over the
+    cluster-sorted view) is bit-equal to `delta_topk_plain`, the
+    reference's formula in plain PyTorch, with and without a bound, and to
+    the same route on the CPU."""
+    from repro_torch.core.delta import delta_topk, delta_topk_plain
+
+    delta, cent, cb, qs = _delta_case(cuda, k)
+    bound = None
+    if bounded:  # halfway between two rows' distances: no row sits on it
+        u, _ = delta_topk_plain(delta, cent, cb, qs, 8, 64, device=cuda)
+        j = max(0, k // 2 - 1) if k < 64 else 10
+        bound = ((u[:, j] + u[:, j + 1]) / 2).astype(np.float32)
+    ops.reset_launches()
+    got = delta_topk(delta, cent, cb, qs, 8, k, bound=bound, device=cuda)
+    torch.cuda.synchronize()
+    assert ops.launches["build_luts"] == 1 and ops.launches["adc_topk_windows"] == 1
+    want = delta_topk_plain(delta, cent, cb, qs, 8, k, bound=bound, device=cuda)
+    cpu = delta_topk(delta, cent, cb, qs, 8, k, bound=bound, device="cpu")
+    for a, b, c in zip(got, want, cpu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_mutable_engine_on_card_matches_cpu(cuda, clustered_data):
+    """A mutable engine on the card: inserts encode as on the CPU, and the
+    searches (tiles / windows, pruned / not, exact re-rank) and the
+    compaction give the CPU engine's answers."""
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, centers, qs, hist = clustered_data
+    eng = MemANNSEngine.build(
+        xs, 32, 8, ndev=8, history_queries=hist, block_n=256, kmeans_iters=8,
+        pq_iters=6, rerank="exact", mutable=True, device="cpu",
+    )
+    gpu = MemANNSEngine.from_reference(
+        eng.index, eng.placement, xs, block_n=256, rerank="exact", mutable=True,
+        freqs=eng.freqs, device=cuda,
+    )
+    rng = np.random.default_rng(1)
+    ids = np.arange(12000, 12300)
+    vecs = (centers[rng.integers(0, 32, 300)] + rng.normal(0, 1, (300, 32))).astype(np.float32)
+    dels = np.concatenate([rng.choice(12000, 80, replace=False), ids[:20]])
+    for e in (eng, gpu):
+        e.insert(ids, vecs)
+        e.delete(dels)
+    np.testing.assert_array_equal(eng.delta.codes, gpu.delta.codes)
+    np.testing.assert_array_equal(eng.delta.assign, gpu.delta.assign)
+    ops.reset_launches()
+    for scan in ("tiles", "windows"):
+        for prune in (True, False):
+            eng.scan = gpu.scan = scan
+            eng.prune = gpu.prune = prune
+            for a, b in zip(eng.search(qs, 8, 10), gpu.search(qs, 8, 10)):
+                np.testing.assert_array_equal(a, b)
+    assert ops.launches["adc_topk_windows"] >= 4 and ops.launches["rerank_dists"] >= 8
+    eng.compact()
+    gpu.compact()
+    for f in ("codes", "vec_ids", "offsets"):
+        np.testing.assert_array_equal(getattr(eng.index, f), getattr(gpu.index, f))
+    for a, b in zip(eng.search(qs, 8, 10), gpu.search(qs, 8, 10)):
+        np.testing.assert_array_equal(a, b)
 
 
 def _api_case(dev, seed, n, w, dtype, q=3):

@@ -156,8 +156,16 @@ def test_build_shards_equal(index_pair, ndev):
         np.testing.assert_array_equal(getattr(r, f), getattr(t, f))
     assert (r.window, r.block_n) == (t.window, t.block_n)
     assert rlayout.default_slack(256, True) == tlayout.default_slack(256, True)
-    with pytest.raises(NotImplementedError):  # co-occurrence + mutable slack
-        tlayout.build_shards(port, tp, use_cooc=True, cap_slack=0.5, device="cpu")
+    # co-occurrence + mutable slack (ported): equal to the reference's too
+    kw = dict(block_n=BLOCK_N, use_cooc=True, n_combos=16, cap_slack=0.5, slot_slack=2,
+              window_slack=1)
+    r = rlayout.build_shards(ref, rp, **kw)
+    t = tlayout.build_shards(port, tp, device="cpu", **kw)
+    for f in ("vec_ids", "slot_start", "slot_size", "slot_cluster", "local_slot",
+              "combo_addrs"):
+        np.testing.assert_array_equal(getattr(r, f), getattr(t, f))
+    np.testing.assert_array_equal(r.codes, np.asarray(t.codes))
+    assert (r.window, r.width) == (t.window, t.width)
 
 
 @pytest.mark.parametrize("ndev", [1, 8])

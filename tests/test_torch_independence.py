@@ -31,7 +31,7 @@ new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.ker
        "repro_torch.kernels.flash_attn", "repro_torch.models.config",
        "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.configs",
        "repro_torch.configs.qwen3_8b", "repro_torch.configs.memanns",
-       "repro_torch.launch.serve"]
+       "repro_torch.launch.serve", "repro_torch.core.delta", "repro_torch.retrieval.mutation"]
 assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """
@@ -109,8 +109,20 @@ def _tiny_index():
     )
 
 
+def _update_cooc(idx):
+    """`update_shards` on co-occurrence shards (built on the CPU as asked),
+    with no device given: it must resolve to cuda."""
+    from repro_torch.core.placement import place_clusters
+    from repro_torch.retrieval import layout
+
+    plc = place_clusters(np.array([4, 6]), np.ones(2), 2)
+    old = layout.build_shards(idx, plc, use_cooc=True, n_combos=8, cap_slack=0.5,
+                              device="cpu")
+    return layout.update_shards(idx, plc, old, np.array([True, False]))
+
+
 def _call(name):
-    from repro_torch.core import cooc
+    from repro_torch.core import cooc, delta
     from repro_torch.core import index as tindex
     from repro_torch.core.placement import place_clusters
     from repro_torch.data import vectors
@@ -135,6 +147,13 @@ def _call(name):
         "generate_clustered": lambda: vectors.generate_clustered(10, 32, 2),
         "build_raw_store": lambda: layout.build_raw_store(
             idx, place_clusters(np.array([4, 6]), np.ones(2), 2), xs),
+        "delta_insert": lambda: delta.DeltaIndex.create(8, 64).insert(
+            idx.centroids, idx.codebook, np.arange(10, 12), xs[:2]),
+        "delta_topk": lambda: delta.delta_topk(
+            delta.DeltaIndex.create(8, 64), idx.centroids, idx.codebook, xs[:2], 1, 3),
+        "delta_topk_plain": lambda: delta.delta_topk_plain(
+            delta.DeltaIndex.create(8, 64), idx.centroids, idx.codebook, xs[:2], 1, 3),
+        "update_shards_cooc": lambda: _update_cooc(idx),
     }
     return calls[name]()
 
@@ -142,12 +161,14 @@ def _call(name):
 @pytest.mark.parametrize("name", [
     "build_index", "encode_index", "assign_clusters", "encode_vectors", "search",
     "brute_force", "generate_clustered", "build_raw_store", "mine_combos", "reencode",
-    "max_combo_frequency", "build_shards_cooc",
+    "max_combo_frequency", "build_shards_cooc", "delta_insert", "delta_topk",
+    "delta_topk_plain", "update_shards_cooc",
 ])
 def test_index_and_data_entry_points_refuse_cpu_fallback(name):
-    """The index, data, co-occurrence and shard functions default to cuda as
-    the engine does: on a host without a GPU they raise, never compute on
-    the CPU."""
+    """The index, data, co-occurrence, shard and mutation functions (the
+    delta buffer's insert and scans, the co-occurrence repack) default to
+    cuda as the engine does: on a host without a GPU they raise, never
+    compute on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: cuda is a valid default here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
