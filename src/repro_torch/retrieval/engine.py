@@ -47,7 +47,6 @@ from repro_torch.retrieval.layout import (
     build_raw_store,
     build_shards,
     default_slack,
-    reserve_raw_store,
 )
 from repro_torch.retrieval.search import InFlightSearch, sharded_rerank, sharded_search
 
@@ -260,7 +259,6 @@ class MemANNSEngine:
         mutable: bool = False,
         delta_capacity: int = 4096,
         delta=None,
-        raw: RawStore | None = None,
         device: torch.device | str | None = None,
     ) -> "MemANNSEngine":
         """An engine over an already trained index and placement.
@@ -275,9 +273,6 @@ class MemANNSEngine:
         package's `DeltaIndex`, or any object with its arrays, e.g. the
         reference's, as `convert.load_index_delta_dir` returns it) makes the
         engine mutable and carries the buffered inserts and tombstones over.
-        `raw` is a `RawStore` already packed for this index and placement
-        (another engine's, used instead of `xs`; a mutable engine re-packs
-        it with slack, `layout.reserve_raw_store`).
         """
         from repro_torch.convert import (
             delta_from_arrays,
@@ -297,7 +292,7 @@ class MemANNSEngine:
             placement.replicas, placement.dev_load, placement.dev_vectors,
             placement.dev_clusters, placement.w_bar,
         )
-        if rerank == "exact" and xs is None and raw is None:
+        if rerank == "exact" and xs is None:
             raise ValueError("rerank='exact' needs the raw vectors xs")
         if delta is not None:
             delta = delta_from_arrays(
@@ -310,22 +305,20 @@ class MemANNSEngine:
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
             freqs=freqs, scan=scan, prune=prune, rerank=rerank,
             k_overfetch=k_overfetch, mutable=mutable or delta is not None,
-            delta_capacity=delta_capacity, delta=delta, raw=raw,
+            delta_capacity=delta_capacity, delta=delta,
         )
 
     @classmethod
     def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, cooc,
-                  mutable, delta_capacity, delta=None, raw=None, **knobs):
+                  mutable, delta_capacity, delta=None, **knobs):
         cap_slack, slot_slack, window_slack = default_slack(block_n, mutable)
         shards = build_shards(index, placement, block_n=block_n, device=dev,
                               cap_slack=cap_slack, slot_slack=slot_slack,
                               window_slack=window_slack, **cooc)
-        raw_slack = 0.5 if mutable else 0.0
-        if raw is not None:
-            raw = reserve_raw_store(raw, raw_slack) if mutable else raw
-        elif xs is not None:
+        raw = None
+        if xs is not None:
             raw = build_raw_store(index, placement, xs, dtype=raw_dtype, device=dev,
-                                  cap_slack=raw_slack)
+                                  cap_slack=0.5 if mutable else 0.0)
         if mutable and delta is None:
             delta = DeltaIndex.create(index.m, delta_capacity)
         return cls(index=index, placement=placement, shards=shards, device=dev,

@@ -125,35 +125,6 @@ def rerank_rows(delta: DeltaIndex, queries: torch.Tensor, rows: torch.Tensor,
     return out_d, torch.where(torch.isfinite(out_d), rows.gather(1, sel), -1)
 
 
-def delta_exact_rerank(
-    delta: DeltaIndex,
-    queries: np.ndarray,
-    delta_d: np.ndarray,
-    delta_i: np.ndarray,
-    device: torch.device,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Re-rank delta ADC candidates (global ids) by exact f32 distance.
-
-    The delta's original-space vectors go to `device` as a one-device
-    store (`id_dev` 0, `id_row` the buffer row; the candidates become
-    buffer rows), so merged delta and main candidates carry commensurable
-    exact distances (`rerank_rows`, kernel B3).  Candidates whose id no
-    longer maps to a buffered row come back as (+inf, -1).  The mutable
-    search keeps its candidates as buffer rows on the card and calls
-    `rerank_rows` directly.
-    """
-    if delta.vectors is None or delta.n == 0:
-        return delta_d, delta_i
-    ids = delta.vec_ids[: delta.n]
-    order = np.argsort(ids, kind="stable")
-    pos = np.clip(np.searchsorted(ids[order], delta_i), 0, ids.size - 1)
-    row = order[pos]
-    found = (delta_i >= 0) & (ids[row] == delta_i)
-    q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
-    d, r = rerank_rows(delta, q, torch.as_tensor(np.where(found, row, -1), device=device))
-    return d.cpu().numpy(), delta.ids_of(r).cpu().numpy().astype(delta_i.dtype)
-
-
 def delta_prune_bound(
     engine: "MemANNSEngine", plan, k: int, k_fetch: int, tombstones: int
 ) -> np.ndarray | None:
@@ -220,7 +191,8 @@ def mutable_search(
     until the merged (Q, k) result.  `timings`, when given, receives the
     wall ms of the main step (`main_ms`), the delta scan
     (`delta_scan_ms`), its re-rank (`delta_rerank_ms`) and the merge
-    (`merge_ms`), the device synchronised at each boundary.
+    (`merge_ms`), the device synchronised at each boundary, and under
+    `launches` the kernel launches of each of those stages.
     """
     delta = engine.delta
     dev = engine.device
@@ -257,11 +229,16 @@ def mutable_search(
 
 
 class _Clock:
-    """Lap timer of `mutable_search` (a no-op without a `timings` dict)."""
+    """Lap timer of `mutable_search` and `compact_engine` (a no-op without a
+    `timings` dict): each lap records its wall ms under its name and, under
+    `timings["launches"][name]`, the kernel launches counted in it
+    (`ops.launches`, the non-zero changes)."""
 
     def __init__(self, device: torch.device, timings: dict | None):
         self.device, self.timings = device, timings
-        self.t = self._now() if timings is not None else 0.0
+        if timings is not None:
+            timings.setdefault("launches", {})
+            self.t, self.counts = self._now(), dict(ops.launches)
 
     def _now(self) -> float:
         if self.device.type == "cuda":
@@ -270,9 +247,12 @@ class _Clock:
 
     def lap(self, name: str) -> None:
         if self.timings is not None:
-            t = self._now()
+            t, counts = self._now(), dict(ops.launches)
             self.timings[name] = 1e3 * (t - self.t)
-            self.t = t
+            self.timings["launches"][name] = {
+                k: n - self.counts.get(k, 0) for k, n in counts.items()
+                if n != self.counts.get(k, 0)}
+            self.t, self.counts = t, counts
 
 
 def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> CompactionReport:
@@ -286,9 +266,8 @@ def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> 
     """
     t0 = time.perf_counter()
     delta = engine.delta
-    stages = dict.fromkeys(STAGES, 0.0)
     if delta is None or not delta.active:
-        return CompactionReport(0, 0, 0, 0, 0, False, 0.0, stages)
+        return CompactionReport(0, 0, 0, 0, 0, False, 0.0, dict.fromkeys(STAGES, 0.0))
     clock = _Clock(engine.device, {})
 
     new_index, info = compact_index(engine.index, delta)
@@ -335,8 +314,6 @@ def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> 
         shapes_changed = shapes_changed or raw_changed
         clock.lap("update_raw_store")
     delta.reset()
-    stages.update(clock.timings)
-    stages = {s: stages[s] / 1e3 for s in STAGES}
     return CompactionReport(
         merged=info.merged,
         dropped=info.dropped,
@@ -345,5 +322,5 @@ def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> 
         devices_rewritten=int(rewritten.size),
         shapes_changed=shapes_changed,
         latency_s=time.perf_counter() - t0,
-        stage_seconds=stages,
+        stage_seconds={s: clock.timings.get(s, 0.0) / 1e3 for s in STAGES},
     )

@@ -72,6 +72,10 @@ class InFlightSearch:
         return self
 
 
+# entries one round of the per-device merge may sort (`sharded_search`)
+MERGE_ENTRIES = 1 << 25
+
+
 def _group_topk(
     vals: torch.Tensor, ids: torch.Tensor, group: torch.Tensor, n_groups: int, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -172,21 +176,27 @@ def sharded_search(
         raise ValueError(f"scan must be 'tiles' or 'windows', got {scan!r}")
     prune_dev = prune.sum(dim=1, dtype=torch.int32)
 
-    # per-query merge on each logical device, one device at a time (the
-    # sort temporaries of P x k entries stay one device's: at k = 2048 all
-    # eight at once would take ~10 GB)
+    # per-query merge on each logical device, as many devices a round as keep
+    # the sort temporaries (~60 B an entry) under MERGE_ENTRIES: with 32,768
+    # pair slots a device, all eight in one round at k' 64, one a round at a
+    # mutable fetch depth of 2048 (all eight at once would take ~16 GB)
     group = torch.where(pair_valid, pair_q.long(), n_queries)
-    local_d = torch.empty((ndev, n_queries, k), dtype=torch.float32, device=dev)
-    local_i = torch.empty((ndev, n_queries, k), dtype=vec_ids.dtype, device=dev)
-    for d in range(ndev):
-        rows = starts[d, :, None].long() + ti[d].long()
-        gids = torch.where(ti[d] >= 0, vec_ids[d][rows.clamp_min(0)], -1)
-        tvd = torch.where(pair_valid[d, :, None], tv[d], torch.inf)
-        ld, li = _group_topk(
-            tvd.reshape(1, -1), gids.reshape(1, -1),
-            group[d, :, None].expand(p, k).reshape(1, -1), n_queries, k,
+    step = max(1, min(ndev, MERGE_ENTRIES // max(p * k, 1)))
+    parts = []
+    for d0 in range(0, ndev, step):
+        sl = slice(d0, min(d0 + step, ndev))
+        nd = sl.stop - d0
+        rows = starts[sl, :, None].long() + ti[sl].long()
+        gids = torch.where(
+            ti[sl] >= 0,
+            vec_ids[sl].gather(1, rows.clamp_min(0).reshape(nd, -1)).reshape(rows.shape), -1,
         )
-        local_d[d], local_i[d] = ld[0], li[0]
+        tvd = torch.where(pair_valid[sl, :, None], tv[sl], torch.inf)
+        parts.append(_group_topk(
+            tvd.reshape(nd, -1), gids.reshape(nd, -1),
+            group[sl, :, None].expand(nd, p, k).reshape(nd, -1), n_queries, k,
+        ))
+    local_d, local_i = parts[0] if len(parts) == 1 else map(torch.cat, zip(*parts))
 
     # merge across logical devices
     all_d = local_d.permute(1, 0, 2).reshape(n_queries, ndev * k)

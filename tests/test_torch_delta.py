@@ -161,22 +161,24 @@ def test_delta_view_layout():
 
 
 def test_delta_exact_rerank_matches_reference():
-    """The delta's exact re-rank (B3 over its vectors as a one-device
-    store) against the reference's, on the same candidates (some dead,
-    some -1): the same order, distances allclose."""
+    """The delta's exact re-rank (`mutation.rerank_rows`: B3 over its
+    vectors as a one-device store, candidates as buffer rows, as the
+    mutable search runs it) against the reference's `delta_exact_rerank`
+    on the same candidates (some -1): the same order, distances
+    allclose."""
     from repro.retrieval import mutation as rmut
     from repro_torch.retrieval import mutation as tmut
 
-    ref, port, _, _ = _base()
+    _, port, _, _ = _base()
     rd, td, _, _, _ = _mutated(8, n_ins=50, n_del=30)
     _, qs = _draw(11, 5)
-    r_d, r_i = rdelta.delta_topk(rd, ref.centroids, ref.codebook, qs, 4, 16)
-    r_i = r_i.copy()
-    r_i[:, -1] = -1
-    got = tmut.delta_exact_rerank(td, qs, r_d, r_i, torch.device(CPU))
-    want = rmut.delta_exact_rerank(rd, qs, r_d, r_i)
-    np.testing.assert_allclose(got[0], want[0], **TOL)
-    np.testing.assert_array_equal(got[1], want[1])
+    _, rows = tdelta.delta_topk_rows(td, port.centroids, port.codebook, qs, 4, 16, device=CPU)
+    rows[:, -1] = -1
+    ids = td.ids_of(rows).numpy()
+    d, r = tmut.rerank_rows(td, torch.as_tensor(qs), rows)
+    want = rmut.delta_exact_rerank(rd, qs, np.zeros(ids.shape, np.float32), ids)
+    np.testing.assert_allclose(d.numpy(), want[0], **TOL)
+    np.testing.assert_array_equal(td.ids_of(r).numpy(), want[1])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

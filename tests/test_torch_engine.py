@@ -118,6 +118,22 @@ def test_port_pruned_equals_unpruned_and_ndev(engines, clustered_data, rerank):
     _same_outside_ties(out["1"][0], out["1"][1], out["8"][1])
 
 
+@pytest.mark.parametrize("per_round", [1, 3])
+def test_merge_rounds_change_no_bit(engines, clustered_data, monkeypatch, per_round):
+    """The per-device merge split into rounds (one device a round, or three
+    of the eight) returns the one-round merge's results bit for bit."""
+    from repro_torch.retrieval import search as tsearch
+
+    _, _, port8 = engines
+    qs = clustered_data[2]
+    plan = port8.plan_batch(qs, NPROBE)
+    want = port8.execute_plan(plan, 64)
+    monkeypatch.setattr(tsearch, "MERGE_ENTRIES", per_round * plan.pair_q.shape[1] * 64)
+    got = port8.execute_plan(plan, 64)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("prune", [True, False])
 def test_short_results_pad_with_minus_one(engines, clustered_data, prune):
     """k above the probed rows: +inf lanes carry id -1 (the reference leaves

@@ -146,6 +146,27 @@ def test_delete_of_buffered_insert(port_engines, clustered_data):
     np.testing.assert_array_equal(ids2[10:, 0], new_ids[10:])
 
 
+@pytest.mark.parametrize("rerank", RERANKS)
+def test_mutable_search_laps(port_engines, clustered_data, rerank):
+    """`mutable_search(timings=...)` times each stage and counts each
+    stage's kernel launches (none on the CPU: the wrappers count only the
+    kernels they launch), and answers as `search` does."""
+    qs = clustered_data[2]
+    eng = fresh(port_engines, rerank=rerank)
+    ids, vecs, dels = _mutations(clustered_data[1])
+    eng.insert(ids, vecs)
+    eng.delete(dels)
+    lap = {}
+    got = mutation.mutable_search(eng, qs, NPROBE, K, timings=lap)
+    stages = ["main_ms", "delta_scan_ms"] + (["delta_rerank_ms"] if rerank == "exact" else [])
+    stages.append("merge_ms")
+    assert list(lap.pop("launches")) == stages == list(lap)
+    assert all(v >= 0.0 for v in lap.values())
+    want = eng.search(qs, NPROBE, K)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_reinsert_of_tombstoned_id_rejected(port_engines, clustered_data):
     qs = clustered_data[2]
     eng = fresh(port_engines)
