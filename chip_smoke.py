@@ -94,6 +94,23 @@ chunked PyTorch expression of its function as the library yardstick (for
 B2 / B5 each filled pair's gather + sum + `torch.topk`, for B4 / B9 a
 gather + sum + `torch.cat`; each checked to compute the kernel's function).
 
+The onehot path (PR 21): on the main path's raw codes B2 / B5 / B8 / B6
+on onehot equal the gather bit for bit, and one onehot batch
+(`search_onehot`) equals the gather's; `serving` drives `ServingEngine`
+over the main-path engine (micro-batches of 500, the timed batches as one
+stream, pipeline depths 0 and 1 on both paths: bit-identical, equal to
+`MemANNSEngine.search`, no build after warmup; QPS, p50 / p99, host and
+overlap fractions); `search_cooc_tiles_onehot` / `_windows_onehot` drive
+the co-occurrence shards on onehot; and the onehot instantiations over
+direct addresses -- B2 and B5 (the cooc plans), B7 (query 0's probed
+clusters as uint16 windows), B8 and B6 (one device's uint16 addresses) --
+are held bit-equal to their plain onehot versions and within rtol = atol
+= 1e-5 of the gather kernels, timed beside them, with bounds that count
+the sort's compare-exchanges; `equivalence` adds onehot tiles == windows
+and pruned == unpruned bit for bit, and onehot within rtol 1e-5 of the
+gather on the co-occurrence shards.  `lm_serve`'s `--retrieval` serves
+through `ServingEngine` (two micro-batches, no build after warmup).
+
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
 outside a checkout, it exits with a non-zero code and prints no result.
@@ -144,6 +161,9 @@ FLUSH_BYTES = 256 << 20
 # the mutable phase: inserts and deletes below the reference's auto-compaction
 # point (0.75 of the default 4096-row delta), and the co-occurrence cell's rows
 MUT_INSERTS, MUT_DELETES, MUT_COOC_ROWS = 3000, 1000, 4_000_000
+# the serving phase: half the 1000-query batch a micro-batch (the reference's
+# `serve --retrieval` choice, micro_batch = batch // 2)
+SERVE_MICRO_BATCH = 500
 
 
 def log(**kv) -> None:
@@ -370,14 +390,19 @@ def profile_call(torch, fn, top: int | None = 8) -> tuple[float, dict, int, floa
 
 
 def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, tables,
-               lut_row, codes, plan, dv, kp, regs) -> dict:
+               lut_row, codes, plan, dv, kp, regs, path="gather") -> dict:
     """B2 (scan="tiles") or B5 ("windows") at a path's shapes: the pruned
     scan as the path calls it and the unpruned scan per pair against the
     plain version (rows equal, distances allclose), kernel times pruned and
     unpruned, the plain version's time and the bound of what was read.
     Beside the FP32 / byte bound it gives the lookup bound: the scored rows' W
     table lookups each, one warp lookup per SM clock on every SM, at the
-    SM clock nvidia-smi reads while the pruned scan is timed."""
+    SM clock nvidia-smi reads while the pruned scan is timed.  On
+    `path="onehot"` the scans are the onehot instantiations: bit-equal to
+    the plain onehot version, and per pair within rtol = atol = 1e-5 of
+    the gather kernel on the same input (on direct addresses the sums
+    reassociate); the bound counts the sort's compare-exchanges, the
+    library expression sums each row's sorted addresses."""
     import numpy as np
 
     dev = codes.device
@@ -399,9 +424,11 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                  (plan.tile_pair, plan.tile_block, plan.tile_row0)]
         _, _, ps = ops.adc_topk_tiles(tables, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
                                         pair_q=pair_q, pair_lb=pair_lb, bound=qbound,
-                                        lut_row=lut_row2)
-        kv, ki, _ = ops.adc_topk_tiles(tables, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
-                                       lut_row=lut_row2)
+                                        lut_row=lut_row2, path=path)
+
+        def unpruned(pth):
+            return ops.adc_topk_tiles(tables, codes, *tiles, n_valid, kp, block_n=BLOCK_N,
+                                      lut_row=lut_row2, path=pth)
         t0, t1, order = k_topk.pair_runs(tiles[0], p)
         tb, tr = tiles[1].int().reshape(-1), tiles[2].int().reshape(-1)
 
@@ -409,17 +436,19 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
             return k_topk.adc_topk_tiles_plain(
                 tables, lut_row, codes, tb, tr, flat_nv,
                 torch.arange(ndev * p, dtype=torch.int32, device=dev), no_lb, no_b,
-                t0, t1, kp, BLOCK_N)
+                t0, t1, kp, BLOCK_N, path)
 
         def launch(lb, b, sq, ov, oi, os_):
             k_topk.launch(tables, lut_row, codes, order, t0, t1, tb, tr, flat_nv, flat_q,
-                          lb, b, sq, ov, oi, os_, kp, BLOCK_N)
+                          lb, b, sq, ov, oi, os_, kp, BLOCK_N, path)
     else:
         _, _, ps = ops.adc_topk_windows(tables, codes, starts, n_valid, kp,
                                           block_n=BLOCK_N, pair_q=pair_q, pair_lb=pair_lb,
-                                          bound=qbound, lut_row=lut_row2)
-        kv, ki, _ = ops.adc_topk_windows(tables, codes, starts, n_valid, kp,
-                                         block_n=BLOCK_N, lut_row=lut_row2)
+                                          bound=qbound, lut_row=lut_row2, path=path)
+
+        def unpruned(pth):
+            return ops.adc_topk_windows(tables, codes, starts, n_valid, kp, block_n=BLOCK_N,
+                                        lut_row=lut_row2, path=pth)
         filled = torch.nonzero((lut_row >= 0) & (flat_nv > 0)).flatten()
         order = filled[torch.sort(flat_lb[filled], stable=True).indices].int()
 
@@ -427,11 +456,12 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
             return k_topk.adc_topk_windows_plain(
                 tables, lut_row, codes, flat_st, flat_nv,
                 torch.arange(ndev * p, dtype=torch.int32, device=dev), no_lb, no_b,
-                kp, BLOCK_N)
+                kp, BLOCK_N, path)
 
         def launch(lb, b, sq, ov, oi, os_):
             k_topk.launch_windows(tables, lut_row, codes, order, flat_st, flat_nv, flat_q,
-                                  lb, b, sq, ov, oi, os_, kp, BLOCK_N)
+                                  lb, b, sq, ov, oi, os_, kp, BLOCK_N, path)
+    kv, ki, _ = unpruned(path)
     t = time.perf_counter()
     plv, pli, _ = plain()
     torch.cuda.synchronize()
@@ -439,9 +469,22 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     plv, pli = plv.reshape(kv.shape), pli.reshape(ki.shape)
     if not (torch.equal(ki, pli) and torch.allclose(kv, plv, **TOL)):
         raise RuntimeError(f"{name} disagrees with its plain version")
+    if path == "onehot" and not torch.equal(kv, plv):
+        raise RuntimeError(f"{name} is not bit-equal to its plain onehot version")
     fin = torch.isfinite(kv)
     err = float((kv[fin] - plv[fin]).abs().max()) if bool(fin.any()) else 0.0
     del plv, pli
+    vs_gather = {}
+    if path == "onehot":  # the same pairs' lists on the gather kernel
+        gv, gi, _ = unpruned("gather")
+        if not torch.allclose(kv, gv, **TOL):
+            raise RuntimeError(f"{name}: onehot and gather differ beyond rtol 1e-5")
+        differing = onehot_differs(torch, name, codes, kv, gv)
+        rel = (kv[fin] - gv[fin]).abs() / gv[fin].abs().clamp_min(1e-30)
+        vs_gather = dict(gather_max_rel=float(rel.max()) if bool(fin.any()) else 0.0,
+                         gather_bit_equal=bool(torch.equal(kv, gv) and torch.equal(ki, gi)),
+                         entries_differing_from_gather=differing)
+        del gv, gi
     sq = qbound.clone()
     ov, oi, os_ = (torch.empty(ndev * p, kp, device=dev),
                    torch.empty(ndev * p, kp, dtype=torch.int32, device=dev),
@@ -460,9 +503,11 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     extra = dict(
         lookup_bound_ms=lookups / (n_sm * 32 * sm_mhz * 1e6) * 1e3, lookups=lookups,
         sms=n_sm, sm_clock_mhz=sm_mhz,
-        registers=scan_registers(regs, scan, k_topk.code_format(codes), w))
+        registers=scan_registers(regs, scan, k_topk.code_format(codes), w,
+                                 sort=path == "onehot"))
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
-    lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp)
+    lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp,
+                                       sort=path == "onehot")
     lib_v = torch.full((ndev * p, kp), torch.inf, device=dev)
     lib_run(lib_v)
     if not torch.allclose(lib_v, kv.reshape(ndev * p, kp), **TOL):
@@ -482,7 +527,11 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                         + plan.pair_slot[plan.pair_valid])
     distinct = int(dv["slot_size"].reshape(-1)[torch.as_tensor(regions, device=dev)].sum())
     in_bytes = distinct * w * item + table_bytes + out_bytes
-    bms, by = bound_ms(in_bytes, scanned * w)
+    # one add per entry, and on the onehot path's direct addresses the
+    # sort's compare-exchanges (a min and a max each)
+    per_row = w + (2 * k_topk.sort_network_size(w)
+                   if path == "onehot" and k_topk.code_format(codes) else 0)
+    bms, by = bound_ms(in_bytes, scanned * per_row)
     tiles_total = int(((flat_nv + BLOCK_N - 1) // BLOCK_N).sum())
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, launches=launches,
@@ -490,8 +539,10 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
         bound_by=by, library_ms=library_ms,
         library_call="per filled pair, its valid rows' tables[pair][addresses].sum(-1) then "
                      f"torch.topk(k', largest=False), pairs of like length batched "
-                     f"({lib_groups} gathers of <= 8M rows; no pruning)",
-        unpruned_ms=unpruned_ms, unpruned_bound_ms=bound_ms(in_bytes, valid_rows * w)[0],
+                     f"({lib_groups} gathers of <= 8M rows; no pruning"
+                     + ("; each row's addresses sorted first)" if path == "onehot" else ")"),
+        path=path, **vs_gather,
+        unpruned_ms=unpruned_ms, unpruned_bound_ms=bound_ms(in_bytes, valid_rows * per_row)[0],
         # what this design reads: every pair's scored rows from memory
         per_pair_read_ms=bound_ms(scanned * w * item + table_bytes + out_bytes, 0)[0],
         shape=dict(pairs=ndev * p, pairs_scanned=pairs_run, k=kp, code_dtype=str(codes.dtype),
@@ -502,24 +553,40 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     )
 
 
-def scan_registers(regs: dict, scan: str, fmt: int, w: int) -> str | None:
+def onehot_differs(torch, name: str, codes, onehot, gather) -> int:
+    """The entries where a onehot kernel's output differs from the gather
+    kernel's on the same input.  On direct addresses a combo's address sits
+    mid-row, so the sorted sum rounds differently on some rows: an output
+    bit-equal to the gather's would not show that the sorting instantiation
+    ran, and fails here.  Raw codes need no sort and return 0."""
+    n = int((onehot != gather).sum())
+    if codes.dtype != torch.uint8 and n == 0:
+        raise RuntimeError(f"{name}: onehot equals the gather bit for bit on direct "
+                           "addresses, so the check cannot tell the paths apart")
+    return n
+
+
+def scan_registers(regs: dict, scan: str, fmt: int, w: int, sort: bool = False) -> str | None:
     """ptxas' registers and spills of B2 / B5 (`scan` tiles | windows) for
-    code format `fmt` and width `w` (the instantiation REPRO_ADC_DISPATCH,
-    csrc/adc_topk_common.cuh, launches: a compiled width, else 0)."""
+    code format `fmt`, width `w` and path (`sort`: the onehot path on
+    direct addresses), the instantiation REPRO_ADC_DISPATCH
+    (csrc/adc_topk_common.cuh) launches: a compiled width, else 0."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
     wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
-    want = f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}EE"
+    want = f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}ELb{int(sort and fmt > 0)}EE"
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
 
-def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int) -> str | None:
+def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int,
+                   sort: bool = False) -> str | None:
     """ptxas' registers and spills of B6 (`adc_topk_kernel`, G tables) or B7
-    (`adc_topk_pairs_kernel`) for code format `fmt` and width `w`."""
+    (`adc_topk_pairs_kernel`) for code format `fmt`, width `w` and path
+    (`sort`: the onehot path on direct addresses)."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
     wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
-    want = f"{kernel}I{ctype}Lb{int(fmt == 0)}ELi{wt}E" + (f"Li{g}E" if "pairs" not in kernel
-                                                            else "")
+    want = (f"{kernel}I{ctype}Lb{int(fmt == 0)}ELi{wt}E"
+            + (f"Li{g}E" if "pairs" not in kernel else "") + f"Lb{int(sort and fmt > 0)}E")
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
@@ -548,11 +615,13 @@ class SmClock:
         return max(self.samples)
 
 
-def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 << 23):
+def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 << 23,
+                 sort=False):
     """Library yardstick for B2 / B5: each filled pair's k' smallest ADC
     distances over its valid rows as PyTorch expressions.  Pairs sorted by
     length are batched while (pairs x longest) <= `max_rows`; per batch one
-    gather of the codes, one of the tables, a sum and a `torch.topk`.
+    gather of the codes (each row's addresses sorted with `sort`), one of
+    the tables, a sum and a `torch.topk`.
     Returns (the closure, the number of batches); the grouping is host
     bookkeeping done here, outside the timing."""
     dev = codes.device
@@ -581,6 +650,8 @@ def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 
             rows = (base[i:j, None] + lane).clamp_max(ndev * cap - 1)
             c = flat[rows].long()
             a = c & 0xFFFF if wide else c + cols
+            if sort:
+                a = torch.sort(a, dim=-1).values
             d = tables[trow[i:j, None, None], a].sum(-1)
             d = torch.where(lane < nv[i:j, None], d, torch.inf)
             v = torch.topk(d, min(kp, width), dim=1, largest=False).values
@@ -588,6 +659,99 @@ def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 
                 out[filled[i:j], : v.shape[1]] = v
 
     return run, len(groups)
+
+
+def raw_onehot_equal(torch, np, ops, eng, plan, tables, lut_row, kp) -> None:
+    """On raw uint8 codes the onehot path adds a row's entries in column
+    order too (the address m * 256 + code grows with m): B2 and B5 on the
+    main path's tables and plan, unpruned per pair, onehot == gather bit
+    for bit (one instantiation serves both paths)."""
+    dv = eng._device_put()
+    dev = eng.device
+    ndev, p = plan.pair_q.shape
+    slot = torch.as_tensor(plan.pair_slot, device=dev).long()
+    nv = torch.where(torch.as_tensor(plan.pair_valid, device=dev),
+                     dv["slot_size"].gather(1, slot), 0).int()
+    starts = dv["slot_start"].gather(1, slot).int()
+    tiles = [torch.as_tensor(a, device=dev) for a in
+             (plan.tile_pair, plan.tile_block, plan.tile_row0)]
+    lr = lut_row.reshape(ndev, p)
+    for name, fn, args in (("adc_topk_tiles", ops.adc_topk_tiles, tiles),
+                           ("adc_topk_windows", ops.adc_topk_windows, [starts])):
+        a = fn(tables, dv["codes"], *args, nv, kp, block_n=BLOCK_N, lut_row=lr, path="onehot")
+        b = fn(tables, dv["codes"], *args, nv, kp, block_n=BLOCK_N, lut_row=lr)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise RuntimeError(f"{name}: onehot differs from gather on raw codes")
+    log(phase="onehot_raw_equals_gather", kernels=["adc_topk_tiles", "adc_topk_windows"],
+        pairs=ndev * p, k=kp, bit_equal=True)
+
+
+def serving_phase(torch, np, ops, eng, batches) -> dict:
+    """PR 21's phase: `ServingEngine` over the main-path engine (the same
+    device arrays, no new memory), micro-batches of `SERVE_MICRO_BATCH`, a
+    stream of the timed 1000-query batches, at pipeline depths 0 and 1 on
+    the gather and the onehot path.  Checks: no nvcc build and no graph
+    capture after `warmup()`; B1 / B2 / B3 launched once per micro-batch;
+    the four runs bit-identical (raw codes: both paths add in column
+    order; depth changes no schedule); equal to `MemANNSEngine.search` on
+    the same batches (distances bit-equal, ids outside exact ties).
+    Records QPS (stream queries / wall), p50 / p99 micro-batch latency
+    (plan -> collect), host and overlap fractions."""
+    from repro_torch.kernels import _build
+    from repro_torch.retrieval.serving import ServingEngine
+
+    stream = np.concatenate(batches[1:])
+    want = [eng.search(qb, NPROBE, K) for qb in batches[1:]]
+    want_d = np.concatenate([d for d, _ in want])
+    want_i = np.concatenate([i for _, i in want])
+    runs, rows = {}, []
+    for path in ("gather", "onehot"):
+        for depth in (0, 1):
+            srv = ServingEngine(dataclasses.replace(eng, path=path), nprobe=NPROBE, k=K,
+                                micro_batch=SERVE_MICRO_BATCH, pipeline_depth=depth)
+            t = time.perf_counter()
+            buckets = srv.warmup()
+            warm_s = time.perf_counter() - t
+            built = _build.compile_count()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            d, i = srv.search(stream)
+            wall = time.perf_counter() - t
+            launches = {k: v for k, v in ops.launches.items() if v}
+            st = srv.stats
+            if st.compiles or _build.compile_count() != built:
+                raise RuntimeError(f"serving ({path}, depth {depth}): {st.compiles} builds "
+                                   "after warmup")
+            for kname in ("build_luts", "adc_topk_tiles", "rerank_dists"):
+                if launches.get(kname) != st.batches:
+                    raise RuntimeError(f"serving ({path}, depth {depth}): {kname} launched "
+                                       f"{launches.get(kname)} times in {st.batches} batches")
+            if d.shape != (len(stream), K) or not np.isfinite(d).all() or (i < 0).any():
+                raise RuntimeError(f"serving ({path}, depth {depth}): malformed results")
+            runs[path, depth] = (d, i)
+            rows.append(dict(
+                path=path, pipeline_depth=depth, queries=len(stream),
+                micro_batch=SERVE_MICRO_BATCH, micro_batches=st.batches, wall_ms=wall * 1e3,
+                qps=len(stream) / wall, p50_ms=st.p50_s() * 1e3, p99_ms=st.p99_s() * 1e3,
+                latencies_ms=[x * 1e3 for x in st.latencies_s],
+                host_fraction=st.host_fraction(), overlap_fraction=st.overlap_fraction(),
+                host_s=st.host_s, device_s=st.device_s, overlap_s=st.overlap_s,
+                dispatch_wait_s=st.dispatch_wait_s, collect_wait_s=st.collect_wait_s,
+                compiles=st.compiles, launches=launches, warmup_s=warm_s,
+                warm_buckets=buckets, bucket_hits=st.bucket_hits,
+                load_carry=srv.load_carry().tolist(), autotune=srv.autotune_report))
+    base_d, base_i = runs["gather", 0]
+    for key, (d, i) in runs.items():
+        if not (np.array_equal(d, base_d) and np.array_equal(i, base_i)):
+            raise RuntimeError(f"serving {key} differs from gather at depth 0")
+    if not same_outside_ties(np, base_d, base_i, want_d, want_i):
+        raise RuntimeError("serving differs from MemANNSEngine.search on the same batches")
+    out = dict(phase="serving", engine_rows=int(eng.index.n_vectors), ndev=eng.ndev,
+               rerank=eng.rerank, scan=eng.scan, runs=rows, bit_identical_runs=len(runs),
+               equal_to_engine_search=True)
+    log(**out)
+    return out
 
 
 def drive_path(torch, np, ops, name, eng, batches, needed) -> dict:
@@ -826,6 +990,14 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     paths["search_cooc_windows"] = drive_path(
         torch, np, ops, "search_cooc_windows", ceng, batches,
         ("build_luts", "build_ext_luts_pairs", "adc_topk_windows", "rerank_dists"))
+    # the onehot path on the same shards (direct addresses: the sort runs)
+    ceng.path = "onehot"
+    for scan in ("tiles", "windows"):
+        ceng.scan = scan
+        paths[f"search_cooc_{scan}_onehot"] = drive_path(
+            torch, np, ops, f"search_cooc_{scan}_onehot", ceng, batches,
+            ("build_luts", "build_ext_luts_pairs", f"adc_topk_{scan}", "rerank_dists"))
+    ceng.path = "gather"
 
     # -- §4.3 online tables for one shared combo set (kernel B9) ------------
     dv = eng._device_put()
@@ -921,24 +1093,31 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
                    combo_len=int(c9.shape[1])),
     ))
 
-    # -- B2 on uint16 direct addresses, B5 on both code types ---------------
-    kernels.append(check_scan(
-        torch, ops, k_topk, name="adc_topk_tiles_direct", scan="tiles",
-        source=f"{SRC_ROOT}/csrc/adc_topk_tiles.cu",
-        replaces="src/repro/kernels/adc_topk.py:397",
-        launches=paths["search_cooc_tiles"]["launches"]["adc_topk_tiles"],
-        tables=ext, lut_row=c_lut_row, codes=ceng._device_put()["codes"], plan=cplan,
-        dv=ceng._device_put(), kp=kp, regs=regs))
+    # -- B2 on uint16 direct addresses, B5 on both code types, each on both
+    # paths; B7 on onehot over one query's probed clusters of these shards
+    for path in ("gather", "onehot"):
+        suffix = "" if path == "gather" else "_onehot"
+        kernels.append(check_scan(
+            torch, ops, k_topk, name="adc_topk_tiles_direct" + suffix, scan="tiles",
+            source=f"{SRC_ROOT}/csrc/adc_topk_tiles.cu",
+            replaces="src/repro/kernels/adc_topk.py:397",
+            launches=paths["search_cooc_tiles" + suffix]["launches"]["adc_topk_tiles"],
+            tables=ext, lut_row=c_lut_row, codes=ceng._device_put()["codes"], plan=cplan,
+            dv=ceng._device_put(), kp=kp, regs=regs, path=path))
+    kernels.append(onehot_pairs_row(torch, np, ops, k_topk, ceng, cplan, ext, c_lut_row, kp,
+                                    regs))
     ceng.scan = "windows"
     cwplan = ceng.plan_batch(qb, NPROBE)
     ext_w, cw_lut_row, _, _, _ = plan_tables(torch, np, ops, ceng, cwplan)
-    kernels.append(check_scan(
-        torch, ops, k_topk, name="adc_topk_windows_direct", scan="windows",
-        source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
-        replaces="src/repro/kernels/adc_topk.py:592",
-        launches=paths["search_cooc_windows"]["launches"]["adc_topk_windows"],
-        tables=ext_w, lut_row=cw_lut_row, codes=ceng._device_put()["codes"], plan=cwplan,
-        dv=ceng._device_put(), kp=kp, regs=regs))
+    for path in ("gather", "onehot"):
+        suffix = "" if path == "gather" else "_onehot"
+        kernels.append(check_scan(
+            torch, ops, k_topk, name="adc_topk_windows_direct" + suffix, scan="windows",
+            source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
+            replaces="src/repro/kernels/adc_topk.py:592",
+            launches=paths["search_cooc_windows" + suffix]["launches"]["adc_topk_windows"],
+            tables=ext_w, lut_row=cw_lut_row, codes=ceng._device_put()["codes"], plan=cwplan,
+            dv=ceng._device_put(), kp=kp, regs=regs, path=path))
     del ext, ext_w, cluts
     wplan = eng.plan_batch(qb, NPROBE)  # eng.scan is "windows"
     w_tab, w_lut_row, _, _, _ = plan_tables(torch, np, ops, eng, wplan)
@@ -957,8 +1136,11 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
         return e.search(qb, NPROBE, K) + e.collect(e.dispatch_plan(e.plan_batch(qb, NPROBE), kp))
 
     compared = 0
-    for label, e in (("plain", eng), ("cooc", ceng)):
+    firsts = {}
+    for label, e, path in (("plain", eng, "gather"), ("cooc", ceng, "gather"),
+                           ("cooc_onehot", ceng, "onehot")):
         ref_out = plain_search + plain_adc if label == "plain" else None
+        e.path = path
         for scan in ("tiles", "windows"):
             for prune in (True, False):
                 e.scan, e.prune = scan, prune
@@ -971,7 +1153,13 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
                         raise RuntimeError(f"{label}: scan={scan} prune={prune} differs "
                                            "from tiles, pruned, bit for bit")
                 compared += 1
-        e.scan, e.prune = "tiles", True
+        firsts[label] = ref_out
+        e.scan, e.prune, e.path = "tiles", True, "gather"
+    # onehot vs gather on the co-occurrence shards: the re-ranked answers
+    # and the ADC top-k' within rtol 1e-5, ids equal outside ties in the band
+    onehot_vs_gather = [
+        same_within_tol(np, *firsts["cooc_onehot"][j:j + 2], *firsts["cooc"][j:j + 2], 1e-5)
+        for j in (0, 2)]
     # cross-encoding: ADC top-k distances agree to f32 reassociation
     p_adc = eng.collect(eng.dispatch_plan(eng.plan_batch(qb, NPROBE), K))[0]
     c_adc = ceng.collect(ceng.dispatch_plan(ceng.plan_batch(qb, NPROBE), K))[0]
@@ -983,10 +1171,100 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     plain_path_check(torch, np, k_lut, k_rerank, ceng, qb[:16])
     log(phase="equivalence", queries=BATCH, bit_identical_runs=compared,
         cross_encoding_max_rel=cross_rel, cooc_plain_path_queries=16, adc_equal=True,
-        rerank_equal=True)
-    # for the kernel-level API: device d_big's uint16 addresses and one
-    # extended table (query 0's, with cluster c_big's combos)
-    return kernels, cshards.codes[d_big].clone(), ext9[0].clone()
+        rerank_equal=True, cooc_onehot_vs_gather=dict(
+            searched=onehot_vs_gather[0], adc=onehot_vs_gather[1], rtol=1e-5))
+    # for the kernel-level API: device d_big's uint16 addresses and four
+    # extended tables (queries 0-3's, with cluster c_big's combos)
+    return kernels, cshards.codes[d_big].clone(), ext9[:4].clone()
+
+
+def onehot_pairs_row(torch, np, ops, k_topk, ceng, cplan, ext, lut_row, kp, regs) -> dict:
+    """B7 on the onehot path over direct addresses: the filled pairs of
+    query 0 in the co-occurrence tiles plan, each pair's window its
+    cluster's uint16 rows of its device's shard (combo addresses at their
+    anchor columns, so the sort matters) against its extended table.
+    One call counted, held bit-equal to the plain onehot version and within
+    rtol = atol = 1e-5 of the gather kernel on the same windows, timed
+    beside both, the bound (adds and the sort's compare-exchanges) and the
+    library expression on sorted addresses."""
+    dv = ceng._device_put()
+    dev = ceng.device
+    ndev, p = cplan.pair_q.shape
+    flat = np.flatnonzero(cplan.pair_valid.reshape(-1) & (cplan.pair_q.reshape(-1) == 0))
+    d_of, slot = flat // p, cplan.pair_slot.reshape(-1)[flat]
+    starts = dv["slot_start"].cpu().numpy()[d_of, slot]
+    sizes = dv["slot_size"].cpu().numpy()[d_of, slot]
+    n_pairs, w = len(flat), dv["codes"].shape[2]
+    win = max(BLOCK_N, -(-int(sizes.max()) // BLOCK_N) * BLOCK_N)
+    wide = torch.zeros((n_pairs, win, w), dtype=torch.int32, device=dev)
+    src = dv["codes"].view(torch.int16)
+    for j in range(n_pairs):
+        seg = src[d_of[j], starts[j]: starts[j] + sizes[j]]
+        wide[j, : sizes[j]] = seg.int() & 0xFFFF
+    addrs = wide.to(torch.uint16)
+    del wide
+    tables = ext[lut_row[torch.as_tensor(flat, device=dev)].long()].contiguous()
+    n_valid = torch.as_tensor(sizes.astype(np.int32), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = ops.adc_topk_pairs(tables, addrs, n_valid, kp, block_n=BLOCK_N, path="onehot")
+    torch.cuda.synchronize()
+    n7 = ops.launches["adc_topk_pairs"]
+    if n7 != 1:
+        raise RuntimeError(f"adc_topk_pairs_onehot: {n7} launches, expected 1")
+    t = time.perf_counter()
+    want = k_topk.adc_topk_pairs_plain(tables, addrs, n_valid, kp, "onehot")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError("adc_topk_pairs_onehot disagrees with its plain version")
+    gat = ops.adc_topk_pairs(tables, addrs, n_valid, kp, block_n=BLOCK_N)
+    if not torch.allclose(got[0], gat[0], **TOL):
+        raise RuntimeError("adc_topk_pairs: onehot and gather differ beyond rtol 1e-5")
+    differing = onehot_differs(torch, "adc_topk_pairs_onehot", addrs, got[0], gat[0])
+    fin = torch.isfinite(gat[0])
+    rel = float(((got[0][fin] - gat[0][fin]).abs() / gat[0][fin].abs().clamp_min(1e-30)).max())
+    ov, oi = torch.full_like(got[0], torch.inf), torch.full_like(got[1], -1)
+
+    def run(path):
+        k_topk.launch_pairs(tables, addrs, n_valid, ov, oi, kp, BLOCK_N, path)
+
+    ms, sm_mhz = clocked_ms(torch, lambda: run("onehot"), 10)
+    queued = cuda_ms(torch, lambda: run("onehot"), 10, queued=True)
+    gather_ms = cuda_ms(torch, lambda: run("gather"), 10)
+    valid = int(sizes.sum())
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bms, by = bound_ms(valid * w * 2 + tables.numel() * 4 + n_pairs * (kp * 8 + 4),
+                       valid * (w + 2 * k_topk.sort_network_size(w)))
+    lane = torch.arange(win, device=dev)
+
+    def lib():
+        for s0 in range(0, n_pairs, 8):
+            a = torch.sort(addrs[s0 : s0 + 8].view(torch.int16).long() & 0xFFFF, -1).values
+            d = tables[s0 : s0 + 8].gather(1, a.reshape(a.shape[0], -1)).reshape(a.shape)
+            d = torch.where(lane < n_valid[s0 : s0 + 8, None], d.sum(-1), torch.inf)
+            torch.topk(d, kp, dim=1, largest=False)
+
+    row = dict(
+        name="adc_topk_pairs_onehot", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_pairs.cu",
+        replaces="src/repro/kernels/adc_topk.py:642", launches=n7, max_abs_err=0.0,
+        ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(torch, lib, 3),
+        library_call="each row's uint16 addresses sorted, tables.gather(1, windows).sum(-1), "
+                     "rows past n_valid at +inf, then torch.topk(largest=False), 8 pairs at "
+                     "a time",
+        path="onehot", gather_ms=gather_ms, gather_max_rel=rel,
+        entries_differing_from_gather=differing,
+        lookup_bound_ms=valid * w / (n_sm * 32 * sm_mhz * 1e6) * 1e3, sm_clock_mhz=sm_mhz,
+        registers=topk_registers(regs, "adc_topk_pairs_kernel", 1, w, 1, sort=True),
+        shape=dict(pairs=n_pairs, window=win, width=w, k=kp, valid_rows=valid,
+                   code_dtype="torch.uint16", table_width=int(tables.shape[1]),
+                   sort_compare_exchanges=k_topk.sort_network_size(w)),
+    )
+    log(phase="kernel_api_pairs_onehot", pairs=n_pairs, window=win, valid_rows=valid, k=kp,
+        launches=n7, ms=ms, gather_ms=gather_ms, gather_max_rel=rel)
+    del addrs, got, want, gat
+    return row
 
 
 def check_rerank(torch, ops, k_rerank, qt, cand, raw, *, launches: int, shape: dict) -> dict:
@@ -1056,11 +1334,100 @@ def chunked_topk(torch, tables, addr_of, n_rows, k, chunk):
     return v, torch.cat(rows, 1).gather(1, i)
 
 
+def onehot_topk_flat_row(torch, ops, k_topk, tables, codes, regs, k=K) -> dict:
+    """B6 (`ops.adc_topk_flat`) on the onehot path over one device's uint16
+    §4.3 addresses with four extended tables (one unit of G = 4: each row's
+    addresses sorted once for the four): one call counted, bit-equal to the
+    plain onehot version, within rtol = atol = 1e-5 of the gather kernel
+    on the same input, timed beside it, with the bound (adds and the sort's
+    compare-exchanges), the lookup bound and the library expression on
+    sorted addresses."""
+    dev = codes.device
+    q_n, (n, w) = tables.shape[0], codes.shape
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = ops.adc_topk_flat(tables, codes, k, block_n=BLOCK_N, path="onehot")
+    torch.cuda.synchronize()
+    n6 = ops.launches["adc_topk"]
+    if n6 != 1:
+        raise RuntimeError(f"adc_topk_flat_onehot: {n6} launches, expected 1")
+    inf = torch.full((q_n,), torch.inf, device=dev)
+    t = time.perf_counter()
+    want = k_topk.adc_topk_plain(tables, codes, inf, k, BLOCK_N, "onehot")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError("adc_topk_flat_onehot is not bit-equal to its plain version")
+    gat = ops.adc_topk_flat(tables, codes, k, block_n=BLOCK_N)
+    if not torch.allclose(got[0], gat[0], **TOL):
+        raise RuntimeError("adc_topk_flat: onehot and gather differ beyond rtol 1e-5")
+    rel = float(((got[0] - gat[0]).abs() / gat[0].abs().clamp_min(1e-30)).max())
+    # these queries' top-k may round alike on both paths, so the sort is
+    # shown again on the rows whose sums under the first table differ (B8
+    # on both paths): there the onehot top-k must be the plain onehot's and
+    # differ from the gather's
+    diff = torch.nonzero(ops.adc_scan_flat(tables[0], codes, path="onehot")
+                         != ops.adc_scan_flat(tables[0], codes)).flatten()
+    if diff.numel() < k:
+        raise RuntimeError(f"adc_topk_flat_onehot: {diff.numel()} rows where the paths "
+                           f"round apart, fewer than k = {k}")
+    sub = codes.view(torch.int16)[diff].view(torch.uint16)
+    so = ops.adc_topk_flat(tables, sub, k, block_n=BLOCK_N, path="onehot")
+    sp = k_topk.adc_topk_plain(tables, sub, inf, k, BLOCK_N, "onehot")
+    if not (torch.equal(so[0], sp[0]) and torch.equal(so[1], sp[1])):
+        raise RuntimeError("adc_topk_flat_onehot is not bit-equal to its plain version on the "
+                           "rows where the paths round apart")
+    differing = onehot_differs(torch, "adc_topk_flat_onehot", sub, so[0],
+                               ops.adc_topk_flat(tables, sub, k, block_n=BLOCK_N)[0])
+    del so, sp, sub
+    g = k_topk.topk_group_size([q_n], [n], k, 1, w, tables.shape[1])
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+
+    def run(path):
+        k_topk.launch_topk(tables, codes, None, ov, oi, k, BLOCK_N, g, None, path)
+
+    ms, sm_mhz = clocked_ms(torch, lambda: run("onehot"), 10)
+    queued = cuda_ms(torch, lambda: run("onehot"), 10, queued=True)
+    gather_ms = cuda_ms(torch, lambda: run("gather"), 10)
+    ce = k_topk.sort_network_size(w)
+    units = -(-q_n // g)
+    bms, by = bound_ms(n * w * 2 + tables.numel() * 4 + q_n * k * 8,
+                       n * (q_n * w + units * 2 * ce))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def addr_sorted(s0, s1):
+        return torch.sort(codes[s0:s1].view(torch.int16).long() & 0xFFFF, -1).values
+
+    row = dict(
+        name="adc_topk_flat_onehot", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
+        replaces="src/repro/kernels/adc_topk.py:702", launches=n6, max_abs_err=0.0,
+        ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: chunked_topk(torch, tables, addr_sorted, n, k,
+                                                       1 << 22), 2),
+        library_call="each row's uint16 addresses sorted, tables[:, addresses].sum(-1) then "
+                     "torch.topk(largest=False) per chunk of rows, one more torch.topk over "
+                     "the chunks",
+        path="onehot", gather_ms=gather_ms, gather_max_rel=rel,
+        rows_rounding_apart=int(diff.numel()), entries_differing_on_them=differing,
+        lookup_bound_ms=q_n * n * w / (n_sm * 32 * sm_mhz * 1e6) * 1e3, sm_clock_mhz=sm_mhz,
+        registers=topk_registers(regs, "adc_topk_kernel", 1, w, g, sort=True),
+        shape=dict(queries=q_n, k=k, rows=n, width=w, code_dtype="torch.uint16",
+                   table_width=int(tables.shape[1]), block_n=BLOCK_N, tables_per_block=g,
+                   sort_compare_exchanges=ce),
+    )
+    log(phase="kernel_api_topk_onehot", queries=q_n, k=k, rows=n, launches=n6, ms=ms,
+        gather_ms=gather_ms, gather_max_rel=rel)
+    return row
+
+
 def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direct_codes,
-                        direct_table, regs) -> list[dict]:
+                        direct_tables, regs) -> list[dict]:
     """The third slice's phases: B8, B6 and B7 through `ops` over the whole
-    index's codes, and the flat search on B1 + B6.  Each call is counted
-    with the counts reset just before it; returns the kernels' rows."""
+    index's codes, and the flat search on B1 + B6; and the onehot path of
+    B8 and B6 (PR 21): over the uint16 addresses bit-equal to the plain
+    onehot versions and within rtol = atol = 1e-5 of the gather, on the
+    raw codes bit-equal to the gather.  Each call is counted with the
+    counts reset just before it; returns the kernels' rows."""
     from repro_torch.core.index import filter_clusters, probe_groups, search
 
     idx = eng.index
@@ -1092,44 +1459,71 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
-    # -- B8 over every code row, raw and direct ------------------------------
+    # -- B8 over every code row, raw and direct; direct on both paths -------
     scan_rows = []
-    for label, table, src, direct in (
-        ("adc_scan", tables16[0].contiguous(), codes, False),
-        ("adc_scan_direct", direct_table, direct_codes, True),
+    direct_table = direct_tables[0].contiguous()
+    gather_out = {}
+    for label, table, src, direct, path in (
+        ("adc_scan", tables16[0].contiguous(), codes, False, "gather"),
+        ("adc_scan_direct", direct_table, direct_codes, True, "gather"),
+        ("adc_scan_direct_onehot", direct_table, direct_codes, True, "onehot"),
     ):
         if direct:
-            got, n8 = counted("adc_scan", lambda: ops.adc_scan_flat(table, src))
+            got, n8 = counted("adc_scan", lambda: ops.adc_scan_flat(table, src, path=path))
         else:
             got, n8 = counted("adc_scan", lambda: ops.adc_scan(table.reshape(M, 256), src))
-        want, plain_ms = plain_timed(lambda: k_scan.adc_scan_plain(table, src))
+            # raw codes: the onehot path's sums are the gather's, bit for bit
+            if not torch.equal(ops.adc_scan(table.reshape(M, 256), src, path="onehot"), got):
+                raise RuntimeError("adc_scan: onehot differs from gather on raw codes")
+        want, plain_ms = plain_timed(lambda: k_scan.adc_scan_plain(table, src, path))
         err = check_kernel(torch, label, (got,), (want,))
+        extra = {}
+        if path == "onehot":
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{label} is not bit-equal to its plain version")
+            g8 = gather_out["adc_scan_direct"]
+            if not torch.allclose(got, g8, **TOL):
+                raise RuntimeError(f"{label}: onehot and gather differ beyond rtol 1e-5")
+            rel = float(((got - g8).abs() / g8.abs().clamp_min(1e-30)).max())
+            extra = dict(path="onehot", gather_max_rel=rel,
+                         rows_differing_from_gather=onehot_differs(torch, label, src, got, g8),
+                         gather_ms=cuda_ms(torch, lambda: k_scan.launch(table, src, g8), 20))
         del want
         out = torch.empty_like(got)
         rows, w = src.shape
         item = src.element_size()
-        bms, by = bound_ms(rows * w * item + rows * 4 + table.numel() * 4, rows * w)
+        sort_ce = k_topk.sort_network_size(w) if path == "onehot" else 0
+        bms, by = bound_ms(rows * w * item + rows * 4 + table.numel() * 4,
+                           rows * (w + 2 * sort_ce))
 
-        def lib(table=table, src=src, direct=direct):
+        def lib(table=table, src=src, direct=direct, sort=path == "onehot"):
             for s0 in range(0, src.shape[0], 1 << 23):
                 a = src[s0 : s0 + (1 << 23)]
                 a = (a.view(torch.int16).long() & 0xFFFF) if direct else a.long() + cols
+                if sort:
+                    a = torch.sort(a, dim=-1).values
                 out[s0 : s0 + a.shape[0]] = table[a].sum(-1)
 
         kernels.append(dict(
             name=label, route="cuda", source=f"{SRC_ROOT}/csrc/adc_scan.cu",
             replaces="src/repro/kernels/adc_scan.py:81", launches=n8, max_abs_err=err,
-            ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out), 20),
-            queued_ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out), 20, queued=True),
+            ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out, path), 20),
+            queued_ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out, path), 20,
+                              queued=True),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=cuda_ms(torch, lib, 3),
             library_call="table[addresses].sum(-1) in 8M-row chunks (addresses "
-                         + ("from uint16 codes" if direct else "codes + m * 256") + ")",
+                         + ("from uint16 codes" if direct else "codes + m * 256")
+                         + (", each row's sorted" if path == "onehot" else "") + ")",
             shape=dict(rows=rows, width=w, code_dtype=str(src.dtype),
-                       table_width=table.numel()),
+                       table_width=table.numel(), sort_compare_exchanges=sort_ce),
+            **extra,
         ))
         scan_rows.append(dict(label=label, launches=n8, rows=rows))
+        if direct and path == "gather":
+            gather_out[label] = got
         del got, out
+    del gather_out
     log(phase="kernel_api_scan", calls=scan_rows)
 
     # -- B6 over every code row: Fig. 16's Q and Fig. 17's k ----------------
@@ -1170,7 +1564,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
             sm_clock_mhz=sm_mhz, registers=topk_registers(regs, "adc_topk_kernel", 0, M, g),
             shape=dict(queries=q_n, k=k, rows=n, width=M, block_n=BLOCK_N, tables_per_block=g,
                        units=-(-q_n // g), blocks=k_topk._grid(dev, "adc_topk_blocks_per_sm",
-                                                               0, M, tab.shape[1], k, g)),
+                                                               0, 0, M, tab.shape[1], k, g)),
         ))
         topk_rows.append(dict(queries=q_n, k=k, launches=n6, ms=ms, tables_per_block=g))
         del got
@@ -1190,10 +1584,16 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     g = k_topk.topk_group_size([q_n], [n], k, 0, M, tab.shape[1])
     bounded_ms = cuda_ms(torch, lambda: k_topk.launch_topk(tab, codes, bound, ov, oi, k,
                                                            BLOCK_N, g), 10)
+    # raw codes: the onehot path's top-k is the gather's, bit for bit
+    oh = ops.adc_topk(tab, codes, k, block_n=BLOCK_N, path="onehot")
+    if not (torch.equal(oh[0], free[0]) and torch.equal(oh[1], free[1])):
+        raise RuntimeError("adc_topk: onehot differs from gather on raw codes")
     log(phase="kernel_api_topk", calls=topk_rows, bounded=dict(
-        queries=q_n, k=k, launches=nb, ms=bounded_ms, equal_to_unbounded=True))
+        queries=q_n, k=k, launches=nb, ms=bounded_ms, equal_to_unbounded=True),
+        onehot_raw_equals_gather=True)
     del codes
     torch.cuda.empty_cache()
+    kernels.append(onehot_topk_flat_row(torch, ops, k_topk, direct_tables, direct_codes, regs))
 
     # -- B7 on the 64 probed clusters of one query, as int32 windows --------
     kp = eng.k_prime(K)
@@ -1242,7 +1642,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         registers=topk_registers(regs, "adc_topk_pairs_kernel", 2, M, 1),
         shape=dict(pairs=NPROBE, window=win, width=M, k=kp, valid_rows=valid,
                    window_gb=addrs.numel() * 4 / 1e9,
-                   blocks=k_topk._grid(dev, "adc_topk_pairs_blocks_per_sm", 2, M,
+                   blocks=k_topk._grid(dev, "adc_topk_pairs_blocks_per_sm", 2, 0, M,
                                        tables.shape[1], kp)),
     ))
     log(phase="kernel_api_pairs", pairs=NPROBE, window=win, valid_rows=valid, k=kp,
@@ -1276,11 +1676,18 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     # where the wall time goes: the host by function (one search under
     # cProfile) and the device (one search under torch.profiler)
     host_top = host_by_function(lambda: search(idx, q16, NPROBE, K, device=dev))
-    busy, by_kernel, n_acts, prof_wall = profile_call(
-        torch, lambda: search(idx, q16, NPROBE, K, device=dev), top=None)
-    b6_prof = sum(ms for name, ms in by_kernel.items() if "adc_topk_kernel" in name)
-    if b6_prof <= 0:
-        raise RuntimeError(f"flat_search: no B6 kernel in the profile: {list(by_kernel)}")
+    # torch.profiler now and then records none of the port's own kernels
+    # in a call (seen on the H100 with every ATen kernel present), so a
+    # profile that lacks B6 is taken again, at most three times in all
+    for prof_attempts in range(1, 4):
+        busy, by_kernel, n_acts, prof_wall = profile_call(
+            torch, lambda: search(idx, q16, NPROBE, K, device=dev), top=None)
+        b6_prof = sum(ms for name, ms in by_kernel.items() if "adc_topk_kernel" in name)
+        if b6_prof > 0:
+            break
+    else:
+        raise RuntimeError(f"flat_search: no B6 kernel in {prof_attempts} profiles: "
+                           f"{list(by_kernel)}")
     # that search's grouped B6 call, against its plain version and timed alone
     qrot = torch.as_tensor(idx.rotate(np.asarray(q16, np.float32)), device=dev)
     cids, qmc = filter_clusters(torch.as_tensor(idx.centroids, device=dev), qrot, NPROBE)
@@ -1331,7 +1738,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         equal_to_engine_rerank_off=True,
         host_ms_by_function_profiled=host_top,
         profiled=dict(wall_ms=prof_wall, device_busy_ms=busy, device_idle_ms=prof_wall - busy,
-                      device_activities=n_acts, b6_device_ms=b6_prof),
+                      device_activities=n_acts, b6_device_ms=b6_prof, attempts=prof_attempts),
         b6=dict(launches=flat_launches["adc_topk"], device_ms=b6_prof, kernel_ms=b6_kernel_ms,
                 bound_ms=bms, rows=n_rows, tables=n_tables, tables_per_block=g))
     return kernels
@@ -1381,13 +1788,19 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     per_phase = dict(rep["kernel_launches"], retrieval=ret["kernel_launches"])
     ret_kernels = ("build_luts", "adc_topk_tiles", "rerank_dists") + (
         ("build_ext_luts_pairs",) if ret["cooc"] else ())
+    # the retrieval serves through a warmed ServingEngine: micro-batches of
+    # half the request batch, each one launch of each retrieval kernel, and
+    # no build after warmup
+    n_micro = -(-LM_BATCH // max(1, LM_BATCH // 2))
     if (launches.get("flash_attention_fwd") != cfg.n_layers
             or per_phase["prefill"] != {"flash_attention_fwd": cfg.n_layers}
             or per_phase["decode"]
-            or any(per_phase["retrieval"].get(n, 0) <= 0 for n in ret_kernels)):
+            or any(per_phase["retrieval"].get(n, 0) != n_micro for n in ret_kernels)
+            or ret["batches"] != n_micro or ret["compiles"] != 0):
         raise RuntimeError(f"lm_serve: expected {cfg.n_layers} B10 launches in the prefill, "
-                           f"none in the decode and {ret_kernels} in the retrieval, got "
-                           f"{launches} ({per_phase})")
+                           f"none in the decode and {ret_kernels} once in each of "
+                           f"{n_micro} retrieval micro-batches with no build, got "
+                           f"{launches} ({per_phase}, {ret})")
     gen = np.asarray(rep["generated"])
     if gen.shape != (LM_BATCH, 8) or (gen < 0).any() or (gen >= cfg.vocab_size).any():
         raise RuntimeError(f"lm_serve: malformed generated tokens {gen.tolist()}")
@@ -2202,6 +2615,22 @@ def main(argv=None) -> int:
             raise RuntimeError("pruned search differs from the unpruned search")
     log(phase="prune_check", queries=BATCH, bit_identical=True)
 
+    # -- the onehot path on raw codes: the gather's sums, bit for bit --------
+    raw_onehot_equal(torch, np, ops, eng, plan, luts.reshape(n_rows, -1), lut_row, kp)
+    eng.path = "onehot"
+    search_onehot = drive_path(torch, np, ops, "search_onehot", eng, batches[:2],
+                               ("build_luts", "adc_topk_tiles", "rerank_dists"))
+    onehot_out = eng.search(qb, NPROBE, K)
+    eng.path = "gather"
+    if not all(np.array_equal(a, b) for a, b in zip(onehot_out, pruned)):
+        raise RuntimeError("search_onehot: the onehot path differs from the gather path on "
+                           "raw codes")
+    log(phase="search_onehot_check", queries=BATCH, equal_to_gather=True,
+        batch_ms=search_onehot["batch_ms"])
+
+    # -- ServingEngine over the main-path engine ----------------------------
+    serving_phase(torch, np, ops, eng, batches)
+
     # -- recall@10 against a chunked brute force (information) ---------------
     n_gt = 200
     ids_of_row = torch.full((raw.vectors.shape[0],), -1, dtype=torch.int64, device=dev)
@@ -2214,19 +2643,19 @@ def main(argv=None) -> int:
     log(phase="recall", queries=n_gt, recall_at_10=recall, adc_only_recall_at_10=adc_recall)
 
     # == the co-occurrence slice (§4.3) and the windows scan ================
-    cooc_kernels, direct_codes, direct_table = cooc_and_windows(
+    cooc_kernels, direct_codes, direct_tables = cooc_and_windows(
         torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev, pruned, adc_pruned, regs)
     kernels += cooc_kernels
     torch.cuda.empty_cache()
 
     # == the kernel-level ADC API (B8, B6, B7) and the flat search ==========
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
-                                   direct_codes, direct_table, regs)
+                                   direct_codes, direct_tables, regs)
 
     # == the mutable path (inserts, deletes, compaction) =====================
     # the immutable engine's device arrays are freed first; the mutable one
     # reuses its index, placement and raw store (re-packed with slack)
-    del direct_codes, direct_table, dv, luts, qmc, qmc_rows, rows, lut_row, out, cand
+    del direct_codes, direct_tables, dv, luts, qmc, qmc_rows, rows, lut_row, out, cand
     del handle, qt, raw, ids_of_row, mapped, gt_rows
     t = time.perf_counter()
     eng._dev_arrays = None

@@ -1,7 +1,8 @@
 // Kernel B8: the plain ADC scan, one table over (N, W) codes -> (N,) f32.
 //
 // Replaces: src/repro/kernels/adc_scan.py `adc_scan_kernel`
-//           (Pallas body `_adc_scan_kernel`, gather path `_gather_dists`).
+//           (Pallas body `_adc_scan_kernel`, gather path `_gather_dists`,
+//           onehot path `_onehot_dists`).
 //
 // The TPU kernel pins the flat table in VMEM and streams (block_n, W) tiles
 // of int32 addresses past it (raw codes are widened and offset to
@@ -12,9 +13,12 @@
 // width allows (`adc_row`, adc_topk_common.cuh, shared with B2/B5/B6/B7),
 // raw uint8 codes get their column offset in registers (no int32 address
 // array is ever written: that would be 6.4 GB at 100M rows), and the W
-// table entries are added in column order with no contraction.  There is
-// no padding: the last row is row N - 1.  The result does not depend on
-// the caller's block_n.
+// table entries are added with no contraction: in column order (path
+// "gather"), or in ascending address order on direct addresses (path
+// "onehot": the reference's multi-hot x table contraction, which sums a
+// row over the table's addresses; the row's addresses are sorted in
+// registers first, `adc_row`'s SORT).  There is no padding: the last row
+// is row N - 1.  The result does not depend on the caller's block_n.
 //
 // What bounds it on an H100: bytes.  Each row is read once (16 B at M = 16
 // raw codes) and its distance written once (4 B): 2.0 GB for 100M rows,
@@ -27,7 +31,7 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 __global__ void __launch_bounds__(THREADS)
 adc_scan_kernel(const float* __restrict__ table,   // (A,)
                 const CodeT* __restrict__ codes,   // (N, W)
@@ -42,15 +46,15 @@ adc_scan_kernel(const float* __restrict__ table,   // (A,)
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   for (long long r = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; r < n;
        r += stride)
-    out[r] = adc_row<CodeT, OFFSETS, WT>(tab, codes + static_cast<size_t>(r) * W, W);
+    out[r] = adc_row<CodeT, OFFSETS, WT, SORT>(tab, codes + static_cast<size_t>(r) * W, W);
 }
 
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int launch(const float* table, const void* codes, float* out, long long n, int w,
            int table_width, cudaStream_t stream) {
   const int tw = OFFSETS && WT > 0 ? WT * NCODES : table_width;
   const size_t smem = static_cast<size_t>(tw) * 4;
-  auto kernel = adc_scan_kernel<CodeT, OFFSETS, WT>;
+  auto kernel = adc_scan_kernel<CodeT, OFFSETS, WT, SORT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, n_sm = 0, per_sm = 0;
@@ -71,16 +75,17 @@ int launch(const float* table, const void* codes, float* out, long long n, int w
 }  // namespace
 
 // table (table_width,) f32; codes (n, w) in `code_fmt` (0 uint8 raw +
-// column offsets, 1 uint16, 2 int32 direct addresses); out (n,) f32.
-// Returns cudaGetLastError() after the launch.
+// column offsets, 1 uint16, 2 int32 direct addresses); onehot nonzero for
+// the onehot path; out (n,) f32.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int adc_scan_launch(const void* table, const void* codes, void* out,
                                long long n, int w, int table_width, int code_fmt,
-                               void* stream) {
+                               int onehot, void* stream) {
   if (n <= 0) return 0;
-#define REPRO_SCAN_LAUNCH(CodeT, OFF, WT)                                          \
-  launch<CodeT, OFF, WT>(static_cast<const float*>(table), codes,                 \
+#define REPRO_SCAN_LAUNCH(CodeT, OFF, WT, SORT)                                    \
+  launch<CodeT, OFF, WT, SORT>(static_cast<const float*>(table), codes,                 \
                          static_cast<float*>(out), n, w, table_width,             \
                          static_cast<cudaStream_t>(stream))
-  REPRO_ADC_DISPATCH(code_fmt, w, REPRO_SCAN_LAUNCH)
+  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_SCAN_LAUNCH)
 #undef REPRO_SCAN_LAUNCH
 }

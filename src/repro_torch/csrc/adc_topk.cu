@@ -24,7 +24,10 @@
 // a unit's last run merges the unit's run lists into the output in the same
 // launch.  The wrapper (kernels/adc_topk.py `topk_group_size`) picks G
 // from the tables' width, k and the shared memory, and refuses a table that
-// does not fit.
+// does not fit.  Path: "gather" adds a row's entries in column order,
+// "onehot" (direct addresses) in ascending address order, the reference's
+// multi-hot contraction; the launch's `onehot` flag picks the
+// instantiation.
 //
 // What bounds it on an H100: bytes for a few tables (each code row read
 // once per unit, 16 B at M = 16: 1.6 GB for 100M rows, 0.48 ms at 3.35
@@ -38,29 +41,31 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT, int G>
+template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT>
 __global__ void __launch_bounds__(THREADS, multi_min_blocks<G>())
 adc_topk_kernel(const MultiArgs a) {
-  topk_multi<CodeT, OFFSETS, WT, G>(a);
+  topk_multi<CodeT, OFFSETS, WT, G, SORT>(a);
 }
 
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int launch(const MultiArgs& a, int g, int n_blocks, cudaStream_t stream) {
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
   if (g == 4)
-    return launch_multi_kernel(adc_topk_kernel<CodeT, OFFSETS, WT, 4>, a, 4, n_blocks, a_used,
-                               stream);
+    return launch_multi_kernel(adc_topk_kernel<CodeT, OFFSETS, WT, 4, SORT>, a, 4, n_blocks,
+                               a_used, stream);
   if (g == 1)
-    return launch_multi_kernel(adc_topk_kernel<CodeT, OFFSETS, WT, 1>, a, 1, n_blocks, a_used,
-                               stream);
+    return launch_multi_kernel(adc_topk_kernel<CodeT, OFFSETS, WT, 1, SORT>, a, 1, n_blocks,
+                               a_used, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int blocks_per_sm(int table_width, int w, int k, int g) {
   const int a_used = multi_table_width<OFFSETS, WT>(table_width, w);
-  if (g == 4) return multi_blocks_per_sm(adc_topk_kernel<CodeT, OFFSETS, WT, 4>, 4, a_used, k);
-  if (g == 1) return multi_blocks_per_sm(adc_topk_kernel<CodeT, OFFSETS, WT, 1>, 1, a_used, k);
+  if (g == 4)
+    return multi_blocks_per_sm(adc_topk_kernel<CodeT, OFFSETS, WT, 4, SORT>, 4, a_used, k);
+  if (g == 1)
+    return multi_blocks_per_sm(adc_topk_kernel<CodeT, OFFSETS, WT, 1, SORT>, 1, a_used, k);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -68,7 +73,8 @@ int blocks_per_sm(int table_width, int w, int k, int g) {
 
 // tables (n_q, table_width) f32; codes (n_rows, w) in `code_fmt` (0 uint8
 // raw + column offsets, 1 uint16, 2 int32 direct addresses); bound (n_q,)
-// f32 or null (+inf); units (n_units, 4) int32 {row0, n_rows, q0, nq} or
+// f32 or null (+inf); onehot nonzero for the onehot path; units
+// (n_units, 4) int32 {row0, n_rows, q0, nq} or
 // null (one code array: ceil(n_q / g) units over all n_rows rows); out_*
 // (n_q, k); part_* hold (n_blocks + n_units) * g * k scratch entries and
 // tickets n_blocks + 2 * n_units int32 zeros (left zero).  Returns cudaGetLastError()
@@ -76,23 +82,25 @@ int blocks_per_sm(int table_width, int w, int k, int g) {
 extern "C" int adc_topk_launch(const void* tables, const void* codes, const void* bound,
                                const void* units, void* out_v, void* out_i, void* part_v,
                                void* part_i, void* tickets, int n_units, int n_q, int n_rows,
-                               int w, int table_width, int code_fmt, int k, int block_n, int g,
-                               int n_blocks, void* stream) {
+                               int w, int table_width, int code_fmt, int onehot, int k,
+                               int block_n, int g, int n_blocks, void* stream) {
   if (n_units <= 0 || n_blocks <= 0) return 0;
   MultiArgs a{static_cast<const float*>(tables), codes, static_cast<const float*>(bound),
               static_cast<const int*>(units), nullptr, static_cast<float*>(out_v),
               static_cast<int*>(out_i), static_cast<float*>(part_v), static_cast<int*>(part_i),
               static_cast<int*>(tickets), 0, n_units, n_q, n_rows, w, table_width, k, block_n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_TOPK_LAUNCH(CodeT, OFF, WT) launch<CodeT, OFF, WT>(a, g, n_blocks, st)
-  REPRO_ADC_DISPATCH(code_fmt, w, REPRO_TOPK_LAUNCH)
+#define REPRO_TOPK_LAUNCH(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT>(a, g, n_blocks, st)
+  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TOPK_LAUNCH)
 #undef REPRO_TOPK_LAUNCH
 }
 
 // Resident blocks per SM of the instantiation `adc_topk_launch` would run
 // (after raising its shared-memory limit), or minus a cudaError_t.
-extern "C" int adc_topk_blocks_per_sm(int code_fmt, int w, int table_width, int k, int g) {
-#define REPRO_TOPK_OCC(CodeT, OFF, WT) blocks_per_sm<CodeT, OFF, WT>(table_width, w, k, g)
-  REPRO_ADC_DISPATCH(code_fmt, w, REPRO_TOPK_OCC)
+extern "C" int adc_topk_blocks_per_sm(int code_fmt, int onehot, int w, int table_width, int k,
+                                      int g) {
+#define REPRO_TOPK_OCC(CodeT, OFF, WT, SORT) \
+  blocks_per_sm<CodeT, OFF, WT, SORT>(table_width, w, k, g)
+  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TOPK_OCC)
 #undef REPRO_TOPK_OCC
 }

@@ -17,8 +17,19 @@
 //     sentinel address is the last entry, which holds 0.0.
 // A row of W entries is loaded with the widest aligned vector loads its
 // byte width allows (16 bytes per load for W = 16 uint8 or W = 8 uint16),
-// and its W table entries are added in column order with no contraction
-// (__fadd_rn), bit-equal to the plain versions in kernels/adc_topk.py.
+// and its W table entries are added from 0.0 with no contraction
+// (__fadd_rn), bit-equal to the plain versions in kernels/adc_topk.py:
+//   * path "gather" (SORT = false): in column order;
+//   * path "onehot" (SORT = true, direct addresses only): in ascending
+//     address order.  The reference's onehot branch (src/repro/kernels/
+//     adc_scan.py `_onehot_dists`) contracts a (rows, A) multi-hot matrix
+//     with the flat table, so each row's sum runs over the table's
+//     addresses, not its columns; here the row's W addresses are sorted in
+//     registers (a sorting network for a compile-time width, a selection
+//     scan for a runtime one) and the same W lookups follow in that order.
+//     On raw codes the address m * 256 + code grows with m, so table order
+//     is column order and the onehot path IS the gather path: raw codes
+//     are never instantiated with SORT.
 //
 // Pruning (the reference's rule, kernels/adc_topk.py module docstring): a
 // tile is skipped iff `lb >= pair k-th` or `lb > min(b0, sq[q])`, and a row
@@ -65,12 +76,90 @@ __device__ __forceinline__ uint32_t addr_of(uint32_t e, int m) {
   else return e;
 }
 
-// ADC distance of one row: sum of its W table entries, in column order.
-// WT > 0 is the width known at compile time; WT == 0 reads w_rt entries.
-template <typename CodeT, bool OFFSETS, int WT>
+// Batcher's odd-even merge sort of N = 2^j addresses in registers,
+// ascending: 19 compare-exchanges for N = 8, 63 for N = 16
+// (kernels/adc_topk.py `sort_network_size` counts them for the bounds).
+// The network's four loops (p, k, j, i) are template recursions, so every
+// compare-exchange names its two elements at compile time and the array
+// stays in registers: one runtime index would put it in local memory.
+template <int N, int I, int J>
+__device__ __forceinline__ void compare_exchange(uint32_t (&a)[N]) {
+  const uint32_t x = a[I], y = a[J];
+  a[I] = min(x, y);
+  a[J] = max(x, y);
+}
+
+template <int N, int P, int K, int J, int I>
+__device__ __forceinline__ void network_i(uint32_t (&a)[N]) {
+  if constexpr (I < K) {
+    if constexpr (I + J + K < N && (I + J) / (2 * P) == (I + J + K) / (2 * P))
+      compare_exchange<N, I + J, I + J + K>(a);
+    network_i<N, P, K, J, I + 1>(a);
+  }
+}
+
+template <int N, int P, int K, int J>
+__device__ __forceinline__ void network_j(uint32_t (&a)[N]) {
+  if constexpr (J + K < N) {
+    network_i<N, P, K, J, 0>(a);
+    network_j<N, P, K, J + 2 * K>(a);
+  }
+}
+
+template <int N, int P, int K>
+__device__ __forceinline__ void network_k(uint32_t (&a)[N]) {
+  if constexpr (K >= 1) {
+    network_j<N, P, K, K % P>(a);
+    network_k<N, P, K / 2>(a);
+  }
+}
+
+template <int N, int P>
+__device__ __forceinline__ void network_p(uint32_t (&a)[N]) {
+  if constexpr (P < N) {
+    network_k<N, P, P>(a);
+    network_p<N, 2 * P>(a);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void sort_network(uint32_t (&a)[N]) {
+  static_assert(N > 0 && (N & (N - 1)) == 0, "the network sorts a power of two");
+  network_p<N, 1>(a);
+}
+
+// The least (address, column) key of a row above (la, lc): the next step
+// of the selection scan that orders a row of runtime width w without an
+// array (w passes over the row, each re-read from L1).  Equal addresses
+// come out one after another, so each occurrence is added once.
+template <typename CodeT>
+__device__ __forceinline__ uint32_t next_address(const CodeT* __restrict__ row, int w,
+                                                 uint32_t& la, int& lc) {
+  uint32_t ba = 0xffffffffu;
+  int bc = INT_MAX;
+  for (int m = 0; m < w; ++m) {
+    const uint32_t a = static_cast<uint32_t>(row[m]);
+    const bool after = a > la || (a == la && m > lc);
+    const bool less = a < ba || (a == ba && m < bc);
+    if (after && less) {
+      ba = a;
+      bc = m;
+    }
+  }
+  la = ba;
+  lc = bc;
+  return ba;
+}
+
+// ADC distance of one row: sum of its W table entries, in column order
+// (SORT = false) or in ascending address order (SORT = true, direct
+// addresses).  WT > 0 is the width known at compile time; WT == 0 reads
+// w_rt entries.
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 __device__ __forceinline__ float adc_row(const float* table,
                                          const CodeT* __restrict__ row,
                                          int w_rt) {
+  static_assert(!(SORT && OFFSETS), "raw codes are already in table order");
   constexpr int BYTES = WT * static_cast<int>(sizeof(CodeT));
   if constexpr (WT > 0 && BYTES % 4 == 0) {
     uint32_t w[BYTES / 4];
@@ -96,14 +185,29 @@ __device__ __forceinline__ float adc_row(const float* table,
         w[q] = reinterpret_cast<const uint32_t*>(row)[q];
     }
     float d = 0.f;
+    if constexpr (SORT) {
+      uint32_t a[WT];
 #pragma unroll
-    for (int m = 0; m < WT; ++m)
-      d = __fadd_rn(d, table[addr_of<OFFSETS>(word_elem<CodeT>(w, m), m)]);
+      for (int m = 0; m < WT; ++m) a[m] = word_elem<CodeT>(w, m);
+      sort_network<WT>(a);
+#pragma unroll
+      for (int m = 0; m < WT; ++m) d = __fadd_rn(d, table[a[m]]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < WT; ++m)
+        d = __fadd_rn(d, table[addr_of<OFFSETS>(word_elem<CodeT>(w, m), m)]);
+    }
     return d;
   } else {
     float d = 0.f;
-    for (int m = 0; m < w_rt; ++m)
-      d = __fadd_rn(d, table[addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m)]);
+    if constexpr (SORT) {
+      uint32_t la = 0;
+      int lc = -1;
+      for (int s = 0; s < w_rt; ++s) d = __fadd_rn(d, table[next_address(row, w_rt, la, lc)]);
+    } else {
+      for (int m = 0; m < w_rt; ++m)
+        d = __fadd_rn(d, table[addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m)]);
+    }
     return d;
   }
 }
@@ -192,7 +296,7 @@ inline size_t scan_smem_bytes(int table_width, int k) {
 // k-th would lose the tie and is not kept.  Every thread of the block
 // calls it; the lists and candidate buffers are the shared-memory layout
 // of `scan_smem_bytes`, `s_ncand` a shared counter.
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 __device__ __forceinline__ void merge_rows(const float* table,
                                            const CodeT* __restrict__ tile, int W,
                                            int n_rows, int row0, float qb,
@@ -206,7 +310,7 @@ __device__ __forceinline__ void merge_rows(const float* table,
 #pragma unroll
     for (int j = 0; j < ROWS_PER_THREAD; ++j) {
       const int i = base + j * THREADS + tid;
-      d[j] = i < n_rows ? adc_row<CodeT, OFFSETS, WT>(
+      d[j] = i < n_rows ? adc_row<CodeT, OFFSETS, WT, SORT>(
                               table, tile + static_cast<size_t>(i) * W, W)
                         : CUDART_INF_F;
     }
@@ -231,9 +335,10 @@ __device__ __forceinline__ void merge_rows(const float* table,
 // Blocks per SM the scan kernels are compiled for.  Six hold the uint8
 // and uint16 scans to 40 registers (without the bound the raw-code scan
 // of a compile-time width takes 48, five blocks, and runs slower); int32
-// addresses need 48.
-template <typename CodeT>
-constexpr int scan_min_blocks() { return sizeof(CodeT) < 4 ? 6 : 5; }
+// addresses need 48.  The onehot path's sort holds a row's W addresses in
+// registers beside the lookups: four blocks, 64 registers.
+template <typename CodeT, bool SORT>
+constexpr int scan_min_blocks() { return SORT ? 4 : (sizeof(CodeT) < 4 ? 6 : 5); }
 
 struct TileRef {
   int row0;  // first window row of the tile
@@ -247,7 +352,7 @@ struct TileRef {
 // (cap, W) codes.  Raw codes of a compile-time width address only the
 // first WT * 256 entries, so that many are loaded, a compile-time count
 // that also fixes the shared-memory offsets of the lists behind the table.
-template <typename CodeT, bool OFFSETS, int WT, typename TileAt>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename TileAt>
 __device__ void scan_pair(const float* __restrict__ table_row, int table_width_rt,
                           const CodeT* __restrict__ cdev, int w_rt,
                           int n_tiles, TileAt tile_at, int nv, int qi,
@@ -295,7 +400,7 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
     if (!s_skip) {
       const int n_rows = min(block_n, nv - tr.row0);
       const CodeT* tile = cdev + static_cast<size_t>(tr.blk) * block_n * W;
-      merge_rows<CodeT, OFFSETS, WT>(table, tile, W, n_rows, tr.row0, s_qb, top_v,
+      merge_rows<CodeT, OFFSETS, WT, SORT>(table, tile, W, n_rows, tr.row0, s_qb, top_v,
                                      top_i, nxt_v, nxt_i, cand_v, cand_i, &s_ncand, k);
     }
     if (tid == 0) {
@@ -327,30 +432,37 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 }  // namespace repro_adc
 
-// Instantiate LAUNCH(CodeT, OFFSETS, WT) for the code format `fmt`
-// (0: uint8 + offsets, 1: uint16 direct, 2: int32 direct) and width w,
-// with compile-time widths for the common cases.
-#define REPRO_ADC_DISPATCH(fmt, w, LAUNCH)                         \
+// Instantiate LAUNCH(CodeT, OFFSETS, WT, SORT) for the code format `fmt`
+// (0: uint8 + offsets, 1: uint16 direct, 2: int32 direct), width w and
+// path (`onehot` nonzero: the onehot path, SORT on direct addresses; raw
+// codes have one instantiation for both paths), with compile-time widths
+// for the common cases.
+#define REPRO_ADC_DIRECT(CodeT, w, onehot, LAUNCH)                          \
+  switch (w) {                                                             \
+    case 8:                                                                \
+      return (onehot) ? LAUNCH(CodeT, false, 8, true)                      \
+                      : LAUNCH(CodeT, false, 8, false);                    \
+    case 16:                                                               \
+      return (onehot) ? LAUNCH(CodeT, false, 16, true)                     \
+                      : LAUNCH(CodeT, false, 16, false);                   \
+    default:                                                               \
+      return (onehot) ? LAUNCH(CodeT, false, 0, true)                      \
+                      : LAUNCH(CodeT, false, 0, false);                    \
+  }
+
+#define REPRO_ADC_DISPATCH(fmt, w, onehot, LAUNCH)                 \
   switch (fmt) {                                                  \
     case 0:                                                       \
       switch (w) {                                                \
-        case 8: return LAUNCH(uint8_t, true, 8);                  \
-        case 16: return LAUNCH(uint8_t, true, 16);                \
-        case 32: return LAUNCH(uint8_t, true, 32);                \
-        default: return LAUNCH(uint8_t, true, 0);                 \
+        case 8: return LAUNCH(uint8_t, true, 8, false);           \
+        case 16: return LAUNCH(uint8_t, true, 16, false);         \
+        case 32: return LAUNCH(uint8_t, true, 32, false);         \
+        default: return LAUNCH(uint8_t, true, 0, false);          \
       }                                                           \
     case 1:                                                       \
-      switch (w) {                                                \
-        case 8: return LAUNCH(uint16_t, false, 8);                \
-        case 16: return LAUNCH(uint16_t, false, 16);              \
-        default: return LAUNCH(uint16_t, false, 0);               \
-      }                                                           \
+      REPRO_ADC_DIRECT(uint16_t, w, onehot, LAUNCH)               \
     case 2:                                                       \
-      switch (w) {                                                \
-        case 8: return LAUNCH(int32_t, false, 8);                 \
-        case 16: return LAUNCH(int32_t, false, 16);               \
-        default: return LAUNCH(int32_t, false, 0);                \
-      }                                                           \
+      REPRO_ADC_DIRECT(int32_t, w, onehot, LAUNCH)                \
     default:                                                      \
       return static_cast<int>(cudaErrorInvalidValue);             \
   }

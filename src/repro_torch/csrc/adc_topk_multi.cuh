@@ -27,7 +27,10 @@
 // 16-byte LDS.128 for G = 4), then walks its run PASS rows at a time: each
 // thread loads its rows' codes once (the widest aligned vector loads),
 // computes each address once and adds its G entries to G sums, each in
-// column order with __fadd_rn (bit-equal to the plain version).  A row is a
+// column order with __fadd_rn (bit-equal to the plain version); on the
+// onehot path (SORT, direct addresses) each row's addresses are sorted
+// once, in registers, and the G tables take their lookups in ascending
+// address order (adc_topk_common.cuh says why).  A row is a
 // candidate of table g if its distance is below that table's current k-th
 // (a row equal to it has a larger row index and loses the tie); candidates
 // are collected per warp (ballot, popcount) and merged into table g's
@@ -332,26 +335,42 @@ __device__ __forceinline__ void multi_load(const CodeT* __restrict__ codes, int 
 // Score rows [lo, hi) of the unit (R per thread, i = lo + j * THREADS +
 // tid) into d, +inf for rows past hi: each address computed once and
 // looked up in all G interleaved tables, every table's entries added in
-// column order.  A compile-time width scores the words `multi_load` read;
-// a runtime width (WT = 0) reads its codes here, element by element.
-template <typename CodeT, bool OFFSETS, int WT, int G, int R>
+// column order (SORT = false) or in ascending address order (SORT: the
+// row's addresses sorted once for all G).  A compile-time width scores the
+// words `multi_load` read; a runtime width (WT = 0) reads its codes here,
+// element by element.
+template <typename CodeT, bool OFFSETS, int WT, int G, int R, bool SORT>
 __device__ __forceinline__ void multi_score(const float* table, const CodeT* __restrict__ codes,
                                             int w_rt, int lo, int hi,
                                             const uint32_t (&wd)[R][row_words<CodeT, WT>()],
                                             float (&d)[R][G]) {
+  static_assert(!(SORT && OFFSETS), "raw codes are already in table order");
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     const int i = lo + j * THREADS + static_cast<int>(threadIdx.x);
 #pragma unroll
     for (int g = 0; g < G; ++g) d[j][g] = 0.f;
-    if constexpr (WT > 0) {
+    if constexpr (WT > 0 && SORT) {
+      uint32_t a[WT];
+#pragma unroll
+      for (int m = 0; m < WT; ++m) a[m] = word_elem<CodeT>(wd[j], m);
+      sort_network<WT>(a);
+#pragma unroll
+      for (int m = 0; m < WT; ++m) multi_add<G>(table, a[m], d[j]);
+    } else if constexpr (WT > 0) {
 #pragma unroll
       for (int m = 0; m < WT; ++m)
         multi_add<G>(table, addr_of<OFFSETS>(word_elem<CodeT>(wd[j], m), m), d[j]);
     } else if (i < hi) {
       const CodeT* row = codes + static_cast<size_t>(i) * w_rt;
-      for (int m = 0; m < w_rt; ++m)
-        multi_add<G>(table, addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m), d[j]);
+      if constexpr (SORT) {
+        uint32_t la = 0;
+        int lc = -1;
+        for (int s = 0; s < w_rt; ++s) multi_add<G>(table, next_address(row, w_rt, la, lc), d[j]);
+      } else {
+        for (int m = 0; m < w_rt; ++m)
+          multi_add<G>(table, addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m), d[j]);
+      }
     }
     if (i >= hi) {
 #pragma unroll
@@ -361,12 +380,12 @@ __device__ __forceinline__ void multi_score(const float* table, const CodeT* __r
 }
 
 // One pass without prefetch: load, then score.
-template <typename CodeT, bool OFFSETS, int WT, int G, int R>
+template <typename CodeT, bool OFFSETS, int WT, int G, int R, bool SORT>
 __device__ __forceinline__ void multi_pass(const float* table, const CodeT* __restrict__ codes,
                                            int w_rt, int lo, int hi, float (&d)[R][G]) {
   uint32_t wd[R][row_words<CodeT, WT>()];
   if constexpr (WT > 0) multi_load<CodeT, WT, R>(codes, lo, hi, wd);
-  multi_score<CodeT, OFFSETS, WT, G, R>(table, codes, w_rt, lo, hi, wd, d);
+  multi_score<CodeT, OFFSETS, WT, G, R, SORT>(table, codes, w_rt, lo, hi, wd, d);
 }
 
 // Smallest of each of the G values over the block, to every thread
@@ -485,7 +504,7 @@ __device__ __forceinline__ void multi_collect(const MultiSmem& s, const float (&
 
 // Scan tiles [ta, tz) of unit `un` into the block's G lists (ascending by
 // (distance, row), rows numbered from the unit's row0).
-template <typename CodeT, bool OFFSETS, int WT, int G>
+template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT>
 __device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un, long long ta,
                          long long tz, int* s_ncand, float* s_red, float* s_bound) {
   constexpr int R = multi_rows<CodeT, WT>();
@@ -536,7 +555,7 @@ __device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un,
         multi_load<CodeT, WT, R>(codes, min(lo + P, r1), r1, nxt);
 #pragma unroll
         for (int g = 0; g < G; ++g) kth[g] = s.top_v[g * k + k - 1];
-        multi_score<CodeT, OFFSETS, WT, G, R>(s.table, codes, W, lo, min(lo + P, r1), cur, d);
+        multi_score<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, r1), cur, d);
         multi_collect<G, R>(s, d, kth, live, lo, k, s_ncand, s_red);
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -548,7 +567,7 @@ __device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un,
       for (int lo = r0; lo < r1; lo += P) {
 #pragma unroll
         for (int g = 0; g < G; ++g) kth[g] = s.top_v[g * k + k - 1];
-        multi_pass<CodeT, OFFSETS, WT, G, R>(s.table, codes, W, lo, min(lo + P, r1), d);
+        multi_pass<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, r1), d);
         multi_collect<G, R>(s, d, kth, live, lo, k, s_ncand, s_red);
       }
     }
@@ -562,7 +581,7 @@ __device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un,
 #pragma unroll
       for (int g = 0; g < G; ++g) mn[g] = CUDART_INF_F;
       for (int lo = t0; lo < t1; lo += P) {
-        multi_pass<CodeT, OFFSETS, WT, G, R>(s.table, codes, W, lo, min(lo + P, t1), d);
+        multi_pass<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, t1), d);
 #pragma unroll
         for (int j = 0; j < R; ++j) {
 #pragma unroll
@@ -576,7 +595,7 @@ __device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un,
     for (int lo = t0; lo < t1; lo += P) {
 #pragma unroll
       for (int g = 0; g < G; ++g) kth[g] = s.top_v[g * k + k - 1];
-      multi_pass<CodeT, OFFSETS, WT, G, R>(s.table, codes, W, lo, min(lo + P, t1), d);
+      multi_pass<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, t1), d);
       if (t1 - t0 <= P) {  // one pass: the tile's minimum from the same sums
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -714,7 +733,7 @@ __device__ void finish_run(const MultiArgs& a, const MultiSmem& s, const Unit& u
 
 // The block's whole work: total the units' tiles, take tiles
 // [b * T / nb, (b + 1) * T / nb), scan and finish every run in them.
-template <typename CodeT, bool OFFSETS, int WT, int G>
+template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT>
 __device__ void topk_multi(const MultiArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long s_start[THREADS];
@@ -754,7 +773,7 @@ __device__ void topk_multi(const MultiArgs& a) {
       if (count == 0 || start + count <= tb) continue;
       const Unit un = unit_at<G>(a, c0 + j);
       const long long ta = max(tb, start) - start, tz = min(te, start + count) - start;
-      scan_run<CodeT, OFFSETS, WT, G>(a, s, un, ta, tz, &s_ncand, s_red, s_bound);
+      scan_run<CodeT, OFFSETS, WT, G, SORT>(a, s, un, ta, tz, &s_ncand, s_red, s_bound);
       const long long first = ((start + 1) * nb - 1) / T;
       const long long last = ((start + count) * nb - 1) / T;
       finish_run<G>(a, s, un, c0 + j, first, last, &s_ncand, &s_last);

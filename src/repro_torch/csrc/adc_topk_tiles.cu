@@ -24,6 +24,11 @@
 //     a pass bitonic-sorts the kept rows and merges them by merge path;
 //   * `sq[q]` is shared by all the query's blocks through atomicMin.
 //
+// Path: "gather" adds a row's entries in column order, "onehot" (direct
+// addresses) in ascending address order, the reference's multi-hot
+// contraction (`adc_row`'s SORT, adc_topk_common.cuh); the launch's
+// `onehot` flag picks the instantiation.
+//
 // The per-pair tails past the k-th and the (P, 2) skip counters depend on
 // the launch order and differ from the TPU's; the merged per-query output
 // does not (adc_topk_common.cuh states why).
@@ -46,8 +51,8 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT>
-__global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT>())
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+__global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT, SORT>())
 adc_topk_tiles_kernel(const float* __restrict__ tables,     // (R, A)
                       const int* __restrict__ lut_row,      // (P_all,)
                       const CodeT* __restrict__ codes,      // (ndev, cap, W)
@@ -77,14 +82,14 @@ adc_topk_tiles_kernel(const float* __restrict__ tables,     // (R, A)
   auto tile_at = [&](int t) {
     return TileRef{tile_row0[t0 + t], tile_block[t0 + t]};
   };
-  scan_pair<CodeT, OFFSETS, WT>(
+  scan_pair<CodeT, OFFSETS, WT, SORT>(
       tables + static_cast<size_t>(row) * table_width, table_width, cdev, W,
       t1 - t0, tile_at, n_valid[pair], qi, pair_lb[pair], bound[qi], sq, k,
       block_n, out_v + static_cast<size_t>(pair) * k,
       out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair));
 }
 
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int launch(const float* tables, const int* lut_row, const void* codes,
            const int* order, const int* t0, const int* t1, const int* tile_block,
            const int* tile_row0, const int* n_valid, const int* pair_q,
@@ -93,9 +98,9 @@ int launch(const float* tables, const int* lut_row, const void* codes,
            long long cap, int w, int table_width, int k, int block_n,
            cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(table_width, k);
-  cudaError_t e = allow_smem(adc_topk_tiles_kernel<CodeT, OFFSETS, WT>, smem);
+  cudaError_t e = allow_smem(adc_topk_tiles_kernel<CodeT, OFFSETS, WT, SORT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  adc_topk_tiles_kernel<CodeT, OFFSETS, WT><<<n_pairs, THREADS, smem, stream>>>(
+  adc_topk_tiles_kernel<CodeT, OFFSETS, WT, SORT><<<n_pairs, THREADS, smem, stream>>>(
       tables, lut_row, static_cast<const CodeT*>(codes), order, t0, t1,
       tile_block, tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v,
       out_i, stats, pairs_per_dev, cap, w, table_width, k, block_n);
@@ -105,19 +110,19 @@ int launch(const float* tables, const int* lut_row, const void* codes,
 }  // namespace
 
 // code_fmt: 0 = uint8 raw codes (+ column offsets), 1 = uint16 direct
-// addresses, 2 = int32 direct addresses.  Returns cudaGetLastError() after
-// the launch (0 = launched).
+// addresses, 2 = int32 direct addresses; onehot: nonzero for the onehot
+// path.  Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int adc_topk_tiles_launch(
     const void* tables, const void* lut_row, const void* codes,
     const void* pair_order, const void* pair_t0, const void* pair_t1,
     const void* tile_block, const void* tile_row0, const void* n_valid,
     const void* pair_q, const void* pair_lb, const void* bound, void* sq,
     void* out_v, void* out_i, void* stats, int n_pairs, int pairs_per_dev,
-    long long cap, int w, int table_width, int code_fmt, int k, int block_n,
-    void* stream) {
+    long long cap, int w, int table_width, int code_fmt, int onehot, int k,
+    int block_n, void* stream) {
   if (n_pairs <= 0) return 0;
-#define REPRO_TILES_LAUNCH(CodeT, OFF, WT)                                     \
-  launch<CodeT, OFF, WT>(                                                      \
+#define REPRO_TILES_LAUNCH(CodeT, OFF, WT, SORT)                               \
+  launch<CodeT, OFF, WT, SORT>(                                                      \
       static_cast<const float*>(tables), static_cast<const int*>(lut_row),    \
       codes, static_cast<const int*>(pair_order),                             \
       static_cast<const int*>(pair_t0), static_cast<const int*>(pair_t1),     \
@@ -128,6 +133,6 @@ extern "C" int adc_topk_tiles_launch(
       static_cast<int*>(out_i), static_cast<int*>(stats), n_pairs,            \
       pairs_per_dev, cap, w, table_width, k, block_n,                         \
       static_cast<cudaStream_t>(stream))
-  REPRO_ADC_DISPATCH(code_fmt, w, REPRO_TILES_LAUNCH)
+  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TILES_LAUNCH)
 #undef REPRO_TILES_LAUNCH
 }

@@ -19,7 +19,8 @@
 // B2's (`scan_pair`, adc_topk_common.cuh), for raw uint8 codes with column
 // offsets or uint16 / int32 direct addresses.  The wrapper launches the
 // filled pairs best-first (ascending lower bound), so `sq` tightens early;
-// the merged per-query output does not depend on the order.
+// the merged per-query output does not depend on the order.  Path: as B2
+// ("gather" column order, "onehot" ascending address order, `onehot`).
 //
 // What bounds it on an H100: as B2, not bytes but the shared memory's
 // issue of the table lookups (adc_topk_tiles.cu says why); each valid
@@ -32,8 +33,8 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT>
-__global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT>())
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+__global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT, SORT>())
 adc_topk_windows_kernel(const float* __restrict__ tables,     // (R, A)
                         const int* __restrict__ lut_row,      // (P_all,)
                         const CodeT* __restrict__ codes,      // (ndev, cap, W)
@@ -58,14 +59,14 @@ adc_topk_windows_kernel(const float* __restrict__ tables,     // (R, A)
   const int start_blk = starts[pair] / block_n;  // slots are block-aligned
   const CodeT* cdev = codes + static_cast<size_t>(pair / pairs_per_dev) * cap * W;
   auto tile_at = [&](int t) { return TileRef{t * block_n, start_blk + t}; };
-  scan_pair<CodeT, OFFSETS, WT>(
+  scan_pair<CodeT, OFFSETS, WT, SORT>(
       tables + static_cast<size_t>(row) * table_width, table_width, cdev, W,
       (nv + block_n - 1) / block_n, tile_at, nv, qi, pair_lb[pair], bound[qi],
       sq, k, block_n, out_v + static_cast<size_t>(pair) * k,
       out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair));
 }
 
-template <typename CodeT, bool OFFSETS, int WT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int launch(const float* tables, const int* lut_row, const void* codes,
            const int* order, const int* starts, const int* n_valid,
            const int* pair_q, const float* pair_lb, const float* bound,
@@ -73,9 +74,9 @@ int launch(const float* tables, const int* lut_row, const void* codes,
            int pairs_per_dev, long long cap, int w, int table_width, int k,
            int block_n, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(table_width, k);
-  cudaError_t e = allow_smem(adc_topk_windows_kernel<CodeT, OFFSETS, WT>, smem);
+  cudaError_t e = allow_smem(adc_topk_windows_kernel<CodeT, OFFSETS, WT, SORT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  adc_topk_windows_kernel<CodeT, OFFSETS, WT><<<n_blocks, THREADS, smem, stream>>>(
+  adc_topk_windows_kernel<CodeT, OFFSETS, WT, SORT><<<n_blocks, THREADS, smem, stream>>>(
       tables, lut_row, static_cast<const CodeT*>(codes), order, starts, n_valid,
       pair_q, pair_lb, bound, sq, out_v, out_i, stats, pairs_per_dev, cap, w,
       table_width, k, block_n);
@@ -85,17 +86,17 @@ int launch(const float* tables, const int* lut_row, const void* codes,
 }  // namespace
 
 // n_blocks: number of entries of pair_order (the filled pairs).  code_fmt
-// as adc_topk_tiles_launch.  Returns cudaGetLastError() after the launch.
+// and onehot as adc_topk_tiles_launch.  Returns cudaGetLastError() after the launch.
 extern "C" int adc_topk_windows_launch(
     const void* tables, const void* lut_row, const void* codes,
     const void* pair_order, const void* starts, const void* n_valid,
     const void* pair_q, const void* pair_lb, const void* bound, void* sq,
     void* out_v, void* out_i, void* stats, int n_blocks, int pairs_per_dev,
-    long long cap, int w, int table_width, int code_fmt, int k, int block_n,
-    void* stream) {
+    long long cap, int w, int table_width, int code_fmt, int onehot, int k,
+    int block_n, void* stream) {
   if (n_blocks <= 0) return 0;
-#define REPRO_WINDOWS_LAUNCH(CodeT, OFF, WT)                                  \
-  launch<CodeT, OFF, WT>(                                                     \
+#define REPRO_WINDOWS_LAUNCH(CodeT, OFF, WT, SORT)                            \
+  launch<CodeT, OFF, WT, SORT>(                                                     \
       static_cast<const float*>(tables), static_cast<const int*>(lut_row),   \
       codes, static_cast<const int*>(pair_order),                            \
       static_cast<const int*>(starts), static_cast<const int*>(n_valid),     \
@@ -104,6 +105,6 @@ extern "C" int adc_topk_windows_launch(
       static_cast<float*>(out_v), static_cast<int*>(out_i),                  \
       static_cast<int*>(stats), n_blocks, pairs_per_dev, cap, w, table_width, \
       k, block_n, static_cast<cudaStream_t>(stream))
-  REPRO_ADC_DISPATCH(code_fmt, w, REPRO_WINDOWS_LAUNCH)
+  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_WINDOWS_LAUNCH)
 #undef REPRO_WINDOWS_LAUNCH
 }

@@ -6,7 +6,10 @@ sources compile in parallel, one nvcc process each, into objects that are
 linked into one shared library under `<repo>/build/repro_torch_kernels/`,
 named by a hash of the sources and flags so an edited source rebuilds.
 Nothing is built at import time: the first kernel launch builds.  A failed
-build raises with nvcc's output.
+build raises with nvcc's output.  `compile_events` counts what a warmed
+server must not do again: nvcc builds of the library (`build_library`
+compiling, not reusing a build) and CUDA-graph captures (no module of the
+port captures one today; one that does adds to `graph_captures`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# nvcc builds and CUDA-graph captures since the process started (the
+# serving layer's compile counter reads their sum, `compile_count`)
+compile_events = {"nvcc_builds": 0, "graph_captures": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,29 +49,31 @@ SIGNATURES = {
     "ext_lut_launch": [_P] * 4 + [_I] * 5 + [_P],
     # tables, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
     # tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v, out_i, stats,
-    # n_pairs, pairs_per_dev, cap, w, table_width, code_fmt, k, block_n, stream
-    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L, _I, _I, _I, _I, _I, _P],
+    # n_pairs, pairs_per_dev, cap, w, table_width, code_fmt, onehot, k,
+    # block_n, stream
+    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L, _I, _I, _I, _I, _I, _I, _P],
     # tables, lut_row, codes, pair_order, starts, n_valid, pair_q, pair_lb,
     # bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
-    # table_width, code_fmt, k, block_n, stream
-    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L, _I, _I, _I, _I, _I, _P],
+    # table_width, code_fmt, onehot, k, block_n, stream
+    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L, _I, _I, _I, _I, _I, _I, _P],
     # queries, cand, id_dev, id_row, row_base, vectors, out, q, k, d,
     # ids_cap, ndev, vec_is_bf16, plan (`rerank.PLAN_FIELDS` of
     # `rerank.launch_plan`, an int array), stream
     "rerank_launch": [_P] * 7 + [_I] * 6 + [_P, _P],
-    # table, codes, out, n, w, table_width, code_fmt, stream
-    "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _P],
+    # table, codes, out, n, w, table_width, code_fmt, onehot, stream
+    "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     # tables, codes, bound (may be null), units (may be null), out_v, out_i,
     # part_v, part_i, tickets, n_units, n_q, n_rows, w, table_width,
-    # code_fmt, k, block_n, g, n_blocks, stream
-    "adc_topk_launch": [_P] * 9 + [_I] * 10 + [_P],
-    # code_fmt, w, table_width, k, g
-    "adc_topk_blocks_per_sm": [_I] * 5,
+    # code_fmt, onehot, k, block_n, g, n_blocks, stream
+    "adc_topk_launch": [_P] * 9 + [_I] * 11 + [_P],
+    # code_fmt, onehot, w, table_width, k, g
+    "adc_topk_blocks_per_sm": [_I] * 6,
     # tables, addrs, n_valid, out_v, out_i, part_v, part_i, tickets,
-    # n_pairs, win_len, w, table_width, code_fmt, k, block_n, n_blocks, stream
-    "adc_topk_pairs_launch": [_P] * 8 + [_I, _L] + [_I] * 6 + [_P],
-    # code_fmt, w, table_width, k
-    "adc_topk_pairs_blocks_per_sm": [_I] * 4,
+    # n_pairs, win_len, w, table_width, code_fmt, onehot, k, block_n,
+    # n_blocks, stream
+    "adc_topk_pairs_launch": [_P] * 8 + [_I, _L] + [_I] * 7 + [_P],
+    # code_fmt, onehot, w, table_width, k
+    "adc_topk_pairs_blocks_per_sm": [_I] * 5,
     # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
     # kv_is_bf16, scale, stream
     "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
@@ -117,6 +126,7 @@ def build_library() -> pathlib.Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    compile_events["nvcc_builds"] += 1
     tag = f"{os.getpid()}"
     objs, procs = [], []
     for s in srcs:
@@ -159,6 +169,11 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def compile_count() -> int:
+    """nvcc builds plus CUDA-graph captures so far in this process."""
+    return sum(compile_events.values())
 
 
 def ptxas_report() -> str:

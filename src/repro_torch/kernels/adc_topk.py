@@ -21,6 +21,16 @@ row is scored, the reference's `add_offsets`; A >= M * 256) or uint16 /
 int32 direct addresses into [LUT | combo sums | 0] tables (§4.3; the
 sentinel address reads the table's final 0.0).
 
+Every scan takes the reference's `path`: "gather" adds a row's W table
+entries in column order, "onehot" in ascending table-address order -- the
+order of the reference's multi-hot x table contraction
+(`src/repro/kernels/adc_scan.py` `_onehot_dists`), each occurrence once,
+each sum rounded on its own.  On raw codes the two orders are one (the
+address m * 256 + code grows with m), so there the paths agree bit for
+bit; on direct addresses (§4.3) a combo's address sits at its anchor
+column, and the onehot path sorts the row's addresses first
+(`table_addresses`).
+
 Soundness of the pruning (why the merged per-query output does not depend
 on the order pairs run in) is set out in the CUDA header; in short, every
 skipped tile and every dropped row lies strictly beyond the query's final
@@ -123,14 +133,34 @@ def gatherable(codes: torch.Tensor) -> torch.Tensor:
     return codes.view(torch.int16) if codes.dtype == torch.uint16 else codes
 
 
-def table_addresses(rows: torch.Tensor, fmt: int) -> torch.Tensor:
+def table_addresses(rows: torch.Tensor, fmt: int, path: str = "gather") -> torch.Tensor:
     """int64 table addresses of code rows (..., W) taken from `gatherable`
-    codes of format `fmt`: m * 256 + code for raw uint8 codes, the value
-    itself (0..65535 for uint16) for direct addresses."""
+    codes of format `fmt`, in the order the `path` adds them: m * 256 +
+    code for raw uint8 codes (already ascending), the value itself (0..65535
+    for uint16, masked before any sort) for direct addresses, sorted along
+    the row on the onehot path."""
     addr = rows.long()
     if fmt == 0:
         return addr + torch.arange(rows.shape[-1], device=rows.device) * 256
-    return addr & 0xFFFF if fmt == 1 else addr
+    addr = addr & 0xFFFF if fmt == 1 else addr
+    return torch.sort(addr, dim=-1).values if path == "onehot" else addr
+
+
+def sort_network_size(w: int) -> int:
+    """Compare-exchanges of the sorting network the onehot kernels run on
+    a row of compile-time width w (Batcher's odd-even merge sort,
+    csrc/adc_topk_common.cuh `sort_network`): 19 for 8, 63 for 16."""
+    n = 0
+    p = 1
+    while p < w:
+        k = p
+        while k >= 1:
+            for j in range(k % p, w - k, 2 * k):
+                n += sum(1 for i in range(k) if i + j + k < w
+                         and (i + j) // (2 * p) == (i + j + k) // (2 * p))
+            k //= 2
+        p *= 2
+    return n
 
 
 def sum_columns(g: torch.Tensor) -> torch.Tensor:
@@ -156,6 +186,7 @@ def adc_topk_tiles_plain(
     t1: torch.Tensor,
     k: int,
     block_n: int,
+    path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's contract in plain tensor code, every run in lockstep.
 
@@ -169,7 +200,7 @@ def adc_topk_tiles_plain(
     least k-th of each query's pairs.  Inputs are flat over (dev, pair)
     except `luts` (R, A) tables, `codes` (ndev, cap, W) and `bound` (Q,).
     uint8 codes get the column offset m * 256; uint16 / int32 codes are
-    the table addresses themselves.
+    the table addresses themselves, added in `path` order.
 
     Returns (vals (ndev*P, k) f32, rows (ndev*P, k) int32, stats (ndev*P, 2)
     int32); pairs with no tiles or no table keep (+inf, -1, 0).
@@ -178,7 +209,7 @@ def adc_topk_tiles_plain(
     n_pairs = lut_row.shape[0]
     ndev, cap, m = codes.shape
     p = n_pairs // ndev
-    lut_flat = luts.reshape(luts.shape[0], -1)
+    lut_flat = luts.flatten(1)
     lut_row = lut_row.long()
     fmt = code_format(codes)
     codes_flat = gatherable(codes.reshape(ndev * cap, m))
@@ -209,7 +240,7 @@ def adc_topk_tiles_plain(
             pr = act[sel]
             dev = pr // p
             code_rows = dev[:, None] * cap + blk[sel, None] * block_n + lane
-            addr = table_addresses(codes_flat[code_rows], fmt)   # (R, bn, W)
+            addr = table_addresses(codes_flat[code_rows], fmt, path)  # (R, bn, W)
             g = lut_flat[lut_row[pr]].gather(1, addr.reshape(pr.shape[0], -1))
             d = sum_columns(g.reshape(addr.shape))
             ok = (
@@ -230,10 +261,10 @@ def adc_topk_tiles_plain(
 
 def launch(
     luts, lut_row, codes, order, t0, t1, tile_block, tile_row0, n_valid, pair_q,
-    pair_lb, bound, sq, out_v, out_i, stats, k: int, block_n: int,
+    pair_lb, bound, sq, out_v, out_i, stats, k: int, block_n: int, path: str = "gather",
 ) -> None:
     """Enqueue `csrc/adc_topk_tiles.cu` on the current stream (checked inputs;
-    `luts` (R, A) contiguous)."""
+    `luts` (R, A) contiguous; `path` picks the instantiation)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
     err = _build.library().adc_topk_tiles_launch(
@@ -242,7 +273,8 @@ def launch(
         n_valid.data_ptr(), pair_q.data_ptr(), pair_lb.data_ptr(),
         bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         stats.data_ptr(), n_pairs, n_pairs // ndev, cap, w, luts.shape[1],
-        code_format(codes), k, block_n, torch.cuda.current_stream(luts.device).cuda_stream,
+        code_format(codes), int(path == "onehot"), k, block_n,
+        torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_tiles")
 
@@ -268,7 +300,7 @@ def window_runs(
 
 def adc_topk_windows_plain(
     luts, lut_row, codes, starts, n_valid, pair_q, pair_lb, bound, k: int,
-    block_n: int,
+    block_n: int, path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B5's contract in plain tensor code: each filled pair's window blocks
     as a tile run (`window_runs`), scanned by `adc_topk_tiles_plain` in
@@ -277,13 +309,13 @@ def adc_topk_windows_plain(
     t0, t1, blk, row0 = window_runs(starts, n_valid, lut_row, block_n)
     return adc_topk_tiles_plain(
         luts, lut_row, codes, blk, row0, n_valid, pair_q, pair_lb, bound, t0, t1,
-        k, block_n,
+        k, block_n, path,
     )
 
 
 def launch_windows(
     luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound, sq,
-    out_v, out_i, stats, k: int, block_n: int,
+    out_v, out_i, stats, k: int, block_n: int, path: str = "gather",
 ) -> None:
     """Enqueue `csrc/adc_topk_windows.cu` on the current stream (checked
     inputs): one block per entry of `order` (the filled pairs)."""
@@ -294,7 +326,7 @@ def launch_windows(
         starts.data_ptr(), n_valid.data_ptr(), pair_q.data_ptr(),
         pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), stats.data_ptr(), order.shape[0], n_pairs // ndev, cap,
-        w, luts.shape[-1], code_format(codes), k, block_n,
+        w, luts.shape[-1], code_format(codes), int(path == "onehot"), k, block_n,
         torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_windows")
@@ -410,7 +442,8 @@ def run_plan(unit_tiles, n_blocks: int) -> dict:
 
 
 def adc_topk_plain(
-    tables: torch.Tensor, codes: torch.Tensor, bound: torch.Tensor, k: int, block_n: int
+    tables: torch.Tensor, codes: torch.Tensor, bound: torch.Tensor, k: int, block_n: int,
+    path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B6's function in plain tensor code.
 
@@ -419,7 +452,7 @@ def adc_topk_plain(
     r // block_n; a tile is kept iff its smallest distance is <= bound[q].
     Returns the k smallest rows of the kept tiles by (distance, row):
     ((Q, k) f32, (Q, k) int32), (+inf, -1) in lanes without a row.  Rows
-    are scored in chunks of whole tiles (entries added in column order, as
+    are scored in chunks of whole tiles (entries added in `path` order, as
     the kernel does) and each chunk merged into the running list by a
     stable sort, the list first: its rows are the lower ones.
     """
@@ -431,7 +464,7 @@ def adc_topk_plain(
     best_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
     step = max(1, _PLAIN_ROWS // max(q_n, 1) // block_n) * block_n
     for s in range(0, n, step):
-        addr = table_addresses(src[s : s + step], fmt)           # (R, W)
+        addr = table_addresses(src[s : s + step], fmt, path)     # (R, W)
         r = addr.shape[0]
         d = sum_columns(tables[:, addr])                          # (Q, R)
         nt = -(-r // block_n)
@@ -449,7 +482,7 @@ def adc_topk_plain(
 
 def adc_topk_grouped_plain(
     tables: torch.Tensor, codes: torch.Tensor, bound: torch.Tensor, k: int, block_n: int,
-    row_offsets, table_offsets,
+    row_offsets, table_offsets, path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Grouped B6 in plain tensor code: for each group, `adc_topk_plain` of
     its table rows over its rows alone (rows numbered from the group's
@@ -462,7 +495,7 @@ def adc_topk_grouped_plain(
                               table_offsets[1:]):
         if t1 > t0 and r1 > r0:
             out_v[t0:t1], out_i[t0:t1] = adc_topk_plain(
-                tables[t0:t1], codes[r0:r1], bound[t0:t1], k, block_n)
+                tables[t0:t1], codes[r0:r1], bound[t0:t1], k, block_n, path)
     return out_v, out_i
 
 
@@ -493,13 +526,15 @@ def _blocks_per_sm(name: str, *args: int) -> int:
 
 
 def _grid(dev: torch.device, name: str, *args: int) -> int:
-    """Blocks of a B6 / B7 launch: the SMs times the resident blocks."""
+    """Blocks of a B6 / B7 launch: the SMs times the resident blocks of the
+    instantiation `args` name (code format, onehot flag, width, ...)."""
     return torch.cuda.get_device_properties(dev).multi_processor_count * _blocks_per_sm(
         name, *args)
 
 
 def launch_topk(
-    tables, codes, bound, out_v, out_i, k: int, block_n: int, g: int, units=None
+    tables, codes, bound, out_v, out_i, k: int, block_n: int, g: int, units=None,
+    path: str = "gather",
 ) -> None:
     """Enqueue `csrc/adc_topk.cu` on the current stream (checked inputs:
     tables (Q, A), codes (N, W), bound (Q,) or None, out (Q, k), `g` from
@@ -510,26 +545,28 @@ def launch_topk(
     dev = tables.device
     w, fmt = codes.shape[1], code_format(codes)
     n_units = -(-q_n // g) if units is None else units.shape[0]
-    n_blocks = _grid(dev, "adc_topk_blocks_per_sm", fmt, w, tables.shape[1], k, g)
+    onehot = int(path == "onehot")
+    n_blocks = _grid(dev, "adc_topk_blocks_per_sm", fmt, onehot, w, tables.shape[1], k, g)
     part_v, part_i, tickets = _workspace(dev, (n_blocks + n_units) * g * k,
                                          n_blocks + 2 * n_units)
     err = _build.library().adc_topk_launch(
         tables.data_ptr(), codes.data_ptr(), None if bound is None else bound.data_ptr(),
         None if units is None else units.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         part_v.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), n_units, q_n, n, w,
-        tables.shape[1], fmt, k, block_n, g, n_blocks,
+        tables.shape[1], fmt, onehot, k, block_n, g, n_blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "adc_topk")
 
 
 def adc_topk_pairs_plain(
-    tables: torch.Tensor, addrs: torch.Tensor, n_valid: torch.Tensor, k: int
+    tables: torch.Tensor, addrs: torch.Tensor, n_valid: torch.Tensor, k: int,
+    path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B7's function in plain tensor code: tables (P, A) f32, addrs (P, L, W)
     uint16 / int32 direct addresses, n_valid (P,) int32.  Per pair, the k
     smallest of its rows below n_valid by (distance, row), entries added in
-    column order: ((P, k) f32, (P, k) int32), (+inf, -1) in lanes without
+    `path` order: ((P, k) f32, (P, k) int32), (+inf, -1) in lanes without
     a row."""
     p, win, _ = addrs.shape
     dev = tables.device
@@ -540,7 +577,7 @@ def adc_topk_pairs_plain(
     lane = torch.arange(win, device=dev)
     per = max(1, _PLAIN_ROWS // max(win, 1))
     for s in range(0, p, per):
-        addr = table_addresses(src[s : s + per], fmt)              # (p', L, W)
+        addr = table_addresses(src[s : s + per], fmt, path)        # (p', L, W)
         g = tables[s : s + per].gather(1, addr.reshape(addr.shape[0], -1))
         d = sum_columns(g.reshape(addr.shape))                     # (p', L)
         d = torch.where(lane < n_valid[s : s + per, None].long(), d, torch.inf)
@@ -551,7 +588,8 @@ def adc_topk_pairs_plain(
     return out_v, out_i
 
 
-def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int) -> None:
+def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int,
+                 path: str = "gather") -> None:
     """Enqueue `csrc/adc_topk_pairs.cu` on the current stream (checked
     inputs: tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)
     pre-filled with (+inf, -1)): one launch, each pair's valid tiles cut
@@ -559,12 +597,13 @@ def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int) -> 
     p, win, w = addrs.shape
     dev = tables.device
     fmt = code_format(addrs)
-    n_blocks = _grid(dev, "adc_topk_pairs_blocks_per_sm", fmt, w, tables.shape[1], k)
+    onehot = int(path == "onehot")
+    n_blocks = _grid(dev, "adc_topk_pairs_blocks_per_sm", fmt, onehot, w, tables.shape[1], k)
     part_v, part_i, tickets = _workspace(dev, (n_blocks + p) * k, n_blocks + 2 * p)
     err = _build.library().adc_topk_pairs_launch(
         tables.data_ptr(), addrs.data_ptr(), n_valid.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), part_v.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), p, win, w,
-        tables.shape[1], fmt, k, block_n, n_blocks,
+        tables.shape[1], fmt, onehot, k, block_n, n_blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "adc_topk_pairs")

@@ -4,8 +4,8 @@ API:
   build_luts(codebook, qmc, rows=None)                B1: (N or R, M, 256) tables
   build_ext_luts_pairs(luts, combo_addrs, set_idx)    B4: per-row combo sets
   build_ext_luts(luts, combo_cols, combo_codes)       B9: one shared combo set
-  adc_topk_tiles(tables, codes, ..., lut_row=)        B2: pruned tile scan + top-k
-  adc_topk_windows(tables, codes, starts, ...)        B5: pruned windows scan + top-k
+  adc_topk_tiles(tables, codes, ..., lut_row=, path=) B2: pruned tile scan + top-k
+  adc_topk_windows(tables, codes, starts, ..., path=) B5: pruned windows scan + top-k
   rerank_dists(queries, cand, vectors, ...)           B3: exact re-rank, fused gather
   adc_scan(lut, codes) / adc_scan_flat(ext, addrs)    B8: (N,) ADC distances
   adc_topk(luts, codes, k) / adc_topk_flat(...)       B6: many tables, one code array
@@ -13,9 +13,12 @@ API:
   adc_topk_pairs(tables, addrs, n_valid, k)           B7: materialised per-pair windows
   flash_attention_fwd(q, k, v, scale=, ...)           B10: causal GQA attention forward
 
-The last three are the reference's kernel-level API (`repro.kernels.ops`);
-they take its `block_n` and `path` arguments: `path="gather"` only
-(`"onehot"` raises NotImplementedError, ROADMAP queue D item 2).
+The five ADC scans take the reference's `path`: "gather" adds a row's
+table entries in column order, "onehot" in ascending table-address order,
+the order of the reference's multi-hot x table contraction (the same sums
+bit for bit on raw uint8 codes; `adc_topk.table_addresses` states it).
+B6 / B7 / B8 are the reference's kernel-level API (`repro.kernels.ops`)
+and take its `block_n` too.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either launches its CUDA kernel on the current stream
@@ -105,7 +108,7 @@ def build_luts(
 def _ext_check(luts: torch.Tensor, t_pad: int | None, n_combos: int) -> tuple:
     dev = luts.device
     if luts.dim() == 3:
-        luts = luts.reshape(luts.shape[0], -1)
+        luts = luts.flatten(1)
     _check(luts, "luts", torch.float32, 2, dev)
     ma = luts.shape[1]
     if ma % NCODES:
@@ -172,7 +175,7 @@ def _tables_2d(tables: torch.Tensor, codes: torch.Tensor, dev) -> torch.Tensor:
     """(R, A) f32 tables, from (R, A) or (R, M, 256); raw uint8 codes need
     A >= M * 256 (their addresses are m * 256 + code)."""
     if tables.dim() == 3:
-        tables = tables.reshape(tables.shape[0], -1)
+        tables = tables.flatten(1)
     _check(tables, "luts", torch.float32, 2, dev)
     w = codes.shape[-1]
     if _topk.code_format(codes) == 0 and tables.shape[1] < w * NCODES:
@@ -196,6 +199,7 @@ def adc_topk_tiles(
     pair_q: torch.Tensor | None = None,
     pair_lb: torch.Tensor | None = None,
     bound: torch.Tensor | None = None,
+    path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flat work-queue fused ADC scan + per-pair top-k (kernel B2).
 
@@ -212,7 +216,8 @@ def adc_topk_tiles(
     strict warm-start bounds; +inf for none) and `pair_lb` ((ndev, P)
     lower bounds) drive the whole-tile pruning; without `pair_q` every
     pair is its own query and the result is each pair's exact top-k by
-    (distance, row).
+    (distance, row).  `path` is "gather" or "onehot" (the order each row's
+    entries are added in; module docstring).
 
     Returns ((ndev, P, k) f32 distances, (ndev, P, k) int32 window rows,
     (ndev, P, 2) int32 [tiles skipped, rows avoided]).  Pairs that emitted
@@ -225,6 +230,7 @@ def adc_topk_tiles(
     wider than about 39,600 entries at k = 4096 (55,800 at k = 64) raises
     ValueError.
     """
+    _check_path(path, "adc_topk_tiles")
     single = codes.dim() == 2
     if single:
         codes, lut_row = codes[None], lut_row[None]
@@ -272,7 +278,7 @@ def adc_topk_tiles(
     if not _on_gpu(dev):
         vals, idx, stats = _topk.adc_topk_tiles_plain(
             luts, lut_row, codes, tile_block, tile_row0, n_valid, pair_q,
-            pair_lb, bound, t0, t1, k, block_n,
+            pair_lb, bound, t0, t1, k, block_n, path,
         )
     else:
         vals = torch.full((ndev * p, k), torch.inf, dtype=torch.float32, device=dev)
@@ -281,7 +287,7 @@ def adc_topk_tiles(
         sq = bound.clone()
         _topk.launch(
             luts, lut_row, codes, order, t0, t1, tile_block, tile_row0, n_valid,
-            pair_q, pair_lb, bound, sq, vals, idx, stats, k, block_n,
+            pair_q, pair_lb, bound, sq, vals, idx, stats, k, block_n, path,
         )
         launches["adc_topk_tiles"] += 1
     vals = vals.reshape(ndev, p, k)
@@ -304,6 +310,7 @@ def adc_topk_windows(
     pair_q: torch.Tensor | None = None,
     pair_lb: torch.Tensor | None = None,
     bound: torch.Tensor | None = None,
+    path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused ADC scan + per-pair top-k over per-pair windows (kernel B5).
 
@@ -313,7 +320,8 @@ def adc_topk_windows(
     optional): luts (R, A) f32, lut_row (ndev, P) int32 (-1: not
     scanned), codes (ndev, cap, W) uint8 / uint16 / int32, starts and
     n_valid (ndev, P).  `pair_q` + `bound` and `pair_lb` drive the pruning
-    as there.  Filled pairs (a table and rows) run best-first by `pair_lb`.
+    as there, and `path`.  Filled pairs (a table and rows) run best-first by
+    `pair_lb`.
 
     Returns ((ndev, P, k) f32 distances, (ndev, P, k) int32 window rows,
     (ndev, P, 2) int32 [tiles skipped, rows avoided]); other pairs read
@@ -322,6 +330,7 @@ def adc_topk_windows(
     shared memory (`adc_topk.scan_smem`), refused with ValueError on every
     device.
     """
+    _check_path(path, "adc_topk_windows")
     single = codes.dim() == 2
     if single:
         codes, lut_row, starts, n_valid = codes[None], lut_row[None], starts[None], n_valid[None]
@@ -358,7 +367,7 @@ def adc_topk_windows(
 
     if not _on_gpu(dev):
         vals, idx, stats = _topk.adc_topk_windows_plain(
-            luts, lut_row, codes, starts, n_valid, pair_q, pair_lb, bound, k, block_n,
+            luts, lut_row, codes, starts, n_valid, pair_q, pair_lb, bound, k, block_n, path,
         )
     else:
         filled = torch.nonzero((lut_row >= 0) & (n_valid > 0)).flatten()
@@ -369,7 +378,7 @@ def adc_topk_windows(
         sq = bound.clone()
         _topk.launch_windows(
             luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound,
-            sq, vals, idx, stats, k, block_n,
+            sq, vals, idx, stats, k, block_n, path,
         )
         launches["adc_topk_windows"] += 1
     vals, idx, stats = vals.reshape(ndev, p, k), idx.reshape(ndev, p, k), stats.reshape(ndev, p, 2)
@@ -426,13 +435,8 @@ def rerank_dists(
 
 
 def _check_path(path: str, name: str) -> None:
-    if path == "onehot":
-        raise NotImplementedError(
-            f'{name}: path="onehot" is not ported to repro_torch yet; see ROADMAP.md '
-            "queue D item 2"
-        )
-    if path != "gather":
-        raise ValueError(f"{name}: path must be 'gather', got {path!r}")
+    if path not in ("gather", "onehot"):
+        raise ValueError(f"{name}: path must be 'gather' or 'onehot', got {path!r}")
 
 
 def _check_codes(codes: torch.Tensor, name: str, ndim: int, direct: bool, dev) -> int:
@@ -461,10 +465,10 @@ def _run_scan(table: torch.Tensor, codes: torch.Tensor, block_n: int, path: str,
     _check_path(path, name)
     _check_geometry(block_n, None, 0)
     if not _on_gpu(table.device):
-        return _scan.adc_scan_plain(table, codes)
+        return _scan.adc_scan_plain(table, codes, path)
     out = torch.empty((codes.shape[0],), dtype=torch.float32, device=table.device)
     if codes.shape[0]:
-        _scan.launch(table, codes, out)
+        _scan.launch(table, codes, out, path)
         launches["adc_scan"] += 1
     return out
 
@@ -474,7 +478,8 @@ def adc_scan(
 ) -> torch.Tensor:
     """(M, 256) f32 table x (N, M) uint8 PQ codes -> (N,) f32 ADC distances
     (kernel B8; the column offset m * 256 is added in the kernel).
-    `block_n` is the reference's tile height; no result depends on it."""
+    `block_n` is the reference's tile height; no result depends on it, nor
+    on `path` (raw codes are in table order)."""
     dev = lut.device
     _check(lut, "lut", torch.float32, 2, dev)
     _check_codes(codes, "codes", 2, False, dev)
@@ -488,7 +493,8 @@ def adc_scan_flat(
     path: str = "gather",
 ) -> torch.Tensor:
     """(A,) f32 table x (N, W) uint16 / int32 direct addresses -> (N,) f32
-    (kernel B8): each row's W entries of the table added in column order."""
+    (kernel B8): each row's W entries of the table added in column order
+    (`path="gather"`) or in ascending address order ("onehot")."""
     dev = ext_lut.device
     _check(ext_lut, "ext_lut", torch.float32, 1, dev)
     _check_codes(addrs, "addrs", 2, True, dev)
@@ -519,15 +525,15 @@ def _run_topk(tables, codes, k, block_n, path, bound, name, groups=None):
         if bound is None:
             bound = torch.full((q_n,), torch.inf, dtype=torch.float32, device=dev)
         if groups is None:
-            return _topk.adc_topk_plain(tables, codes, bound, k, block_n)
-        return _topk.adc_topk_grouped_plain(tables, codes, bound, k, block_n, *groups)
+            return _topk.adc_topk_plain(tables, codes, bound, k, block_n, path)
+        return _topk.adc_topk_grouped_plain(tables, codes, bound, k, block_n, *groups, path)
     out_v = torch.full((q_n, k), torch.inf, dtype=torch.float32, device=dev)
     out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
     units = None if groups is None else _topk.topk_units(*groups, g)
     if q_n and n and (units is None or units.shape[0]):
         if units is not None:
             units = units.to(dev)
-        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n, g, units)
+        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n, g, units, path)
         launches["adc_topk"] += 1
     return out_v, out_i
 
@@ -664,11 +670,11 @@ def adc_topk_pairs(
                           tables.shape[1], groups=(1,))
     n_valid = n_valid.to(device=dev, dtype=torch.int32).contiguous()
     if not _on_gpu(dev):
-        return _topk.adc_topk_pairs_plain(tables, addrs, n_valid, k)
+        return _topk.adc_topk_pairs_plain(tables, addrs, n_valid, k, path)
     out_v = torch.full((p, k), torch.inf, dtype=torch.float32, device=dev)
     out_i = torch.full((p, k), -1, dtype=torch.int32, device=dev)
     if p:
-        _topk.launch_pairs(tables, addrs, n_valid, out_v, out_i, k, block_n)
+        _topk.launch_pairs(tables, addrs, n_valid, out_v, out_i, k, block_n, path)
         launches["adc_topk_pairs"] += 1
     return out_v, out_i
 

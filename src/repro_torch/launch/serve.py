@@ -11,12 +11,14 @@ every layer when the config's `use_flash_kernel` is set, `--flash`), then
 greedy `decode_step`s against an f32 KV cache.  `--retrieval` builds the
 port's `MemANNSEngine` on a synthetic corpus of the model's width (the
 reference's arguments: the SIFT1B config reduced, co-occurrence on unless
-`--cooc off`) and searches it once with one query per request, directly
-(kernels B1, B4 with co-occurrence, B2, and B3 with `--rerank exact`).
+`--cooc off`) and serves one query per request through a warmed
+`ServingEngine` with `micro_batch = max(1, batch // 2)` and
+`--pipeline-depth` (default 1), as the reference does (kernels B1, B4
+with co-occurrence, B2, and B3 with `--rerank exact`).
 
-The reference's `ServingEngine` flags (pipeline depth, churn, autotune,
-deadlines, admission, watchdog, metrics and traces) wait for their ROADMAP
-items (queue A items 7, 9, 12, 13); argparse refuses them.
+The reference's other `ServingEngine` flags (churn, autotune, deadlines,
+admission, watchdog, metrics and traces) wait for their ROADMAP items
+(queue A items 7, 12, 13); argparse refuses them.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class RetrievalOptions:
     rerank: str = "off"
     k_overfetch: int = 0
     cooc: str = "auto"
+    pipeline_depth: int = 1
 
 
 def _sync(dev: torch.device) -> None:
@@ -77,16 +80,31 @@ def retrieval_engine(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, 
 
 
 def _retrieve(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: int) -> dict:
+    from repro_torch.retrieval.serving import ServingEngine
+
     eng, rcfg, qvecs = retrieval_engine(cfg, opts, batch, dev, seed)
+    # half the request batch a micro-batch, so one search spans two and the
+    # pipeline engages (the reference's choice)
+    srv = ServingEngine(eng, nprobe=rcfg.nprobe, k=rcfg.k, micro_batch=max(1, batch // 2),
+                        pipeline_depth=opts.pipeline_depth)
+    srv.warmup()
     before = dict(ops.launches)
     t0 = time.perf_counter()
-    _, ids = eng.search(qvecs, rcfg.nprobe, rcfg.k)
+    _, ids = srv.search(qvecs)
     _sync(dev)
+    retrieval_s = time.perf_counter() - t0
+    st = srv.stats
     stats = {"cooc": eng.shards.n_combos > 0, "device": str(dev),
-             "nprobe": rcfg.nprobe, "k": rcfg.k, "kernel_launches": _launch_diff(before)}
+             "nprobe": rcfg.nprobe, "k": rcfg.k, "pipeline_depth": opts.pipeline_depth,
+             "micro_batch": srv.micro_batch, "batches": st.batches, "compiles": st.compiles,
+             "host_fraction": st.host_fraction(), "overlap_fraction": st.overlap_fraction(),
+             "p50_ms": 1e3 * st.p50_s(), "p99_ms": 1e3 * st.p99_s(),
+             "rows_scanned": st.rows_scanned, "load_carry": srv.load_carry().tolist(),
+             "autotune": srv.autotune_report, "health": srv.health(),
+             "kernel_launches": _launch_diff(before)}
     if opts.rerank != "off":
         stats["rerank"] = {"mode": opts.rerank, "k_prime": eng.k_prime(rcfg.k)}
-    return {"retrieval_s": time.perf_counter() - t0, "retrieved_ids": ids[:, :4].tolist(),
+    return {"retrieval_s": retrieval_s, "retrieved_ids": ids[:, :4].tolist(),
             "retrieval_stats": stats}
 
 
@@ -180,6 +198,11 @@ def main(argv=None) -> dict:
         "--cooc", choices=["auto", "on", "off"], default="auto",
         help="co-occurrence re-encoded shards (§4.3); auto = on",
     )
+    ap.add_argument(
+        "--pipeline-depth", type=int, default=1,
+        help="in-flight retrieval micro-batches: 1 overlaps host planning of "
+             "micro-batch i+1 with device execution of i; 0 = serial",
+    )
     ap.add_argument("--flash", action="store_true",
                     help="use_flash_kernel: prefill attention on kernel B10")
     ap.add_argument("--opt-decode", action="store_true",
@@ -197,7 +220,8 @@ def main(argv=None) -> dict:
     retrieval = None
     if args.retrieval:
         retrieval = RetrievalOptions(vectors=args.retrieval_vectors, rerank=args.rerank,
-                                     k_overfetch=args.k_overfetch, cooc=args.cooc)
+                                     k_overfetch=args.k_overfetch, cooc=args.cooc,
+                                     pipeline_depth=args.pipeline_depth)
     report = serve(cfg, batch=args.batch, prompt_len=args.prompt_len, steps=args.steps,
                    retrieval=retrieval, device=args.device)
     print(json.dumps(report, indent=1))

@@ -10,13 +10,12 @@ over a leading logical-device axis (LUT build, extended tables for
 co-occurrence shards, pruned scan, hierarchical merge) and, with
 `rerank="exact"`, the re-rank of the overfetched candidates.
 
-Ported knobs: `scan` "tiles" | "windows", `path` "gather" | "flat",
-`use_cooc` (§4.3 co-occurrence shards, with `n_combos`, `combo_len`,
-`mine_rows`, `min_length_reduction`), `prune`, `rerank` "off" | "exact",
-`k_overfetch`, `mutable` (online inserts, tombstone deletes and
+Ported knobs: `scan` "tiles" | "windows", `path` "gather" | "flat" |
+"onehot", `use_cooc` (§4.3 co-occurrence shards, with `n_combos`,
+`combo_len`, `mine_rows`, `min_length_reduction`), `prune`, `rerank` "off"
+| "exact", `k_overfetch`, `mutable` (online inserts, tombstone deletes and
 compaction, `retrieval.mutation`, with `delta_capacity`).  `opq_iters`
-and the onehot path raise NotImplementedError naming the ROADMAP item
-that will bring them.
+raises NotImplementedError naming the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -65,16 +64,15 @@ def _not_ported(knob: str, item: str) -> NotImplementedError:
 def _check_knobs(scan: str, path: str, rerank: str, opq_iters: int) -> None:
     """Refuse, before any expensive work, what the port does not take.
 
-    `path` names the addressing ("gather" for raw codes, "flat" for direct
-    addresses), as in the reference; it is checked and not kept, since
-    the kernels follow the shards' codes either way.
+    `path` is the reference's: "gather" and "flat" (the addressing of raw
+    codes and of direct addresses; the kernels follow the shards' codes
+    either way) add each row's table entries in column order, "onehot" in
+    ascending table-address order (`kernels.ops`).
     """
     if scan not in ("tiles", "windows"):
         raise ValueError(f"scan must be 'tiles' or 'windows', got {scan!r}")
-    if path == "onehot":
-        raise _not_ported('path="onehot"', "queue D item 2")
-    if path not in ("gather", "flat"):
-        raise ValueError(f"path must be 'gather' or 'flat', got {path!r}")
+    if path not in ("gather", "flat", "onehot"):
+        raise ValueError(f"path must be 'gather', 'flat' or 'onehot', got {path!r}")
     if rerank not in ("off", "exact"):
         raise ValueError(f"rerank must be 'off' or 'exact', got {rerank!r}")
     if opq_iters > 0:
@@ -108,6 +106,10 @@ class SearchPlan:
     pair_lb: np.ndarray | None = None       # (ndev, P) f32
     probed_ub: np.ndarray | None = None     # (Q, nprobe) f32
     probed_sizes: np.ndarray | None = None  # (Q, nprobe) int64
+    # coverage under a live-device mask: probed (query, cluster) pairs whose
+    # every replica is on a dead device (None: planned with all devices live)
+    lost_q: np.ndarray | None = None        # (L,) int32 query index
+    lost_c: np.ndarray | None = None        # (L,) int32 cluster id
 
     @property
     def scan(self) -> str:
@@ -132,7 +134,10 @@ class MemANNSEngine:
 
     Knobs: `scan` ("tiles": a flat queue of the probed code tiles, kernel
     B2; "windows": each filled pair scans its cluster slot, kernel B5; the
-    two give bit-identical results), `prune`
+    two give bit-identical results), `path` ("gather" / "flat": each row's
+    entries added in column order; "onehot": in ascending table-address
+    order, the reference's multi-hot contraction; the same bits on raw
+    codes), `prune`
     (exact whole-tile pruning; False plans the unpruned reference scan),
     `rerank` ("off" | "exact": overfetch `k_prime(k)` ADC candidates and
     re-score them exactly against `raw`), `k_overfetch` (k'; 0 = 4k,
@@ -151,6 +156,7 @@ class MemANNSEngine:
     shards: DeviceShards
     device: torch.device
     scan: str = "tiles"
+    path: str = "gather"
     prune: bool = True
     rerank: str = "off"
     k_overfetch: int = 0
@@ -232,7 +238,7 @@ class MemANNSEngine:
             block_n=block_n, raw_dtype=raw_dtype,
             cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
-            freqs=freqs, scan=scan, prune=prune, rerank=rerank,
+            freqs=freqs, scan=scan, path=path, prune=prune, rerank=rerank,
             k_overfetch=k_overfetch, mutable=mutable, delta_capacity=delta_capacity,
         )
 
@@ -303,7 +309,7 @@ class MemANNSEngine:
             idx, plc, dev, xs, block_n=block_n, raw_dtype=raw_dtype,
             cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
-            freqs=freqs, scan=scan, prune=prune, rerank=rerank,
+            freqs=freqs, scan=scan, path=path, prune=prune, rerank=rerank,
             k_overfetch=k_overfetch, mutable=mutable or delta is not None,
             delta_capacity=delta_capacity, delta=delta,
         )
@@ -372,6 +378,11 @@ class MemANNSEngine:
             }
         return self._dev_arrays
 
+    @property
+    def kernel_path(self) -> str:
+        """The scans' `path`: "onehot", or "gather" for "gather" / "flat"."""
+        return "onehot" if self.path == "onehot" else "gather"
+
     def k_prime(self, k: int) -> int:
         """Cascade candidate count k' for a final top-`k` (pow2-bucketed):
         `k_overfetch` when set (clamped to >= k), else 4k."""
@@ -385,36 +396,61 @@ class MemANNSEngine:
         return self._code_norms
 
     def schedule_batch(
-        self, queries: np.ndarray, nprobe: int
+        self,
+        queries: np.ndarray,
+        nprobe: int,
+        load_carry: np.ndarray | None = None,
+        live: np.ndarray | None = None,
     ) -> tuple[ArraySchedule, np.ndarray, torch.Tensor]:
         """Cluster filtering (stage a, on the card) + Algorithm 2 (host).
 
-        Returns (schedule, probed (Q, nprobe) int32 host, qmc (Q, nprobe, D)
-        f32 tensor on the engine's device).
+        `load_carry` ((ndev,) carried load) and `live` ((ndev,) live-device
+        mask) are `schedule_queries`' own.  Returns (schedule, probed (Q,
+        nprobe) int32 host, qmc (Q, nprobe, D) f32 tensor on the engine's
+        device).
         """
         dev = self._device_put()
         q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
         probed_t, qmc = filter_clusters(dev["centroids"], q, nprobe)
         probed = probed_t.cpu().numpy().astype(np.int32)
-        schedule = schedule_queries(probed, self.index.cluster_sizes(), self.placement)
+        schedule = schedule_queries(probed, self.index.cluster_sizes(), self.placement,
+                                    load_carry=load_carry, live=live)
         return schedule, probed, qmc
 
-    def plan_batch(self, queries: np.ndarray, nprobe: int) -> SearchPlan:
+    def plan_batch(
+        self,
+        queries: np.ndarray,
+        nprobe: int,
+        pairs_per_dev: int | None = None,
+        capacity_floor: int = 8,
+        tiles_per_dev: int | None = None,
+        load_carry: np.ndarray | None = None,
+        prune: bool | None = None,
+        live: np.ndarray | None = None,
+    ) -> SearchPlan:
         """Host-side online phase: filter + schedule + densify (+ tile queue).
 
-        The same plan as the reference's `plan_batch` (arrays equal): pair
-        capacity and tile capacity are pow2 buckets; with pruning
-        (`self.prune`) the plan carries per-pair lower bounds and per-query
-        probed upper bounds and sizes, and the tile queue runs best-first
-        (ascending lower bound).  On `scan="windows"` no tile queue is
-        built: the windows kernel reads each pair's slot directly.
+        The reference's `plan_batch` with its arguments (plan arrays equal):
+        the pair capacity is `pairs_per_dev`, else a pow2 bucket from
+        `capacity_floor`; the tile capacity `tiles_per_dev`, else a pow2
+        bucket from the pair capacity.  `load_carry` biases Algorithm 2
+        toward cold devices and `live` plans around dead ones (their
+        unreachable pairs land in `lost_q` / `lost_c`, and leave the
+        warm-start sizes).  With pruning (`prune`, default `self.prune`)
+        the plan carries per-pair lower bounds and per-query probed upper
+        bounds and sizes, and the tile queue runs best-first (ascending
+        lower bound).  On `scan="windows"` no tile queue is built: the
+        windows kernel reads each pair's slot directly.
         """
         queries = np.asarray(queries, np.float32)
         q_n = queries.shape[0]
         ndev = self.ndev
-        schedule, probed, qmc = self.schedule_batch(queries, nprobe)
+        prune = self.prune if prune is None else prune
+        schedule, probed, qmc = self.schedule_batch(
+            queries, nprobe, load_carry=load_carry, live=live)
         max_pairs = int(schedule.counts_per_dev().max(initial=0))
-        pairs_per_dev = round_capacity(max_pairs)
+        if pairs_per_dev is None:
+            pairs_per_dev = round_capacity(max_pairs, floor=capacity_floor)
 
         pair_q, pair_slot, pair_valid = densify_schedule(
             schedule, self.shards.local_slot, pairs_per_dev
@@ -431,20 +467,27 @@ class MemANNSEngine:
         qmc_pairs.view(-1, queries.shape[1])[dst] = qmc.reshape(-1, queries.shape[1])[src]
 
         pair_lb = probed_ub = probed_sizes = None
-        if self.prune:
+        if prune:
             lb, ub = residual_bounds(qmc.cpu().numpy(), self.code_norms())
             pair_lb = np.full((ndev, pairs_per_dev), np.inf, np.float32)
             pair_lb[d_sorted, pos] = lb[pq, cols]
             probed_ub = ub
             probed_sizes = self.index.cluster_sizes()[probed]
+            if schedule.lost_c is not None and schedule.lost_c.size:
+                # a bound may count only rows the scan will visit
+                unreach = np.zeros(self.index.cluster_sizes().shape[0], bool)
+                unreach[schedule.lost_c] = True
+                probed_sizes = np.where(unreach[probed], 0, probed_sizes)
 
         tile_pair = tile_block = tile_row0 = None
-        tiles_per_dev = 0
+        tiles_cap = 0
         if self.scan == "tiles":
             s = self.shards
-            nv = np.take_along_axis(s.slot_size, pair_slot, axis=1)
-            max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
-            tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
+            if tiles_per_dev is None:
+                nv = np.take_along_axis(s.slot_size, pair_slot, axis=1)
+                max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
+                tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
+            tiles_cap = tiles_per_dev
             tile_pair, tile_block, tile_row0 = emit_tiles(
                 pair_slot, pair_valid, s.slot_start, s.slot_size, s.block_n,
                 tiles_per_dev, pair_key=pair_lb,
@@ -454,8 +497,8 @@ class MemANNSEngine:
             pair_valid=pair_valid, schedule=schedule, n_queries=q_n,
             pairs_per_dev=pairs_per_dev, tile_pair=tile_pair,
             tile_block=tile_block, tile_row0=tile_row0,
-            tiles_per_dev=tiles_per_dev, pair_lb=pair_lb, probed_ub=probed_ub,
-            probed_sizes=probed_sizes,
+            tiles_per_dev=tiles_cap, pair_lb=pair_lb, probed_ub=probed_ub,
+            probed_sizes=probed_sizes, lost_q=schedule.lost_q, lost_c=schedule.lost_c,
         )
 
     def _plan_n_valid(self, plan: SearchPlan) -> np.ndarray:
@@ -509,7 +552,7 @@ class MemANNSEngine:
             put(np.flatnonzero(plan.pair_valid).astype(np.int32)), put(plan.tile_pair),
             put(plan.tile_block), put(plan.tile_row0), put(pair_lb),
             put(query_bound), n_queries=plan.n_queries, k=k,
-            block_n=self.shards.block_n, scan=plan.scan,
+            block_n=self.shards.block_n, scan=plan.scan, path=self.kernel_path,
         )
         return InFlightSearch(
             out_d=out_d, out_i=out_i, plan=plan,

@@ -11,7 +11,8 @@ one card and each stage runs for all logical devices at once:
   3. fused ADC scan + per-pair running top-k with exact whole-tile
      pruning, over each device's flat tile queue (`scan="tiles"`, kernel
      B2) or over each filled pair's window of its cluster slot
-     (`scan="windows"`, kernel B5);
+     (`scan="windows"`, kernel B5), each row's entries added in the
+     engine's `path` order ("gather" or "onehot", `kernels.ops`);
   4. per-query merge of each device's pair results;
   5. merge across logical devices (the reference's all-gather + top-k
      becomes a reshape + top-k).
@@ -123,6 +124,7 @@ def sharded_search(
     k: int,
     block_n: int,
     scan: str = "tiles",
+    path: str = "gather",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One search step for every logical device.
 
@@ -133,8 +135,9 @@ def sharded_search(
     tables, each pair's combos being those of its cluster slot
     (`combo_addrs[dev, pair_slot]`; n_combos may be 0).  `scan` picks the
     tile queue (B2; `tile_*` given) or the per-pair windows (B5; no
-    queue).  `pair_lb` / `query_bound` drive the whole-tile pruning;
-    (-inf, +inf) sentinels run the scan unpruned.  Returns (out_d (Q, k)
+    queue), and `path` the kernels' addition order.  `pair_lb` /
+    `query_bound` drive the whole-tile pruning; (-inf, +inf) sentinels run
+    the scan unpruned.  Returns (out_d (Q, k)
     f32, out_i (Q, k) int32 global ids, prune_stats (ndev, 2) int32).
     """
     ndev, p, d_dim = qmc.shape
@@ -147,7 +150,7 @@ def sharded_search(
     lut_row[pair_rows.long()] = torch.arange(pair_rows.shape[0], dtype=torch.int32, device=dev)
     pair_slot = pair_slot.long()
     if codes.dtype == torch.uint8:
-        tables = luts.reshape(luts.shape[0], -1)
+        tables = luts.flatten(1)
     else:
         # §4.3: [LUT | this pair's cluster's combo sums | 0], one row per table
         s_n, n_combos, combo_len = combo_addrs.shape[1:]
@@ -165,12 +168,12 @@ def sharded_search(
         tv, ti, prune = ops.adc_topk_tiles(
             tables, codes, tile_pair, tile_block, tile_row0, n_valid, k,
             block_n=block_n, pair_q=pair_q, pair_lb=pair_lb, bound=query_bound,
-            lut_row=lut_row.reshape(ndev, p),
+            lut_row=lut_row.reshape(ndev, p), path=path,
         )
     elif scan == "windows":
         tv, ti, prune = ops.adc_topk_windows(
             tables, codes, starts, n_valid, k, lut_row=lut_row.reshape(ndev, p),
-            block_n=block_n, pair_q=pair_q, pair_lb=pair_lb, bound=query_bound,
+            block_n=block_n, pair_q=pair_q, pair_lb=pair_lb, bound=query_bound, path=path,
         )
     else:
         raise ValueError(f"scan must be 'tiles' or 'windows', got {scan!r}")

@@ -251,11 +251,23 @@ def test_load_index_dir(engines, clustered_data, tmp_path):
      dict(scan="windows", mutable=True), dict(mutable=True), dict(opq_iters=2)],
 )
 def test_unported_knobs_raise(clustered_data, knob):
-    """`path="onehot"` and `opq_iters` still raise, naming their ROADMAP
-    item; the three `mutable=True` cases (plain tiles, plain windows and
-    co-occurrence shards) are ported now (queue A item 9) and build a
+    """`opq_iters` still raises, naming its ROADMAP item.  The rest are
+    ported now: `path="onehot"` builds an engine that keeps its path and
+    whose search equals the gather engine's bit for bit (raw codes: table
+    order is column order); the three `mutable=True` cases (plain tiles,
+    plain windows and co-occurrence shards, queue A item 9) build a
     mutable engine whose inserts the next search finds."""
     xs, _, qs, _ = clustered_data
+    if knob.get("path") == "onehot":
+        kw = dict(device="cpu", kmeans_iters=3, pq_iters=3, block_n=BLOCK_N)
+        eng = MemANNSEngine.build(xs, 32, 8, **kw, **knob)
+        gat = MemANNSEngine.build(xs, 32, 8, **kw)
+        assert eng.path == "onehot" and eng.kernel_path == "onehot"
+        got, want = eng.search(qs, NPROBE, K), gat.search(qs, NPROBE, K)
+        assert np.isfinite(got[0]).all()
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        return
     if not knob.get("mutable"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MemANNSEngine.build(xs, 32, 8, device="cpu", **knob)

@@ -18,6 +18,11 @@ finite bound, at 1 to 16 tables and k up to 4096; `adc_topk_grouped`) and B7
 (`adc_topk_pairs`) -- is bit-equal to its plain versions in one launch per
 call, and the flat search on B1 + B6 (one launch each) equals the flat
 search on the CPU.
+The onehot path (every row's entries added in ascending address order)
+of B2, B5, B6, B7 and B8 is bit-equal to its plain onehot version at
+compiled and runtime widths, equal to the gather on raw codes and on
+sorted addresses, and a onehot engine and a ServingEngine over it (depths
+0 and 1) on the card equal the engine on the CPU.
 B10 (`flash_attention_fwd`) is held to its plain version at the reference's
 f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp,
 over every head dim, GQA 1 / 4 / 8, each (q, kv) dtype pair, offsets, dead
@@ -748,3 +753,145 @@ def test_lm_prefill_on_card_flash_vs_chunked(cuda):
     torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
     cpu, _ = prefill(model.cpu(), cfg, tok.cpu(), max_len=192, cache_dtype=torch.float32)
     torch.testing.assert_close(on.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+# -- the onehot path (PR 21): every scan's onehot instantiation ------------
+
+
+def _mid_row(codes, width, seed):
+    """Direct addresses with a combo address (>= the sentinel's column
+    block) written into a random middle column of most rows, as §4.3's
+    re-encoding writes a combo at its anchor column: the address order then
+    differs from the column order."""
+    g = torch.Generator(device=codes.device).manual_seed(seed)
+    n, w = codes.shape
+    a = codes.int().clone()
+    hit = torch.rand(n, device=codes.device, generator=g) < 0.7
+    col = torch.randint(0, max(w - 2, 1), (n,), device=codes.device, generator=g)
+    extra = torch.randint((w - 2) * 256, width - 1, (n,), device=codes.device, generator=g)
+    rows = torch.nonzero(hit).flatten()
+    a[rows, col[rows]] = extra[rows].int()
+    return a.to(codes.dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype,w", [(torch.uint16, 16), (torch.uint16, 8), (torch.int32, 16),
+                                     (torch.uint16, 12), (torch.int32, 5)])
+def test_onehot_scan_and_topk_kernels_bit_equal(cuda, dtype, w):
+    """B8, B6 and B7 on onehot at compiled widths (the sorting network) and
+    runtime widths (the selection scan): bit-equal to the plain onehot
+    versions, one launch each, and equal to the gather over each row's
+    sorted addresses; addresses spread over a 40,000-entry table (uint16
+    ones of 32,768 and up) for B8."""
+    g = torch.Generator(device=cuda).manual_seed(w)
+    wide = 40_000
+    table = torch.rand(wide, device=cuda, generator=g)
+    codes = torch.randint(0, wide, (100_003, w), device=cuda, generator=g).to(dtype)
+    ops.reset_launches()
+    got = ops.adc_scan_flat(table, codes, path="onehot")
+    torch.cuda.synchronize()
+    assert ops.launches["adc_scan"] == 1
+    assert torch.equal(got, adc_scan.adc_scan_plain(table, codes, "onehot"))
+    addr = adc_topk.table_addresses(adc_topk.gatherable(codes), adc_topk.code_format(codes))
+    srt = torch.sort(addr, 1).values.to(dtype).contiguous()
+    assert torch.equal(got, ops.adc_scan_flat(table, srt))
+    tables, codes = _api_case(cuda, w + 1, 60_001, w, dtype, q=5)
+    codes = _mid_row(codes, tables.shape[1], w)
+    inf = torch.full((5,), torch.inf, device=cuda)
+    for k in (10, 300):
+        got = ops.adc_topk_flat(tables, codes, k, path="onehot")
+        want = adc_topk.adc_topk_plain(tables, codes, inf, k, 1024, "onehot")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    win = codes[: 4 * 8192].reshape(4, 8192, w).contiguous()
+    nv = torch.tensor([8192, 0, 77, 5000], dtype=torch.int32, device=cuda)
+    got = ops.adc_topk_pairs(tables[:4].contiguous(), win, nv, 64, path="onehot")
+    want = adc_topk.adc_topk_pairs_plain(tables[:4].contiguous(), win, nv, 64, "onehot")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("w", [8, 16, 32])
+def test_onehot_raw_codes_launch_the_gather_bits(cuda, w):
+    """On raw uint8 codes the onehot path's sums are the gather's: B8, B6,
+    B2 and B5 on onehot equal their gather runs bit for bit."""
+    tables, codes = _api_case(cuda, 3, 50_001, w, torch.uint8, q=4)
+    lut = tables.reshape(4, w, 256)
+    assert torch.equal(ops.adc_scan(lut[0], codes, path="onehot"), ops.adc_scan(lut[0], codes))
+    a, b = ops.adc_topk(lut, codes, 20, path="onehot"), ops.adc_topk(lut, codes, 20)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    c = _tile_case(cuda, 3, m=w, dsub=4, k=64)
+    p = c["n_valid"].shape[0]
+    lut_row = torch.arange(p, dtype=torch.int32, device=cuda)
+    for fn, args in ((ops.adc_topk_tiles, (c["tile_pair"], c["tile_block"], c["tile_row0"])),
+                     (ops.adc_topk_windows, (c["starts"],))):
+        x = fn(c["luts"], c["codes"], *args, c["n_valid"], 64, lut_row=lut_row,
+               block_n=c["block_n"], path="onehot")
+        y = fn(c["luts"], c["codes"], *args, c["n_valid"], 64, lut_row=lut_row,
+               block_n=c["block_n"])
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+def test_onehot_direct_pruned_scans_bit_equal(cuda, dtype):
+    """B2 and B5 on onehot over direct addresses with mid-row combos:
+    bit-equal to their plain onehot versions per pair, and per query the
+    pruned tiles and windows scans equal the unpruned one."""
+    c = _direct(_tile_case(cuda, 4, m=16, dsub=4, k=64), dtype)
+    c = dict(c, codes=_mid_row(c["codes"], c["luts"].shape[1], 4))
+    p = c["n_valid"].shape[0]
+    dev = c["luts"].device
+    lut_row = torch.arange(p, dtype=torch.int32, device=dev)
+    t0, t1, _ = adc_topk.pair_runs(c["tile_pair"][None], p)
+    no_lb = torch.full((p,), -torch.inf, device=dev)
+    no_b = torch.full((p,), torch.inf, device=dev)
+    runs = {}
+    for bounds in (False, True):
+        kw = dict(pair_q=c["pair_q"], pair_lb=c["pair_lb"], bound=c["bound"]) if bounds else {}
+        runs["tiles", bounds] = ops.adc_topk_tiles(
+            c["luts"], c["codes"], c["tile_pair"], c["tile_block"], c["tile_row0"],
+            c["n_valid"], c["k"], lut_row=lut_row, block_n=c["block_n"], path="onehot", **kw)
+        runs["windows", bounds] = ops.adc_topk_windows(
+            c["luts"], c["codes"], c["starts"], c["n_valid"], c["k"], lut_row=lut_row,
+            block_n=c["block_n"], path="onehot", **kw)
+    pv, pi, _ = adc_topk.adc_topk_tiles_plain(
+        c["luts"], lut_row, c["codes"][None], c["tile_block"].int(), c["tile_row0"].int(),
+        c["n_valid"].int(), lut_row, no_lb, no_b, t0, t1, c["k"], c["block_n"], "onehot")
+    wv, wi, _ = adc_topk.adc_topk_windows_plain(
+        c["luts"], lut_row, c["codes"][None], c["starts"].int(), c["n_valid"].int(), lut_row,
+        no_lb, no_b, c["k"], c["block_n"], "onehot")
+    torch.cuda.synchronize()
+    for scan, (v, i) in (("tiles", (pv, pi)), ("windows", (wv, wi))):
+        assert torch.equal(runs[scan, False][0], v) and torch.equal(runs[scan, False][1], i)
+    want = _merge(*runs["tiles", False][:2], c["pair_q"], c["q"], c["k"])
+    for key in (("tiles", True), ("windows", True), ("windows", False)):
+        for (d1, i1), (d2, i2) in zip(_merge(*runs[key][:2], c["pair_q"], c["q"], c["k"]),
+                                      want):
+            np.testing.assert_array_equal(d1, d2)
+            np.testing.assert_array_equal(i1, i2)
+
+
+@pytest.mark.parametrize("cooc", [False, True])
+def test_onehot_engine_and_serving_on_card_match_cpu(cuda, clustered_data, cooc):
+    """A whole onehot engine (plain or co-occurrence shards, both scans) on
+    the card equals the engine on the CPU bit for bit, and so does a
+    ServingEngine over it at pipeline depths 0 and 1 (its own CUDA stream),
+    with no build after warmup."""
+    from repro_torch.retrieval.engine import MemANNSEngine
+    from repro_torch.retrieval.serving import ServingEngine
+
+    xs, _, qs, hist = clustered_data
+    kw = dict(block_n=256, rerank="exact", use_cooc=cooc, n_combos=32, path="onehot")
+    eng = MemANNSEngine.build(xs, 32, 8, ndev=8, history_queries=hist, kmeans_iters=8,
+                              pq_iters=6, device="cpu", **kw)
+    gpu = MemANNSEngine.from_reference(eng.index, eng.placement, xs, device=cuda, **kw)
+    for scan in ("tiles", "windows"):
+        eng.scan = gpu.scan = scan
+        for a, b in zip(eng.search(qs, 8, 10), gpu.search(qs, 8, 10)):
+            np.testing.assert_array_equal(a, b)
+    stream = np.concatenate([qs] * 5)
+    want = ServingEngine(eng, nprobe=8, k=10, micro_batch=16).search(stream)
+    for depth in (0, 1):
+        srv = ServingEngine(gpu, nprobe=8, k=10, micro_batch=16, pipeline_depth=depth)
+        srv.warmup()
+        got = srv.search(stream)
+        assert srv.stats.compiles == 0
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)

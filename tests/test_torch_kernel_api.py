@@ -268,9 +268,29 @@ def test_refusals():
         lambda **kw: ops.adc_topk_pairs(lut.reshape(1, -1).expand(2, -1).contiguous(), win,
                                         nv, 3, block_n=256, **kw),
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="queue D item 2"):
-            call(path="onehot")
+    # path="onehot" is ported: each call returns the reference's result
+    # (raw uint8 codes: the gather's; direct addresses: allclose), and an
+    # unknown path is refused
+    ref_calls = [
+        lambda **kw: jops.adc_scan(jnp.asarray(lut), jnp.asarray(codes), block_n=256, **kw),
+        lambda **kw: jops.adc_scan_flat(jnp.asarray(lut.reshape(-1)), jnp.asarray(addrs),
+                                        block_n=256, **kw),
+        lambda **kw: jops.adc_topk(jnp.asarray(lut[None]), jnp.asarray(codes), 3, block_n=256,
+                                   **kw),
+        lambda **kw: jops.adc_topk_flat(jnp.asarray(lut.reshape(1, -1)), jnp.asarray(addrs), 3,
+                                        block_n=256, **kw),
+        lambda **kw: jops.adc_topk_pairs(
+            jnp.asarray(lut.reshape(1, -1).expand(2, -1)), jnp.asarray(win), jnp.asarray(nv), 3,
+            block_n=256, **kw),
+    ]
+    for call, ref_call in zip(calls, ref_calls):
+        got, want = call(path="onehot"), ref_call(path="onehot")
+        if isinstance(got, tuple):
+            assert_topk(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        with pytest.raises(ValueError, match="path must be"):
+            call(path="mxu")
     with pytest.raises(ValueError, match="ADC_TOPK_K_MAX"):
         ops.adc_topk(lut[None], codes, ops.ADC_TOPK_K_MAX + 1)
     with pytest.raises(TypeError, match="uint8"):

@@ -67,12 +67,37 @@ def test_main_cpu_prints_report(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--pipeline-depth", "2"], ["--churn-insert-rate", "8"], ["--autotune", "off"],
+    ["--queue-limit", "4"], ["--churn-insert-rate", "8"], ["--autotune", "off"],
     ["--deadline-ms", "5"], ["--metrics-port", "0"], ["--trace-out", "t.json"],
 ])
 def test_unported_flags_refused(flag):
+    """The reference's `ServingEngine` flags that wait for queue A items 7,
+    12 and 13 (`--pipeline-depth` is ported, `test_retrieval_serves_through_
+    serving_engine`)."""
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_retrieval_serves_through_serving_engine(depth, capsys):
+    """`--retrieval` serves through a warmed ServingEngine, half the
+    request batch a micro-batch, at `--pipeline-depth`; its answers equal
+    the engine's own search on the same queries."""
+    cfg = _cfg()
+    opts = tserve.RetrievalOptions(vectors=2000, pipeline_depth=depth)
+    rep = tserve.serve(cfg, batch=4, prompt_len=8, steps=2, retrieval=opts, device="cpu")
+    st = rep["retrieval_stats"]
+    assert st["pipeline_depth"] == depth and st["micro_batch"] == 2 and st["batches"] == 2
+    assert st["compiles"] == 0 and st["health"]["state"] == "ok"
+    assert st["autotune"]["source"] == "miss"
+    eng, rcfg, qv = tserve.retrieval_engine(cfg, opts, 4, torch.device("cpu"), 0)
+    _, ids = eng.search(qv, rcfg.nprobe, rcfg.k)
+    np.testing.assert_array_equal(np.asarray(rep["retrieved_ids"]), ids[:, :4])
+    out = tserve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "8", "--steps", "2", "--retrieval",
+                       "--retrieval-vectors", "2000", "--pipeline-depth", str(depth)])
+    assert out["retrieval_stats"]["pipeline_depth"] == depth
+    capsys.readouterr()
 
 
 def test_k_overfetch_needs_rerank():
