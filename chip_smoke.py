@@ -111,6 +111,27 @@ and pruned == unpruned bit for bit, and onehot within rtol 1e-5 of the
 gather on the co-occurrence shards.  `lm_serve`'s `--retrieval` serves
 through `ServingEngine` (two micro-batches, no build after warmup).
 
+Serving's observability, faults and mutation (PR 22):
+`serving_obs_faults` (after `serving`, on the immutable engine, micro-batches
+of 500 at depth 1) serves the timed stream with a `Tracer` and the metrics
+registry against observability off (bit-identical, no build; every batch
+tree holds plan > schedule / densify / emit_tiles, dispatch >
+rerank_dispatch, dispatch_wait, collect; the Prometheus text passes
+tools/check_metrics_torch.py's line check), profiles one micro-batch with
+its spans as `torch.profiler` ranges (the kernels launched inside each
+span), and drives the fault paths: logical device 3 dead from batch 1
+(covered queries bit-identical to the healthy run, the rest flagged, the
+lost pairs equal to the plans'), a hung collect at batch 2 (failed over and
+refired), two transient dispatch faults (retried), a 1 ms deadline (late
+batches equal the ADC search at `degrade_nprobe`) and a queue limit
+(shed).  `mutable_serving` (last, on the mutable engine once its delta is
+empty) serves 10 churn rounds of 350 inserts, 110 deletes and the 5,000-query
+stream through `ServingEngine(mutable=True)` at its defaults (fetch bucket
+128, an auto-compaction in round 9) with checks (a)-(f) of its docstring;
+it records QPS with the compactions left out, p50 / p99, the host
+fraction, the phases' seconds, each compaction's stages, the kernels each
+span launched in one profiled micro-batch, and the registry's snapshot.
+
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
 outside a checkout, it exits with a non-zero code and prints no result.
@@ -164,6 +185,14 @@ MUT_INSERTS, MUT_DELETES, MUT_COOC_ROWS = 3000, 1000, 4_000_000
 # the serving phase: half the 1000-query batch a micro-batch (the reference's
 # `serve --retrieval` choice, micro_batch = batch // 2)
 SERVE_MICRO_BATCH = 500
+# the mutable serving phase: churn rounds of inserts and deletes, each followed
+# by the timed batches as one stream; 9 rounds of inserts pass 0.75 of the
+# 4096-row delta, so an auto-compaction lands mid-stream
+MUT_SERVE_ROUNDS, MUT_SERVE_INSERTS, MUT_SERVE_DELETES = 10, 350, 110
+# the spans whose profiler ranges are read, and the port's kernels by name
+PROFILED_SPANS = ("plan", "delta", "dispatch", "rerank_dispatch", "collect", "merge")
+PORT_KERNELS = ("adc_topk_tiles", "adc_topk_windows", "adc_topk_pairs", "adc_topk", "adc_scan",
+                "lut_build", "ext_lut", "rerank", "flash_fwd")
 
 
 def log(**kv) -> None:
@@ -1888,7 +1917,7 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     del cb, qmc, luts, want, out
 
     # -- B3 at the retrieval's shapes: the same engine's own candidates, D = 4096
-    reng, rcfg, qv = retrieval_engine(cfg, RetrievalOptions(**LM_RETRIEVAL), LM_BATCH, dev, seed)
+    reng, rcfg, qv, _ = retrieval_engine(cfg, RetrievalOptions(**LM_RETRIEVAL), LM_BATCH, dev, seed)
     kp = reng.k_prime(rcfg.k)
     handle = reng.dispatch_plan(reng.plan_batch(qv, rcfg.nprobe), kp)
     cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1).int().contiguous()
@@ -2198,26 +2227,10 @@ def mutable_phase(torch, np, ops, k_lut, k_topk, k_rerank, meng, ds, batches, de
                 raise RuntimeError(f"delta scan (k={kk}, bound={b is not None}) differs "
                                    "from delta_topk_plain")
 
-    # (c) 16 queries against a plain path: plain LUTs -> unpruned ADC top-k_fetch
-    # over every probed main row -> plain re-rank; delta_topk_plain -> plain
-    # re-rank of the delta's candidates (its own id -> buffer row map; the
-    # buffered ids are distinct); a plain merge: tombstoned main hits out,
-    # then a stable sort of [main | delta], main rows first on equal distances
+    # (c) 16 queries against the plain mutable path at the search's depths
     e_d, e_i = meng.search(q16, NPROBE, K)
-    q = torch.as_tensor(q16, device=dev)
-    _, cand = plain_adc_topk(torch, np, k_lut, meng, q, k_fetch)
-    m_d, m_i = plain_rerank(torch, k_rerank, q, cand, meng.raw, k_fetch)
-    _, pdi = delta_topk_plain(delta, cent, cb, q16, NPROBE, kd, device=dev)
+    p_d, p_i = mutable_plain_path(torch, np, k_lut, k_rerank, meng, q16, k_fetch, kd)
     store = delta_store(delta, dev)
-    row_of = {int(v): r for r, v in enumerate(delta.vec_ids[: delta.n])}
-    rc = np.array([[row_of.get(int(v), -1) for v in row] for row in pdi], np.int32)
-    x_d, x_r = plain_rerank(torch, k_rerank, q, torch.as_tensor(rc, device=dev), store, kd)
-    x_i = np.where(x_r >= 0, delta.vec_ids[np.maximum(x_r, 0)], -1)
-    gone = np.isin(m_i, tomb)
-    all_d = np.concatenate([np.where(gone, np.inf, m_d), x_d], axis=1)
-    all_i = np.concatenate([np.where(gone, -1, m_i), x_i], axis=1)
-    order = np.argsort(all_d, axis=1, kind="stable")[:, :K]
-    p_d, p_i = np.take_along_axis(all_d, order, 1), np.take_along_axis(all_i, order, 1)
     if not same_outside_ties(np, e_d, e_i, p_d, p_i):
         raise RuntimeError("mutable: 16 queries differ from the plain path")
 
@@ -2448,6 +2461,494 @@ def mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, seed, n_rows=MUT_C
         seconds=time.perf_counter() - t_cell)
 
 
+def profiled_spans(torch, fn, spans=PROFILED_SPANS) -> dict:
+    """One call of `fn` under torch.profiler (CPU + CUDA), its spans opened
+    as `record_function` ranges (`Tracer(profiler=True)`): for each span
+    name, the port's kernels whose launch falls inside the range, counted
+    by kernel name (PyTorch's own kernels counted together as `aten`), and
+    the device ms of all of them.  Reads the Chrome
+    trace the profiler exports (under build/, which git ignores):
+    `user_annotation` ranges, `cuda_runtime` launches and `kernel` events
+    joined on their correlation id.  `kernel_events` 0 means the profiler
+    saw no device activity."""
+    path = pathlib.Path("build") / "smoke_profile.json"
+    path.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as tp:
+        fn()
+        torch.cuda.synchronize()
+    tp.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and e["name"] in spans]
+    out = {}
+    for r in ranges:
+        row = out.setdefault(r["name"], {"ranges": 0, "kernels": {}, "device_ms": 0.0})
+        row["ranges"] += 1
+        for kev in kernels:
+            ts = launch_ts.get(kev.get("args", {}).get("correlation"))
+            if ts is not None and r["ts"] <= ts <= r["ts"] + r["dur"]:
+                name = next((n for n in PORT_KERNELS if n in kev["name"]), "aten")
+                row["kernels"][name] = row["kernels"].get(name, 0) + 1
+                row["device_ms"] += kev["dur"] / 1e3
+    return dict(spans=out, kernel_events=len(kernels), ranges=len(ranges))
+
+
+def launches_by_stage(srv, ops) -> dict:
+    """Wrap a ServingEngine's plan-time delta scan and its dispatch so that
+    each stage's kernel launches are counted (`ops.launches` diffs) in the
+    returned dict, {"delta": {...}, "dispatch": {...}}."""
+    counts = {"delta": {}, "dispatch": {}}
+
+    def wrap(stage, fn):
+        def run(*a, **kw):
+            before = dict(ops.launches)
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, v in ops.launches.items():
+                    if v != before.get(k, 0):
+                        counts[stage][k] = counts[stage].get(k, 0) + v - before.get(k, 0)
+        return run
+
+    srv._delta_micro_batch = wrap("delta", srv._delta_micro_batch)
+    srv._dispatch_micro_batch = wrap("dispatch", srv._dispatch_micro_batch)
+    return counts
+
+
+def serving_obs_faults(torch, np, ops, eng, batches) -> dict:
+    """ServingEngine's observability and fault tolerance on the immutable
+    main-path engine (micro-batches of `SERVE_MICRO_BATCH`, depth 1, the
+    timed batches as one stream).  Observability on (a `Tracer` and the
+    registry) against off (`metrics=False`, no tracer): bit-identical, no
+    build; every batch tree holds plan (schedule / densify / emit_tiles),
+    dispatch (rerank_dispatch), dispatch_wait and collect; the Prometheus
+    rendering passes tools/check_metrics_torch.py's line check; one
+    micro-batch under torch.profiler with `Tracer(profiler=True)` puts the
+    port's kernels inside the span ranges.  Faults: logical device 3 dead
+    from batch 1 (covered queries bit-identical to the healthy run, the rest
+    flagged, coverage equal to the plans' lost pairs), a hung collect at
+    batch 2 (failed over and refired), two transient dispatch faults
+    (retried, then bit-identical), a 1 ms deadline (late batches served at
+    `degrade_nprobe` without the re-rank: equal to that search), and a
+    queue limit (shed, the admitted queries answered)."""
+    import importlib.util
+
+    from repro_torch.kernels import _build
+    from repro_torch.obs.trace import NULL_TRACER, Tracer
+    from repro_torch.retrieval.faults import FaultPlan
+    from repro_torch.retrieval.serving import PHASES, ServingEngine
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "check_metrics_torch", pathlib.Path(__file__).resolve().parent / "tools"
+        / "check_metrics_torch.py")
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    stream = np.concatenate(batches[1:])
+    mb = SERVE_MICRO_BATCH
+    n_mb = len(stream) // mb
+
+    def server(**kw):
+        srv = ServingEngine(eng, nprobe=NPROBE, k=K, micro_batch=mb, pipeline_depth=1, **kw)
+        srv.warmup()
+        return srv
+
+    # -- observability on vs off ------------------------------------------
+    tracer = Tracer()
+    on, off = server(tracer=tracer), server(metrics=False)
+    built = _build.compile_count()
+    t = time.perf_counter()
+    d_on, i_on = on.search(stream)
+    wall_on = time.perf_counter() - t
+    eng.tracer = NULL_TRACER
+    t = time.perf_counter()
+    d_off, i_off = off.search(stream)
+    wall_off = time.perf_counter() - t
+    if not (np.array_equal(d_on, d_off) and np.array_equal(i_on, i_off)):
+        raise RuntimeError("serving_obs_faults: results differ with observability on and off")
+    if on.stats.compiles or off.stats.compiles or _build.compile_count() != built:
+        raise RuntimeError("serving_obs_faults: a build after warmup")
+    roots = tracer.roots()
+    if len(roots) != n_mb or sum(r.args["queries"] for r in roots) != len(stream):
+        raise RuntimeError(f"serving_obs_faults: {len(roots)} batch trees for {n_mb} batches")
+    for r in roots:
+        kids = {c.name: c for c in r.children}
+        if not {"plan", "dispatch", "dispatch_wait", "collect"} <= set(kids):
+            raise RuntimeError(f"serving_obs_faults: a batch tree holds {sorted(kids)}")
+        if [c.name for c in kids["plan"].children] != ["schedule", "densify", "emit_tiles"] \
+                or [c.name for c in kids["dispatch"].children] != ["rerank_dispatch"]:
+            raise RuntimeError("serving_obs_faults: the engine's child spans are missing")
+    text = on.stats.registry.render_prometheus()
+    problems = check.check_exposition(text)
+    if problems or off.stats.registry.render_prometheus():
+        raise RuntimeError(f"serving_obs_faults: exposition problems {problems}")
+    span_ms = {}
+    for r in roots:
+        for node in r.walk():
+            span_ms[node.name] = span_ms.get(node.name, 0.0) + (node.t1 - node.t0) * 1e3
+    prof_srv = server(tracer=Tracer(profiler=True))
+    profiled = profiled_spans(torch, lambda: prof_srv.search(stream[:mb]))
+    eng.tracer = NULL_TRACER
+    if profiled["kernel_events"]:
+        inside = profiled["spans"]
+        want = {"dispatch": ("lut_build", "adc_topk_tiles", "rerank"),
+                "rerank_dispatch": ("rerank",)}
+        for span, names in want.items():
+            got = inside.get(span, {}).get("kernels", {})
+            if not all(any(n in g for g in got) for n in names):
+                raise RuntimeError(f"serving_obs_faults: span {span} launched {got}")
+    obs = dict(queries=len(stream), micro_batches=n_mb, wall_ms_on=wall_on * 1e3,
+               wall_ms_off=wall_off * 1e3, qps_on=len(stream) / wall_on,
+               qps_off=len(stream) / wall_off, batch_trees=len(roots),
+               span_ms_total=span_ms, exposition_lines=len(text.splitlines()),
+               exposition_problems=0,
+               phase_seconds={p: on.stats.phase_seconds(p) for p in PHASES},
+               p50_ms=float(np.percentile(on.stats.latencies_s, 50)) * 1e3,
+               p99_ms=float(np.percentile(on.stats.latencies_s, 99)) * 1e3,
+               registry_p50_ms=on.stats.p50_s() * 1e3,
+               registry_p99_ms=on.stats.p99_s() * 1e3,
+               registry_p999_ms=on.stats.p999_s() * 1e3, profiled=profiled)
+
+    # -- failover: logical device 3 dead from batch 1 -----------------------
+    dead = 3
+    fp = FaultPlan(device_death={dead: 1})
+    fsrv = server(faults=fp)
+    t = time.perf_counter()
+    res = fsrv.search_result(stream)
+    fo_wall = time.perf_counter() - t
+    live = np.ones(eng.ndev, bool)
+    live[dead] = False
+    want_lost = []
+    for off_q in range(mb, len(stream), mb):
+        plan = eng.plan_batch(stream[off_q:off_q + mb], NPROBE, live=live)
+        want_lost += [(int(q) + off_q, int(c)) for q, c in zip(plan.lost_q, plan.lost_c)]
+    got_lost = sorted((int(a), int(b)) for a, b in res.coverage_lost)
+    ok = ~res.degraded
+    if fsrv.stats.compiles or fsrv.stats.failovers != 1 or res.degraded[:mb].any():
+        raise RuntimeError(f"failover: {fsrv.stats.failovers} failovers, "
+                           f"{fsrv.stats.compiles} builds")
+    if got_lost != sorted(want_lost):
+        raise RuntimeError("failover: coverage_lost differs from the plans' lost pairs")
+    if not np.array_equal(res.degraded, np.isin(np.arange(len(stream)),
+                                                res.coverage_lost[:, 0])):
+        raise RuntimeError("failover: degraded flags differ from the lost queries")
+    if not (np.array_equal(res.dists[ok], d_off[ok]) and np.array_equal(res.ids[ok], i_off[ok])):
+        raise RuntimeError("failover: a covered query differs from the healthy run")
+    stranded = sum(1 for r in eng.placement.replicas if r and set(r) <= {dead})
+    failover = dict(dead_device=dead, from_batch=1, wall_ms=fo_wall * 1e3,
+                    degraded_queries=int(res.degraded.sum()), lost_pairs=len(got_lost),
+                    covered_bit_identical=int(ok.sum()), stranded_clusters=stranded,
+                    health=fsrv.health())
+
+    # -- a hung collect at batch 2: failed over, refired --------------------
+    hung_dev = 5
+    fp = FaultPlan(hang_collect={2: hung_dev})
+    hsrv = server(faults=fp, collect_timeout_s=30.0)
+    t = time.perf_counter()
+    hres = hsrv.search_result(stream)
+    hang_wall = time.perf_counter() - t
+    hok = ~hres.degraded
+    if hsrv.stats.retries != 1 or hsrv.stats.failovers != 1 or hsrv.stats.compiles:
+        raise RuntimeError(f"hang: retries {hsrv.stats.retries}, failovers "
+                           f"{hsrv.stats.failovers}")
+    if not (np.array_equal(hres.dists[hok], d_off[hok])
+            and np.array_equal(hres.ids[hok], i_off[hok])):
+        raise RuntimeError("hang: a covered query differs from the healthy run")
+    if hang_wall > 10 * wall_off + 5.0:
+        raise RuntimeError(f"hang: the stream took {hang_wall:.1f} s (a stall)")
+
+    # -- two transient dispatch faults of batch 1: retried, then healthy ---
+    fp = FaultPlan(transient_dispatch={1: 2})
+    tsrv = server(faults=fp, retry_backoff_s=0.001)
+    tres = tsrv.search_result(stream)
+    if tsrv.stats.retries != 2 or tsrv.stats.failovers or tres.degraded.any() or not (
+            np.array_equal(tres.dists, d_off) and np.array_equal(tres.ids, i_off)):
+        raise RuntimeError("transient: not retried to the healthy answer")
+
+    # -- a 1 ms deadline: late batches at degrade_nprobe, no re-rank --------
+    dsrv = server(deadline_ms=1.0)
+    dres = dsrv.search_result(stream)
+    late = dres.deadline_degraded
+    adc = dataclasses.replace(eng, rerank="off")
+    for off_q in range(0, len(stream), mb):
+        sl = slice(off_q, off_q + mb)
+        if late[sl].any():
+            wd, wi = adc.search(stream[sl], dsrv.degrade_nprobe, K)
+            if not (late[sl].all() and np.array_equal(dres.dists[sl], wd)
+                    and np.array_equal(dres.ids[sl], wi)):
+                raise RuntimeError("deadline: a late batch differs from the ADC search at "
+                                   "degrade_nprobe")
+    if not late.any() or dsrv.stats.degraded_queries != int(late.sum()) or dsrv.stats.compiles:
+        raise RuntimeError("deadline: no batch degraded")
+
+    # -- admission: queue_limit sheds ----------------------------------------
+    qsrv = server(queue_limit=2 * mb)
+    admitted = qsrv.submit(stream)
+    state = qsrv.health()["state"]
+    qd, qi = qsrv.flush()
+    if admitted != 2 * mb or state != "overloaded" or qsrv.stats.rejected_queries != \
+            len(stream) - 2 * mb or not np.array_equal(qi, i_off[:2 * mb]):
+        raise RuntimeError("admission: the queue limit did not shed as it should")
+    out = dict(phase="serving_obs_faults", obs=obs, failover=failover,
+               hang=dict(device=hung_dev, seq=2, wall_ms=hang_wall * 1e3,
+                         degraded_queries=int(hres.degraded.sum()),
+                         retries=hsrv.stats.retries, failovers=hsrv.stats.failovers),
+               transient=dict(seq=1, faults=2, retries=tsrv.stats.retries,
+                              bit_identical=True),
+               deadline=dict(deadline_ms=1.0, degrade_nprobe=dsrv.degrade_nprobe,
+                             late_queries=int(late.sum()), late_equal_adc_search=True),
+               admission=dict(queue_limit=2 * mb, submitted=len(stream), admitted=admitted,
+                              rejected=qsrv.stats.rejected_queries, health_when_full=state),
+               seconds=time.perf_counter() - t_phase)
+    log(**out)
+    return out
+
+
+def mutable_plain_path(torch, np, k_lut, k_rerank, meng, q16, k_fetch, kd):
+    """16 queries through a plain mutable path at fetch depth `k_fetch` and
+    delta depth `kd`: plain LUTs -> unpruned ADC top-k_fetch over every
+    probed main row -> plain re-rank; `delta_topk_plain` -> plain re-rank of
+    the delta's candidates (its own id -> buffer row map; the buffered ids
+    are distinct); a plain merge: tombstoned main hits out, then a stable
+    sort of [main | delta], main rows first on equal distances.  Returns
+    (dists (16, K), ids (16, K))."""
+    from repro_torch.core.delta import delta_topk_plain
+
+    dev, delta = meng.device, meng.delta
+    tomb = delta.tombstone_array()
+    q = torch.as_tensor(q16, device=dev)
+    _, cand = plain_adc_topk(torch, np, k_lut, meng, q, k_fetch)
+    m_d, m_i = plain_rerank(torch, k_rerank, q, cand, meng.raw, k_fetch)
+    all_d, all_i = [m_d], [m_i]
+    gone = np.isin(m_i, tomb)
+    all_d[0], all_i[0] = np.where(gone, np.inf, m_d), np.where(gone, -1, m_i)
+    if delta.live_count:
+        cent, cb = meng.index.centroids, meng.index.codebook
+        _, pdi = delta_topk_plain(delta, cent, cb, q16, NPROBE, kd, device=dev)
+        store = delta_store(delta, dev)
+        row_of = {int(v): r for r, v in enumerate(delta.vec_ids[: delta.n])}
+        rc = np.array([[row_of.get(int(v), -1) for v in row] for row in pdi], np.int32)
+        x_d, x_r = plain_rerank(torch, k_rerank, q, torch.as_tensor(rc, device=dev), store, kd)
+        all_d.append(x_d)
+        all_i.append(np.where(x_r >= 0, delta.vec_ids[np.maximum(x_r, 0)], -1))
+    all_d, all_i = np.concatenate(all_d, axis=1), np.concatenate(all_i, axis=1)
+    order = np.argsort(all_d, axis=1, kind="stable")[:, :K]
+    return np.take_along_axis(all_d, order, 1), np.take_along_axis(all_i, order, 1)
+
+
+def mutable_serving(torch, np, ops, k_lut, k_rerank, meng, ds, batches, dev, seed,
+                    rounds=MUT_SERVE_ROUNDS, n_ins=MUT_SERVE_INSERTS,
+                    n_del=MUT_SERVE_DELETES) -> dict:
+    """`ServingEngine(mutable=True)` over the compacted mutable engine at
+    its defaults (micro-batches of `SERVE_MICRO_BATCH`, depth 1, a 4096-row
+    delta compacting at 0.75, tombstone limit 1024, overfetch k: a fixed
+    fetch bucket of 128).  `rounds` churn rounds, each `n_ins` inserts
+    (drawn as the mutable phase draws them), `n_del` deletes of live ids
+    (originals and earlier inserts) and the timed batches as one stream.
+    Checks: (a) no deleted id is ever returned; (b) 100 of each round's
+    inserts, served as queries right after their insert, find their own id
+    first; (c) in rounds 1,
+    5 and the last, 16 queries equal the plain mutable path at the
+    serving's fetch depths (distances bit-equal, ids outside exact ties);
+    (d) one round's stream at depth 0 and 1 on the same state:
+    bit-identical; (e) no build after warmup, and per micro-batch two B1,
+    one B2, one B5 and two B3 launches, B1 / B5 / B3 in the plan-time delta
+    stage and B1 / B2 / B3 in the dispatch; (f) deleting query 0's whole
+    fetch window (with the delta empty) starves one batch, a compaction
+    follows the drain, and the next search is full and equals the plain
+    path.  Records QPS (compactions left out of the wall), p50 / p99, the
+    host fraction, the phases' seconds, each compaction's seconds and
+    stages, one micro-batch profiled with its spans as `record_function`
+    ranges, and the registry's snapshot."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs.trace import NULL_TRACER, Tracer
+    from repro_torch.retrieval.serving import PHASES, ServingEngine
+
+    t_phase = time.perf_counter()
+    if meng.mutation_active:
+        raise RuntimeError("mutable_serving: the engine's delta is not empty")
+    srv = ServingEngine(meng, nprobe=NPROBE, k=K, micro_batch=SERVE_MICRO_BATCH, mutable=True)
+    k_fetch, kd = srv._k_fetch(), srv._delta_k()
+    if (k_fetch, srv.tombstone_limit, meng.delta.capacity) != (128, 1024, 4096):
+        raise RuntimeError(f"mutable_serving: fetch {k_fetch}, tombstone limit "
+                           f"{srv.tombstone_limit}, delta {meng.delta.capacity}")
+    reports = []
+    compact = srv.compact
+
+    def compact_recorded():
+        rep = compact()
+        reports.append(dict(latency_s=rep.latency_s, stage_seconds=rep.stage_seconds,
+                            merged=rep.merged, dropped=rep.dropped,
+                            clusters_changed=rep.clusters_changed,
+                            devices_rewritten=rep.devices_rewritten,
+                            shapes_changed=rep.shapes_changed))
+        return rep
+
+    srv.compact = compact_recorded
+    t = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t
+    built = _build.compile_count()
+    stages = launches_by_stage(srv, ops)
+    stream = np.concatenate(batches[1:])
+    n_mb = len(stream) // SERVE_MICRO_BATCH
+    n0 = meng.index.n_vectors
+    rng = np.random.default_rng(seed + 7)
+    # originals to delete, distinct across rounds (ids the mutable phase
+    # deleted are gone from the index; deleting one again is a no-op)
+    orig_dels = rng.choice(n0, rounds * n_del, replace=False)
+    live_ins: list[int] = []
+    deleted: set[int] = set()
+    next_id = n0 + MUT_INSERTS
+    walls, rows, plain_rounds, stream_lat = [], [], [], []
+    depth_checked = False
+    for r in range(rounds):
+        ins_x = ds.queries(n_ins, seed=seed + 100 + r)
+        ins_ids = np.arange(next_id, next_id + n_ins, dtype=np.int64)
+        next_id += n_ins
+        n_comp = len(reports)
+        # (b) the first 100 inserts, served as queries right after their
+        # insert (from the delta), find their own id first; a compaction
+        # moves inserts into the main index, where only the ADC top-k'
+        # reaches the re-rank, so the check runs before the round's other
+        # inserts can trigger one
+        t = time.perf_counter()
+        srv.insert(ins_ids[:100], ins_x[:100])
+        mut_ms = (time.perf_counter() - t) * 1e3
+        _, own = srv.search(ins_x[:100])
+        if not np.array_equal(own[:, 0], ins_ids[:100]):
+            raise RuntimeError(f"mutable_serving round {r}: an insert does not find itself")
+        t = time.perf_counter()
+        srv.insert(ins_ids[100:], ins_x[100:])
+        # deletes: half originals, half earlier inserts (none of this round's)
+        pool = np.asarray(live_ins, np.int64)
+        n_old = min(n_del // 2, pool.size)
+        dels = np.concatenate([orig_dels[r * n_del : r * n_del + n_del - n_old],
+                               rng.choice(pool, n_old, replace=False)])
+        srv.delete(dels)
+        mut_ms += (time.perf_counter() - t) * 1e3
+        deleted.update(dels.tolist())
+        live_ins = [i for i in live_ins if i not in deleted] + ins_ids.tolist()
+        before = {k: v for k, v in stages["delta"].items()}, dict(stages["dispatch"])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        d, i = srv.search(stream)
+        wall = time.perf_counter() - t
+        walls.append(wall)
+        lat_ms = [x * 1e3 for x in list(srv.stats.latencies_s)[-n_mb:]]
+        stream_lat += lat_ms
+        launches = {k: v for k, v in ops.launches.items() if v}
+        per_stage = {s: {k: v - b.get(k, 0) for k, v in stages[s].items() if v - b.get(k, 0)}
+                     for s, b in zip(("delta", "dispatch"), before)}
+        # with no live buffered row (a compaction just merged them) the delta
+        # stage scans nothing and launches nothing
+        scanned = n_mb if meng.delta.live_count else 0
+        want_stage = {"delta": {k: scanned for k in ("build_luts", "adc_topk_windows",
+                                                     "rerank_dists") if scanned},
+                      "dispatch": {"build_luts": n_mb, "adc_topk_tiles": n_mb,
+                                   "rerank_dists": n_mb}}
+        want = {k: want_stage["delta"].get(k, 0) + want_stage["dispatch"].get(k, 0)
+                for k in ("build_luts", "adc_topk_tiles", "adc_topk_windows", "rerank_dists")}
+        want = {k: v for k, v in want.items() if v}
+        if launches != want or per_stage != want_stage:  # (e)
+            raise RuntimeError(f"mutable_serving round {r}: launches {launches} by stage "
+                               f"{per_stage}, want {want} / {want_stage}")
+        if d.shape != (len(stream), K) or not np.isfinite(d).all() or (i < 0).any():
+            raise RuntimeError(f"mutable_serving round {r}: malformed results")
+        if np.isin(i, np.fromiter(deleted, np.int64, len(deleted))).any():  # (a)
+            raise RuntimeError(f"mutable_serving round {r}: a deleted id was returned")
+        if not depth_checked and meng.delta.live_count:  # (d)
+            srv.pipeline_depth = 0
+            d0, i0 = srv.search(stream)
+            srv.pipeline_depth = 1
+            if not (np.array_equal(d0, d) and np.array_equal(i0, i)):
+                raise RuntimeError("mutable_serving: depth 0 differs from depth 1")
+            depth_checked = True
+        if r in (0, 4, rounds - 1):  # (c)
+            q16 = batches[1][:16]
+            s_d, s_i = srv.search(q16)
+            p_d, p_i = mutable_plain_path(torch, np, k_lut, k_rerank, meng, q16, k_fetch, kd)
+            if not same_outside_ties(np, s_d, s_i, p_d, p_i):
+                raise RuntimeError(f"mutable_serving round {r}: 16 queries differ from the "
+                                   "plain path")
+            plain_rounds.append(r + 1)
+        rows.append(dict(round=r + 1, inserts=n_ins, deletes=int(dels.size),
+                         mutate_ms=mut_ms, stream_ms=wall * 1e3, qps=len(stream) / wall,
+                         latency_ms=lat_ms,
+                         compactions=len(reports) - n_comp,
+                         delta_rows=int(meng.delta.n), tombstones=meng.delta.tombstone_count))
+    st = srv.stats
+    if st.compiles or _build.compile_count() != built:
+        raise RuntimeError(f"mutable_serving: {st.compiles} builds after warmup")
+    if not reports:
+        raise RuntimeError("mutable_serving: no compaction landed mid-stream")
+    churn = dict(rounds=rounds, queries=rounds * len(stream),
+                 qps=rounds * len(stream) / sum(walls), stream_ms=[w * 1e3 for w in walls],
+                 p50_ms=float(np.percentile(stream_lat, 50)),
+                 p99_ms=float(np.percentile(stream_lat, 99)),
+                 registry_p50_ms=st.p50_s() * 1e3, registry_p99_ms=st.p99_s() * 1e3,
+                 host_fraction=st.host_fraction(), overlap_fraction=st.overlap_fraction(),
+                 phase_seconds={p: st.phase_seconds(p) for p in PHASES},
+                 starved_batches=st.starved_batches, compactions=list(reports),
+                 rounds_detail=rows, launches_by_stage={k: dict(v) for k, v in stages.items()})
+
+    # one micro-batch with the delta active, its spans as profiler ranges
+    tracer = Tracer(profiler=True)
+    srv.tracer = meng.tracer = tracer
+    profiled = profiled_spans(torch, lambda: srv.search(stream[:SERVE_MICRO_BATCH]))
+    srv.tracer = meng.tracer = NULL_TRACER
+    delta_kernels = profiled["spans"].get("delta", {}).get("kernels", {})
+    profiler_sees_delta_b3 = "rerank" in delta_kernels
+    delta_event_ms = None
+    if not profiler_sees_delta_b3:
+        # the profiler shows no B3 in the delta span: time the stage with events
+        padded = stream[:SERVE_MICRO_BATCH]
+        plan = meng.plan_batch(padded, NPROBE)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        srv._delta_micro_batch(padded, plan, k_fetch)
+        e1.record()
+        torch.cuda.synchronize()
+        delta_event_ms = e0.elapsed_time(e1)
+
+    # (f) starvation: query 0's whole fetch window deleted with the delta empty
+    srv.compact()
+    q0 = batches[1][:1]
+    _, window = dataclasses.replace(meng, rerank="off").search(q0, NPROBE, k_fetch + 8)
+    victims = window[0][window[0] >= 0]
+    srv.delete(victims)
+    starved0, comps0 = st.starved_batches, len(reports)
+    _, si = srv.search(batches[1][:SERVE_MICRO_BATCH])
+    if not (si[0] < 0).any() or st.starved_batches != starved0 + 1 or \
+            len(reports) != comps0 + 1 or meng.mutation_active:
+        raise RuntimeError("mutable_serving: deleting query 0's window did not starve one "
+                           "batch and compact")
+    q16 = batches[1][:16]
+    s_d, s_i = srv.search(q16)
+    p_d, p_i = mutable_plain_path(torch, np, k_lut, k_rerank, meng, q16, k_fetch, kd)
+    if (s_i < 0).any() or not same_outside_ties(np, s_d, s_i, p_d, p_i):
+        raise RuntimeError("mutable_serving: the search after the starvation compaction "
+                           "differs from the plain path")
+    out = dict(phase="mutable_serving", k_fetch=k_fetch, delta_k=kd,
+               tombstone_limit=srv.tombstone_limit, delta_capacity=meng.delta.capacity,
+               compact_occupancy=srv.compact_occupancy, warmup_s=warm_s, churn=churn,
+               checks=dict(deleted_never_returned=True, own_id_first=100 * rounds,
+                           plain_path_rounds=plain_rounds, depth0_equals_depth1=depth_checked,
+                           builds_after_warmup=0, starved_then_compacted=True),
+               compactions=reports, profiled=profiled,
+               profiler_sees_delta_b3=profiler_sees_delta_b3,
+               delta_stage_event_ms=delta_event_ms, snapshot=st.snapshot(),
+               seconds=time.perf_counter() - t_phase)
+    log(**out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000, help="corpus rows")
@@ -2630,6 +3131,7 @@ def main(argv=None) -> int:
 
     # -- ServingEngine over the main-path engine ----------------------------
     serving_phase(torch, np, ops, eng, batches)
+    serving_obs_faults(torch, np, ops, eng, batches)
 
     # -- recall@10 against a chunked brute force (information) ---------------
     n_gt = 200
@@ -2671,6 +3173,7 @@ def main(argv=None) -> int:
     kernels += mutable_phase(torch, np, ops, k_lut, k_topk, k_rerank, meng, ds, batches,
                              dev, args.seed)
     mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, args.seed)
+    mutable_serving(torch, np, ops, k_lut, k_rerank, meng, ds, batches, dev, args.seed)
     del meng
     torch.cuda.empty_cache()
 

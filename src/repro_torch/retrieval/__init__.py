@@ -7,11 +7,20 @@
   engine.py   -- MemANNSEngine: build + query API, plan / dispatch / collect
   mutation.py -- online inserts, tombstone deletes, compaction
   serving.py  -- ServingEngine: micro-batches, pow2 buckets, warmup, the
-                 depth 0 / 1 host/device pipeline, load feedback
+                 depth 0 / 1 host/device pipeline, load feedback, mutable
+                 serving, metrics and traces, failover, deadlines, admission
+  faults.py   -- FaultPlan and the fault types the serving layer handles
 """
 
 from repro_torch.core.delta import DeltaIndex
 from repro_torch.retrieval.engine import MemANNSEngine, SearchPlan, round_capacity
+from repro_torch.retrieval.faults import (
+    DeviceHang,
+    FaultError,
+    FaultPlan,
+    InjectedCrash,
+    TransientFault,
+)
 from repro_torch.retrieval.layout import (
     DeviceShards,
     RawStore,
@@ -22,9 +31,26 @@ from repro_torch.retrieval.layout import (
 )
 from repro_torch.retrieval.mutation import CompactionReport
 from repro_torch.retrieval.search import InFlightSearch
-from repro_torch.retrieval.serving import ServingEngine, ServingResult, ServingStats
+from repro_torch.retrieval.serving import (
+    DEGRADE_REASONS,
+    HEALTH_STATES,
+    PHASES,
+    RETRY_PHASES,
+    ServingEngine,
+    ServingResult,
+    ServingStats,
+)
 
 __all__ = [
+    "PHASES",
+    "DEGRADE_REASONS",
+    "RETRY_PHASES",
+    "HEALTH_STATES",
+    "FaultPlan",
+    "FaultError",
+    "TransientFault",
+    "DeviceHang",
+    "InjectedCrash",
     "ServingResult",
     "MemANNSEngine",
     "SearchPlan",

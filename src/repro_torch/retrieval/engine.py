@@ -40,6 +40,7 @@ from repro_torch.core.scheduling import (
     warm_start_bounds,
 )
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.retrieval.layout import (
     DeviceShards,
     RawStore,
@@ -121,6 +122,14 @@ class SearchPlan:
         """True when this plan carries early-pruning bounds."""
         return self.pair_lb is not None
 
+    def degraded_mask(self) -> np.ndarray:
+        """(Q,) bool: queries with at least one unreachable probed cluster
+        (they still return their best-effort top-k over the reachable ones)."""
+        mask = np.zeros(self.n_queries, bool)
+        if self.lost_q is not None and self.lost_q.size:
+            mask[self.lost_q] = True
+        return mask
+
     def query_bounds(self, k: int) -> np.ndarray:
         """(Q,) strict warm-start upper bounds on the k-th output distance."""
         if self.probed_ub is None or self.probed_sizes is None:
@@ -149,6 +158,12 @@ class MemANNSEngine:
     `core.delta.DeltaIndex` buffer of a mutable engine (`insert`,
     `delete`, `compact`); while it is active, `search` goes through
     `retrieval.mutation.mutable_search`.
+
+    `tracer` records the engine's sub-phases (schedule / densify /
+    emit_tiles in `plan_batch`, rerank_dispatch, the compaction's stages)
+    as child-only spans: they record under a sampled serving batch span
+    and evaporate otherwise.  `ServingEngine(tracer=...)` installs its
+    tracer here.
     """
 
     index: IVFPQIndex
@@ -163,6 +178,7 @@ class MemANNSEngine:
     freqs: np.ndarray | None = None
     raw: RawStore | None = None
     delta: DeltaIndex | None = None
+    tracer: object = NULL_TRACER
     _dev_arrays: dict | None = None
     _code_norms: np.ndarray | None = None
 
@@ -446,38 +462,41 @@ class MemANNSEngine:
         q_n = queries.shape[0]
         ndev = self.ndev
         prune = self.prune if prune is None else prune
-        schedule, probed, qmc = self.schedule_batch(
-            queries, nprobe, load_carry=load_carry, live=live)
+        tr = self.tracer
+        with tr.span("schedule", root=False):
+            schedule, probed, qmc = self.schedule_batch(
+                queries, nprobe, load_carry=load_carry, live=live)
         max_pairs = int(schedule.counts_per_dev().max(initial=0))
         if pairs_per_dev is None:
             pairs_per_dev = round_capacity(max_pairs, floor=capacity_floor)
 
-        pair_q, pair_slot, pair_valid = densify_schedule(
-            schedule, self.shards.local_slot, pairs_per_dev
-        )
-        order, d_sorted, pos = schedule.device_positions()
-        pq, pc = schedule.pair_q[order], schedule.pair_c[order]
-        cols = np.argmax(probed[pq] == pc[:, None], axis=1)
-        qmc_pairs = torch.zeros(
-            (ndev, pairs_per_dev, queries.shape[1]), dtype=torch.float32,
-            device=self.device,
-        )
-        dst = torch.as_tensor(d_sorted * pairs_per_dev + pos, device=self.device)
-        src = torch.as_tensor(pq.astype(np.int64) * nprobe + cols, device=self.device)
-        qmc_pairs.view(-1, queries.shape[1])[dst] = qmc.reshape(-1, queries.shape[1])[src]
+        with tr.span("densify", root=False):
+            pair_q, pair_slot, pair_valid = densify_schedule(
+                schedule, self.shards.local_slot, pairs_per_dev
+            )
+            order, d_sorted, pos = schedule.device_positions()
+            pq, pc = schedule.pair_q[order], schedule.pair_c[order]
+            cols = np.argmax(probed[pq] == pc[:, None], axis=1)
+            qmc_pairs = torch.zeros(
+                (ndev, pairs_per_dev, queries.shape[1]), dtype=torch.float32,
+                device=self.device,
+            )
+            dst = torch.as_tensor(d_sorted * pairs_per_dev + pos, device=self.device)
+            src = torch.as_tensor(pq.astype(np.int64) * nprobe + cols, device=self.device)
+            qmc_pairs.view(-1, queries.shape[1])[dst] = qmc.reshape(-1, queries.shape[1])[src]
 
-        pair_lb = probed_ub = probed_sizes = None
-        if prune:
-            lb, ub = residual_bounds(qmc.cpu().numpy(), self.code_norms())
-            pair_lb = np.full((ndev, pairs_per_dev), np.inf, np.float32)
-            pair_lb[d_sorted, pos] = lb[pq, cols]
-            probed_ub = ub
-            probed_sizes = self.index.cluster_sizes()[probed]
-            if schedule.lost_c is not None and schedule.lost_c.size:
-                # a bound may count only rows the scan will visit
-                unreach = np.zeros(self.index.cluster_sizes().shape[0], bool)
-                unreach[schedule.lost_c] = True
-                probed_sizes = np.where(unreach[probed], 0, probed_sizes)
+            pair_lb = probed_ub = probed_sizes = None
+            if prune:
+                lb, ub = residual_bounds(qmc.cpu().numpy(), self.code_norms())
+                pair_lb = np.full((ndev, pairs_per_dev), np.inf, np.float32)
+                pair_lb[d_sorted, pos] = lb[pq, cols]
+                probed_ub = ub
+                probed_sizes = self.index.cluster_sizes()[probed]
+                if schedule.lost_c is not None and schedule.lost_c.size:
+                    # a bound may count only rows the scan will visit
+                    unreach = np.zeros(self.index.cluster_sizes().shape[0], bool)
+                    unreach[schedule.lost_c] = True
+                    probed_sizes = np.where(unreach[probed], 0, probed_sizes)
 
         tile_pair = tile_block = tile_row0 = None
         tiles_cap = 0
@@ -488,10 +507,11 @@ class MemANNSEngine:
                 max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
                 tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
             tiles_cap = tiles_per_dev
-            tile_pair, tile_block, tile_row0 = emit_tiles(
-                pair_slot, pair_valid, s.slot_start, s.slot_size, s.block_n,
-                tiles_per_dev, pair_key=pair_lb,
-            )
+            with tr.span("emit_tiles", root=False):
+                tile_pair, tile_block, tile_row0 = emit_tiles(
+                    pair_slot, pair_valid, s.slot_start, s.slot_size, s.block_n,
+                    tiles_per_dev, pair_key=pair_lb,
+                )
         return SearchPlan(
             qmc_pairs=qmc_pairs, pair_q=pair_q, pair_slot=pair_slot,
             pair_valid=pair_valid, schedule=schedule, n_queries=q_n,
@@ -573,12 +593,13 @@ class MemANNSEngine:
                 "rerank='exact' needs a raw-vector store: build with "
                 "rerank='exact' or pass xs to from_reference"
             )
-        q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
-        cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1)
-        out_d, out_i = sharded_rerank(
-            self.raw, q, cand.to(torch.int32).contiguous(), k_out=k_out
-        )
-        return dataclasses.replace(handle, out_d=out_d, out_i=out_i).record()
+        with self.tracer.span("rerank_dispatch", root=False, k_out=k_out):
+            q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
+            cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1)
+            out_d, out_i = sharded_rerank(
+                self.raw, q, cand.to(torch.int32).contiguous(), k_out=k_out
+            )
+            return dataclasses.replace(handle, out_d=out_d, out_i=out_i).record()
 
     def collect(self, handle: InFlightSearch) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched step; return host (dists, ids)."""

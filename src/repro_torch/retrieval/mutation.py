@@ -174,10 +174,17 @@ def mutable_search(
     queries: np.ndarray,
     nprobe: int,
     k: int,
+    pairs_per_dev: int | None = None,
     overfetch: int | None = None,
+    live: np.ndarray | None = None,
     timings: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """The online path over (main index - tombstones) + delta buffer.
+
+    `pairs_per_dev` and `live` go to `plan_batch` (a fixed pair capacity;
+    the live-device mask of replica failover).  The delta scan does not
+    depend on the devices, so under a mask only the main path loses
+    coverage.
 
     Fetches `fetch_depth` candidates from the main path, so the tombstone
     filter can absorb the deleted rows, merges the delta top-k, and returns
@@ -200,7 +207,7 @@ def mutable_search(
     k_fetch = fetch_depth(engine, k, tomb.size, overfetch)
     rerank = engine.rerank == "exact"
     clock = _Clock(dev, timings)
-    plan = engine.plan_batch(queries, nprobe)
+    plan = engine.plan_batch(queries, nprobe, pairs_per_dev=pairs_per_dev, live=live)
     handle = engine.dispatch_plan(plan, k_fetch)
     if rerank:
         handle = engine.dispatch_rerank(handle, queries, k_fetch)
@@ -269,8 +276,10 @@ def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> 
     if delta is None or not delta.active:
         return CompactionReport(0, 0, 0, 0, 0, False, 0.0, dict.fromkeys(STAGES, 0.0))
     clock = _Clock(engine.device, {})
+    tr = engine.tracer  # child-only spans: they record under a compaction span
 
-    new_index, info = compact_index(engine.index, delta)
+    with tr.span("compact_index", root=False):
+        new_index, info = compact_index(engine.index, delta)
     clock.lap("compact_index")
     grew = np.abs(info.new_sizes - info.old_sizes)
     replace = info.content_changed & (grew > replace_threshold * np.maximum(info.old_sizes, 1))
@@ -278,17 +287,19 @@ def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> 
         engine.freqs if engine.freqs is not None
         else np.ones(new_index.n_clusters) / new_index.n_clusters
     )
-    new_placement = update_placement(
-        engine.placement, new_index.cluster_sizes().astype(np.float64), freqs, replace,
-        centroids=new_index.centroids,
-    )
+    with tr.span("update_placement", root=False):
+        new_placement = update_placement(
+            engine.placement, new_index.cluster_sizes().astype(np.float64), freqs, replace,
+            centroids=new_index.centroids,
+        )
     clock.lap("update_placement")
     old = engine.shards
     old_shapes = (old.codes.shape, old.slot_start.shape, old.window)
     engine._dev_arrays = None  # free the old device copies before the repack
-    new_shards, rewritten = update_shards(
-        new_index, new_placement, old, info.content_changed, device=engine.device
-    )
+    with tr.span("update_shards", root=False):
+        new_shards, rewritten = update_shards(
+            new_index, new_placement, old, info.content_changed, device=engine.device
+        )
     clock.lap("update_shards")
     shapes_changed = old_shapes != (
         new_shards.codes.shape, new_shards.slot_start.shape, new_shards.window
@@ -307,10 +318,11 @@ def compact_engine(engine: "MemANNSEngine", replace_threshold: float = 0.25) -> 
             else np.zeros((0, engine.raw.dim), np.float32)
         )
         home = np.array([r[0] if r else 0 for r in new_placement.replicas], np.int64)
-        engine.raw, raw_changed = update_raw_store(
-            engine.raw, add_ids, add_vecs, delta.tombstone_array(),
-            add_home=home[delta.assign[: delta.n][live]],
-        )
+        with tr.span("update_raw_store", root=False):
+            engine.raw, raw_changed = update_raw_store(
+                engine.raw, add_ids, add_vecs, delta.tombstone_array(),
+                add_home=home[delta.assign[: delta.n][live]],
+            )
         shapes_changed = shapes_changed or raw_changed
         clock.lap("update_raw_store")
     delta.reset()

@@ -28,6 +28,9 @@ f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp,
 over every head dim, GQA 1 / 4 / 8, each (q, kv) dtype pair, offsets, dead
 keys past kv_valid and peaked scores; a reduced LM's prefill through B10
 equals the chunked scan and the CPU.
+Mutable serving (a churn stream with compactions, depths 0 and 1) and the
+failover twin (a dead device, a hung collect) on the card equal their CPU
+runs bit for bit.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -895,3 +898,74 @@ def test_onehot_engine_and_serving_on_card_match_cpu(cuda, clustered_data, cooc)
         assert srv.stats.compiles == 0
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
+
+
+def _churn_run(eng, centers, qs, depth, faults=None):
+    """A small churn stream (three rounds of 60 inserts, 12 deletes and a
+    72-query search, compacting at 0.5 of 256 rows) through a mutable
+    ServingEngine; returns every search, the stats and the launch counts."""
+    from repro_torch.retrieval.serving import ServingEngine
+
+    srv = ServingEngine(eng, nprobe=8, k=10, micro_batch=16, pipeline_depth=depth,
+                        mutable=True, compact_occupancy=0.5, delta_capacity=256,
+                        faults=faults)
+    srv.warmup()
+    rng = np.random.default_rng(4)
+    outs = []
+    ops.reset_launches()
+    for r in range(3):
+        ids = np.arange(12000 + 60 * r, 12060 + 60 * r)
+        vecs = (centers[rng.integers(0, 32, 60)] + rng.normal(0, 1, (60, 32))).astype(np.float32)
+        srv.insert(ids, vecs)
+        srv.delete(np.concatenate([rng.choice(12000, 10, replace=False), ids[:2]]))
+        outs.append(srv.search(np.concatenate([qs] * 3)))
+    return outs, srv.stats, dict(ops.launches)
+
+
+@pytest.mark.parametrize("rerank", ["off", "exact"])
+def test_mutable_serving_on_card_matches_cpu(cuda, clustered_data, rerank):
+    """Mutable serving on the card (the delta scan on B1 + B5 and its
+    re-rank on B3 on the default stream, the main step on the server's
+    stream, the merge after the event) equals the CPU run bit for bit at
+    depths 0 and 1, with the same compactions and no build after warmup."""
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, centers, qs, hist = clustered_data
+    kw = dict(block_n=256, rerank=rerank, k_overfetch=64, mutable=True, delta_capacity=256)
+    eng = MemANNSEngine.build(xs, 32, 8, ndev=8, history_queries=hist, kmeans_iters=8,
+                              pq_iters=6, device="cpu", **kw)
+    index, placement = eng.index, eng.placement  # the stream compacts `eng`
+    want, wst, _ = _churn_run(eng, centers, qs, 1)
+    for depth in (0, 1):
+        gpu = MemANNSEngine.from_reference(index, placement, xs, freqs=eng.freqs,
+                                           device=cuda, **kw)
+        got, st, launches = _churn_run(gpu, centers, qs, depth)
+        assert st.compiles == 0 and st.compactions == wst.compactions >= 1
+        assert launches["adc_topk_windows"] >= 3 and launches["build_luts"] >= 6
+        for (a, b), (c, d) in zip(got, want):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, d)
+
+
+def test_failover_serving_on_card_matches_cpu(cuda, clustered_data):
+    """The failover twin on the card: a device dead from batch 1 gives the
+    CPU run's answers, flags and coverage."""
+    from repro_torch.retrieval.engine import MemANNSEngine
+    from repro_torch.retrieval.faults import FaultPlan
+    from repro_torch.retrieval.serving import ServingEngine
+
+    xs, _, qs, hist = clustered_data
+    eng = MemANNSEngine.build(xs, 32, 8, ndev=8, history_queries=hist, block_n=256,
+                              kmeans_iters=8, pq_iters=6, device="cpu")
+    gpu = MemANNSEngine.from_reference(eng.index, eng.placement, block_n=256, device=cuda)
+    stream = np.concatenate([qs] * 4)
+    res = []
+    for e in (eng, gpu):
+        srv = ServingEngine(e, nprobe=8, k=10, micro_batch=16, collect_timeout_s=30.0,
+                            faults=FaultPlan(device_death={3: 1}, hang_collect={2: 5}))
+        srv.warmup()
+        res.append((srv.search_result(stream), srv.stats))
+    (a, sa), (b, sb) = res
+    assert sb.compiles == 0 and sa.failovers == sb.failovers == 2
+    for f in ("dists", "ids", "degraded", "coverage_lost"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))

@@ -31,7 +31,9 @@ new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.ker
        "repro_torch.kernels.flash_attn", "repro_torch.models.config",
        "repro_torch.models.layers", "repro_torch.models.model", "repro_torch.configs",
        "repro_torch.configs.qwen3_8b", "repro_torch.configs.memanns",
-       "repro_torch.launch.serve", "repro_torch.core.delta", "repro_torch.retrieval.mutation"]
+       "repro_torch.launch.serve", "repro_torch.core.delta", "repro_torch.retrieval.mutation",
+       "repro_torch.retrieval.serving", "repro_torch.retrieval.faults", "repro_torch.obs.metrics",
+       "repro_torch.obs.trace", "repro_torch.obs.http"]
 assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """

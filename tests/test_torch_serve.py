@@ -1,9 +1,11 @@
 """The port's serving launcher (`repro_torch.launch.serve`) on the CPU.
 
 `serve()` drives prefill, the greedy decode loop and, with `--retrieval`,
-the port's engine, on a reduced config with `device="cpu"`; the flags of
-the reference's `ServingEngine` path are refused until they are ported;
-with no device and no GPU it raises instead of running on the CPU.
+the port's engine through its `ServingEngine`, on a reduced config with
+`device="cpu"`; the reference's serving flags (churn, deadlines,
+admission, the watchdog, metrics and traces) each do what they do there,
+and only `--autotune sweep` is refused; with no device and no GPU it
+raises instead of running on the CPU.
 """
 
 import dataclasses
@@ -66,16 +68,108 @@ def test_main_cpu_prints_report(capsys):
     assert out["generated"] == rep["generated"] and out["arch"] == "yi-6b"
 
 
+BASE = ["--arch", "qwen3-8b", "--reduced", "--device", "cpu", "--batch", "4",
+        "--prompt-len", "8", "--steps", "2", "--retrieval", "--retrieval-vectors", "2000"]
+
+
 @pytest.mark.parametrize("flag", [
-    ["--queue-limit", "4"], ["--churn-insert-rate", "8"], ["--autotune", "off"],
-    ["--deadline-ms", "5"], ["--metrics-port", "0"], ["--trace-out", "t.json"],
+    ["--queue-limit", "4"], ["--churn-insert-rate", "8"], ["--autotune", "sweep"],
+    ["--deadline-ms", "0"], ["--metrics-port", "0"], ["--trace-out", "t.json"],
 ])
-def test_unported_flags_refused(flag):
-    """The reference's `ServingEngine` flags that wait for queue A items 7,
-    12 and 13 (`--pipeline-depth` is ported, `test_retrieval_serves_through_
-    serving_engine`)."""
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu", *flag])
+def test_unported_flags_refused(flag, tmp_path, capsys):
+    """The reference's `ServingEngine` flags are taken and do what they do
+    there; only `--autotune sweep` (queue A item 13) is refused.  Without
+    `--retrieval` the metrics and trace flags are refused, as there."""
+    if flag[0] == "--autotune":
+        with pytest.raises(SystemExit):
+            tserve.main(BASE + flag)
+        assert "queue A item 13" in capsys.readouterr().err
+        return
+    if flag[0] == "--trace-out":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    if flag[0] in ("--metrics-port", "--trace-out"):
+        with pytest.raises(SystemExit):
+            tserve.main(BASE[:-3] + flag)
+    rep = tserve.main(BASE + flag)
+    capsys.readouterr()
+    st = rep["retrieval_stats"]
+    assert st["compiles"] == 0 and np.asarray(rep["retrieved_ids"]).shape == (4, 4)
+    if flag[0] == "--queue-limit":  # search() bypasses the ingress queue
+        assert st["health"]["queue_limit"] == 4 and st["faults"]["rejected_queries"] == 0
+    elif flag[0] == "--churn-insert-rate":
+        mut = st["mutation"]
+        assert mut["inserts"] == 32 and mut["deletes"] == 0 and mut["compactions"] == 0
+        assert st["batches"] == 10 and st["phase_seconds"]["delta"] > 0
+    elif flag[0] == "--deadline-ms":
+        assert st["faults"]["degraded_queries"] == 4 and st["health"]["state"] == "degraded"
+    elif flag[0] == "--metrics-port":
+        assert rep["metrics_endpoint"].startswith("http://127.0.0.1:")
+    else:
+        trace = json.loads((tmp_path / "t.json").read_text())
+        assert rep["trace_out"]["spans"] == 2
+        names = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+        assert {"batch", "plan", "schedule", "dispatch", "collect"} <= names
+
+
+def test_churn_serve_matches_engine(capsys):
+    """`--churn-insert-rate` / `--churn-delete-rate` serve a mutable engine
+    through four churn rounds; the timed search equals the engine's own
+    search on the churned corpus, and an auto-compaction lands at
+    `--compact-occupancy`."""
+    opts = tserve.RetrievalOptions(vectors=2000, churn_insert_rate=48, churn_delete_rate=8,
+                                   compact_occupancy=0.02)
+    cfg = _cfg()
+    rep = tserve.serve(cfg, batch=4, prompt_len=8, steps=2, retrieval=opts, device="cpu")
+    mut = rep["retrieval_stats"]["mutation"]
+    assert mut["inserts"] == 192 and mut["deletes"] == 32 and mut["compactions"] == 2
+    assert rep["retrieval_stats"]["compiles"] == 0
+    launches = rep["retrieval_stats"]["kernel_launches"]
+    assert launches == {}  # CPU tensors: the plain versions run, no launch
+
+
+def test_metrics_endpoint_serves_while_lingering():
+    """`--metrics-port` exposes the serving registry on 127.0.0.1 while the
+    launcher lingers: `/metrics` passes the port's exposition check and
+    counts the served queries, `/healthz` returns the health dict."""
+    import importlib.util
+    import socket
+    import threading
+    import time
+    import urllib.request
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "check_metrics_torch",
+        Path(__file__).resolve().parent.parent / "tools" / "check_metrics_torch.py")
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    opts = tserve.RetrievalOptions(vectors=2000, metrics_port=port, metrics_linger=5.0)
+    box = {}
+    th = threading.Thread(target=lambda: box.update(tserve.serve(
+        _cfg(), batch=4, prompt_len=8, steps=2, retrieval=opts, device="cpu")))
+    th.start()
+    text, health = "", None
+    t_end = time.time() + 120
+    while th.is_alive() and time.time() < t_end:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                text = r.read().decode()
+            if "upanns_serving_queries_total 4" in text:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                    health = json.loads(r.read().decode())
+                break
+        except OSError:
+            pass
+        time.sleep(0.2)
+    th.join(timeout=120)
+    assert not th.is_alive()
+    assert "upanns_serving_queries_total 4" in text
+    assert check.check_exposition(text) == []
+    assert health["state"] == "ok" and health["n_devices"] == 1
+    assert box["metrics_endpoint"] == f"http://127.0.0.1:{port}/metrics"
 
 
 @pytest.mark.parametrize("depth", [0, 1])
@@ -90,7 +184,7 @@ def test_retrieval_serves_through_serving_engine(depth, capsys):
     assert st["pipeline_depth"] == depth and st["micro_batch"] == 2 and st["batches"] == 2
     assert st["compiles"] == 0 and st["health"]["state"] == "ok"
     assert st["autotune"]["source"] == "miss"
-    eng, rcfg, qv = tserve.retrieval_engine(cfg, opts, 4, torch.device("cpu"), 0)
+    eng, rcfg, qv, _ = tserve.retrieval_engine(cfg, opts, 4, torch.device("cpu"), 0)
     _, ids = eng.search(qv, rcfg.nprobe, rcfg.k)
     np.testing.assert_array_equal(np.asarray(rep["retrieved_ids"]), ids[:, :4])
     out = tserve.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu", "--batch", "2",

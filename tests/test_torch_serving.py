@@ -7,7 +7,8 @@ CUDA-graph captures, none on the CPU), and keeps honest stats.  A stream
 through the port's ServingEngine equals one through the reference's
 (Pallas in interpret mode) on the same trained index: ids equal outside
 exactly tied groups, distances allclose(rtol = atol = 1e-5).  The knobs
-of the items still to port raise NotImplementedError naming them.
+that came with ROADMAP items 7 and 12 each do what the reference's do;
+only the autotune sweep (item 13) raises NotImplementedError.
 """
 
 import dataclasses
@@ -217,17 +218,60 @@ def test_result_health_and_autotune_report(engine, clustered_data):
 @pytest.mark.parametrize("knob,item", [
     (dict(mutable=True), "queue A item 7"),
     (dict(autotune="sweep"), "queue A item 13"),
-    (dict(tracer=object()), "queue A item 12"),
-    (dict(faults=object()), "queue A item 12"),
-    (dict(deadline_ms=5.0), "queue A item 12"),
-    (dict(degrade_nprobe=2), "queue A item 12"),
-    (dict(retry_limit=3), "queue A item 12"),
+    (dict(tracer="tracer"), "queue A item 12"),
+    (dict(faults="faults"), "queue A item 12"),
+    (dict(deadline_ms=0.0), "queue A item 12"),
+    (dict(degrade_nprobe=2, deadline_ms=0.0), "queue A item 12"),
+    (dict(retry_limit=3, faults="faults"), "queue A item 12"),
     (dict(queue_limit=16), "queue A item 12"),
     (dict(collect_timeout_s=1.0), "queue A item 12"),
 ])
-def test_unported_serving_knobs_raise(engine, knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(engine, nprobe=8, k=10, **knob)
+def test_unported_serving_knobs_raise(engine, clustered_data, knob, item):
+    """The knobs that waited for ROADMAP items 7 and 12 are taken and do
+    what the reference's do; only the autotune sweep (item 13) still
+    raises.  `item` names the item that brought each knob."""
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.retrieval.faults import FaultPlan
+
+    qs = clustered_data[2]
+    if knob.get("autotune") == "sweep":
+        with pytest.raises(NotImplementedError, match=item):
+            ServingEngine(engine, nprobe=8, k=10, **knob)
+        return
+    knob = dict(knob)
+    if knob.get("tracer") == "tracer":
+        knob["tracer"] = Tracer()
+    if knob.get("faults") == "faults":
+        knob["faults"] = FaultPlan(transient_dispatch={0: knob.get("retry_limit", 2)})
+    eng = dataclasses.replace(engine, delta=None, tracer=engine.tracer)
+    srv = ServingEngine(eng, nprobe=8, k=10, micro_batch=8, retry_backoff_s=0.0, **knob)
+    srv.warmup()
+    ed, ei = dataclasses.replace(engine, delta=None).search(qs, nprobe=8, k=10)
+    if "queue_limit" in knob:
+        assert srv.submit(qs) == 16 and srv.stats.rejected_queries == 8
+        assert srv.health()["state"] == "overloaded"
+        np.testing.assert_array_equal(srv.flush()[1], ei[:16])
+        return
+    res = srv.search_result(qs)
+    if "deadline_ms" in knob:
+        assert res.deadline_degraded.all() and srv.health()["state"] == "degraded"
+        low = ServingEngine(eng, nprobe=knob.get("degrade_nprobe", 4), k=10, micro_batch=8)
+        np.testing.assert_array_equal(res.ids, low.search(qs)[1])
+        return
+    np.testing.assert_array_equal(res.ids, ei)
+    np.testing.assert_array_equal(res.dists, ed)
+    if knob.get("mutable"):
+        assert srv.mutable and eng.delta is not None
+        srv.insert(np.arange(12000, 12024, dtype=np.int32), qs)
+        np.testing.assert_array_equal(srv.search(qs)[1][:, 0], np.arange(12000, 12024))
+    elif "tracer" in knob:
+        assert len(knob["tracer"].roots()) == srv.stats.batches == 3
+        assert eng.tracer is knob["tracer"]
+    elif "faults" in knob:
+        # as many transient faults of batch 0 as the retry budget takes
+        assert srv.stats.retries == knob.get("retry_limit", 2) and srv.stats.failovers == 0
+    else:  # the watchdog polls the handle and finds it ready
+        assert srv.stats.retries == 0 and srv.collect_timeout_s == 1.0
 
 
 @pytest.mark.parametrize("knob", [
@@ -235,19 +279,59 @@ def test_unported_serving_knobs_raise(engine, knob, item):
     dict(replace_threshold=0.5), dict(delta_capacity=64), dict(autotune_cache_dir="c"),
     dict(metrics=False),
 ])
-def test_unread_reference_knobs_not_taken(engine, knob):
-    """Knobs the reference reads only on paths still to port (the mutable
-    path's compaction settings, the autotune cache, the metrics registry)
-    are not taken, so no value of them is silently ignored."""
-    with pytest.raises(TypeError, match=next(iter(knob))):
-        ServingEngine(engine, nprobe=8, k=10, **knob)
+def test_unread_reference_knobs_not_taken(engine, clustered_data, knob):
+    """The reference's knobs of the mutable path and the metrics registry
+    are taken now and do what the reference's do; `autotune_cache_dir`,
+    read only by the autotune (ROADMAP queue A item 13), is still not
+    taken, so no value of it is silently ignored."""
+    name, value = next(iter(knob.items()))
+    if name == "autotune_cache_dir":
+        with pytest.raises(TypeError, match=name):
+            ServingEngine(engine, nprobe=8, k=10, **knob)
+        return
+    qs = clustered_data[2]
+    eng = dataclasses.replace(engine, delta=None, _dev_arrays=None)
+    srv = ServingEngine(eng, nprobe=8, k=10, micro_batch=8, mutable=name != "metrics", **knob)
+    srv.warmup()
+    if name == "metrics":
+        srv.search(qs)
+        assert srv.stats.registry.render_prometheus() == "" and srv.stats.p50_s() > 0
+    elif name == "compact_occupancy":  # 4096 rows: compacts at 2048 buffered
+        srv.insert(np.arange(12000, 14047, dtype=np.int32),
+                   np.repeat(qs, 86, axis=0)[:2047])
+        assert srv.stats.compactions == 0 and srv.stats.delta_occupancy < 0.5
+        srv.insert(np.asarray([20000], np.int32), qs[:1])
+        assert srv.stats.compactions == 1 and not eng.mutation_active
+    elif name == "tombstone_limit":
+        srv.delete(np.arange(7))
+        assert srv.stats.compactions == 0 and srv.stats.tombstones == 7
+        srv.delete(np.asarray([7]))
+        assert srv.stats.compactions == 1 and srv.stats.tombstones == 0
+    elif name == "overfetch":
+        assert srv._k_fetch() == 10
+        srv.delete(np.asarray([0]))
+        assert srv._k_fetch() == 14
+    elif name == "replace_threshold":
+        assert srv.replace_threshold == 0.5
+        srv.insert(np.asarray([12000], np.int32), qs[:1])
+        assert srv.compact().clusters_replaced == 0  # one row moves no cluster by half
+    else:
+        assert eng.delta.capacity == 64 and srv.tombstone_limit == 64
 
 
-def test_engine_with_delta_raises(engines):
+def test_engine_with_delta_raises(engines, clustered_data):
+    """An engine with a delta serves mutably (the reference's rule); an
+    unknown autotune mode still raises."""
     ref = engines[0]
+    qs = clustered_data[2]
     meng = MemANNSEngine.from_reference(ref.index, ref.placement, block_n=256, mutable=True,
                                         delta_capacity=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        ServingEngine(meng, nprobe=8, k=10)
+    srv = ServingEngine(meng, nprobe=8, k=10, micro_batch=8)
+    assert srv.mutable and srv.tombstone_limit == 64
+    srv.warmup()
+    srv.insert(np.arange(12000, 12024, dtype=np.int32), qs)
+    d, i = srv.search(qs)
+    np.testing.assert_array_equal(i[:, 0], np.arange(12000, 12024))
+    np.testing.assert_array_equal(i, meng.search(qs, nprobe=8, k=10)[1])
     with pytest.raises(ValueError, match="autotune"):
         ServingEngine(engines[1], nprobe=8, k=10, autotune="fast")
