@@ -132,6 +132,18 @@ it records QPS with the compactions left out, p50 / p99, the host
 fraction, the phases' seconds, each compaction's stages, the kernels each
 span launched in one profiled micro-batch, and the registry's snapshot.
 
+OPQ, the autotune and checkpoints: `autotune` (after
+`flat_search`, on the main engine) sweeps the kernel geometry through
+`ServingEngine(autotune="sweep")` with a fresh cache directory, serves the
+5,000-query stream tuned (bit-identical to untuned, no build after
+warmup), hits the cache from a second server, times one real batch at
+each swept `block_n` and restores 1024; `checkpoint` (after
+`mutable_cooc_windows`, on its engine with a live delta) round-trips
+`save_engine` / `load_engine` (1000 queries bit-identical), crashes the
+save at each point and saves and loads the 100M index; `opq` (last)
+rebuilds the corpus from the seed with `opq_iters=5` and checks it
+against a plain path, pruned against unpruned, and with 1000 inserts.
+
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
 outside a checkout, it exits with a non-zero code and prints no result.
@@ -161,7 +173,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # the LM serving phase: full-width qwen3-8b, random bf16 weights, f32 cache
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "qwen3-8b", 4, 2048, 512
 # `--retrieval --rerank exact` with the reference's other defaults
-LM_RETRIEVAL = dict(vectors=20_000, rerank="exact")
+# autotune off: a cache left under ~ by an earlier sweep must never retile
+# a phase other than `autotune` (its numbers are the build-time geometry's)
+LM_RETRIEVAL = dict(vectors=20_000, rerank="exact", autotune="off")
 # B10 vs its plain version: the reference's f32 tolerance
 # (tests/test_flash_attn.py); with a bf16 q both outputs round f32 results
 # that differ by reassociation to bf16, so they agree to one bf16 ulp
@@ -275,15 +289,20 @@ def cold_ms(torch, fn, reps: int) -> float:
 def clocked_ms(torch, fn, reps: int, min_ms: float = 1000.0) -> tuple[float, float]:
     """(mean device ms of `fn`, the SM clock in MHz under it): `cuda_ms`
     over at least `reps` launches and at least `min_ms` of work, so that
-    nvidia-smi's 100 ms samples (`SmClock`) see the card under load."""
+    nvidia-smi's 100 ms samples (`SmClock`) see the card under load.  A
+    sampler that read nothing (nvidia-smi had not started sampling when the
+    work ended) is retaken, twice at most, each time over twice the work."""
     est = cuda_ms(torch, fn, 2)
-    reps = max(reps, int(min_ms / max(est, 1e-3)) + 1)
-    clocks = SmClock()
-    try:
-        ms = cuda_ms(torch, fn, reps)
-    finally:
-        sm_mhz = clocks.stop()
-    return ms, sm_mhz
+    for attempt in range(3):
+        n = max(reps, int(min_ms * 2**attempt / max(est, 1e-3)) + 1)
+        clocks = SmClock()
+        try:
+            ms = cuda_ms(torch, fn, n)
+        finally:
+            sm_mhz = clocks.stop()
+        if sm_mhz is not None:
+            return ms, sm_mhz
+    raise RuntimeError("nvidia-smi gave no SM clock samples in three tries")
 
 
 def wall_ms(torch, fn) -> float:
@@ -623,7 +642,8 @@ def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int,
 class SmClock:
     """nvidia-smi's SM clock (MHz) sampled every 100 ms from construction to
     `stop()`, which ends the sampler and returns the largest sample (the
-    clock under load; idle samples before the first launch read lower)."""
+    clock under load; idle samples before the first launch read lower), or
+    None when it read none."""
 
     def __init__(self):
         self.proc = subprocess.Popen(
@@ -631,7 +651,7 @@ class SmClock:
              "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
         self.samples: list[float] = []
 
-    def stop(self) -> float:
+    def stop(self) -> float | None:
         self.proc.terminate()
         try:
             out, _ = self.proc.communicate(timeout=30)
@@ -639,9 +659,7 @@ class SmClock:
             self.proc.kill()
             out, _ = self.proc.communicate()
         self.samples = [float(x) for x in out.split() if x.strip().replace(".", "").isdigit()]
-        if not self.samples:
-            raise RuntimeError("nvidia-smi gave no SM clock samples")
-        return max(self.samples)
+        return max(self.samples) if self.samples else None
 
 
 def scan_library(torch, tables, lut_row, codes, starts, n_valid, kp, max_rows=1 << 23,
@@ -737,7 +755,8 @@ def serving_phase(torch, np, ops, eng, batches) -> dict:
     for path in ("gather", "onehot"):
         for depth in (0, 1):
             srv = ServingEngine(dataclasses.replace(eng, path=path), nprobe=NPROBE, k=K,
-                                micro_batch=SERVE_MICRO_BATCH, pipeline_depth=depth)
+                                micro_batch=SERVE_MICRO_BATCH, pipeline_depth=depth,
+                                autotune="off")
             t = time.perf_counter()
             buckets = srv.warmup()
             warm_s = time.perf_counter() - t
@@ -842,7 +861,8 @@ def plain_adc_topk(torch, np, k_lut, eng, q, kk):
 
     dev, sh, idx = eng.device, eng.shards, eng.index
     dv = eng._device_put()
-    probed, qmc = filter_clusters(dv["centroids"], q, NPROBE)
+    q_code = torch.as_tensor(idx.rotate(q.cpu().numpy()), device=dev)  # OPQ: rotated
+    probed, qmc = filter_clusters(dv["centroids"], q_code, NPROBE)
     cb = dv["codebook"]
     m, _, dsub = cb.shape
     luts = k_lut.build_luts_plain(cb, qmc.reshape(-1, m, dsub)).reshape(len(q), NPROBE, -1)
@@ -2374,7 +2394,7 @@ def shards_embed(torch, np, big, small) -> bool:
 
 
 def mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, seed, n_rows=MUT_COOC_ROWS,
-                      n_inserts=MUT_INSERTS, n_deletes=MUT_DELETES) -> None:
+                      n_inserts=MUT_INSERTS, n_deletes=MUT_DELETES):
     """One windows x co-occurrence mutable cell at a reduced N (scale only;
     the same centroids, codebook and geometry): the main index's rows with
     ids below `n_rows`, re-placed by Algorithm 1, its raw vectors from the
@@ -2384,7 +2404,7 @@ def mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, seed, n_rows=MUT_C
     (`shards_embed`: the same packing, grown by the slack); the
     compacted engine's re-rank-off answers must be those of the mutable
     search within the cross-encoding tolerance (rtol 2e-4), ids included
-    (`same_within_tol`)."""
+    (`same_within_tol`).  Returns the compacted cell's engine."""
     from repro_torch.convert import index_from_arrays
     from repro_torch.core.placement import place_clusters
     from repro_torch.retrieval.engine import MemANNSEngine
@@ -2459,6 +2479,7 @@ def mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, seed, n_rows=MUT_C
         rerank_off_allclose=int(ok.sum()), rerank_off_ids_in_place=same_ids,
         rerank_off_ids_in_band=band, width=sh.width,
         seconds=time.perf_counter() - t_cell)
+    return ceng
 
 
 def profiled_spans(torch, fn, spans=PROFILED_SPANS) -> dict:
@@ -2554,7 +2575,8 @@ def serving_obs_faults(torch, np, ops, eng, batches) -> dict:
     n_mb = len(stream) // mb
 
     def server(**kw):
-        srv = ServingEngine(eng, nprobe=NPROBE, k=K, micro_batch=mb, pipeline_depth=1, **kw)
+        srv = ServingEngine(eng, nprobe=NPROBE, k=K, micro_batch=mb, pipeline_depth=1,
+                            autotune="off", **kw)
         srv.warmup()
         return srv
 
@@ -2772,7 +2794,8 @@ def mutable_serving(torch, np, ops, k_lut, k_rerank, meng, ds, batches, dev, see
     t_phase = time.perf_counter()
     if meng.mutation_active:
         raise RuntimeError("mutable_serving: the engine's delta is not empty")
-    srv = ServingEngine(meng, nprobe=NPROBE, k=K, micro_batch=SERVE_MICRO_BATCH, mutable=True)
+    srv = ServingEngine(meng, nprobe=NPROBE, k=K, micro_batch=SERVE_MICRO_BATCH, mutable=True,
+                        autotune="off")
     k_fetch, kd = srv._k_fetch(), srv._delta_k()
     if (k_fetch, srv.tombstone_limit, meng.delta.capacity) != (128, 1024, 4096):
         raise RuntimeError(f"mutable_serving: fetch {k_fetch}, tombstone limit "
@@ -2947,6 +2970,328 @@ def mutable_serving(torch, np, ops, k_lut, k_rerank, meng, ds, batches, dev, see
                seconds=time.perf_counter() - t_phase)
     log(**out)
     return out
+
+
+def quant_mse(torch, np, index, raw, sample_ids) -> float:
+    """Mean squared quantisation error of `index`'s codes over the rows of
+    `sample_ids` (vectors from the raw store; in the coding space, rotated
+    under OPQ, where R keeps every norm)."""
+    from repro_torch.core.index import rotate_rows
+    from repro_torch.core.pq import pq_decode
+
+    dev = raw.vectors.device
+    inv = np.empty(index.n_vectors, np.int64)
+    inv[index.vec_ids] = np.arange(index.n_vectors)
+    pos = inv[sample_ids]
+    cl = torch.as_tensor(np.searchsorted(index.offsets, pos, side="right") - 1, device=dev)
+    ids = torch.as_tensor(sample_ids, device=dev)
+    x = raw.vectors[raw.row_base[raw.id_dev[ids].long()] + raw.id_row[ids].long()].float()
+    if index.rotation is not None:
+        x = rotate_rows(x, index.rotation)
+    res = x - torch.as_tensor(index.centroids, device=dev)[cl]
+    dec = pq_decode(torch.as_tensor(index.codebook, device=dev),
+                    torch.as_tensor(index.codes[pos], device=dev))
+    return float(((res - dec) ** 2).sum(1).mean())
+
+
+def autotune_phase(torch, np, ops, eng, batches) -> None:
+    """The kernel-geometry autotune on the main-path engine, after
+    every phase that relies on its `block_n` of 1024, which it restores.
+
+    `ServingEngine(autotune="sweep")` with a fresh cache directory times
+    the grid (`core.autotune`: the engine's search of 500 queries at
+    nprobe 64, the server's shape, at block_n 256 / 512 / 1024, each a
+    retile; B3 over 2^22 candidates at 16 / 32 / 64 a block, CUDA events)
+    and applies its pick before its warmup; it then serves the
+    `serving` phase's 5,000-query stream (micro-batches of 500, depth 1),
+    which must equal the untuned server's bit for bit with no build after
+    warmup.  A second server with `autotune="cache"` on the directory must
+    hit (`swept` 0).  Then one 1000-query batch at each swept block_n
+    (retiled; seconds), its device busy ms and batch wall, the answers
+    bit-identical across them: where the device time goes at each, beside
+    the sweep's pick."""
+    import tempfile
+
+    from repro_torch.core.autotune import KernelGeometry
+    from repro_torch.kernels import _build
+    from repro_torch.retrieval.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    stream = np.concatenate(batches[1:])
+
+    def server(**kw):
+        return ServingEngine(eng, nprobe=NPROBE, k=K, micro_batch=SERVE_MICRO_BATCH,
+                             pipeline_depth=1, **kw)
+
+    base = server(autotune="off")
+    base.warmup()
+    want_d, want_i = base.search(stream)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as cache_dir:
+        srv = server(autotune="sweep", autotune_cache_dir=cache_dir)
+        t = time.perf_counter()
+        rep = srv.apply_autotune()
+        apply_s = time.perf_counter() - t
+        srv.warmup()
+        built = _build.compile_count()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        d, i = srv.search(stream)
+        wall = time.perf_counter() - t
+        launches = {k: v for k, v in ops.launches.items() if v}
+        st = srv.stats
+        if rep["source"] != "sweep" or rep["swept"] <= 0:
+            raise RuntimeError(f"autotune: no sweep ran: {rep}")
+        if st.compiles or _build.compile_count() != built:
+            raise RuntimeError(f"autotune: {st.compiles} builds after warmup")
+        if not (np.array_equal(d, want_d) and np.array_equal(i, want_i)):
+            raise RuntimeError(f"autotune: the tuned stream ({rep['geometry']}) differs from "
+                               "the untuned one")
+        for kname in ("build_luts", "adc_topk_tiles", "rerank_dists"):
+            if launches.get(kname) != st.batches:
+                raise RuntimeError(f"autotune: {kname} launched {launches.get(kname)} times "
+                                   f"in {st.batches} micro-batches")
+        hit = server(autotune="cache", autotune_cache_dir=cache_dir).apply_autotune()
+        if hit["source"] != "cache" or hit["swept"] != 0:
+            raise RuntimeError(f"autotune: the second server missed the cache: {hit}")
+
+    qb, kp = batches[1], eng.k_prime(K)
+    rows, first = [], None
+    for bn in sorted(int(b) for b in rep["timings"]["batch_s"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        retiled = eng.apply_geometry(KernelGeometry(block_n=bn))
+        retile_s = time.perf_counter() - t
+        plan = eng.plan_batch(qb, NPROBE)
+        out = eng.collect(eng.dispatch_rerank(eng.dispatch_plan(plan, kp), qb, K))
+        busy, by_kernel, _, _ = profile_call(torch, lambda: eng.collect(
+            eng.dispatch_rerank(eng.dispatch_plan(plan, kp), qb, K)))
+        t = time.perf_counter()
+        eng.search(qb, NPROBE, K)
+        batch_ms = (time.perf_counter() - t) * 1e3
+        if first is None:
+            first = out
+        elif not all(np.array_equal(a, b) for a, b in zip(out, first)):
+            raise RuntimeError(f"autotune: the batch at block_n {bn} differs")
+        rows.append(dict(block_n=bn, retiled=retiled, retile_seconds=retile_s,
+                         device_busy_ms=busy, device_ms_by_kernel=by_kernel,
+                         batch_ms=batch_ms, tiles_per_dev=plan.tiles_per_dev,
+                         sweep_batch_ms=rep["timings"]["batch_s"][str(bn)] * 1e3))
+    t = time.perf_counter()
+    eng.apply_geometry(KernelGeometry(block_n=BLOCK_N))
+    restore_s = time.perf_counter() - t
+    log(phase="autotune", engine_rows=int(eng.index.n_vectors), sweep=rep,
+        apply_autotune_seconds=apply_s, tuned_geometry=rep["geometry"],
+        tuned_stream=dict(queries=len(stream), micro_batches=st.batches,
+                          wall_ms=wall * 1e3, qps=len(stream) / wall, compiles=st.compiles,
+                          launches=launches, bit_identical_to_untuned=True),
+        cache_hit=dict(source=hit["source"], swept=hit["swept"], key=hit["key"]),
+        real_batches=rows, real_batches_bit_identical=True, restore_seconds=restore_s,
+        seconds=time.perf_counter() - t_phase)
+
+
+def dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_phase(torch, np, ceng, meng, ds, batches, dev, seed) -> None:
+    """Checkpoints on the card.  The 4M-row windows x co-occurrence
+    mutable cell (`ceng`, exact re-rank) gets a live delta of 1000 inserts
+    and 500 tombstones; `save_engine` then `load_engine` on the card must
+    answer 1000 queries bit for bit.  The save is crashed at each of its
+    three points and `load_index` must return the complete old or new
+    checkpoint.  The 100M-row index (`meng.index`) goes through
+    `save_index` / `load_index` without its raw store: at 100M rows the
+    reference-format f32 store would pad to ~8 x 16.7M x 128 x 4 B = 68.7
+    GB on disk.  Seconds and bytes of each; written under a temp directory
+    that is deleted afterwards."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import load_engine, load_index, save_engine, save_index
+    from repro_torch.retrieval.faults import FaultPlan, InjectedCrash
+
+    t_phase = time.perf_counter()
+    first = MUT_COOC_ROWS + MUT_INSERTS
+    ins_ids = np.arange(first, first + 1000, dtype=np.int64)
+    rng = np.random.default_rng(seed + 9)
+    dels = np.concatenate([rng.choice(ceng.index.vec_ids, 400, replace=False), ins_ids[:100]])
+    ceng.insert(ins_ids, ds.queries(1000, seed=seed + 8))
+    ceng.delete(dels)
+    q = batches[1]
+    want = ceng.search(q, NPROBE, K)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(root, "engine")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_engine(path, ceng, extra={"v": 1})
+        save_s = time.perf_counter() - t
+        nbytes = dir_bytes(path)
+        t = time.perf_counter()
+        got = load_engine(path, ndev=NDEV, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        out = got.search(q, NPROBE, K)
+        if not all(np.array_equal(a, b) for a, b in zip(out, want)):
+            raise RuntimeError("checkpoint: the restored engine answers differently")
+        if got.delta.n != ceng.delta.n or got.delta.tombstones != ceng.delta.tombstones:
+            raise RuntimeError("checkpoint: the restored delta differs")
+        del got
+        crashes, have = [], 1
+        for n, point in enumerate(("before_commit", "after_rename_old", "after_rename_new")):
+            fp = FaultPlan(crash_save_at=point)
+            try:
+                save_engine(path, ceng, extra={"v": n + 2}, faults=fp)
+            except InjectedCrash:
+                pass
+            else:
+                raise RuntimeError(f"checkpoint: no crash at {point}")
+            t = time.perf_counter()
+            idx, delta, extra = load_index(path)
+            v = extra["v"]
+            ok = {"before_commit": v == have, "after_rename_old": v == have,
+                  "after_rename_new": v == n + 2}[point]
+            same = all(np.array_equal(getattr(idx, f), getattr(ceng.index, f))
+                       for f in ("codes", "vec_ids", "offsets", "centroids", "codebook"))
+            if not (ok and same and delta.n == ceng.delta.n):
+                raise RuntimeError(f"checkpoint: crash at {point} loaded version {v}")
+            crashes.append(dict(point=point, loaded_version=v,
+                                load_seconds=time.perf_counter() - t))
+            have = v
+        big = os.path.join(root, "index_100m")
+        t = time.perf_counter()
+        save_index(big, meng.index)
+        big_save_s = time.perf_counter() - t
+        big_bytes = dir_bytes(big)
+        t = time.perf_counter()
+        idx, delta, _ = load_index(big)
+        big_load_s = time.perf_counter() - t
+        if delta is not None or not all(
+                np.array_equal(getattr(idx, f), getattr(meng.index, f))
+                for f in ("codes", "vec_ids", "offsets", "centroids", "codebook")):
+            raise RuntimeError("checkpoint: the 100M index read back differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(phase="checkpoint", engine_rows=int(ceng.index.n_vectors), delta_rows=int(ceng.delta.n),
+        tombstones=len(ceng.delta.tombstones), save_engine_seconds=save_s,
+        load_engine_seconds=load_s, engine_bytes=nbytes, queries=len(q), bit_identical=True,
+        crashes=crashes, index_rows=int(idx.n_vectors), save_index_seconds=big_save_s,
+        load_index_seconds=big_load_s, index_bytes=big_bytes,
+        seconds=time.perf_counter() - t_phase)
+
+
+def opq_phase(torch, np, ops, k_lut, k_rerank, args, hist, ds, batches, dev, gt, main) -> None:
+    """OPQ on the main path's full geometry: the same 100M-row
+    corpus regenerated from the seed (the main engine is freed by now: the
+    two would not fit the card together), `MemANNSEngine.build(opq_iters=5)`
+    with the main build's other arguments (pq_iters 10, 8 logical devices,
+    bf16 raw store, exact re-rank), stage seconds and peak memory, the
+    rotation's orthonormality error, the quantisation MSE over the main
+    phase's 65,536 sampled rows beside plain PQ's (`main`), recall@10
+    beside the main engine's (information), the 5 timed batches with the
+    launches of B1, B2, B3.  Checks: 16 queries against the plain path
+    (ADC and re-rank bit-equal), pruned == unpruned on 1000 queries, and
+    1000 inserts into the rotated engine made mutable (the same index and
+    placement; it shares the immutable engine's raw store, which inserts
+    do not touch until a compaction, and none runs here), beside 1000
+    tombstones of main rows as in the `mutable` phase (fetch 2048), each
+    find their own id first, through B1 + B5 on the delta and B3, and no
+    tombstoned id comes back."""
+    from repro_torch.core.index import recall_at_k
+    from repro_torch.data.vectors import generate_clustered
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    import gc
+
+    t_phase = time.perf_counter()
+    # the mutable engines' serving objects hold reference cycles (spans,
+    # tracer): collect them, or their 38 GB store outlives `del`
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    xs, _ = generate_clustered(
+        args.n, D, N_CLUSTERS, seed=args.seed, size_zipf=1.3, center_scale=5.0,
+        noise=1.0, device=dev, dtype=torch.bfloat16,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t = time.perf_counter()
+    oeng = MemANNSEngine.build(
+        xs, N_CLUSTERS, M, ndev=NDEV, history_queries=hist, nprobe_history=NPROBE,
+        block_n=BLOCK_N, kmeans_iters=10, pq_iters=10, train_subsample=262_144,
+        pq_train_subsample=65_536, rerank="exact", raw_dtype="bfloat16", opq_iters=5,
+        seed=args.seed, device=dev, stats=stages,
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del xs
+    torch.cuda.empty_cache()
+    rot = oeng.index.rotation
+    orth = float(np.abs(rot.astype(np.float64) @ rot.T - np.eye(D)).max())
+    mse = quant_mse(torch, np, oeng.index, oeng.raw, main["sample_ids"])
+    drive = drive_path(torch, np, ops, "search_opq", oeng, batches,
+                       ("build_luts", "adc_topk_tiles", "rerank_dists"))
+    plain_path_check(torch, np, k_lut, k_rerank, oeng, batches[1][:16])
+    qb, kp = batches[1], oeng.k_prime(K)
+    pruned = oeng.search(qb, NPROBE, K)
+    adc_pruned = oeng.collect(oeng.dispatch_plan(oeng.plan_batch(qb, NPROBE), kp))
+    oeng.prune = False
+    unpruned = oeng.search(qb, NPROBE, K)
+    adc_unpruned = oeng.collect(oeng.dispatch_plan(oeng.plan_batch(qb, NPROBE), kp))
+    oeng.prune = True
+    for a, b in zip(pruned + adc_pruned, unpruned + adc_unpruned):
+        if not np.array_equal(a, b):
+            raise RuntimeError("opq: the pruned search differs from the unpruned search")
+    n_gt = len(gt)
+    recall = recall_at_k(pruned[1][:n_gt], gt)
+    adc_recall = recall_at_k(adc_pruned[1][:n_gt, :K], gt)
+
+    mut = MemANNSEngine.from_reference(oeng.index, oeng.placement, block_n=BLOCK_N,
+                                       mutable=True, freqs=oeng.freqs, device=dev)
+    mut.raw, mut.rerank = oeng.raw, "exact"
+    oeng._dev_arrays = None
+    ins_x = ds.queries(1000, seed=args.seed + 12)
+    ins_ids = np.arange(args.n, args.n + 1000, dtype=np.int64)
+    dels = np.random.default_rng(args.seed + 13).choice(args.n, 1000, replace=False)
+    t = time.perf_counter()
+    mut.insert(ins_ids, ins_x)
+    insert_ms = (time.perf_counter() - t) * 1e3
+    mut.delete(dels)
+    mut.search(batches[0], NPROBE, K)  # warm-up: the delta view and the device copies
+    ops.reset_launches()
+    t = time.perf_counter()
+    d, i = mut.search(ins_x, NPROBE, K)
+    insert_search_ms = (time.perf_counter() - t) * 1e3
+    ins_launches = {k: v for k, v in ops.launches.items() if v}
+    if not np.array_equal(i[:, 0], ins_ids):
+        raise RuntimeError(f"opq: {int((i[:, 0] != ins_ids).sum())} inserts do not find "
+                           "their own id first")
+    if np.isin(i, dels).any():
+        raise RuntimeError("opq: a tombstoned id came back")
+    for kname in ("build_luts", "adc_topk_tiles", "adc_topk_windows", "rerank_dists"):
+        if ins_launches.get(kname, 0) <= 0:
+            raise RuntimeError(f"opq: {kname} was never launched by the mutable search")
+    log(phase="opq", n=args.n, opq_iters=5, build_seconds=build_s, stage_seconds=stages,
+        memory_held_before_gb=held_gb, peak_memory_gb=peak, orthonormality_error=orth,
+        same_cluster_sizes_as_main=bool(np.array_equal(oeng.index.cluster_sizes(),
+                                                       main["cluster_sizes"])),
+        quant_mse=dict(sample_rows=len(main["sample_ids"]), opq=mse, plain_pq=main["mse"]),
+        recall_at_10=dict(opq=recall, main=main["recall"]),
+        adc_only_recall_at_10=dict(opq=adc_recall, main=main["adc_recall"]),
+        batch_ms=drive["batch_ms"], launches=drive["launches"],
+        plain_path_equal=True, prune_bit_identical=True,
+        inserts=dict(rows=len(ins_ids), tombstones=len(dels), insert_ms=insert_ms,
+                     search_ms=insert_search_ms,
+                     own_id_first=True, launches=ins_launches),
+        seconds=time.perf_counter() - t_phase)
+    del mut, oeng
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -3143,6 +3488,12 @@ def main(argv=None) -> int:
     recall = recall_at_k(pruned[1][:n_gt], gt)
     adc_recall = recall_at_k(adc_pruned[1][:n_gt, :K], gt)
     log(phase="recall", queries=n_gt, recall_at_10=recall, adc_only_recall_at_10=adc_recall)
+    # plain PQ's quantisation error on a row sample, for the OPQ phase
+    sample_ids = np.sort(np.random.default_rng(args.seed + 11).choice(
+        args.n, 65_536, replace=False))
+    main_quality = dict(sample_ids=sample_ids, recall=recall, adc_recall=adc_recall,
+                        mse=quant_mse(torch, np, eng.index, raw, sample_ids),
+                        cluster_sizes=eng.index.cluster_sizes())
 
     # == the co-occurrence slice (§4.3) and the windows scan ================
     cooc_kernels, direct_codes, direct_tables = cooc_and_windows(
@@ -3153,6 +3504,9 @@ def main(argv=None) -> int:
     # == the kernel-level ADC API (B8, B6, B7) and the flat search ==========
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
                                    direct_codes, direct_tables, regs)
+
+    # == the kernel-geometry autotune (sweep, tuned serving, cache hit) ======
+    autotune_phase(torch, np, ops, eng, batches)
 
     # == the mutable path (inserts, deletes, compaction) =====================
     # the immutable engine's device arrays are freed first; the mutable one
@@ -3172,10 +3526,18 @@ def main(argv=None) -> int:
         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
     kernels += mutable_phase(torch, np, ops, k_lut, k_topk, k_rerank, meng, ds, batches,
                              dev, args.seed)
-    mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, args.seed)
+    ceng = mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, args.seed)
+
+    # == checkpoints: the 4M-row cell round trip, crashes, the 100M index ====
+    checkpoint_phase(torch, np, ceng, meng, ds, batches, dev, args.seed)
+    del ceng
+    torch.cuda.empty_cache()
     mutable_serving(torch, np, ops, k_lut, k_rerank, meng, ds, batches, dev, args.seed)
     del meng
     torch.cuda.empty_cache()
+
+    # == OPQ at full scale (the main engine is gone: a second 100M build) ====
+    opq_phase(torch, np, ops, k_lut, k_rerank, args, hist, ds, batches, dev, gt, main_quality)
 
     kernels += lm_rows
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

@@ -3,14 +3,12 @@
 The reference's k-means and PQ training and its weight init draw from
 `jax.random`, so the two packages can only be held to the same answers
 over the same state.  These functions build the port's objects from plain
-numpy arrays, or read a reference `save_index` directory (`index/*.npy`,
-`delta/*.npy` + `meta.json`) without importing the reference.
+numpy arrays, or read a `save_index` directory (`index/*.npy`,
+`delta/*.npy` + `meta.json`, through `checkpoint.load_index`) without
+importing the reference.
 """
 
 from __future__ import annotations
-
-import json
-import os
 
 import numpy as np
 import torch
@@ -19,9 +17,6 @@ from repro_torch.core.delta import DeltaIndex
 from repro_torch.core.index import IVFPQIndex
 from repro_torch.core.placement import Placement
 from repro_torch.device import resolve_device
-
-_INDEX_FIELDS = ("centroids", "codebook", "codes", "vec_ids", "offsets")
-_DELTA_FIELDS = ("codes", "assign", "vec_ids", "dead")
 
 
 def _own(a, dtype) -> np.ndarray:
@@ -84,62 +79,23 @@ def delta_from_arrays(codes, assign, vec_ids, dead, n: int, tombstones,
 
 
 def load_index_dir(path: str) -> tuple[IVFPQIndex, dict]:
-    """Read a reference `save_index` checkpoint directory, read-only.
+    """Read a `save_index` checkpoint directory (the reference's or this
+    package's) without a delta buffer, read-only.
 
     Returns (index, extra) where `extra` is the layout metadata the writer
     stored.  A checkpoint with a delta buffer (buffered inserts or
     tombstones) raises: dropping the delta would lose mutations, so such a
-    checkpoint is read with `load_index_delta_dir`.
+    checkpoint is read with `repro_torch.checkpoint.load_index`.
     """
-    index, delta, extra = load_index_delta_dir(path)
+    from repro_torch.checkpoint import load_index
+
+    index, delta, extra = load_index(path)
     if delta is not None:
         raise ValueError(
             f"{path!r} holds a delta buffer (buffered inserts or tombstones); read "
-            "it with repro_torch.convert.load_index_delta_dir, which keeps it"
+            "it with repro_torch.checkpoint.load_index, which keeps it"
         )
     return index, extra
-
-
-def load_index_delta_dir(path: str) -> tuple[IVFPQIndex, DeltaIndex | None, dict]:
-    """Read a reference `save_index` checkpoint directory with its delta.
-
-    Returns (index, delta or None, extra), as the reference's `load_index`
-    does: the index arrays (and an OPQ rotation), the delta buffer (its
-    codes, assignments, ids, dead mask, kept vectors and tombstones) when
-    the writer stored one, and the layout metadata.  A missing `path` falls
-    back to `path.old` (a crash between the writer's renames); a damaged
-    checkpoint raises ValueError naming it.
-    """
-    path = path.rstrip("/")
-    if not os.path.exists(path) and os.path.exists(path + ".old"):
-        path = path + ".old"
-    try:
-        with open(os.path.join(path, "meta.json")) as f:
-            meta = json.load(f)
-        arrays = {
-            f: np.load(os.path.join(path, "index", f + ".npy"), allow_pickle=False)
-            for f in _INDEX_FIELDS
-        }
-        rot = os.path.join(path, "index", "rotation.npy")
-        if os.path.exists(rot):
-            arrays["rotation"] = np.load(rot, allow_pickle=False)
-        delta = None
-        if meta.get("has_delta"):
-            d = os.path.join(path, "delta")
-            dargs = {f: np.load(os.path.join(d, f + ".npy"), allow_pickle=False)
-                     for f in _DELTA_FIELDS}
-            vec = os.path.join(d, "vectors.npy")
-            delta = delta_from_arrays(
-                n=int(meta["delta_n"]),
-                tombstones=np.load(os.path.join(d, "tombstones.npy"), allow_pickle=False),
-                vectors=np.load(vec, allow_pickle=False) if os.path.exists(vec) else None,
-                **dargs,
-            )
-    except (OSError, ValueError, KeyError) as e:
-        raise ValueError(
-            f"unreadable save_index checkpoint at {path!r}: {type(e).__name__}: {e}"
-        ) from e
-    return index_from_arrays(**arrays), delta, meta.get("extra", {})
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

@@ -181,14 +181,11 @@ class DeltaIndex:
         Ids must be fresh: re-using a tombstoned id would make the
         tombstone filter eat the new row, so it raises until a compaction.
         Assignment and encoding run on `device` (default cuda) with the
-        index's own functions.  An OPQ `rotation` is refused (not ported,
-        ROADMAP queue A item 11).
+        index's own functions.  `vectors` are ORIGINAL-space: with an OPQ
+        `rotation` they are rotated (`core.index.rotate_rows`, the build's
+        rotation) before assignment and encoding, against the rotated
+        centroids, while the raw copy kept for the re-rank stays unrotated.
         """
-        if rotation is not None:
-            raise NotImplementedError(
-                "inserts into an OPQ-rotated index are not ported to repro_torch yet; "
-                "see ROADMAP.md queue A item 11"
-            )
         dev = resolve_device(device)
         ids = np.atleast_1d(np.asarray(ids, np.int32))
         vectors = np.asarray(vectors, np.float32)
@@ -205,8 +202,8 @@ class DeltaIndex:
                 f"ids {sorted(clash)[:8]} were deleted earlier; re-inserting "
                 "a tombstoned id is unsupported until after a compaction"
             )
-        assign = assign_clusters(centroids, vectors, dev)
-        codes = encode_vectors(codebook, centroids, vectors, assign, dev)
+        assign = assign_clusters(centroids, vectors, dev, rotation=rotation)
+        codes = encode_vectors(codebook, centroids, vectors, assign, dev, rotation=rotation)
         if self.vectors is None:
             self.vectors = np.zeros((self.capacity, vectors.shape[1]), np.float32)
         self._grow(self.n + b)

@@ -12,17 +12,20 @@ card as bf16 never needs a host f32 copy.  Every function here runs on
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.kmeans import _pairwise_sq_l2, kmeans, nearest
-from repro_torch.core.pq import pq_encode, train_pq
+from repro_torch.core.pq import pq_encode, train_opq, train_pq
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 # rows per assignment / encoding chunk (bounds the (chunk, C) distance block)
 _CHUNK = 1 << 16
+# rows per product of `rotate_rows`: every product has this one shape
+ROT_ROWS = 1 << 12
 
 
 @dataclasses.dataclass
@@ -110,6 +113,24 @@ class IVFPQIndex:
         return self
 
 
+class StageClock:
+    """Seconds of consecutive build stages into a `stats` dict (a no-op
+    without one); the device is synchronised at each boundary."""
+
+    def __init__(self, stats: dict | None, device: torch.device):
+        self.stats, self.device = stats, device
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.stats is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.stats[f"{name}_seconds"] = now - self.t
+        self.t = now
+
+
 def _as_tensor(xs, device: torch.device) -> torch.Tensor:
     """numpy or tensor rows -> tensor on `device` (dtype kept; chunks widen)."""
     if isinstance(xs, torch.Tensor):
@@ -118,16 +139,48 @@ def _as_tensor(xs, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(arr if arr.flags.writeable else arr.copy(), device=device)
 
 
-def assign_clusters(centroids, xs, device: torch.device | str | None = None) -> torch.Tensor:
+def rotate_rows(xs: torch.Tensor, rotation) -> torch.Tensor:
+    """(N, D) f32 rows `xs @ rotation` (an OPQ rotation), on xs's device.
+
+    The product runs in blocks of `ROT_ROWS` rows, the last one zero-padded,
+    so every matmul has the same shape and a row's bits never depend on
+    how many rows came with it (a GEMM library may pick another reduction
+    order for another row count).  The build, an insert and a scratch
+    re-encode therefore rotate one vector to the same bits, which keeps
+    "compacted == re-encoded from scratch" exact under OPQ.
+    """
+    r = torch.as_tensor(np.asarray(rotation, np.float32), device=xs.device)
+    n = xs.shape[0]
+    out = torch.empty((n, r.shape[1]), dtype=torch.float32, device=xs.device)
+    for s in range(0, n, ROT_ROWS):
+        block = xs[s : s + ROT_ROWS].float()
+        if block.shape[0] < ROT_ROWS:
+            block = torch.cat([block, block.new_zeros(ROT_ROWS - block.shape[0], r.shape[0])])
+        out[s : s + ROT_ROWS] = (block @ r)[: min(ROT_ROWS, n - s)]
+    return out
+
+
+def assign_clusters(centroids, xs, device: torch.device | str | None = None,
+                    rotation=None) -> torch.Tensor:
     """(N,) int64 nearest coarse centroid per vector, computed in row chunks
-    on `device` (f32 arithmetic whatever the storage type of xs)."""
+    on `device` (f32 arithmetic whatever the storage type of xs).  With an
+    OPQ `rotation` each chunk is rotated first (`rotate_rows`); `centroids`
+    are then the rotated ones."""
     device = resolve_device(device)
     cent = _as_tensor(centroids, device).float()
-    return nearest(_as_tensor(xs, device), cent, chunk=_CHUNK)[0]
+    xs = _as_tensor(xs, device)
+    if rotation is None:
+        return nearest(xs, cent, chunk=_CHUNK)[0]
+    out = torch.empty(xs.shape[0], dtype=torch.int64, device=device)
+    for s in range(0, xs.shape[0], _CHUNK):
+        out[s : s + _CHUNK] = nearest(rotate_rows(xs[s : s + _CHUNK], rotation), cent)[0]
+    return out
 
 
-def encode_vectors(codebook, centroids, xs, assign, device=None) -> torch.Tensor:
-    """(N, M) uint8 PQ codes of the residuals xs - centroids[assign]."""
+def encode_vectors(codebook, centroids, xs, assign, device=None, rotation=None) -> torch.Tensor:
+    """(N, M) uint8 PQ codes of the residuals xs - centroids[assign]; with an
+    OPQ `rotation`, of rotate_rows(xs) - centroids[assign], each chunk of
+    xs rotated inside the loop (`centroids` are the rotated ones)."""
     device = resolve_device(device)
     xs = _as_tensor(xs, device)
     cb = _as_tensor(codebook, device).float()
@@ -135,8 +188,9 @@ def encode_vectors(codebook, centroids, xs, assign, device=None) -> torch.Tensor
     assign = torch.as_tensor(assign, device=device).long()
     codes = torch.empty((xs.shape[0], cb.shape[0]), dtype=torch.uint8, device=device)
     for s in range(0, xs.shape[0], _CHUNK):
-        res = xs[s : s + _CHUNK].float() - cent[assign[s : s + _CHUNK]]
-        codes[s : s + _CHUNK] = pq_encode(cb, res)
+        x = xs[s : s + _CHUNK]
+        x = x.float() if rotation is None else rotate_rows(x, rotation)
+        codes[s : s + _CHUNK] = pq_encode(cb, x - cent[assign[s : s + _CHUNK]])
     return codes
 
 
@@ -153,15 +207,18 @@ def encode_index(
 
     Assignment, residual encoding and the CSR sort run on `device`; the
     result is host numpy.  `assign` may carry a precomputed assignment
-    (it must equal `assign_clusters(centroids, xs)`); `rotation` is only
-    recorded -- `centroids` and `xs` must already be rotated.
+    (default `assign_clusters(centroids, xs, rotation=rotation)`).  An OPQ
+    `rotation` is recorded on the index and applied to the ORIGINAL-space
+    rows of `xs` chunk by chunk while encoding (`rotate_rows`), so a
+    rotated copy of the corpus is never held whole; `centroids` must
+    already be rotated.
     """
     device = resolve_device(device)
     n_clusters = centroids.shape[0]
     if assign is None:
-        assign = assign_clusters(centroids, xs, device)
+        assign = assign_clusters(centroids, xs, device, rotation=rotation)
     assign = torch.as_tensor(assign, device=device).long()
-    codes = encode_vectors(codebook, centroids, xs, assign, device)
+    codes = encode_vectors(codebook, centroids, xs, assign, device, rotation=rotation)
     n = codes.shape[0]
     if vec_ids is None:
         ids = torch.arange(n, dtype=torch.int32, device=device)
@@ -183,7 +240,7 @@ def encode_index(
         codes=codes[order].cpu().numpy(),
         vec_ids=ids[order].cpu().numpy(),
         offsets=offsets,
-        rotation=rotation,
+        rotation=None if rotation is None else np.asarray(rotation, np.float32),
     ).validate()
 
 
@@ -198,6 +255,7 @@ def build_index(
     opq_iters: int = 0,
     generator: torch.Generator | None = None,
     device: torch.device | str | None = None,
+    stats: dict | None = None,
 ) -> IVFPQIndex:
     """Offline phase: IVF + PQ, trained and encoded on `device`.
 
@@ -209,14 +267,18 @@ def build_index(
       pq_train_subsample: optional row cap for PQ training, drawn from the
         k-means sample's residuals.
       generator: CPU `torch.Generator` for the samples and k-means seeding.
-      opq_iters: OPQ is not ported yet; > 0 raises NotImplementedError.
+      opq_iters: > 0 trains an OPQ rotation on the training residuals
+        (`core.pq.train_opq`) in place of plain PQ.  The IVF assignment is
+        taken in the original space (R preserves distances); centroids and
+        codes are then stored in the rotated space, the corpus rotated chunk
+        by chunk inside the encoding loop, and the rotation is recorded on
+        the index for query-time use (`IVFPQIndex.rotate`).
+      stats: when given, receives the seconds of each stage (`kmeans`,
+        `pq_train` -- OPQ's alternation included -- and `encode`: the
+        assignment, encoding and CSR sort of the whole corpus).
     """
-    if opq_iters > 0:
-        raise NotImplementedError(
-            "OPQ (opq_iters > 0) is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A item 11"
-        )
     device = resolve_device(device)
+    clock = StageClock(stats, device)
     xs_t = _as_tensor(xs, device)
     n = xs_t.shape[0]
     if train_subsample is not None and train_subsample < n:
@@ -227,12 +289,25 @@ def build_index(
     centroids, train_assign = kmeans(
         train, n_clusters, iters=kmeans_iters, generator=generator
     )
+    clock.lap("kmeans")
     res_train = train - centroids[train_assign]
     if pq_train_subsample is not None and pq_train_subsample < res_train.shape[0]:
         res_train = res_train[:pq_train_subsample]
-    codebook = train_pq(res_train, m, iters=pq_iters, generator=generator)
-    del train, res_train
-    return encode_index(centroids, codebook, xs_t, device=device)
+    if opq_iters > 0:
+        rotation, codebook = train_opq(res_train, m, pq_iters=pq_iters, opq_iters=opq_iters,
+                                       generator=generator)
+        del train, res_train
+        clock.lap("pq_train")
+        assign = assign_clusters(centroids, xs_t, device)
+        index = encode_index(rotate_rows(centroids, rotation), codebook, xs_t, assign=assign,
+                             rotation=rotation, device=device)
+    else:
+        codebook = train_pq(res_train, m, iters=pq_iters, generator=generator)
+        del train, res_train
+        clock.lap("pq_train")
+        index = encode_index(centroids, codebook, xs_t, device=device)
+    clock.lap("encode")
+    return index
 
 
 def filter_clusters(

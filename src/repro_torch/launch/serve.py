@@ -26,7 +26,8 @@ B5), `--compact-occupancy`, `--deadline-ms`, `--queue-limit`,
 `--collect-timeout`, `--metrics-port` / `--metrics-linger` (`/metrics`,
 `/metrics.json`, `/traces`, `/healthz` on 127.0.0.1), `--trace-out` /
 `--trace-sample` (Chrome trace JSON of the span ring) and `--autotune`
-off | cache; `--autotune sweep` is refused (ROADMAP.md queue A item 13).
+off | cache | sweep (the kernel geometry resolved at warmup,
+`core.autotune`; the stats' `autotune` block has the reference's keys).
 """
 
 from __future__ import annotations
@@ -122,6 +123,15 @@ def _churn_rounds(srv, opts: RetrievalOptions, n_vectors: int, centers: np.ndarr
         srv.search(qvecs)
 
 
+def _autotune_stats(mode: str, srv) -> dict:
+    """The reference's `autotune` stats block: the mode, where the geometry
+    came from, candidates swept, whether the shards were retiled, and the
+    geometry serving now."""
+    at = srv.autotune_report or {}
+    return {"mode": mode, "source": at.get("source", "off"), "swept": at.get("swept", 0),
+            "retiled": bool(at.get("retiled", False)), "geometry": srv.tuned_geometry()}
+
+
 def _retrieve(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: int) -> dict:
     from repro_torch.obs.http import ObsServer
     from repro_torch.obs.trace import Tracer
@@ -169,7 +179,7 @@ def _retrieve(cfg: ModelConfig, opts: RetrievalOptions, batch: int, dev, seed: i
                       "tiles_skipped": st.tiles_skipped, "rows_pruned": st.rows_pruned,
                       "skip_fraction": st.prune_fraction(),
                       "warm_bound_queries": st.warm_bound_queries},
-            "autotune": srv.autotune_report, "health": srv.health(),
+            "autotune": _autotune_stats(opts.autotune, srv), "health": srv.health(),
             "faults": {"failovers": st.failovers, "degraded_queries": st.degraded_queries,
                        "rejected_queries": st.rejected_queries, "retries": st.retries},
             "kernel_launches": _launch_diff(before),
@@ -299,8 +309,9 @@ def main(argv=None) -> dict:
                     help="delta-buffer fill fraction that triggers auto-compaction")
     ap.add_argument(
         "--autotune", choices=["off", "cache", "sweep"], default="cache",
-        help="kernel-geometry autotune at warmup: 'cache' and 'off' serve the "
-             "engine's geometry (no autotune cache yet); 'sweep' is not ported",
+        help="kernel-geometry autotune at warmup: 'cache' applies a cached or default "
+             "geometry, 'sweep' measures on a cache miss and persists the winner, "
+             "'off' serves the build-time geometry",
     )
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-search budget: micro-batches planned after it are "
@@ -329,9 +340,6 @@ def main(argv=None) -> dict:
         ap.error("--k-overfetch requires --rerank exact")
     if (args.metrics_port is not None or args.trace_out is not None) and not args.retrieval:
         ap.error("--metrics-port/--trace-out require --retrieval")
-    if args.autotune == "sweep":
-        ap.error("--autotune sweep is not ported to repro_torch yet; see ROADMAP.md "
-                 "queue A item 13")
 
     cfg = get_config(args.arch)
     if args.reduced:

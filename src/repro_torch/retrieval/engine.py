@@ -14,8 +14,11 @@ Ported knobs: `scan` "tiles" | "windows", `path` "gather" | "flat" |
 "onehot", `use_cooc` (§4.3 co-occurrence shards, with `n_combos`,
 `combo_len`, `mine_rows`, `min_length_reduction`), `prune`, `rerank` "off"
 | "exact", `k_overfetch`, `mutable` (online inserts, tombstone deletes and
-compaction, `retrieval.mutation`, with `delta_capacity`).  `opq_iters`
-raises NotImplementedError naming the ROADMAP item that will bring it.
+compaction, `retrieval.mutation`, with `delta_capacity`), `opq_iters` (an
+OPQ rotation trained before PQ; queries are rotated on entry to the ADC
+path, the exact re-rank stays in the original space), and the tuned
+kernel geometry (`block_n` via `retile`, `rerank_block`, `tile_floor`;
+`geometry` / `apply_geometry`, which `core.autotune` resolves).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.delta import DeltaIndex
-from repro_torch.core.index import IVFPQIndex, build_index, filter_clusters
+from repro_torch.core.index import IVFPQIndex, StageClock, build_index, filter_clusters
 from repro_torch.core.placement import Placement, estimate_frequencies, place_clusters
 from repro_torch.core.scheduling import (
     ArraySchedule,
@@ -56,13 +59,7 @@ def round_capacity(max_pairs: int, floor: int = 8) -> int:
     return max(floor, 1 << math.ceil(math.log2(max(max_pairs, 1))))
 
 
-def _not_ported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported to repro_torch yet; see ROADMAP.md {item}"
-    )
-
-
-def _check_knobs(scan: str, path: str, rerank: str, opq_iters: int) -> None:
+def _check_knobs(scan: str, path: str, rerank: str) -> None:
     """Refuse, before any expensive work, what the port does not take.
 
     `path` is the reference's: "gather" and "flat" (the addressing of raw
@@ -76,8 +73,6 @@ def _check_knobs(scan: str, path: str, rerank: str, opq_iters: int) -> None:
         raise ValueError(f"path must be 'gather', 'flat' or 'onehot', got {path!r}")
     if rerank not in ("off", "exact"):
         raise ValueError(f"rerank must be 'off' or 'exact', got {rerank!r}")
-    if opq_iters > 0:
-        raise _not_ported("opq_iters", "queue A item 11")
 
 
 @dataclasses.dataclass
@@ -150,8 +145,16 @@ class MemANNSEngine:
     (exact whole-tile pruning; False plans the unpruned reference scan),
     `rerank` ("off" | "exact": overfetch `k_prime(k)` ADC candidates and
     re-score them exactly against `raw`), `k_overfetch` (k'; 0 = 4k,
-    pow2-bucketed).  Co-occurrence encoding is a property of the shards
-    (`build(use_cooc=True)`).
+    pow2-bucketed), `rerank_block` (B3's candidates per thread block, 0 =
+    the kernel's own choice; `kernels.rerank.launch_plan`) and `tile_floor`
+    (the least tiles-per-device capacity of an auto-sized tile queue, 0 =
+    pairs_per_dev, clamped to the tile-bucket ladder).  The tuned geometry
+    (`block_n` via `retile`, `rerank_block`, `tile_floor`) is applied as a
+    unit by `apply_geometry` and read by `geometry()`; no value of it
+    changes a bit of any result.  Co-occurrence encoding is a property of
+    the shards (`build(use_cooc=True)`).  An index with an OPQ rotation
+    rotates the queries in `schedule_batch`; `dispatch_rerank` takes the
+    original-space queries against the original-space raw store.
 
     `device` is where the packed arrays live and the kernels run; the
     index, placement and shard metadata stay host numpy.  `delta` is the
@@ -175,6 +178,8 @@ class MemANNSEngine:
     prune: bool = True
     rerank: str = "off"
     k_overfetch: int = 0
+    rerank_block: int = 0
+    tile_floor: int = 0
     freqs: np.ndarray | None = None
     raw: RawStore | None = None
     delta: DeltaIndex | None = None
@@ -201,6 +206,8 @@ class MemANNSEngine:
         prune: bool = True,
         rerank: str = "off",
         k_overfetch: int = 0,
+        rerank_block: int = 0,
+        tile_floor: int = 0,
         raw_dtype: str = "float32",
         use_cooc: bool = False,
         n_combos: int = 256,
@@ -212,6 +219,7 @@ class MemANNSEngine:
         opq_iters: int = 0,
         seed: int = 0,
         device: torch.device | str | None = None,
+        stats: dict | None = None,
     ) -> "MemANNSEngine":
         """Offline build on `device` (default cuda).
 
@@ -227,19 +235,30 @@ class MemANNSEngine:
         shards and the raw store with the reference's growth slack
         (`layout.default_slack`: 50 % rows, 4 slots, 2+ window blocks; the
         raw store 50 % rows), so compactions usually keep every shape.
+        `opq_iters > 0` trains an OPQ rotation before PQ
+        (`core.index.build_index`); the history queries are rotated before
+        they meet the rotated centroids (the reference compares them
+        unrotated, ROADMAP C7), and the raw store stays in the original
+        space.  `rerank_block` and `tile_floor` are the tuned geometry's
+        (class docstring).  `stats`, when given, receives the seconds of
+        each stage: `build_index`'s, then `placement` (frequencies and
+        Algorithm 1), `shards` and `raw_store`.
         """
-        _check_knobs(scan, path, rerank, opq_iters)
+        _check_knobs(scan, path, rerank)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         index = build_index(
             xs, n_clusters, m, kmeans_iters=kmeans_iters, pq_iters=pq_iters,
             train_subsample=train_subsample,
-            pq_train_subsample=pq_train_subsample, generator=gen, device=dev,
+            pq_train_subsample=pq_train_subsample, opq_iters=opq_iters, generator=gen,
+            device=dev, stats=stats,
         )
+        clock = StageClock(stats, dev)
         if history_queries is not None and len(history_queries):
             probed, _ = filter_clusters(
                 torch.as_tensor(index.centroids, device=dev),
-                torch.as_tensor(np.asarray(history_queries, np.float32), device=dev),
+                torch.as_tensor(index.rotate(np.asarray(history_queries, np.float32)),
+                                device=dev),
                 min(nprobe_history, n_clusters),
             )
             freqs = estimate_frequencies(probed.cpu().numpy(), n_clusters)
@@ -249,13 +268,15 @@ class MemANNSEngine:
             index.cluster_sizes().astype(np.float64), freqs, ndev,
             centroids=index.centroids,
         )
+        clock.lap("placement")
         return cls._assemble(
             index, placement, dev, xs if rerank == "exact" else None,
             block_n=block_n, raw_dtype=raw_dtype,
             cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
             freqs=freqs, scan=scan, path=path, prune=prune, rerank=rerank,
-            k_overfetch=k_overfetch, mutable=mutable, delta_capacity=delta_capacity,
+            k_overfetch=k_overfetch, rerank_block=rerank_block, tile_floor=tile_floor,
+            mutable=mutable, delta_capacity=delta_capacity, clock=clock,
         )
 
     @classmethod
@@ -272,6 +293,8 @@ class MemANNSEngine:
         prune: bool = True,
         rerank: str = "off",
         k_overfetch: int = 0,
+        rerank_block: int = 0,
+        tile_floor: int = 0,
         use_cooc: bool = False,
         n_combos: int = 256,
         combo_len: int = 3,
@@ -293,8 +316,11 @@ class MemANNSEngine:
         of logical devices is the placement's.  The co-occurrence knobs
         and `mutable` / `delta_capacity` are `build`'s.  `delta` (this
         package's `DeltaIndex`, or any object with its arrays, e.g. the
-        reference's, as `convert.load_index_delta_dir` returns it) makes the
+        reference's, as `checkpoint.load_index` returns it) makes the
         engine mutable and carries the buffered inserts and tombstones over.
+        An index with an OPQ rotation keeps it (queries are rotated on
+        entry); `xs` are original-space vectors.  `rerank_block` and
+        `tile_floor` are the tuned geometry's.
         """
         from repro_torch.convert import (
             delta_from_arrays,
@@ -302,14 +328,12 @@ class MemANNSEngine:
             placement_from_arrays,
         )
 
-        _check_knobs(scan, path, rerank, 0)
+        _check_knobs(scan, path, rerank)
         dev = resolve_device(device)
         idx = index_from_arrays(
             index.centroids, index.codebook, index.codes, index.vec_ids,
             index.offsets, getattr(index, "rotation", None),
         )
-        if idx.rotation is not None:
-            raise _not_ported("an OPQ-rotated index", "queue A item 11")
         plc = placement_from_arrays(
             placement.replicas, placement.dev_load, placement.dev_vectors,
             placement.dev_clusters, placement.w_bar,
@@ -326,21 +350,25 @@ class MemANNSEngine:
             cooc=dict(use_cooc=use_cooc, n_combos=n_combos, combo_len=combo_len,
                       mine_rows=mine_rows, min_length_reduction=min_length_reduction),
             freqs=freqs, scan=scan, path=path, prune=prune, rerank=rerank,
-            k_overfetch=k_overfetch, mutable=mutable or delta is not None,
+            k_overfetch=k_overfetch, rerank_block=rerank_block, tile_floor=tile_floor,
+            mutable=mutable or delta is not None,
             delta_capacity=delta_capacity, delta=delta,
         )
 
     @classmethod
     def _assemble(cls, index, placement, dev, xs, *, block_n, raw_dtype, cooc,
-                  mutable, delta_capacity, delta=None, **knobs):
+                  mutable, delta_capacity, delta=None, clock=None, **knobs):
+        clock = clock or StageClock(None, dev)
         cap_slack, slot_slack, window_slack = default_slack(block_n, mutable)
         shards = build_shards(index, placement, block_n=block_n, device=dev,
                               cap_slack=cap_slack, slot_slack=slot_slack,
                               window_slack=window_slack, **cooc)
+        clock.lap("shards")
         raw = None
         if xs is not None:
             raw = build_raw_store(index, placement, xs, dtype=raw_dtype, device=dev,
                                   cap_slack=0.5 if mutable else 0.0)
+            clock.lap("raw_store")
         if mutable and delta is None:
             delta = DeltaIndex.create(index.m, delta_capacity)
         return cls(index=index, placement=placement, shards=shards, device=dev,
@@ -405,6 +433,73 @@ class MemANNSEngine:
         want = self.k_overfetch if self.k_overfetch > 0 else 4 * k
         return round_capacity(max(want, k), floor=max(k, 1))
 
+    # ---------------------- tuned kernel geometry ---------------------- #
+
+    def geometry(self):
+        """The engine's current `core.autotune.KernelGeometry`."""
+        from repro_torch.core.autotune import KernelGeometry
+
+        return KernelGeometry(block_n=self.shards.block_n, rerank_block=self.rerank_block,
+                              tile_floor=self.tile_floor)
+
+    def apply_geometry(self, geo) -> bool:
+        """Apply a tuned `KernelGeometry` as a unit: set `rerank_block` and
+        `tile_floor`, and retile when `geo.block_n` is set and differs from
+        the shards' (`block_n=0` keeps the build-time tile height).  No
+        result changes a bit.  Returns True when the shards were retiled
+        (the device copies are gone then: a cold start for a caller holding
+        them)."""
+        self.rerank_block = int(getattr(geo, "rerank_block", 0) or 0)
+        self.tile_floor = int(getattr(geo, "tile_floor", 0) or 0)
+        block_n = int(getattr(geo, "block_n", 0) or 0)
+        if block_n and block_n != self.shards.block_n:
+            self.retile(block_n)
+            return True
+        return False
+
+    def retile(self, block_n: int) -> None:
+        """Repack the shards at tile height `block_n` (`layout.build_shards`
+        with the shards' own co-occurrence knobs and the slack of
+        `default_slack(block_n, mutable)`).
+
+        The shards are a function of (index, placement, knobs): slots
+        re-align to the new height and the co-occurrence mining is seeded
+        by cluster id, so the codes are the same and every search answers
+        bit for bit as before (a pair's top-k is the k smallest by
+        (distance, row), whichever tiles the rows came in).  The device
+        copies and the old shards are dropped before the new ones are
+        packed, so the two never share the card; the delta buffer and the
+        raw store are untouched.
+        """
+        s = self.shards
+        cooc = s.n_combos > 0
+        knobs = dict(
+            use_cooc=cooc, n_combos=s.n_combos if cooc else 256,
+            combo_len=s.combo_addrs.shape[3] if cooc else 3,
+            min_length_reduction=s.min_length_reduction, mine_rows=s.mine_rows,
+        )
+        cap_slack, slot_slack, window_slack = default_slack(block_n, self.delta is not None)
+        self._dev_arrays = None
+        self.shards = s = None  # the old packing goes before the new one is built
+        self.shards = build_shards(
+            self.index, self.placement, block_n=block_n, device=self.device,
+            cap_slack=cap_slack, slot_slack=slot_slack, window_slack=window_slack, **knobs,
+        )
+
+    def attach_raw_store(self, xs, xs_ids: np.ndarray | None = None,
+                         dtype: str = "float32") -> RawStore:
+        """Build and attach the raw-vector store of an existing engine.
+
+        `xs` are ORIGINAL-space vectors (numpy or a tensor); `xs_ids[i]` is
+        the global id of row i (default 0..N-1).  Every id of the index
+        must be covered.  A mutable engine's store takes its 50 % row slack.
+        """
+        self.raw = build_raw_store(
+            self.index, self.placement, xs, xs_ids=xs_ids, dtype=dtype, device=self.device,
+            cap_slack=0.5 if self.delta is not None else 0.0,
+        )
+        return self.raw
+
     def code_norms(self) -> np.ndarray:
         """(M,) cached per-subspace max codeword norms (bound inputs)."""
         if self._code_norms is None:
@@ -421,12 +516,16 @@ class MemANNSEngine:
         """Cluster filtering (stage a, on the card) + Algorithm 2 (host).
 
         `load_carry` ((ndev,) carried load) and `live` ((ndev,) live-device
-        mask) are `schedule_queries`' own.  Returns (schedule, probed (Q,
-        nprobe) int32 host, qmc (Q, nprobe, D) f32 tensor on the engine's
-        device).
+        mask) are `schedule_queries`' own.  With an OPQ rotation the
+        queries are rotated here (`IVFPQIndex.rotate`, numpy f32 on the
+        host), as the reference's `schedule_batch` does: centroids and codes
+        live in the rotated space, so the residuals, tables and ADC scan
+        downstream are rotated too.  Returns (schedule, probed (Q, nprobe)
+        int32 host, qmc (Q, nprobe, D) f32 tensor on the engine's device).
         """
         dev = self._device_put()
-        q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
+        q = torch.as_tensor(np.asarray(self.index.rotate(np.asarray(queries, np.float32)),
+                                       np.float32), device=self.device)
         probed_t, qmc = filter_clusters(dev["centroids"], q, nprobe)
         probed = probed_t.cpu().numpy().astype(np.int32)
         schedule = schedule_queries(probed, self.index.cluster_sizes(), self.placement,
@@ -449,7 +548,10 @@ class MemANNSEngine:
         The reference's `plan_batch` with its arguments (plan arrays equal):
         the pair capacity is `pairs_per_dev`, else a pow2 bucket from
         `capacity_floor`; the tile capacity `tiles_per_dev`, else a pow2
-        bucket from the pair capacity.  `load_carry` biases Algorithm 2
+        bucket from the pair capacity (at least the tuned `tile_floor`,
+        clamped to the reachable ladder pairs_per_dev * 2^i up to
+        pow2(window / block_n), so warmup still covers every capacity).
+        `load_carry` biases Algorithm 2
         toward cold devices and `live` plans around dead ones (their
         unreachable pairs land in `lost_q` / `lost_c`, and leave the
         warm-start sizes).  With pruning (`prune`, default `self.prune`)
@@ -505,7 +607,12 @@ class MemANNSEngine:
             if tiles_per_dev is None:
                 nv = np.take_along_axis(s.slot_size, pair_slot, axis=1)
                 max_tiles = int(count_tiles(pair_valid, nv, s.block_n).max(initial=0))
-                tiles_per_dev = round_capacity(max_tiles, floor=pairs_per_dev)
+                floor = pairs_per_dev
+                if self.tile_floor > 0:
+                    wb2 = 1 << math.ceil(math.log2(max(s.window // s.block_n, 1)))
+                    floor = min(round_capacity(self.tile_floor, floor=pairs_per_dev),
+                                pairs_per_dev * wb2)
+                tiles_per_dev = round_capacity(max_tiles, floor=floor)
             tiles_cap = tiles_per_dev
             with tr.span("emit_tiles", root=False):
                 tile_pair, tile_block, tile_row0 = emit_tiles(
@@ -587,6 +694,8 @@ class MemANNSEngine:
 
         ADC lanes with +inf distance are masked to -1 before re-scoring, as
         the reference does (they would otherwise come back as duplicates).
+        `queries` are original-space (the raw store is never rotated); B3
+        takes `rerank_block` candidates a thread block.
         """
         if self.raw is None:
             raise ValueError(
@@ -597,7 +706,8 @@ class MemANNSEngine:
             q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
             cand = torch.where(torch.isfinite(handle.out_d), handle.out_i, -1)
             out_d, out_i = sharded_rerank(
-                self.raw, q, cand.to(torch.int32).contiguous(), k_out=k_out
+                self.raw, q, cand.to(torch.int32).contiguous(), k_out=k_out,
+                block_k=self.rerank_block,
             )
             return dataclasses.replace(handle, out_d=out_d, out_i=out_i).record()
 

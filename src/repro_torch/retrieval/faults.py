@@ -19,8 +19,8 @@ Fault model:
   * hang / slow device — a collect that never (or late) completes; the
     collect timeout converts it into a fault event instead of a stall.
   * crash during checkpoint save — process dies at a named point of the
-    atomic rename choreography (`checkpoint_hook`; the port writes no
-    checkpoint yet, so nothing calls it: ROADMAP.md queue A item 10).
+    atomic rename choreography (`checkpoint_hook`, which
+    `checkpoint.save_index` calls at each point).
 
 Everything here is host-side bookkeeping: no torch, no effect on the
 shapes the kernels see.

@@ -35,7 +35,9 @@ Every batch is mirrored into a `repro_torch.obs.metrics.MetricsRegistry`
 (`stats.registry`; the catalog of docs/OBSERVABILITY.md) and, with a
 `Tracer`, recorded as one span tree.  A `FaultPlan` drives replica
 failover, dispatch retries, the collect watchdog, deadlines and admission
-control.  Only the autotune sweep is refused (ROADMAP.md queue A item 13).
+control.  `warmup()` first resolves the kernel geometry (`autotune`,
+`core.autotune`) and applies it, so a retile lands before anything is
+warmed and tuned serving builds nothing after warmup either.
 """
 
 from __future__ import annotations
@@ -408,11 +410,16 @@ class ServingEngine:
         rerank="exact" the fetch is the fixed bucket round_capacity(k' +
         overfetch)), `replace_threshold` (compaction's re-placement
         threshold), `delta_capacity` (the buffer's initial rows).
-      autotune: "off" serves the engine's geometry; "cache" (default) would
-        apply a cached tuned geometry, but the port has no autotune cache
-        until ROADMAP queue A item 13, so it serves the engine's own and
-        says so in `autotune_report`; "sweep" raises NotImplementedError
-        (queue A item 13).
+      autotune: kernel-geometry autotuning, resolved once at `warmup()`
+        (`core.autotune.autotune_engine`): "off" serves the engine's
+        geometry; "cache" (default) applies the cached geometry for this
+        card and config, else the in-repo default (keep the geometry);
+        "sweep" also times the candidates on a cache miss (`block_n` on
+        searches of `micro_batch` queries at `nprobe`) and persists the
+        pick.  A changed `block_n` retiles the engine's shards (results
+        bit-identical) and drops their device copies.
+      autotune_cache_dir: the autotune cache's directory (default
+        ~/.cache/repro_torch).
       metrics: mirror the stats into a `MetricsRegistry` (False: the null
         registry; the percentiles fall back to the deque windows).
       tracer: a `repro_torch.obs.trace.Tracer` recording one span tree per
@@ -450,6 +457,7 @@ class ServingEngine:
         replace_threshold: float = 0.25,
         delta_capacity: int = 4096,
         autotune: str = "cache",
+        autotune_cache_dir: str | None = None,
         metrics: bool = True,
         tracer=None,
         deadline_ms: float | None = None,
@@ -463,11 +471,6 @@ class ServingEngine:
     ):
         if autotune not in ("off", "cache", "sweep"):
             raise ValueError(f"autotune must be 'off', 'cache' or 'sweep', got {autotune!r}")
-        if autotune == "sweep":
-            raise NotImplementedError(
-                'ServingEngine(autotune="sweep") is not ported to repro_torch yet; '
-                "see ROADMAP.md queue A item 13"
-            )
         self.engine = engine
         self.nprobe = int(nprobe)
         self.k = int(k)
@@ -481,6 +484,7 @@ class ServingEngine:
         self.overfetch = int(overfetch) if overfetch is not None else self.k
         self.replace_threshold = float(replace_threshold)
         self.autotune = autotune
+        self.autotune_cache_dir = autotune_cache_dir
         self.autotune_report: dict | None = None
         self.tracer = tracer if tracer is not None else NULL_TRACER
         if tracer is not None:
@@ -585,20 +589,29 @@ class ServingEngine:
         )
 
     def apply_autotune(self) -> dict:
-        """Resolve the kernel geometry once (see `autotune`).  The port has
-        no autotune cache until ROADMAP queue A item 13, so "cache" finds
-        none and the engine's own geometry serves."""
+        """Resolve and apply the tuned kernel geometry, once (see `autotune`).
+
+        Called by `warmup()` before anything is warmed.  The first call
+        resolves through `core.autotune.autotune_engine` and applies the
+        pick with `MemANNSEngine.apply_geometry` (a changed `block_n`
+        retiles the shards and drops their device copies, `retiled` in the
+        report); later calls return the stored report.
+        """
         if self.autotune_report is None:
-            report = {"mode": self.autotune, "source": "off", "swept": 0}
-            if self.autotune == "cache":
-                report.update(source="miss", device_kind=(
-                    torch.cuda.get_device_name(self.engine.device)
-                    if self.engine.device.type == "cuda" else "cpu"),
-                    note="no autotune cache in repro_torch until ROADMAP.md queue A item 13; "
-                         "the engine's own geometry serves")
-            report["applied"] = {"block_n": self.engine.shards.block_n}
+            from repro_torch.core.autotune import autotune_engine
+
+            geo, report = autotune_engine(self.engine, self.k, mode=self.autotune,
+                                          cache_dir=self.autotune_cache_dir,
+                                          nprobe=self.nprobe, batch=self.micro_batch)
+            if geo is not None:
+                report["retiled"] = self.engine.apply_geometry(geo)
+            report["applied"] = self.tuned_geometry()
             self.autotune_report = report
         return self.autotune_report
+
+    def tuned_geometry(self) -> dict:
+        """The engine's kernel geometry now (`KernelGeometry.as_dict`)."""
+        return self.engine.geometry().as_dict()
 
     def warmup(self, buckets: list[int] | None = None) -> list[int]:
         """Make every steady-state batch of this config build nothing.
@@ -627,7 +640,8 @@ class ServingEngine:
         if self.mutable:
             scratch = DeltaIndex.create(self.engine.index.m, self.engine.delta.capacity)
             scratch.insert(self.engine.index.centroids, self.engine.index.codebook,
-                           np.zeros(1, np.int32), zeros[:1], device=self.engine.device)
+                           np.zeros(1, np.int32), zeros[:1], rotation=self.engine.index.rotation,
+                           device=self.engine.device)
             self._delta_topk(scratch, zeros, None)[1].cpu()
         return buckets
 

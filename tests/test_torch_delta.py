@@ -99,15 +99,24 @@ def test_delta_buffer_matches_reference(seed, n_ins, batches):
 
 
 def test_reinsert_of_tombstoned_id_rejected_at_index_level():
-    _, port, _, _ = _base()
+    """A tombstoned id is refused; an insert under an OPQ rotation (queue A
+    item 11) encodes the rotated vectors and keeps the raw copy unrotated,
+    as the reference's does (a permutation rotation: exact in f32, so the
+    two buffers agree bit for bit)."""
+    ref, port, xs, _ = _base()
     td = tdelta.DeltaIndex.create(M, 64)
     td.delete(np.asarray([3]))
     with pytest.raises(ValueError, match="tombstoned"):
         td.insert(port.centroids, port.codebook, np.asarray([3]), np.zeros((1, DIM)),
                   device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        td.insert(port.centroids, port.codebook, np.asarray([4]), np.zeros((1, DIM)),
-                  rotation=np.eye(DIM, dtype=np.float32), device=CPU)
+    rot = np.eye(DIM, dtype=np.float32)[::-1].copy()
+    rd = rdelta.DeltaIndex.create(M, 64)
+    rd.delete(np.asarray([3]))
+    for d, idx, kw in ((rd, ref, {}), (td, port, {"device": CPU})):
+        d.insert(idx.centroids @ rot, idx.codebook, np.asarray([4, 5]), xs[:2],
+                 rotation=rot, **kw)
+    _same_delta(rd, td)
+    np.testing.assert_array_equal(td.vectors[:2], xs[:2])
 
 
 @pytest.mark.parametrize("k", [1, 5, 64])

@@ -245,19 +245,41 @@ def test_load_index_dir(engines, clustered_data, tmp_path):
     np.testing.assert_array_equal(got[1], want[1])
 
 
+def _quant_mse(index, xs):
+    """Mean squared quantisation error of an index's codes over its rows
+    (in the coding space: rotated under OPQ, where R preserves norms)."""
+    cl = np.repeat(np.arange(index.n_clusters), index.cluster_sizes())
+    dec = tpq.pq_decode(torch.as_tensor(index.codebook), torch.as_tensor(index.codes)).numpy()
+    res = index.rotate(xs[index.vec_ids]) - index.centroids[cl]
+    return float(((res - dec) ** 2).sum(1).mean())
+
+
 @pytest.mark.parametrize(
     "knob",
     [dict(path="onehot"), dict(use_cooc=True, mutable=True),
      dict(scan="windows", mutable=True), dict(mutable=True), dict(opq_iters=2)],
 )
 def test_unported_knobs_raise(clustered_data, knob):
-    """`opq_iters` still raises, naming its ROADMAP item.  The rest are
-    ported now: `path="onehot"` builds an engine that keeps its path and
-    whose search equals the gather engine's bit for bit (raw codes: table
-    order is column order); the three `mutable=True` cases (plain tiles,
-    plain windows and co-occurrence shards, queue A item 9) build a
-    mutable engine whose inserts the next search finds."""
+    """Every knob that once raised is ported now: `path="onehot"` builds an
+    engine that keeps its path and whose search equals the gather engine's
+    bit for bit (raw codes: table order is column order); the three
+    `mutable=True` cases (plain tiles, plain windows and co-occurrence
+    shards, queue A item 9) build a mutable engine whose inserts the next
+    search finds; `opq_iters=2` (queue A item 11) records an orthonormal
+    rotation over the same IVF as the plain build and quantises the
+    corpus with no larger error."""
     xs, _, qs, _ = clustered_data
+    if knob.get("opq_iters"):
+        kw = dict(device="cpu", kmeans_iters=3, pq_iters=3, block_n=BLOCK_N)
+        eng = MemANNSEngine.build(xs, 32, 8, **kw, **knob)
+        plain = MemANNSEngine.build(xs, 32, 8, **kw)
+        r = eng.index.rotation
+        assert r is not None and r.shape == (32, 32)
+        np.testing.assert_allclose(r @ r.T, np.eye(32), atol=1e-5)
+        np.testing.assert_array_equal(eng.index.cluster_sizes(), plain.index.cluster_sizes())
+        assert _quant_mse(eng.index, xs) <= _quant_mse(plain.index, xs)
+        assert np.isfinite(eng.search(qs, NPROBE, K)[0]).all()
+        return
     if knob.get("path") == "onehot":
         kw = dict(device="cpu", kmeans_iters=3, pq_iters=3, block_n=BLOCK_N)
         eng = MemANNSEngine.build(xs, 32, 8, **kw, **knob)
@@ -267,10 +289,6 @@ def test_unported_knobs_raise(clustered_data, knob):
         assert np.isfinite(got[0]).all()
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
-        return
-    if not knob.get("mutable"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MemANNSEngine.build(xs, 32, 8, device="cpu", **knob)
         return
     eng = MemANNSEngine.build(xs, 32, 8, device="cpu", kmeans_iters=3, pq_iters=3,
                               n_combos=32, block_n=BLOCK_N, delta_capacity=64, **knob)
@@ -311,8 +329,10 @@ def test_index_assembly_matches_reference(engines, clustered_data):
     scale = float((xs**2).sum(1).max() + (qs**2).sum(1).max())
     np.testing.assert_allclose(bd, rd, rtol=0, atol=scale * 2**-20)
     assert tindex.recall_at_k(bi, ri) == rindex.recall_at_k(bi, ri) == 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpq.train_opq(res, 8)
+    rot, cb = tpq.train_opq(torch.as_tensor(res), 8, pq_iters=2, opq_iters=1,
+                            generator=torch.Generator().manual_seed(0))
+    assert rot.dtype == np.float32 and cb.shape == (8, 256, 4)
+    np.testing.assert_allclose(rot @ rot.T, np.eye(32), atol=1e-5)
 
 
 def test_port_build_quality(engines, clustered_data):

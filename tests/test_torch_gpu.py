@@ -30,7 +30,10 @@ keys past kv_valid and peaked scores; a reduced LM's prefill through B10
 equals the chunked scan and the CPU.
 Mutable serving (a churn stream with compactions, depths 0 and 1) and the
 failover twin (a dead device, a hung collect) on the card equal their CPU
-runs bit for bit.
+runs bit for bit.  An OPQ-rotated engine on the card (with inserts)
+equals the CPU engine; a retile, a non-default `rerank_block` and a swept
+geometry change no bit on plain and co-occurrence shards; an engine saved
+from the card loads on the CPU and answers as on the card.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -969,3 +972,100 @@ def test_failover_serving_on_card_matches_cpu(cuda, clustered_data):
     assert sb.compiles == 0 and sa.failovers == sb.failovers == 2
     for f in ("dists", "ids", "degraded", "coverage_lost"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_opq_engine_on_card_matches_cpu(cuda, clustered_data):
+    """An OPQ-rotated index on the card (queries rotated on entry, inserts
+    rotated by `rotate_rows` before encoding) answers as on the CPU, every
+    scan x prune cell under the exact re-rank, with a live delta."""
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, centers, qs, hist = clustered_data
+    eng = MemANNSEngine.build(
+        xs, 32, 8, ndev=8, history_queries=hist, block_n=256, kmeans_iters=6,
+        pq_iters=4, opq_iters=2, rerank="exact", mutable=True, device="cpu",
+    )
+    gpu = MemANNSEngine.from_reference(
+        eng.index, eng.placement, xs, block_n=256, rerank="exact", mutable=True,
+        freqs=eng.freqs, device=cuda,
+    )
+    assert gpu.index.rotation is not None
+    for scan in ("tiles", "windows"):
+        for prune in (True, False):
+            eng.scan = gpu.scan = scan
+            eng.prune = gpu.prune = prune
+            for a, b in zip(eng.search(qs, 8, 10), gpu.search(qs, 8, 10)):
+                np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(2)
+    ids = np.arange(12000, 12200)
+    vecs = (centers[rng.integers(0, 32, 200)] + rng.normal(0, 1, (200, 32))).astype(np.float32)
+    for e in (eng, gpu):
+        e.insert(ids, vecs)
+        e.delete(ids[:10])
+    np.testing.assert_array_equal(eng.delta.codes, gpu.delta.codes)
+    for a, b in zip(eng.search(vecs, 8, 10), gpu.search(vecs, 8, 10)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(gpu.search(vecs[10:], 8, 10)[1][:, 0], ids[10:])
+
+
+@pytest.mark.parametrize("use_cooc", [False, True])
+def test_retile_and_rerank_block_on_card(cuda, clustered_data, tmp_path, use_cooc):
+    """`retile` and `rerank_block` change no bit on the card, in every scan x
+    prune x rerank cell; a sweep on the card times its grid with CUDA
+    events, and its pick serves the same answers."""
+    import dataclasses
+
+    from repro_torch.core.autotune import KernelGeometry, autotune_engine
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, _, qs, hist = clustered_data
+    eng = MemANNSEngine.build(
+        xs, 32, 8, ndev=8, history_queries=hist, block_n=256, kmeans_iters=6,
+        pq_iters=4, rerank="exact", k_overfetch=64, use_cooc=use_cooc, n_combos=32,
+        device=cuda,
+    )
+
+    def cells():
+        return {(s, p, r): dataclasses.replace(eng, scan=s, prune=p, rerank=r).search(qs, 8, 10)
+                for s in ("tiles", "windows") for p in (True, False) for r in ("off", "exact")}
+
+    want = cells()
+    for geo in (KernelGeometry(block_n=128, rerank_block=16, tile_floor=64),
+                KernelGeometry(block_n=512, rerank_block=32)):
+        assert eng.apply_geometry(geo) and eng.shards.block_n == geo.block_n
+        for key, got in cells().items():
+            for a, b in zip(got, want[key]):
+                np.testing.assert_array_equal(a, b, err_msg=f"{geo} {key}")
+    geo, rep = autotune_engine(eng, 10, mode="sweep", cache_dir=str(tmp_path))
+    assert rep["source"] == "sweep" and rep["backend"] == cuda.type and rep["swept"] >= 6
+    assert all(t > 0 for t in rep["timings"]["batch_s"].values())
+    eng.apply_geometry(geo)
+    for key, got in cells().items():
+        for a, b in zip(got, want[key]):
+            np.testing.assert_array_equal(a, b, err_msg=f"swept {geo} {key}")
+
+
+def test_engine_saved_on_card_loads_on_cpu(cuda, clustered_data, tmp_path):
+    """A mutable engine with a live delta and a bf16 store, saved from the
+    card, loads on the CPU and serves the card's answers."""
+    from repro_torch.checkpoint import load_engine, save_engine
+    from repro_torch.retrieval.engine import MemANNSEngine
+
+    xs, centers, qs, hist = clustered_data
+    gpu = MemANNSEngine.build(
+        xs, 32, 8, ndev=8, history_queries=hist, block_n=256, kmeans_iters=6,
+        pq_iters=4, rerank="exact", raw_dtype="bfloat16", mutable=True, use_cooc=True,
+        n_combos=32, device=cuda,
+    )
+    rng = np.random.default_rng(3)
+    ids = np.arange(12000, 12100)
+    gpu.insert(ids, (centers[rng.integers(0, 32, 100)]
+                     + rng.normal(0, 1, (100, 32))).astype(np.float32))
+    gpu.delete(np.concatenate([ids[:5], rng.choice(12000, 40, replace=False)]))
+    cpu = load_engine(save_engine(str(tmp_path / "eng"), gpu), device="cpu")
+    assert cpu.raw.dtype == "bfloat16" and cpu.delta.n == gpu.delta.n
+    for a, b in zip(cpu.search(qs, 8, 10), gpu.search(qs, 8, 10)):
+        np.testing.assert_array_equal(a, b)
+    back = load_engine(str(tmp_path / "eng"), device=cuda)
+    for a, b in zip(back.search(qs, 8, 10), gpu.search(qs, 8, 10)):
+        np.testing.assert_array_equal(a, b)

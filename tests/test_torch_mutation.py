@@ -15,7 +15,7 @@ delta contents) are held against the reference's unpruned windows cell of
 the same encoding and re-rank (ids equal outside exact ties, distances
 allclose rtol = atol = 1e-5) and, inside the port, against the port's own
 unpruned windows cell bit for bit.  A reference checkpoint with a delta
-(`convert.load_index_delta_dir`) serves the reference's answers.  The
+(`checkpoint.load_index`) serves the reference's answers.  The
 churn twins need `ServingEngine` (ROADMAP queue A item 7).
 """
 
@@ -31,7 +31,8 @@ jax = pytest.importorskip("jax")
 from repro.checkpoint import save_index  # noqa: E402
 from repro.core.delta import DeltaIndex as RefDelta  # noqa: E402
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402
-from repro_torch.convert import load_index_delta_dir, load_index_dir  # noqa: E402
+from repro_torch.checkpoint import load_index  # noqa: E402
+from repro_torch.convert import load_index_dir  # noqa: E402
 from repro_torch.core.delta import DeltaIndex  # noqa: E402
 from repro_torch.core.index import encode_index  # noqa: E402
 from repro_torch.core.placement import place_clusters  # noqa: E402
@@ -350,7 +351,7 @@ def test_mutable_cell_matches_reference(ref_engines, port_engines, clustered_dat
 
 @pytest.mark.parametrize("rerank", RERANKS)
 def test_checkpoint_with_delta(ref_engines, clustered_data, tmp_path, rerank):
-    """`load_index_delta_dir` reads what the reference's `save_index` writes
+    """`checkpoint.load_index` reads what the reference's `save_index` writes
     with a delta; the port engine over it answers as the reference's;
     `load_index_dir` refuses it by naming the new reader."""
     xs, centers, qs, _ = clustered_data
@@ -361,12 +362,12 @@ def test_checkpoint_with_delta(ref_engines, clustered_data, tmp_path, rerank):
     ref.delete(dels)
     path = save_index(str(tmp_path / "ckpt"), ref.index, delta=ref.delta,
                       extra={"block_n": BLOCK_N})
-    index, delta, extra = load_index_delta_dir(path)
+    index, delta, extra = load_index(path)
     assert extra == {"block_n": BLOCK_N}
     for f in ("codes", "assign", "vec_ids", "dead", "vectors"):
         np.testing.assert_array_equal(getattr(ref.delta, f), getattr(delta, f))
     assert (delta.n, delta.tombstones) == (ref.delta.n, ref.delta.tombstones)
-    with pytest.raises(ValueError, match="load_index_delta_dir"):
+    with pytest.raises(ValueError, match="checkpoint.load_index"):
         load_index_dir(path)
     eng = MemANNSEngine.from_reference(
         index, ref.placement, xs, block_n=BLOCK_N, delta=delta, rerank=rerank,
@@ -387,4 +388,4 @@ def test_checkpoint_with_delta(ref_engines, clustered_data, tmp_path, rerank):
     assert ref.delta.n == n_ref and eng2.delta.n == n_ref + 1
     # a checkpoint without a delta reads as before
     plain = save_index(str(tmp_path / "plain"), ref.index)
-    assert load_index_delta_dir(plain)[1] is None
+    assert load_index(plain)[1] is None

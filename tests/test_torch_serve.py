@@ -76,14 +76,19 @@ BASE = ["--arch", "qwen3-8b", "--reduced", "--device", "cpu", "--batch", "4",
     ["--queue-limit", "4"], ["--churn-insert-rate", "8"], ["--autotune", "sweep"],
     ["--deadline-ms", "0"], ["--metrics-port", "0"], ["--trace-out", "t.json"],
 ])
-def test_unported_flags_refused(flag, tmp_path, capsys):
+def test_unported_flags_refused(flag, tmp_path, capsys, monkeypatch):
     """The reference's `ServingEngine` flags are taken and do what they do
-    there; only `--autotune sweep` (queue A item 13) is refused.  Without
+    there, `--autotune sweep` (queue A item 13) too: it sweeps on the cache
+    miss, persists the winner under ~/.cache/repro_torch (HOME is a temp
+    dir here) and reports the reference's `autotune` keys.  Without
     `--retrieval` the metrics and trace flags are refused, as there."""
     if flag[0] == "--autotune":
-        with pytest.raises(SystemExit):
-            tserve.main(BASE + flag)
-        assert "queue A item 13" in capsys.readouterr().err
+        monkeypatch.setenv("HOME", str(tmp_path))
+        at = tserve.main(BASE + flag)["retrieval_stats"]["autotune"]
+        capsys.readouterr()
+        assert set(at) == {"mode", "source", "swept", "retiled", "geometry"}
+        assert at["mode"] == "sweep" and at["source"] == "sweep" and at["swept"] > 0
+        assert (tmp_path / ".cache" / "repro_torch" / "autotune-cpu-v1.json").exists()
         return
     if flag[0] == "--trace-out":
         flag = [flag[0], str(tmp_path / flag[1])]
@@ -173,17 +178,19 @@ def test_metrics_endpoint_serves_while_lingering():
 
 
 @pytest.mark.parametrize("depth", [0, 1])
-def test_retrieval_serves_through_serving_engine(depth, capsys):
+def test_retrieval_serves_through_serving_engine(depth, capsys, tmp_path, monkeypatch):
     """`--retrieval` serves through a warmed ServingEngine, half the
     request batch a micro-batch, at `--pipeline-depth`; its answers equal
-    the engine's own search on the same queries."""
+    the engine's own search on the same queries.  HOME is empty, so the
+    "cache" autotune finds no user cache and applies the CPU default."""
+    monkeypatch.setenv("HOME", str(tmp_path))
     cfg = _cfg()
     opts = tserve.RetrievalOptions(vectors=2000, pipeline_depth=depth)
     rep = tserve.serve(cfg, batch=4, prompt_len=8, steps=2, retrieval=opts, device="cpu")
     st = rep["retrieval_stats"]
     assert st["pipeline_depth"] == depth and st["micro_batch"] == 2 and st["batches"] == 2
     assert st["compiles"] == 0 and st["health"]["state"] == "ok"
-    assert st["autotune"]["source"] == "miss"
+    assert st["autotune"]["source"] == "defaults" and not st["autotune"]["retiled"]
     eng, rcfg, qv, _ = tserve.retrieval_engine(cfg, opts, 4, torch.device("cpu"), 0)
     _, ids = eng.search(qv, rcfg.nprobe, rcfg.k)
     np.testing.assert_array_equal(np.asarray(rep["retrieved_ids"]), ids[:, :4])

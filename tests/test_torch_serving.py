@@ -8,7 +8,7 @@ through the port's ServingEngine equals one through the reference's
 (Pallas in interpret mode) on the same trained index: ids equal outside
 exactly tied groups, distances allclose(rtol = atol = 1e-5).  The knobs
 that came with ROADMAP items 7 and 12 each do what the reference's do;
-only the autotune sweep (item 13) raises NotImplementedError.
+the autotune sweep (item 13) persists and applies its winner.
 """
 
 import dataclasses
@@ -195,11 +195,13 @@ def test_stream_matches_reference_serving(engines, clustered_data, path):
     assert 0.0 < st.prune_percentile(50) < 1.0 and 0.0 < st.prune_fraction() < 1.0
 
 
-def test_result_health_and_autotune_report(engine, clustered_data):
+def test_result_health_and_autotune_report(engine, clustered_data, tmp_path):
     """`search_result` carries `search`'s answer, `health` reports every
-    device live, and the "cache" autotune finds no cache."""
+    device live, and the "cache" autotune finds no entry in an empty cache
+    directory and applies the in-repo CPU default (keep the geometry)."""
     qs = clustered_data[2]
-    srv = ServingEngine(engine, nprobe=8, k=10, micro_batch=8)
+    srv = ServingEngine(engine, nprobe=8, k=10, micro_batch=8,
+                        autotune_cache_dir=str(tmp_path))
     srv.warmup()
     res = srv.search_result(qs)
     d, i = srv.search(qs)
@@ -209,8 +211,8 @@ def test_result_health_and_autotune_report(engine, clustered_data):
     assert h["state"] == "ok" and h["queue_depth"] == 0
     assert h["live_devices"] == h["n_devices"] == engine.ndev and h["dead_devices"] == []
     rep = srv.autotune_report
-    assert rep["mode"] == "cache" and rep["source"] == "miss" and "queue A item 13" in rep["note"]
-    assert rep["applied"] == {"block_n": 256}
+    assert rep["mode"] == "cache" and rep["source"] == "defaults" and not rep["retiled"]
+    assert rep["applied"] == {"block_n": 256, "rerank_block": 0, "tile_floor": 0}
     off = ServingEngine(engine, nprobe=8, k=10, autotune="off")
     assert off.apply_autotune()["source"] == "off"
 
@@ -226,19 +228,21 @@ def test_result_health_and_autotune_report(engine, clustered_data):
     (dict(queue_limit=16), "queue A item 12"),
     (dict(collect_timeout_s=1.0), "queue A item 12"),
 ])
-def test_unported_serving_knobs_raise(engine, clustered_data, knob, item):
-    """The knobs that waited for ROADMAP items 7 and 12 are taken and do
-    what the reference's do; only the autotune sweep (item 13) still
-    raises.  `item` names the item that brought each knob."""
+def test_unported_serving_knobs_raise(engines, clustered_data, knob, item, tmp_path):
+    """The knobs that waited for ROADMAP items 7, 12 and 13 are taken and
+    do what the reference's do: the autotune sweep times its grid on the
+    cache miss, persists the winner, applies it before warmup and serves
+    the untuned answers bit for bit.  `item` names the item that brought
+    each knob."""
+    from repro.core.autotune import KernelGeometry as RefGeometry
     from repro_torch.obs.trace import Tracer
     from repro_torch.retrieval.faults import FaultPlan
 
+    engine = engines[1]
     qs = clustered_data[2]
-    if knob.get("autotune") == "sweep":
-        with pytest.raises(NotImplementedError, match=item):
-            ServingEngine(engine, nprobe=8, k=10, **knob)
-        return
     knob = dict(knob)
+    if knob.get("autotune") == "sweep":
+        knob["autotune_cache_dir"] = str(tmp_path)
     if knob.get("tracer") == "tracer":
         knob["tracer"] = Tracer()
     if knob.get("faults") == "faults":
@@ -260,7 +264,19 @@ def test_unported_serving_knobs_raise(engine, clustered_data, knob, item):
         return
     np.testing.assert_array_equal(res.ids, ei)
     np.testing.assert_array_equal(res.dists, ed)
-    if knob.get("mutable"):
+    if knob.get("autotune") == "sweep":
+        rep = srv.autotune_report
+        assert rep["source"] == "sweep" and rep["swept"] > 0 and srv.stats.compiles == 0
+        assert rep["applied"]["block_n"] == eng.shards.block_n
+        # the reference's engine at the swept tile height and floor
+        ref = dataclasses.replace(engines[0])
+        ref.apply_geometry(RefGeometry(block_n=eng.shards.block_n, tile_floor=eng.tile_floor))
+        rd, ri = ref.search(qs, nprobe=8, k=10)
+        np.testing.assert_allclose(res.dists, rd, rtol=1e-5, atol=1e-5)
+        _same_outside_ties(res.dists, res.ids, ri)
+        assert ServingEngine(eng, nprobe=8, k=10, autotune="cache", autotune_cache_dir=str(
+            tmp_path)).apply_autotune()["source"] == "cache"
+    elif knob.get("mutable"):
         assert srv.mutable and eng.delta is not None
         srv.insert(np.arange(12000, 12024, dtype=np.int32), qs)
         np.testing.assert_array_equal(srv.search(qs)[1][:, 0], np.arange(12000, 12024))
@@ -279,15 +295,20 @@ def test_unported_serving_knobs_raise(engine, clustered_data, knob, item):
     dict(replace_threshold=0.5), dict(delta_capacity=64), dict(autotune_cache_dir="c"),
     dict(metrics=False),
 ])
-def test_unread_reference_knobs_not_taken(engine, clustered_data, knob):
+def test_unread_reference_knobs_not_taken(engine, clustered_data, knob, tmp_path):
     """The reference's knobs of the mutable path and the metrics registry
-    are taken now and do what the reference's do; `autotune_cache_dir`,
-    read only by the autotune (ROADMAP queue A item 13), is still not
-    taken, so no value of it is silently ignored."""
+    are taken now and do what the reference's do; `autotune_cache_dir`
+    (ROADMAP queue A item 13) is where the autotune looks, and a sweep
+    writes there."""
     name, value = next(iter(knob.items()))
     if name == "autotune_cache_dir":
-        with pytest.raises(TypeError, match=name):
-            ServingEngine(engine, nprobe=8, k=10, **knob)
+        d = str(tmp_path / value)
+        srv = ServingEngine(engine, nprobe=8, k=10, micro_batch=8, autotune_cache_dir=d)
+        assert srv.apply_autotune()["cache_path"].startswith(d)
+        rep = ServingEngine(engine, nprobe=8, k=10, autotune="sweep", autotune_cache_dir=d,
+                            ).apply_autotune()
+        assert rep["source"] == "sweep" and (tmp_path / value / "autotune-cpu-v1.json").exists()
+        engine.apply_geometry(srv.engine.geometry().__class__(block_n=256))
         return
     qs = clustered_data[2]
     eng = dataclasses.replace(engine, delta=None, _dev_arrays=None)
