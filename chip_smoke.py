@@ -28,7 +28,20 @@ f32 plain version's own rounding exceeds the f32 tolerance), and timed
 beside the plain version and SDPA, with
 its registers, spilled bytes and shared memory, its FP32 bound and its
 tensor-core bound (the split scheme's TF32 passes).  The model is freed
-before the retrieval engine is built.  Then it generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
+before the next phase.  `lm_families` then serves each other family of
+the registry at its published width through `serve` in the same way
+(`LM_FAMILIES`: phi3.5-moe with 24 of 32 layers and 512 steps, B10 24
+times in the prefill; deepseek-v2's dense layer and 5 MoE layers with
+`opt_decode` off and on; zamba2-7b, mamba2-130m and musicgen-medium whole;
+llava-next with 48 of 60 layers and its 1152 embedding positions; 32
+steps, no B10 in any decode), profiles one prefill and decode step of
+each, holds deepseek's single-pass decode to its chunk scan on the ragged
+2080-position cache (ROADMAP C10), prefills zamba2 / llava / musicgen at
+2560 positions (B10 13 / 48 / 48 times, zamba2 at head dim 112), runs the
+reference's prefill + decode == forward test at full width in f32 on two
+layers of each (rtol = atol = 2e-3), and holds B10 at hd 112 against its
+plain version; each model is freed before the next, and the last before
+the retrieval engine is built.  Then it generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
 codes, IVF 4096, nprobe 64, k = 10, 1000-query batches, 8 logical devices,
 bf16 raw store; N = 100M rows by default, the paper's 1e9 cut so the raw
 store fits one card), builds the engine with the port's own k-means and
@@ -157,6 +170,7 @@ import dataclasses
 import json
 import pathlib
 import pstats
+import re
 import subprocess
 import sys
 import time
@@ -176,6 +190,25 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "qwen3-8b", 4, 2048, 512
 # autotune off: a cache left under ~ by an earlier sweep must never retile
 # a phase other than `autotune` (its numbers are the build-time geometry's)
 LM_RETRIEVAL = dict(vectors=20_000, rerank="exact", autotune="off")
+# the other model families, served as qwen3 is (batch 4, prompt 2048,
+# f32 caches, flash on): (arch, layers served or None for all, decode
+# steps).  Three do not fit the card whole in bf16 and run at full width with
+# fewer layers: phi3.5-moe 83.75 GB (2.60 a layer), llava-next 68.78 GB (1.12
+# a layer) beside its caches, deepseek-v2 471.6 GB (7.95 an MoE layer: the
+# dense first layer and 5 MoE ones).  phi3.5 decodes 512 steps, so that
+# max_len 2560 meets B10's gate; the others 32 (max_len 2080 misses it)
+LM_FAMILIES = (("phi3.5-moe-42b", 24, 512), ("deepseek-v2-236b", 6, 32),
+               ("zamba2-7b", None, 32), ("mamba2-130m", None, 32),
+               ("llava-next-34b", 48, 32), ("musicgen-medium", None, 32))
+# the reference's prefill + decode == forward test at full width, in f32:
+# 2 layers (deepseek: the dense one and an MoE one; zamba2: one group of 6,
+# the shared block and one leftover layer), batch 2, a 512-position prompt
+# (llava: its 1152 embedding positions + 384 tokens) into a cache of twice
+# that, no token dropped (capacity factor E / k); the reference's tolerance
+LM_CONSIST_LAYERS = {"zamba2-7b": 7}
+LM_CONSIST_BATCH, LM_CONSIST_SHAPE = 2, (512, 1024)  # (prompt positions, cache)
+LM_CONSIST_SHAPES = {"llava-next-34b": (1152 + 384, 2048)}
+LM_CONSIST_TOL = dict(rtol=2e-3, atol=2e-3)
 # B10 vs its plain version: the reference's f32 tolerance
 # (tests/test_flash_attn.py); with a bf16 q both outputs round f32 results
 # that differ by reassociation to bf16, so they agree to one bf16 ulp
@@ -209,15 +242,17 @@ PORT_KERNELS = ("adc_topk_tiles", "adc_topk_windows", "adc_topk_pairs", "adc_top
                 "lut_build", "ext_lut", "rerank", "flash_fwd")
 
 
+T0 = time.perf_counter()
+
+
 def log(**kv) -> None:
-    print(json.dumps(kv, default=float), flush=True)
+    """One JSON line, with `t_s`: seconds since the script started."""
+    print(json.dumps({**kv, "t_s": time.perf_counter() - T0}, default=float), flush=True)
 
 
 def ptxas_summary(report: str) -> dict:
     """{kernel identifier + the start of its mangled template arguments:
     'registers, spill stores'} from nvcc's -Xptxas -v report."""
-    import re
-
     out, name = {}, None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -1954,23 +1989,14 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     q, k, v = flash_inputs(torch, dev, seed, h, kvh, hd)
     scale = hd**-0.5
     blocks = (min(512, LM_PROMPT), min(512, max_len))
-    got = ops.flash_attention_fwd(q, k, v, scale=scale, kv_valid=LM_PROMPT, bq=blocks[0],
-                                  bk=blocks[1])
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    want = k_flash.flash_attention_fwd_plain(q, k, v, scale, 0, LM_PROMPT, *blocks)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL):
-        raise RuntimeError(f"flash_attention_fwd (bf16 q) disagrees with its plain version: {err}")
+    row, got = flash_row(torch, ops, k_flash, q, k, v, LM_PROMPT, launches["flash_attention_fwd"])
     qf = q.float()
     got32 = ops.flash_attention_fwd(qf, k, v, scale=scale, kv_valid=LM_PROMPT)
     want32 = k_flash.flash_attention_fwd_plain(qf, k, v, scale, 0, LM_PROMPT, *blocks)
     err32 = float((got32 - want32).abs().max())
     if not torch.allclose(got32, want32, **FLASH_F32_TOL):
         raise RuntimeError(f"flash_attention_fwd (f32 q) disagrees with its plain version: {err32}")
-    del want, want32
+    del want32
     # the peaked-score case at the same shapes (largest live logit ~30), held
     # against the function in float64 at the same tolerances: there the f32
     # plain version's own rounding uses more than the f32 tolerance (its
@@ -1991,44 +2017,252 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
                                 plain_vs_f64=tol_ratio(want_p, exact, tol),
                                 kernel_vs_plain=tol_ratio(got_p, want_p, tol)))
         del qp, got_p, want_p, exact
-    out = torch.empty_like(got)
-    ms = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, LM_PROMPT), 10)
-    queued = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, LM_PROMPT), 10,
-                     queued=True)
     out32 = torch.empty_like(got32)
     ms32 = cuda_ms(torch, lambda: k_flash.launch(qf, k, v, out32, scale, 0, LM_PROMPT), 10)
+    fmas, n_bytes32 = flash_work(qf, LM_PROMPT, kvh)[1:]
+    row.update(peaked=peaked, f32_q=dict(
+        max_abs_err=err32, ms=ms32, kernel=k_flash.kernel_attributes(hd, torch.float32, k.dtype),
+        bound_tc_ms=flash_bound_tc_ms(n_bytes32, fmas,
+                                      k_flash.tf32_passes(torch.float32, k.dtype))[0]))
+    log(phase="lm_flash_kernel", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
+    del q, k, v, qf, got, got32, out32
+    torch.cuda.empty_cache()
+    return [wide_row, rerank_row, row]
+
+
+def gqa_blocks(cfg) -> int:
+    """GQA attention blocks one forward runs: every layer of an attention
+    family (none with MLA), the hybrid's shared block once per group, none
+    in Mamba2."""
+    if cfg.family == "ssm" or cfg.use_mla:
+        return 0
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def flash_gate(prompt: int, max_len: int) -> bool:
+    """The reference's gate for B10 on a prefill from offset 0."""
+    return prompt % min(512, prompt) == 0 and max_len % min(512, max_len) == 0
+
+
+def lm_prompt(torch, cfg, batch: int, positions: int, dev, seed: int):
+    """(tokens, embeddings or None) of `positions` prompt positions, as
+    `serve` draws them: a vision config's first `n_frontend_tokens` are f32
+    embeddings."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    tok = torch.randint(0, cfg.vocab_size, (batch, positions - n_front), generator=g,
+                        device=dev)
+    emb = torch.randn(batch, n_front, cfg.d_model, generator=g, device=dev) if n_front else None
+    return tok, emb
+
+
+def lm_families(torch, np, ops, k_flash, dev, seed: int) -> list:
+    """Every model family beyond the dense one
+    (`LM_FAMILIES`) served at full width through `serve`, one profiled
+    prefill and decode step each, the flash prefill of the GQA families at
+    2560 positions, deepseek's single-pass decode against its chunk scan on
+    a ragged cache (C10), the reference's prefill + decode == forward test
+    at full width (`LM_CONSIST_*`), and B10 at zamba2's head dim 112
+    against its plain version.  Each model is freed before the next.
+    Returns B10's hd-112 row."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, forward_train, init_params, prefill
+
+    t_phase = time.perf_counter()
+    flash_launches = {}
+    for arch, n_layers, steps in LM_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True,
+                                  **({"n_layers": n_layers} if n_layers else {}))
+        max_len = LM_PROMPT + steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        want = gqa_blocks(cfg) if flash_gate(LM_PROMPT, max_len) else 0
+        runs = {}
+        for label, c in (("serve", cfg),) + (
+                (("serve_opt_decode", dataclasses.replace(cfg, opt_decode=True)),)
+                if cfg.use_mla else ()):
+            ops.reset_launches()
+            rep = serve(c, batch=LM_BATCH, prompt_len=LM_PROMPT, steps=steps, device=dev,
+                        params=model, seed=seed)
+            torch.cuda.synchronize()
+            per_phase = rep["kernel_launches"]
+            if (per_phase["prefill"] != ({"flash_attention_fwd": want} if want else {})
+                    or per_phase["decode"]):
+                raise RuntimeError(f"lm_families {arch} ({label}): expected {want} B10 launches "
+                                   f"in the prefill and none in the decode, got {per_phase}")
+            gen = np.asarray(rep["generated"])
+            if gen.shape != (LM_BATCH, 8) or (gen < 0).any() or (gen >= cfg.vocab_size).any():
+                raise RuntimeError(f"lm_families {arch}: malformed generated tokens {gen}")
+            runs[label] = dict(prefill_ms=rep["prefill_s"] * 1e3,
+                               decode_ms_per_step=rep["decode_s"] * 1e3 / (steps - 1),
+                               decode_tok_per_s=rep["decode_tok_per_s"],
+                               launches_by_phase=per_phase, generated=rep["generated"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        flash_launches[arch] = want
+
+        # where the time goes: one profiled prefill and decode step
+        tok, emb = lm_prompt(torch, cfg, LM_BATCH, LM_PROMPT, dev, seed + 1)
+
+        def run_prefill(c, n=max_len):
+            return prefill(model, c, tok, max_len=n, embeddings=emb, cache_dtype=torch.float32)
+
+        pre = profile_call(torch, lambda: run_prefill(cfg))
+        logits, cache = run_prefill(cfg)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        dec = profile_call(torch, lambda: decode_step(model, cfg, nxt, cache, LM_PROMPT))
+        extra = {}
+        if cfg.use_mla:
+            # C10: max_len 2080 in chunks of 1024 leaves a ragged last chunk;
+            # the single-pass decode must equal the chunk scan there
+            on, _ = decode_step(model, dataclasses.replace(cfg, opt_decode=True), nxt, cache,
+                                LM_PROMPT)
+            off, _ = decode_step(model, cfg, nxt, cache, LM_PROMPT)
+            a, b = on.float()[:, 0], off.float()[:, 0]
+            rel = float((a - b).norm() / b.norm())
+            max_rel = float((a - b).abs().max() / b.abs().max())
+            if not (torch.isfinite(a).all() and rel <= LM_E2E_REL and max_rel <= LM_E2E_MAX):
+                raise RuntimeError(f"lm_families {arch}: opt_decode differs from the chunk scan "
+                                   f"on a ragged cache: rel norm {rel}, max {max_rel}")
+            extra["opt_decode_vs_chunk_scan"] = dict(
+                max_len=max_len, attn_chunk=cfg.attn_chunk, rel_norm=rel, max_of_max=max_rel,
+                same_greedy=float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+            del on, off, a, b
+        del logits, cache
+        torch.cuda.empty_cache()
+        if gqa_blocks(cfg) and not want:
+            # the prefill at 2560 positions, which meets B10's gate
+            n = LM_PROMPT + 512
+            ops.reset_launches()
+            ms = wall_ms(torch, lambda: run_prefill(cfg, n))
+            got = ops.launches["flash_attention_fwd"]
+            if got != gqa_blocks(cfg):
+                raise RuntimeError(f"lm_families {arch}: the prefill at {n} positions launched "
+                                   f"B10 {got} times, expected {gqa_blocks(cfg)}")
+            extra["flash_prefill"] = dict(max_len=n, ms=ms, launches=got, head_dim=cfg.hd)
+            flash_launches[arch] = got
+        log(phase="lm_families", arch=arch, family=cfg.family,
+            layers=f"{cfg.n_layers} of {get_config(arch).n_layers}",
+            params_b=cfg.n_params() / 1e9, weights_gb=weights_gb, peak_memory_gb=peak,
+            init_s=init_s, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=steps,
+            cache_dtype="float32", **runs,
+            prefill_profiled=dict(device_busy_ms=pre[0], wall_ms=pre[3], device_events=pre[2],
+                                  ms_by_kernel=pre[1]),
+            decode_profiled=dict(device_busy_ms=dec[0], wall_ms=dec[3], device_events=dec[2],
+                                 ms_by_kernel=dec[1]), **extra)
+        del model, tok, emb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- the reference's consistency test at full width, in f32 ---------------
+    consist = {}
+    for arch, _, _ in LM_FAMILIES:
+        base = get_config(arch)
+        cfg = dataclasses.replace(
+            base, n_layers=LM_CONSIST_LAYERS.get(arch, 2), dtype="float32",
+            use_flash_kernel=True, capacity_factor=(
+                base.n_experts / base.moe_top_k if base.n_experts else base.capacity_factor))
+        prompt, max_len = LM_CONSIST_SHAPES.get(arch, LM_CONSIST_SHAPE)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 2), dev)
+        tok, emb = lm_prompt(torch, cfg, LM_CONSIST_BATCH, prompt + 1, dev, seed + 3)
+        ops.reset_launches()
+        lg, cache = prefill(model, cfg, tok[:, :-1], max_len=max_len, embeddings=emb,
+                            cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        n_b10 = ops.launches["flash_attention_fwd"]
+        l2, _ = decode_step(model, cfg, tok[:, -1:], cache, prompt)
+        full, aux = forward_train(model, cfg, tok, emb)
+        torch.cuda.synchronize()
+        errs = [float((x - y).abs().max()) for x, y in ((lg[:, 0], full[:, -2]),
+                                                         (l2[:, 0], full[:, -1]))]
+        ok = (torch.allclose(lg[:, 0], full[:, -2], **LM_CONSIST_TOL)
+              and torch.allclose(l2[:, 0], full[:, -1], **LM_CONSIST_TOL))
+        want = gqa_blocks(cfg)
+        if not ok or n_b10 != want or not torch.isfinite(full).all():
+            raise RuntimeError(f"lm_families consistency {arch}: prefill / decode vs forward max "
+                               f"errors {errs} (rtol = atol = 2e-3), B10 launches {n_b10} of "
+                               f"{want}")
+        consist[arch] = dict(layers=cfg.n_layers, prompt=prompt, max_len=max_len,
+                             b10_launches=n_b10, max_abs_err_prefill=errs[0],
+                             max_abs_err_decode=errs[1], logits_max=float(full.abs().max()),
+                             aux=float(aux))
+        del model, tok, emb, lg, cache, l2, full
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(phase="lm_families_consistency", dtype="float32", batch=LM_CONSIST_BATCH,
+        tolerance=LM_CONSIST_TOL, models=consist)
+
+    # -- B10 at hd 112: zamba2-7b's shared block at its prefill shape ---------
+    z = get_config("zamba2-7b")
+    q, k, v = flash_inputs(torch, dev, seed, z.n_heads, z.n_kv_heads, z.hd)
+    row, _ = flash_row(torch, ops, k_flash, q, k, v, LM_PROMPT, flash_launches["zamba2-7b"])
+    row["shape"]["path"] = "zamba2-7b prefill at 2560 positions (shared attention block)"
+    log(phase="lm_flash_kernel_hd112", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(phase="lm_families_done", seconds=time.perf_counter() - t_phase)
+    return [row]
+
+
+def flash_row(torch, ops, k_flash, q, k, v, kv_valid: int, launches: int) -> tuple[dict, object]:
+    """B10's row at one prefill shape, causal from position 0: a bf16 q
+    against the f32 cache held to its plain version within one bf16 ulp
+    (raises otherwise), timed (`ms`, `queued_ms`) beside the plain version
+    and SDPA in f32 (the library yardstick), with its FP32 and tensor-core
+    bounds and the instance's registers, spills and shared memory.  Returns
+    (row, the kernel's output)."""
+    b, s, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    scale = hd**-0.5
+    blocks = (min(512, s), min(512, sk))
+    got = ops.flash_attention_fwd(q, k, v, scale=scale, kv_valid=kv_valid, bq=blocks[0],
+                                  bk=blocks[1])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = k_flash.flash_attention_fwd_plain(q, k, v, scale, 0, kv_valid, *blocks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL):
+        raise RuntimeError(f"flash_attention_fwd (hd {hd}, bf16 q) disagrees with its plain "
+                           f"version: {err}")
+    del want
+    out = torch.empty_like(got)
+    ms = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, kv_valid), 10)
+    queued = cuda_ms(torch, lambda: k_flash.launch(q, k, v, out, scale, 0, kv_valid), 10,
+                     queued=True)
     # library yardstick: SDPA in f32 on the valid keys, heads first (made outside the timing)
-    qt = qf.transpose(1, 2).contiguous()
-    kt = k[:, :LM_PROMPT].transpose(1, 2).contiguous()
-    vt = v[:, :LM_PROMPT].transpose(1, 2).contiguous()
+    qt = q.float().transpose(1, 2).contiguous()
+    kt = k[:, :kv_valid].transpose(1, 2).contiguous()
+    vt = v[:, :kv_valid].transpose(1, 2).contiguous()
     sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 10)
-    pairs, fmas, n_bytes = flash_work(q, LM_PROMPT, kvh)
+    del qt, kt, vt, out
+    pairs, fmas, n_bytes = flash_work(q, kv_valid, kvh)
     bms, by = bound_ms(n_bytes, fmas)
     passes = k_flash.tf32_passes(q.dtype, k.dtype)
     tc_ms, tc_by = flash_bound_tc_ms(n_bytes, fmas, passes)
-    attrs = k_flash.kernel_attributes(hd, q.dtype, k.dtype)
-    attrs32 = k_flash.kernel_attributes(hd, torch.float32, k.dtype)
     row = dict(
         name="flash_attention_fwd", route="cuda", source=f"{SRC_ROOT}/csrc/flash_attn.cu",
-        replaces="src/repro/kernels/flash_attn.py:104", launches=launches["flash_attention_fwd"],
+        replaces="src/repro/kernels/flash_attn.py:104", launches=launches,
         max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=sdpa_ms,
         library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                      "enable_gqa=True) in f32 on (B, H, S, hd) copies, k / v cut to kv_valid",
         bound_tc_ms=tc_ms, bound_tc_by=tc_by, tf32_passes=dict(qk=passes[0], pv=passes[1]),
-        kernel=attrs, peaked=peaked,
-        f32_q=dict(max_abs_err=err32, ms=ms32, kernel=attrs32,
-                   bound_tc_ms=flash_bound_tc_ms(
-                       flash_work(qf, LM_PROMPT, kvh)[2], fmas,
-                       k_flash.tf32_passes(torch.float32, k.dtype))[0]),
-        shape=dict(q=list(q.shape), kv=list(k.shape), q_dtype="bfloat16", kv_dtype="float32",
-                   kv_valid=LM_PROMPT, causal_pairs=pairs, fmas=fmas, bytes=n_bytes),
+        kernel=k_flash.kernel_attributes(hd, q.dtype, k.dtype),
+        shape=dict(q=list(q.shape), kv=list(k.shape), q_dtype=str(q.dtype)[6:],
+                   kv_dtype=str(k.dtype)[6:], kv_valid=kv_valid, causal_pairs=pairs,
+                   fmas=fmas, bytes=n_bytes),
     )
-    log(phase="lm_flash_kernel", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
-    del q, k, v, qf, qt, kt, vt, got, got32, out, out32
-    torch.cuda.empty_cache()
-    return [wide_row, rerank_row, row]
+    return row, got
 
 
 def delta_store(delta, dev):
@@ -3338,12 +3572,15 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     lib = _build.build_library()
     _build.library()
-    regs = ptxas_summary(_build.ptxas_report())
+    report = _build.ptxas_report()
+    regs = ptxas_summary(report)
     log(phase="build_kernels", seconds=time.perf_counter() - t, lib=str(lib.name),
+        nvcc_seconds={m[0]: float(m[1]) for m in re.findall(r"== (\S+) \(([\d.]+) s\)", report)},
         ptxas=regs)
 
     # == the LM serving path (B10), before the engine takes the memory ======
     lm_rows = lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, args.seed)
+    lm_rows += lm_families(torch, np, ops, k_flash, dev, args.seed)
 
     # -- data + engine ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()

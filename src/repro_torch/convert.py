@@ -109,29 +109,44 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def lm_params_from_reference(params: dict, cfg, device=None) -> dict[str, torch.Tensor]:
-    """A `DecoderLM` state dict from the reference's dense parameter tree.
+    """A `DecoderLM` state dict from the reference's parameter tree, any family.
 
     `params` is `repro.models.init_params`'s tree as numpy arrays:
-    `embed`, `final_norm`, `lm_head`, and `layers` whose leaves carry a
-    leading L axis (`attn`: wq, wk, wv, wo, q_norm, k_norm; `mlp`: w_gate,
-    w_up, w_down; `ln1`, `ln2`).  The stacked arrays are split into the
-    per-layer tensors `layers.{i}.attn.wq`, ...; layouts are unchanged.
-    The tensors go to `device`, cuda unless the caller asks for the CPU.
-    Load it with `DecoderLM(cfg, device="meta").load_state_dict(state,
-    assign=True)` or into an allocated model.
+    `embed`, `final_norm`, `lm_head`; `layers` and (deepseek) `dense_layers`
+    whose leaves carry a leading L axis (`attn`, `mlp` or `moe` -- whose
+    expert weights carry E after L --, `ssm`, `ln1`, `ln2`); and (Zamba2)
+    the unstacked `shared_attn` block.  Stacked arrays are split into the
+    per-layer tensors `layers.{i}.attn.wq`, `layers.{i}.moe.w_gate`,
+    `dense_layers.{i}.mlp.w_up`, `layers.{i}.ssm.in_proj`, ...; layouts are
+    unchanged.  A tree whose layer counts disagree with the config raises
+    ValueError.  The tensors go to `device`, cuda unless the caller asks for
+    the CPU.  Load it with `DecoderLM(cfg, device="meta").load_state_dict(
+    state, assign=True)` or into an allocated model.
     """
-    from repro_torch.models.model import check_dense
+    from repro_torch.models.model import n_dense_layers
 
-    check_dense(cfg)
     dev = resolve_device(device)
     state = {n: _tensor(params[n], dev) for n in ("embed", "final_norm", "lm_head")}
-    layers = params["layers"]
-    if len(layers["ln1"]) != cfg.n_layers:
-        raise ValueError(f"{len(layers['ln1'])} stacked layers, config has {cfg.n_layers}")
-    for i in range(cfg.n_layers):
-        for group in ("attn", "mlp"):
-            for name, arr in layers[group].items():
-                state[f"layers.{i}.{group}.{name}"] = _tensor(arr[i], dev)
-        for name in ("ln1", "ln2"):
-            state[f"layers.{i}.{name}"] = _tensor(layers[name][i], dev)
+    n_dense = n_dense_layers(cfg)
+    want = {"dense_layers": n_dense, "layers": cfg.n_layers - n_dense}
+    for stack, n in want.items():
+        leaves = list(_leaves(params.get(stack, {})))
+        got = {len(a) for _, a in leaves} or {0}
+        if got != {n}:
+            raise ValueError(f"{stack}: {sorted(got)} stacked layers, config {cfg.name} has {n}")
+        for i in range(n):
+            for path, arr in leaves:
+                state[f"{stack}.{i}.{path}"] = _tensor(arr[i], dev)
+    if cfg.family == "hybrid":
+        for path, arr in _leaves(params["shared_attn"]):
+            state[f"shared_attn.{path}"] = _tensor(arr, dev)
     return state
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    """(dotted path, array) of every leaf of a nested dict."""
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _leaves(sub, f"{prefix}{name}.")
+        else:
+            yield prefix + name, sub

@@ -34,42 +34,12 @@
 // TB/s); the shared-memory table lookups for more (Q * N * W of them, at
 // 2.54 SM clocks per warp-wide lookup of one table's entry interleaved by
 // 4, 3.16 alone: tools/bench_smem_lookup.cu).
+//
+// Build: the G = 4 instantiations compile here and the G = 1 ones in
+// adc_topk_g1.cu (both from adc_topk_b6.cuh), so that the two halves of
+// B6's 32 kernels compile in parallel.
 
-#include "adc_topk_multi.cuh"
-
-namespace {
-
-using namespace repro_adc;
-
-template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT>
-__global__ void __launch_bounds__(THREADS, multi_min_blocks<G>())
-adc_topk_kernel(const MultiArgs a) {
-  topk_multi<CodeT, OFFSETS, WT, G, SORT>(a);
-}
-
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
-int launch(const MultiArgs& a, int g, int n_blocks, cudaStream_t stream) {
-  const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
-  if (g == 4)
-    return launch_multi_kernel(adc_topk_kernel<CodeT, OFFSETS, WT, 4, SORT>, a, 4, n_blocks,
-                               a_used, stream);
-  if (g == 1)
-    return launch_multi_kernel(adc_topk_kernel<CodeT, OFFSETS, WT, 1, SORT>, a, 1, n_blocks,
-                               a_used, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
-int blocks_per_sm(int table_width, int w, int k, int g) {
-  const int a_used = multi_table_width<OFFSETS, WT>(table_width, w);
-  if (g == 4)
-    return multi_blocks_per_sm(adc_topk_kernel<CodeT, OFFSETS, WT, 4, SORT>, 4, a_used, k);
-  if (g == 1)
-    return multi_blocks_per_sm(adc_topk_kernel<CodeT, OFFSETS, WT, 1, SORT>, 1, a_used, k);
-  return -static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
+#include "adc_topk_b6.cuh"
 
 // tables (n_q, table_width) f32; codes (n_rows, w) in `code_fmt` (0 uint8
 // raw + column offsets, 1 uint16, 2 int32 direct addresses); bound (n_q,)
@@ -90,17 +60,16 @@ extern "C" int adc_topk_launch(const void* tables, const void* codes, const void
               static_cast<int*>(out_i), static_cast<float*>(part_v), static_cast<int*>(part_i),
               static_cast<int*>(tickets), 0, n_units, n_q, n_rows, w, table_width, k, block_n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_TOPK_LAUNCH(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT>(a, g, n_blocks, st)
-  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TOPK_LAUNCH)
-#undef REPRO_TOPK_LAUNCH
+  if (g == 4) return b6_launch<4>(a, code_fmt, w, onehot, n_blocks, st);
+  if (g == 1) return repro_adc::adc_topk_launch_g1(a, code_fmt, w, onehot, n_blocks, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Resident blocks per SM of the instantiation `adc_topk_launch` would run
 // (after raising its shared-memory limit), or minus a cudaError_t.
 extern "C" int adc_topk_blocks_per_sm(int code_fmt, int onehot, int w, int table_width, int k,
                                       int g) {
-#define REPRO_TOPK_OCC(CodeT, OFF, WT, SORT) \
-  blocks_per_sm<CodeT, OFF, WT, SORT>(table_width, w, k, g)
-  REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TOPK_OCC)
-#undef REPRO_TOPK_OCC
+  if (g == 4) return b6_blocks_per_sm<4>(code_fmt, onehot, w, table_width, k);
+  if (g == 1) return repro_adc::adc_topk_blocks_per_sm_g1(code_fmt, onehot, w, table_width, k);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

@@ -60,7 +60,8 @@
 // score, every tile's P.V for the output) compounds that bias: such a
 // first version used 1.61 of the f32-q tolerance against float64 in the
 // peaked case.  So each chain here is short and lands in an f32 register
-// by a rounding add: Q.K^T chains 4 head-dim steps (2 at hd 16), P.V one
+// by a rounding add: Q.K^T chains 4 head-dim steps (2 at hd 16 and 112,
+// whose 2 and 14 steps 4 does not divide), P.V one
 // tile's 8 key steps, each from zero.  Measured at the prefill's shape (PERF.md) the
 // kernel then uses 0.04 (normal) and 0.51 (peaked) of the f32-q tolerance
 // against the same function in float64, where the f32 plain version uses
@@ -127,8 +128,10 @@ __host__ __device__ constexpr bool is_f32() {
 // (f32) or 4-byte (bf16) pairs at column 2t of row g, V as single elements
 // at rows 2t, 2t + 1 and column g; these strides put the 32 lanes of each
 // load on distinct banks (f32: Q/K stride = 8 mod 32 words, V 4 mod 32;
-// bf16: stride / 2 = 4 mod 32 words for Q/K at hd 64 and 128, and spread
-// for the rest; V stride = 8 mod 32 elements)
+// at hd 112 24 and 20, which keep each half-warp's 8-byte Q / K loads and
+// the warp's V loads on distinct banks too; bf16: stride / 2 = 4 mod 32
+// words for Q/K at hd 64 and 128, and spread for the rest; V stride = 8
+// mod 32 elements)
 template <int HD, typename T>
 __host__ __device__ constexpr int qk_stride() {
   return HD + 8;
@@ -479,6 +482,7 @@ int dispatch_hd(int hd, F&& f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
     case 128: return f(std::integral_constant<int, 128>());
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

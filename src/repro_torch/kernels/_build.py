@@ -14,6 +14,7 @@ port captures one today; one that does adds to `graph_captures`).
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -21,6 +22,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -117,8 +119,8 @@ def build_library() -> pathlib.Path:
     """Compile every csrc/*.cu (in parallel) and link one .so; return its path.
 
     Reuses an existing library of the same source hash.  The ptxas report
-    (registers, shared memory, spills per kernel) is kept next to it as
-    `<lib>.ptxas.txt`.
+    (each source's nvcc seconds; registers, shared memory, spills per
+    kernel) is kept next to it as `<lib>.ptxas.txt`.
     """
     srcs = _sources()
     lib = BUILD_DIR / f"librepro_torch_kernels-{_digest(srcs)}.so"
@@ -128,22 +130,21 @@ def build_library() -> pathlib.Path:
     nvcc = nvcc_path()
     compile_events["nvcc_builds"] += 1
     tag = f"{os.getpid()}"
-    objs, procs = [], []
-    for s in srcs:
-        obj = BUILD_DIR / f"{s.stem}-{tag}.o"
-        objs.append(obj)
-        procs.append(
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-        )
+    objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in srcs]
+
+    def compile_one(src_obj):
+        t = time.perf_counter()
+        done = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src_obj[0]), "-o", str(src_obj[1])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return done, time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        results = list(pool.map(compile_one, zip(srcs, objs)))
     report, failed = [], []
-    for s, p in zip(srcs, procs):
-        out, _ = p.communicate()
-        report.append(f"== {s.name}\n{out}")
-        if p.returncode != 0:
-            failed.append(f"nvcc failed on {s.name} (rc {p.returncode}):\n{out}")
+    for s, (done, seconds) in zip(srcs, results):
+        report.append(f"== {s.name} ({seconds:.1f} s)\n{done.stdout}")
+        if done.returncode != 0:
+            failed.append(f"nvcc failed on {s.name} (rc {done.returncode}):\n{done.stdout}")
     if failed:
         raise RuntimeError("\n".join(failed))
     tmp = BUILD_DIR / f"{lib.name}.{tag}.tmp"

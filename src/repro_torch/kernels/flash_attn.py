@@ -14,9 +14,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# head dims the kernel is instantiated for (every dense config in the
-# registry: 128 for qwen3 / yi / mistral, 96 for phi3-mini, 16 reduced)
-HEAD_DIMS = (16, 32, 64, 96, 128)
+# head dims the kernel is instantiated for (every GQA config in the
+# registry: 128 for qwen3 / yi / mistral / phi3.5-moe / llava, 112 for
+# zamba2's shared block, 96 for phi3-mini, 64 for musicgen, 16 reduced)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 
 
 def tf32_passes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> tuple[int, int]:
@@ -35,11 +36,17 @@ def check_head_dim(hd: int) -> None:
 
 
 def online_softmax_step(qg, kc, vc, mask, m, l, acc, s_eq, pv_eq):
-    """One KV block of the online softmax, in f32: scores by `s_eq`, masked
+    """One KV block of the online softmax, in f32: scores by `s_eq`, then
+    `online_softmax_update`.  Shared by this plain version and the models'
+    chunked scans."""
+    return online_softmax_update(torch.einsum(s_eq, qg, kc.float()), mask, vc, m, l, acc, pv_eq)
+
+
+def online_softmax_update(s, mask, vc, m, l, acc, pv_eq):
+    """The online softmax's update from one block's f32 scores `s`: masked
     to -inf, the running max with the -inf guard on fully masked rows, the
-    rescaled sum and accumulator (values by `pv_eq`).  Shared by this plain
-    version and the models' chunked scans."""
-    s = torch.einsum(s_eq, qg, kc.float())
+    rescaled sum and accumulator (values by `pv_eq`).  MLA's decode scan
+    passes the sum of its two score products."""
     s = torch.where(mask, s, -torch.inf)
     m_new = torch.maximum(m, s.amax(-1))
     m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)

@@ -700,7 +700,7 @@ def flash_attention_fwd(
     sizes: clipped to Sq / Sk, they must divide them, as there; the plain
     version runs on them and the kernel tiles on its own.
 
-    Domain: head dims in `flash_attn.HEAD_DIMS` (16, 32, 64, 96, 128), the
+    Domain: head dims in `flash_attn.HEAD_DIMS` (16, 32, 64, 96, 112, 128), the
     kernel's instantiations; any other raises ValueError on every device
     (`flash_attn.check_head_dim`), so the CPU refuses what the card would.
     """

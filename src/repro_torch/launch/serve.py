@@ -8,10 +8,14 @@
         --retrieval --churn-insert-rate 64 --churn-delete-rate 16 \\
         --metrics-port 0 --trace-out trace.json
 
-The port of `repro.launch.serve` for dense configs.  Weights are random
-from a seed, as there.  The prompt goes through `prefill` (kernel B10 on
-every layer when the config's `use_flash_kernel` is set, `--flash`), then
-greedy `decode_step`s against an f32 KV cache.  `--retrieval` builds the
+The port of `repro.launch.serve`, for every config of the registry
+(`--arch`: dense, MoE, MLA, Mamba2, the Zamba2 hybrid, the vision and
+audio stubs).  Weights are random from a seed, as there; a vision config's
+prompt is `n_frontend_tokens` f32 embeddings from the seed (the stub's
+patch embeddings) and `prompt_len - n_frontend_tokens` tokens.  The prompt
+goes through `prefill` (kernel B10 in every GQA block when the config's
+`use_flash_kernel` is set, `--flash`, and the shapes pass the reference's
+gate), then greedy `decode_step`s against an f32 cache.  `--retrieval` builds the
 port's `MemANNSEngine` on a synthetic corpus of the model's width (the
 reference's arguments: the SIFT1B config reduced, co-occurrence on unless
 `--cooc off`) and serves one query per request through a warmed
@@ -43,7 +47,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import ModelConfig, decode_step, init_params, prefill
-from repro_torch.models.model import DecoderLM, check_dense
+from repro_torch.models.model import DecoderLM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +221,8 @@ def serve(
     params: DecoderLM | None = None,
     seed: int = 0,
 ) -> dict:
-    """Prefill `batch` random prompts of `prompt_len` tokens, decode `steps`
+    """Prefill `batch` random prompts of `prompt_len` positions (a vision
+    config's first `n_frontend_tokens` are embeddings), decode `steps`
     greedy tokens (the first from the prefill's logits), then retrieve.
 
     `params`: the weights to serve (default: random from `seed` on
@@ -227,18 +232,25 @@ def serve(
     `prompt_len` and the kernel launches of the prefill and of the decode
     loop (`kernel_launches`), and with `retrieval` the retrieval's keys.
     """
-    check_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
         params = init_params(cfg, gen, dev)
     max_len = prompt_len + steps
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    if n_front > prompt_len:
+        raise ValueError(f"prompt_len {prompt_len} is shorter than the {n_front} embedding "
+                         "positions")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len - n_front), generator=gen,
+                           device=dev)
+    emb = (torch.randn(batch, n_front, cfg.d_model, generator=gen, device=dev)
+           if n_front else None)
 
     before = dict(ops.launches)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, tokens, max_len=max_len, cache_dtype=torch.float32)
+    logits, cache = prefill(params, cfg, tokens, max_len=max_len, embeddings=emb,
+                            cache_dtype=torch.float32)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     launches = {"prefill": _launch_diff(before)}

@@ -2,9 +2,8 @@
 
 The port's own copy of the reference's `repro.models.config`, every field
 and both counting methods as they are (`rope_theta` included), so that a
-configuration means the same model in both packages.  The port runs the
-dense family (`repro_torch.models.model`); the other fields are kept so
-that every registry entry loads.
+configuration means the same model in both packages
+(`repro_torch.models.model` runs every family).
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.core.autotune import KernelGeometry as RefGeometry  # noqa: E402
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402
 from repro_torch.core import autotune  # noqa: E402
@@ -68,16 +69,6 @@ GEOMETRIES = (
     (KernelGeometry(block_n=512, rerank_block=32, tile_floor=4096),
      RefGeometry(block_n=512, rerank_block=256, tile_floor=4096)),
 )
-
-
-# the tiny shapes here are op overhead: with several test workers on the
-# machine, torch's intra-op threads only contend (about 35x slower)
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(clustered_data, **kw):

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro import checkpoint as rckpt  # noqa: E402
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
@@ -33,16 +34,6 @@ from repro_torch.retrieval import MemANNSEngine  # noqa: E402
 from repro_torch.retrieval.faults import FaultPlan, InjectedCrash  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-# the tiny shapes here are op overhead: with several test workers on the
-# machine, torch's intra-op threads only contend (about 35x slower)
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _data():

@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _one_thread import one_thread  # noqa: E402,F401
 jnp = jax.numpy
 
 from repro.core import cooc as rcooc  # noqa: E402

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.core import delta as rdelta  # noqa: E402
 from repro.core import placement as rplace  # noqa: E402
 from repro.core.index import build_index as ref_build_index  # noqa: E402

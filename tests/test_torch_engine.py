@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.checkpoint import save_index  # noqa: E402
 from repro.core import index as rindex  # noqa: E402
 from repro.core import pq as rpq  # noqa: E402

@@ -49,6 +49,7 @@ def _both(q, k, v, q_dtype=np.float32, **kw):
         (1, 64, 256, 8, 8, 32, 0),     # MHA, cache longer than q
         (2, 128, 256, 4, 2, 16, 64),   # chunked prefill with offset
         (1, 64, 64, 4, 1, 16, 0),      # MQA
+        (1, 64, 128, 4, 4, 112, 32),   # zamba2's head dim
     ],
 )
 def test_flash_plain_matches_reference(b, sq, sk, h, kvh, hd, off):

@@ -26,8 +26,11 @@ sorted addresses, and a onehot engine and a ServingEngine over it (depths
 B10 (`flash_attention_fwd`) is held to its plain version at the reference's
 f32 tolerance (rtol 1e-4, atol 1e-5) and, with a bf16 q, to one bf16 ulp,
 over every head dim, GQA 1 / 4 / 8, each (q, kv) dtype pair, offsets, dead
-keys past kv_valid and peaked scores; a reduced LM's prefill through B10
-equals the chunked scan and the CPU.
+keys past kv_valid and peaked scores (and hd 112 at a cut of zamba2's
+prefill shape); a reduced LM's prefill through B10 equals the chunked
+scan and the CPU, and every model family's reduced config (MoE, MLA,
+Mamba2, the hybrid, the vision and audio stubs) prefills and decodes on
+the card as on the CPU.
 Mutable serving (a churn stream with compactions, depths 0 and 1) and the
 failover twin (a dead device, a hung collect) on the card equal their CPU
 runs bit for bit.  An OPQ-rotated engine on the card (with inserts)
@@ -759,6 +762,79 @@ def test_lm_prefill_on_card_flash_vs_chunked(cuda):
     torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-4)
     cpu, _ = prefill(model.cpu(), cfg, tok.cpu(), max_len=192, cache_dtype=torch.float32)
     torch.testing.assert_close(on.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernel_zamba2_head_dim_matches_plain(cuda):
+    """hd 112 (zamba2-7b's shared block: d 3584 over 32 heads) at a cut of
+    its prefill shape: bf16 q against an f32 cache with zeros past the
+    prompt, one bf16 ulp of the plain version, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(112)
+    b, sq, sk, h, hd = 2, 512, 640, 32, 112
+    q = torch.randn(b, sq, h, hd, device=cuda, generator=g).bfloat16()
+    k = torch.zeros(b, sk, h, hd, device=cuda)
+    v = torch.zeros_like(k)
+    k[:, :sq] = torch.randn(b, sq, h, hd, device=cuda, generator=g)
+    v[:, :sq] = torch.randn(b, sq, h, hd, device=cuda, generator=g)
+    ops.reset_launches()
+    got = ops.flash_attention_fwd(q, k, v, scale=hd**-0.5, kv_valid=sq, bk=128)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == 1
+    want = flash_attn.flash_attention_fwd_plain(q, k, v, hd**-0.5, 0, sq, 512, 128)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+
+
+LM_FAMILIES = {  # id: (arch, overrides, B10 launches in the prefill)
+    "phi3.5-moe": ("phi3.5-moe-42b", {}, 4),
+    "deepseek-v2": ("deepseek-v2-236b", {}, 0),
+    "deepseek-v2-opt-decode": ("deepseek-v2-236b", dict(opt_decode=True), 0),
+    "zamba2": ("zamba2-7b", {}, 2),
+    "zamba2-hd112": ("zamba2-7b", dict(head_dim=112), 2),
+    "mamba2": ("mamba2-130m", {}, 0),
+    "llava-next": ("llava-next-34b", {}, 4),
+    "musicgen": ("musicgen-medium", {}, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(LM_FAMILIES))
+def test_lm_family_on_card_matches_cpu(cuda, case):
+    """Each family's reduced f32 config on the card (flash on, so each GQA
+    block's prefill runs B10; zamba2 also at hd 112) against the same
+    weights on the CPU: the prefill's logits and cache, then two decode
+    steps fed the CPU's greedy tokens, within rtol = atol = 1e-3 (cuBLAS
+    sums in another order, B10's split TF32 within 1e-4 of its plain
+    version, through four layers); no B10 launch in the decode."""
+    import copy
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    arch, over, n_b10 = LM_FAMILIES[case]
+    cfg = reduced_config(get_config(arch), use_flash_kernel=True, **over)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    tok = torch.randint(0, cfg.vocab_size, (2, 32 - n_front), generator=g)
+    emb = torch.randn(2, n_front, cfg.d_model, generator=g) if n_front else None
+    want, wcache = prefill(model, cfg, tok, max_len=64, embeddings=emb,
+                           cache_dtype=torch.float32)
+    on_card = copy.deepcopy(model).to(cuda)
+    ops.reset_launches()
+    got, gcache = prefill(on_card, cfg, tok.to(cuda), max_len=64,
+                          embeddings=None if emb is None else emb.to(cuda),
+                          cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == n_b10
+    tol = dict(rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    for i in range(2):
+        nxt = want[:, -1].argmax(-1)[:, None]
+        want, wcache = decode_step(model, cfg, nxt, wcache, 32 + i)
+        got, gcache = decode_step(on_card, cfg, nxt.to(cuda), gcache, 32 + i)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == n_b10
+    for name in wcache:
+        torch.testing.assert_close(gcache[name].cpu(), wcache[name], **tol)
 
 
 # -- the onehot path (PR 21): every scan's onehot instantiation ------------

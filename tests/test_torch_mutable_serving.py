@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.core.delta import DeltaIndex as RefDelta  # noqa: E402
 from repro.core.index import brute_force, recall_at_k  # noqa: E402
 from repro.core.index import encode_index as ref_encode_index  # noqa: E402

@@ -28,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.checkpoint import save_index  # noqa: E402
 from repro.core.delta import DeltaIndex as RefDelta  # noqa: E402
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402

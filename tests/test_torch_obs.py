@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.obs import metrics as rmetrics  # noqa: E402
 from repro.obs import trace as rtrace  # noqa: E402
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.checkpoint import load_index as ref_load_index  # noqa: E402
 from repro.checkpoint import save_index as ref_save_index  # noqa: E402
 from repro.core import pq as rpq  # noqa: E402
@@ -34,16 +35,6 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # the port's OPQ MSE may exceed the reference's by this factor on the same
 # data (two generators: k-means seeding and PQ init differ)
 REF_MSE_FACTOR = 1.1
-
-
-# the tiny shapes here are op overhead: with several test workers on the
-# machine, torch's intra-op threads only contend (about 35x slower)
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _correlated(n=4000, d=32, seed=0):

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402
 from repro_torch.retrieval import InFlightSearch, MemANNSEngine, ServingEngine  # noqa: E402
 

@@ -1,14 +1,13 @@
 """The port's serving launcher (`repro_torch.launch.serve`) on the CPU.
 
 `serve()` drives prefill, the greedy decode loop and, with `--retrieval`,
-the port's engine through its `ServingEngine`, on a reduced config with
-`device="cpu"`; the reference's serving flags (churn, deadlines,
+the port's engine through its `ServingEngine`, on a reduced config of
+every family with `device="cpu"`; the reference's serving flags (churn, deadlines,
 admission, the watchdog, metrics and traces) each do what they do there,
 and only `--autotune sweep` is refused; with no device and no GPU it
 raises instead of running on the CPU.
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -16,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -216,10 +216,30 @@ def test_serve_refuses_cpu_fallback():
         tserve.main(["--arch", "qwen3-8b", "--reduced"])
 
 
-def test_serve_refuses_other_families():
-    cfg = reduced_config(get_config("mamba2-130m"))
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        tserve.serve(cfg, batch=1, prompt_len=8, steps=2, device="cpu")
-    cfg = dataclasses.replace(_cfg(), family="moe", n_experts=4)
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        tserve.serve(cfg, batch=1, prompt_len=8, steps=2, device="cpu")
+FAMILIES = ["phi3.5-moe-42b", "deepseek-v2-236b", "zamba2-7b", "mamba2-130m",
+            "llava-next-34b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_every_family(arch):
+    """Each family's reduced config serves on the CPU (flash on, so the
+    GQA blocks take B10's plain version): the first generated token is the
+    prefill's greedy pick on the same prompt, drawn as `serve` draws it --
+    weights, then tokens, then for the vision stub its f32 embeddings
+    (prompt_len - n_frontend_tokens tokens after n_frontend_tokens
+    embedding positions)."""
+    from repro_torch.models import init_params, prefill
+
+    cfg = reduced_config(get_config(arch), use_flash_kernel=True)
+    ops.reset_launches()
+    rep = tserve.serve(cfg, batch=2, prompt_len=24, steps=3, device="cpu", seed=5)
+    gen = np.asarray(rep["generated"])
+    assert gen.shape == (2, 3) and (gen >= 0).all() and (gen < cfg.vocab_size).all()
+    assert rep["kernel_launches"] == {"prefill": {}, "decode": {}}
+    g = torch.Generator().manual_seed(5)
+    model = init_params(cfg, g, "cpu")
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    tok = torch.randint(0, cfg.vocab_size, (2, 24 - n_front), generator=g)
+    emb = torch.randn(2, n_front, cfg.d_model, generator=g) if n_front else None
+    logits, _ = prefill(model, cfg, tok, max_len=27, embeddings=emb, cache_dtype=torch.float32)
+    np.testing.assert_array_equal(logits[:, -1].argmax(-1).numpy(), gen[:, 0])

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _one_thread import one_thread  # noqa: E402,F401
 from repro.retrieval import MemANNSEngine as RefEngine  # noqa: E402
 from repro.retrieval import ServingEngine as RefServing  # noqa: E402
 from repro_torch.retrieval import MemANNSEngine, ServingEngine, round_capacity  # noqa: E402

@@ -7,8 +7,9 @@ with its C interface).
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 It builds the port's kernels and, with `--baseline-dir`, DIR/adc_topk.cu
-and DIR/adc_topk_pairs.cu (beside their headers) into a library of their
-own under build/bench_adc_topk/.  DIR's sources must export that design's
+and DIR/adc_topk_pairs.cu (beside their headers; every `*.cu` in DIR, so
+a later design's adc_topk_g1.cu too) into a library of their own under
+build/bench_adc_topk/.  DIR's sources must export that design's
 interface: `adc_topk_launch` with caller-allocated split lists and reduce
 buffers, and `adc_topk_pairs_launch` with one block per pair; e.g.
 
@@ -68,7 +69,7 @@ def build_baseline(src_dir: pathlib.Path):
     """(ctypes library of src_dir's two sources, ptxas report)."""
     from repro_torch.kernels import _build
 
-    srcs = [src_dir / "adc_topk.cu", src_dir / "adc_topk_pairs.cu"]
+    srcs = sorted(src_dir.glob("*.cu"))  # adc_topk.cu, adc_topk_pairs.cu (+ adc_topk_g1.cu)
     h = hashlib.sha256()
     for p in sorted(src_dir.glob("*.cu*")):
         h.update(p.read_bytes())
