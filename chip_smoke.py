@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU, and check them.
 
-    python3 chip_smoke.py [--n 100000000] [--batches 5] [--seed 0]
+    python3 chip_smoke.py [--n 100000000] [--batches 3] [--seed 0]
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 It builds the CUDA kernels from `src/repro_torch/csrc/`, then first serves
@@ -30,18 +30,34 @@ its registers, spilled bytes and shared memory, its FP32 bound and its
 tensor-core bound (the split scheme's TF32 passes).  The model is freed
 before the next phase.  `lm_families` then serves each other family of
 the registry at its published width through `serve` in the same way
-(`LM_FAMILIES`: phi3.5-moe with 24 of 32 layers and 512 steps, B10 24
-times in the prefill; deepseek-v2's dense layer and 5 MoE layers with
-`opt_decode` off and on; zamba2-7b, mamba2-130m and musicgen-medium whole;
-llava-next with 48 of 60 layers and its 1152 embedding positions; 32
-steps, no B10 in any decode), profiles one prefill and decode step of
-each, holds deepseek's single-pass decode to its chunk scan on the ragged
-2080-position cache (ROADMAP C10), prefills zamba2 / llava / musicgen at
-2560 positions (B10 13 / 48 / 48 times, zamba2 at head dim 112), runs the
-reference's prefill + decode == forward test at full width in f32 on two
-layers of each (rtol = atol = 2e-3), and holds B10 at hd 112 against its
-plain version; each model is freed before the next, and the last before
-the retrieval engine is built.  Then it generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
+(`LM_FAMILIES`: phi3.5-moe with 24 of 32 layers; deepseek-v2's dense
+layer and 5 MoE layers with `opt_decode` off and on; zamba2-7b with 43 of
+81 layers; mamba2-130m whole; llava-next with 24 of 60 layers and its 1152
+embedding positions; musicgen-medium with 24 of 48; 32 steps, no B10 in
+any decode), profiles one prefill and decode step of each, holds
+deepseek's single-pass decode to its chunk scan on the ragged
+2080-position cache (ROADMAP C10), prefills phi3.5 / zamba2 / llava /
+musicgen at 2560 positions (B10 24 / 7 / 24 / 24 times, zamba2 at head
+dim 112), runs the reference's prefill +
+decode == forward test at full width in f32 on two layers of each (rtol =
+atol = 2e-3), and holds B10 at hd 112 against its plain version; each
+model is freed before the next.
+
+Training (no kernel of the port runs in a train step: B10 sits
+behind the cached prefill's gate, and the reference has no backward
+kernel): `train` takes `TRAIN_STEPS` AdamW steps of qwen3-8b at full
+width with 8 of its 36 layers in bf16, remat on, batch 4 x 2048 (finite
+metrics, the loss falls, 0 B10 launches; step ms, tokens/s, peak GB, one
+profiled step with the device ms of its forward, backward and optimizer);
+`train_consistency` runs the same model at 2 layers in f32 on the card and
+on the host CPU (batch 1 x 256: loss rtol 1e-5, gradients 1e-4 relative,
+weights after two steps within 1e-2 of their update); `train_families`
+takes 3 steps of each other family at the consistency test's cut (batch 1
+x 512); `train_restart` drives `training.Trainer` on mamba2-130m whole
+(batch 8 x 256) through the restart and failing-step twins of
+`tests/test_trainer.py` against an uninterrupted run, with checkpoint
+bytes and save / restore seconds.  The last model is freed before the
+retrieval engine is built.  Then it generates a SIFT1B-geometry corpus on the card (D = 128, M = 16 uint8
 codes, IVF 4096, nprobe 64, k = 10, 1000-query batches, 8 logical devices,
 bf16 raw store; N = 100M rows by default, the paper's 1e9 cut so the raw
 store fits one card), builds the engine with the port's own k-means and
@@ -138,8 +154,8 @@ lost pairs equal to the plans'), a hung collect at batch 2 (failed over and
 refired), two transient dispatch faults (retried), a 1 ms deadline (late
 batches equal the ADC search at `degrade_nprobe`) and a queue limit
 (shed).  `mutable_serving` (last, on the mutable engine once its delta is
-empty) serves 10 churn rounds of 350 inserts, 110 deletes and the 5,000-query
-stream through `ServingEngine(mutable=True)` at its defaults (fetch bucket
+empty) serves 10 churn rounds of 350 inserts, 110 deletes and the
+timed batches' stream through `ServingEngine(mutable=True)` at its defaults (fetch bucket
 128, an auto-compaction in round 9) with checks (a)-(f) of its docstring;
 it records QPS with the compactions left out, p50 / p99, the host
 fraction, the phases' seconds, each compaction's stages, the kernels each
@@ -148,7 +164,7 @@ span launched in one profiled micro-batch, and the registry's snapshot.
 OPQ, the autotune and checkpoints: `autotune` (after
 `flat_search`, on the main engine) sweeps the kernel geometry through
 `ServingEngine(autotune="sweep")` with a fresh cache directory, serves the
-5,000-query stream tuned (bit-identical to untuned, no build after
+timed batches' stream tuned (bit-identical to untuned, no build after
 warmup), hits the cache from a second server, times one real batch at
 each swept `block_n` and restores 1024; `checkpoint` (after
 `mutable_cooc_windows`, on its engine with a live delta) round-trips
@@ -195,11 +211,15 @@ LM_RETRIEVAL = dict(vectors=20_000, rerank="exact", autotune="off")
 # steps).  Three do not fit the card whole in bf16 and run at full width with
 # fewer layers: phi3.5-moe 83.75 GB (2.60 a layer), llava-next 68.78 GB (1.12
 # a layer) beside its caches, deepseek-v2 471.6 GB (7.95 an MoE layer: the
-# dense first layer and 5 MoE ones).  phi3.5 decodes 512 steps, so that
-# max_len 2560 meets B10's gate; the others 32 (max_len 2080 misses it)
-LM_FAMILIES = (("phi3.5-moe-42b", 24, 512), ("deepseek-v2-236b", 6, 32),
-               ("zamba2-7b", None, 32), ("mamba2-130m", None, 32),
-               ("llava-next-34b", 48, 32), ("musicgen-medium", None, 32))
+# dense first layer and 5 MoE ones).  Each decodes 32 steps (max_len 2080
+# misses B10's gate, so B10 runs in the 2560-position prefill).  Cut for the
+# smoke's time, to leave room for the training phases (PERF.md §4): phi3.5
+# decoded 512 steps before (B10 in `serve`'s prefill; ~62 s), llava served
+# 48 layers (~15 s), zamba2 81 (now 43: 7 groups of 6, the shared block
+# after each, one leftover layer; ~9 s) and musicgen 48 (~12 s)
+LM_FAMILIES = (("phi3.5-moe-42b", 24, 32), ("deepseek-v2-236b", 6, 32),
+               ("zamba2-7b", 43, 32), ("mamba2-130m", None, 32),
+               ("llava-next-34b", 24, 32), ("musicgen-medium", 24, 32))
 # the reference's prefill + decode == forward test at full width, in f32:
 # 2 layers (deepseek: the dense one and an MoE one; zamba2: one group of 6,
 # the shared block and one leftover layer), batch 2, a 512-position prompt
@@ -209,6 +229,18 @@ LM_CONSIST_LAYERS = {"zamba2-7b": 7}
 LM_CONSIST_BATCH, LM_CONSIST_SHAPE = 2, (512, 1024)  # (prompt positions, cache)
 LM_CONSIST_SHAPES = {"llava-next-34b": (1152 + 384, 2048)}
 LM_CONSIST_TOL = dict(rtol=2e-3, atol=2e-3)
+# the training phases: qwen3-8b at full width with 8 of its 36 layers (the
+# whole model's state, 8.19B params x 12 B of bf16 weights and gradients and
+# f32 moments = 98 GB, does not fit the card), bf16, remat on, batch 4 x 2048
+# (the serving cells' shape), 12 steps; the card against the host CPU at 2
+# layers in f32 on batch 1 x 256; each other family at the consistency
+# test's cut (mamba2 and musicgen whole) on batch 1 x 512; mamba2-130m's
+# restart at the reference launcher's batch 8 x 256
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-8b", 8, 4, 2048, 12
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=12)
+TRAIN_CONSIST_SEQ, TRAIN_FAMILY_SEQ, TRAIN_RESTART_SHAPE = 256, 512, (8, 256)
+TRAIN_WHOLE = ("mamba2-130m", "musicgen-medium")
+TRAIN_SPANS = ("train.forward", "train.backward", "train.optimizer")
 # B10 vs its plain version: the reference's f32 tolerance
 # (tests/test_flash_attn.py); with a bf16 q both outputs round f32 results
 # that differ by reassociation to bf16, so they agree to one bf16 ulp
@@ -452,7 +484,8 @@ def profile_call(torch, fn, top: int | None = 8) -> tuple[float, dict, int, floa
     is the union of the device's own activities (kernels, copies, memsets)
     in time; the CPU-side ops that launched them, which `key_averages`
     also credits with device time, are not counted again, nor CUPTI's
-    "Command Buffer Full" overhead records (host stalls)."""
+    "Command Buffer Full" overhead records (host stalls), nor the device-side
+    copies of `record_function` ranges (a train step's), which span gaps."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as tp:
@@ -461,7 +494,7 @@ def profile_call(torch, fn, top: int | None = 8) -> tuple[float, dict, int, floa
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     acts = [e for e in tp.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name != "Command Buffer Full"]
+            and e.name != "Command Buffer Full" and not getattr(e, "is_user_annotation", False)]
     by_kernel, busy, end = {}, 0.0, -float("inf")
     for e in sorted(acts, key=lambda e: e.time_range.start):
         t0, t1 = e.time_range.start, e.time_range.end
@@ -591,12 +624,19 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
     lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp,
                                        sort=path == "onehot")
+    # the library expression is timed on the run that is checked: at seconds
+    # a run, a second and third run (warm-up + timed) only cost smoke time
     lib_v = torch.full((ndev * p, kp), torch.inf, device=dev)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     lib_run(lib_v)
+    end.record()
+    torch.cuda.synchronize()
+    library_ms = start.elapsed_time(end)
     if not torch.allclose(lib_v, kv.reshape(ndev * p, kp), **TOL):
         raise RuntimeError(f"{name}: the library expression computes another function")
     del lib_v
-    library_ms = cuda_ms(torch, lib_run, 1)
     valid_rows = int(n_valid.sum())
     scanned = valid_rows - int(ps[..., 1].sum())
     pairs_run = int(((lut_row >= 0) & (flat_nv > 0)).sum())
@@ -2211,6 +2251,329 @@ def lm_families(torch, np, ops, k_flash, dev, seed: int) -> list:
     return [row]
 
 
+def train_steps(torch, step, model, opt, ds, cfg, dev, n: int) -> list:
+    """`n` train steps on the dataset's batches 0..n-1 (a vision config's
+    prefix embeddings too): each step's metrics as floats and its wall ms,
+    synchronised."""
+    out = []
+    for s in range(n):
+        tok = torch.as_tensor(ds.batch(s), device=dev)
+        emb = (torch.as_tensor(ds.frontend_embeddings(s, cfg.n_frontend_tokens, cfg.d_model),
+                               device=dev) if cfg.frontend == "vision" else None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(model, opt, tok, emb)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        out.append(dict(step=s, ms=(time.perf_counter() - t) * 1e3, **m))
+    return out
+
+
+def leaf_norms(torch, model) -> dict:
+    """Each parameter's f32 norm, without an f32 copy of the leaf."""
+    return {n: float(torch.linalg.vector_norm(p.detach(), dtype=torch.float32))
+            for n, p in model.named_parameters()}
+
+
+def state_gb(model, opt) -> float:
+    """Parameters + AdamW moments, in GB (gradients come on top in a step)."""
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    return (n + sum(t.numel() * 4 for part in ("mu", "nu") for t in opt[part].values())) / 1e9
+
+
+def free_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, np, ops, dev, seed: int) -> None:
+    """`train`: qwen3-8b at its published width with `TRAIN_LAYERS` of its
+    36 layers, bf16 weights, f32 AdamW moments, remat on, `TRAIN_STEPS`
+    steps of `TRAIN_BATCH` x `TRAIN_SEQ` tokens from the synthetic dataset
+    through `training.make_train_step`.  Checks: every loss, CE and
+    gradient norm finite, the mean loss of the last 3 steps below step 0's,
+    B10 launched 0 times (the config's `use_flash_kernel` is on: training
+    runs the differentiable chunk scan).  Records each step, step ms (the
+    median of steps 2 onwards), tokens/s, peak GB, and one profiled step:
+    device busy and its largest kernels, and the device ms launched inside
+    the step's forward, backward and optimizer ranges."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import make_train_step, trainable
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              use_flash_kernel=True)
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise RuntimeError(f"train: expected remat on and bf16, got {cfg.remat} {cfg.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev))
+    opt = init_opt_state(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    ocfg = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, ocfg)
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    ops.reset_launches()
+    hist = train_steps(torch, step, model, opt, ds, cfg, dev, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    b10 = ops.launches["flash_attention_fwd"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite([h[k] for h in hist for k in ("loss", "ce", "grad_norm")])):
+        raise RuntimeError(f"train: a non-finite loss or gradient norm: {hist}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"train: the loss did not fall: {losses}")
+    if b10:
+        raise RuntimeError(f"train: B10 launched {b10} times in a train step")
+    step_ms = float(np.median([h["ms"] for h in hist[2:]]))
+    tok = torch.as_tensor(ds.batch(TRAIN_STEPS), device=dev)
+    busy, by_kernel, events, wall = profile_call(torch, lambda: step(model, opt, tok), top=10)
+    spans = profiled_spans(torch, lambda: step(model, opt, tok), spans=TRAIN_SPANS)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(phase="train", arch=TRAIN_ARCH, layers=f"{cfg.n_layers} of {get_config(TRAIN_ARCH).n_layers}",
+        params_b=n_params / 1e9, state_gb=state_gb(model, opt), dtype=cfg.dtype,
+        remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ, opt=TRAIN_OPT, init_s=init_s,
+        history=[{k: h[k] for k in ("step", "loss", "ce", "aux", "grad_norm", "lr", "ms")}
+                 for h in hist],
+        step_ms_median=step_ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        model_tflop_per_step=6 * n_params * TRAIN_BATCH * TRAIN_SEQ / 1e12,
+        peak_memory_gb=peak, b10_launches=b10,
+        profiled=dict(wall_ms=wall, device_busy_ms=busy, device_idle_of_wall=1 - busy / wall,
+                      device_events=events, ms_by_kernel=by_kernel,
+                      device_ms_by_range={k: v["device_ms"] for k, v in spans["spans"].items()},
+                      kernel_events=spans["kernel_events"]),
+        seconds=time.perf_counter() - t_phase)
+    del model, opt, step, tok
+    free_cuda(torch)
+
+
+def train_consistency(torch, np, dev, seed: int) -> None:
+    """`train_consistency`: qwen3-8b at full width, 2 layers, f32, remat on,
+    batch 1 x `TRAIN_CONSIST_SEQ`, the same weights and batches on the card
+    and on the host's CPU.  Step 1: loss and CE within rtol 1e-5, each
+    gradient within a relative norm of 1e-4; AdamW (step 1 moves only the
+    moments, warmup 1) then step 2 through `make_train_step`; after it each
+    parameter within 1e-2 of its distance from the start."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule, init_opt_state
+    from repro_torch.training import loss_fn, make_train_step, trainable
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    card = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 5), dev))
+    host = DecoderLM(cfg, device="meta")
+    host.load_state_dict({n: p.detach().to("cpu", copy=True)
+                          for n, p in card.named_parameters()}, assign=True)
+    trainable(host)
+    init = {n: p.detach().clone() for n, p in host.named_parameters()}
+    ocfg = AdamWConfig(lr=TRAIN_OPT["lr"], warmup_steps=1, total_steps=TRAIN_STEPS)
+    ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_CONSIST_SEQ, 1, seed=seed)
+    runs = (("card", card, dev), ("cpu", host, torch.device("cpu")))
+    first, opts = {}, {}
+    for name, model, d in runs:
+        t = time.perf_counter()
+        loss, (ce, _) = loss_fn(model, cfg, torch.as_tensor(ds.batch(0), device=d))
+        loss.backward()
+        torch.cuda.synchronize()
+        first[name] = dict(loss=float(loss.detach()), ce=float(ce.detach()),
+                           seconds=time.perf_counter() - t)
+    for k in ("loss", "ce"):
+        if not np.isclose(first["card"][k], first["cpu"][k], rtol=1e-5, atol=0):
+            raise RuntimeError(f"train_consistency: step 1 {k} {first}")
+    grad_rel = {}
+    for (n, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        grad_rel[n] = float((a.grad.cpu() - b.grad).norm() / b.grad.norm().clamp_min(1e-30))
+    worst = max(grad_rel, key=grad_rel.get)
+    if grad_rel[worst] > 1e-4 or not np.isfinite(list(grad_rel.values())).all():
+        raise RuntimeError(f"train_consistency: gradient {worst} rel norm {grad_rel[worst]}")
+    for name, model, _ in runs:
+        named = dict(model.named_parameters())
+        opt = init_opt_state(model)
+        _, opts[name], _ = adamw_update(named, {n: p.grad for n, p in named.items()}, opt, ocfg,
+                                        cosine_schedule(opt["step"], ocfg))
+        for p in named.values():
+            p.grad = None
+    step = make_train_step(cfg, ocfg)
+    second = {}
+    for name, model, d in runs:
+        t = time.perf_counter()
+        _, _, m = step(model, opts[name], torch.as_tensor(ds.batch(1), device=d))
+        second[name] = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        second[name]["seconds"] = time.perf_counter() - t
+    for k in ("loss", "ce"):
+        if not np.isclose(second["card"][k], second["cpu"][k], rtol=1e-5, atol=0):
+            raise RuntimeError(f"train_consistency: step 2 {k} {second}")
+    ratio = {}
+    for (n, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        moved = float((b.detach() - init[n]).norm())
+        ratio[n] = float((a.detach().cpu() - b.detach()).norm()) / max(moved, 1e-30)
+    worst_p = max(ratio, key=ratio.get)
+    if ratio[worst_p] > 1e-2:
+        raise RuntimeError(f"train_consistency: parameter {worst_p} after step 2: "
+                           f"{ratio[worst_p]} of its update")
+    log(phase="train_consistency", arch=TRAIN_ARCH, layers=2, dtype="float32", remat=cfg.remat,
+        batch=1, seq=TRAIN_CONSIST_SEQ, params_b=sum(p.numel() for p in host.parameters()) / 1e9,
+        cpu_threads=torch.get_num_threads(), step1=first, step2=second,
+        grad_rel_norm_max=grad_rel[worst], grad_rel_norm_worst_leaf=worst,
+        param_diff_of_update_max=ratio[worst_p], param_worst_leaf=worst_p,
+        tolerance=dict(loss_rtol=1e-5, grad_rel_norm=1e-4, param_of_update=1e-2),
+        seconds=time.perf_counter() - t_phase)
+    del card, host, init, opts, step
+    free_cuda(torch)
+
+
+def train_families(torch, np, ops, dev, seed: int) -> None:
+    """`train_families`: each non-dense family at its published width with
+    `LM_CONSIST_LAYERS`' cut (2 layers: deepseek's dense one and an MoE
+    one; zamba2 7: a group, the shared block, a leftover layer; mamba2 and
+    musicgen whole), bf16, remat on, batch 1 x `TRAIN_FAMILY_SEQ` tokens
+    (llava after its 1152 embedding positions), 3 steps at warmup 1.
+    Checks: finite losses and gradient norms, every parameter of two or
+    more dimensions moved after step 2 (a norm scale's 3e-4 step rounds
+    away in bf16), B10 launched 0 times.  Records peak GB and step ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import make_train_step, trainable
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for arch, _, _ in LM_FAMILIES:
+        base = get_config(arch)
+        layers = None if arch in TRAIN_WHOLE else LM_CONSIST_LAYERS.get(arch, 2)
+        cfg = dataclasses.replace(base, use_flash_kernel=True,
+                                  **({"n_layers": layers} if layers else {}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = trainable(init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev))
+        opt = init_opt_state(model)
+        before = leaf_norms(torch, model)
+        ds = SyntheticTokenDataset(cfg.vocab_size, TRAIN_FAMILY_SEQ, 1, seed=seed)
+        ops.reset_launches()
+        hist = train_steps(torch, make_train_step(cfg, AdamWConfig(
+            lr=TRAIN_OPT["lr"], warmup_steps=1, total_steps=TRAIN_STEPS)), model, opt, ds, cfg,
+            dev, 3)
+        torch.cuda.synchronize()
+        b10 = ops.launches["flash_attention_fwd"]
+        after = leaf_norms(torch, model)
+        shapes = {n: p.dim() for n, p in model.named_parameters()}
+        still = [n for n in before if shapes[n] >= 2 and after[n] == before[n]]
+        vals = [h[k] for h in hist for k in ("loss", "ce", "grad_norm")]
+        if not np.isfinite(vals).all() or still or b10:
+            raise RuntimeError(f"train_families {arch}: history {hist}, unmoved {still}, "
+                               f"B10 {b10}")
+        rows[arch] = dict(
+            layers=f"{cfg.n_layers} of {base.n_layers}",
+            params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+            state_gb=state_gb(model, opt), peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            positions=TRAIN_FAMILY_SEQ + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0),
+            step_ms=[h["ms"] for h in hist], losses=[h["loss"] for h in hist],
+            aux=[h["aux"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+            moved_leaves=sum(after[n] != before[n] for n in before), leaves=len(before),
+            b10_launches=b10)
+        del model, opt
+        free_cuda(torch)
+    log(phase="train_families", dtype="bfloat16", remat=True, batch=1, steps=3,
+        families=rows, seconds=time.perf_counter() - t_phase)
+
+
+def train_restart(torch, np, dev, seed: int) -> None:
+    """`train_restart`: mamba2-130m whole at its published width, with the
+    reference launcher's batch and sequence (`TRAIN_RESTART_SHAPE`), through
+    `training.Trainer` with checkpoints under a temp directory: the twins of
+    `tests/test_trainer.py`'s restart (6 steps with a checkpoint every 4,
+    then a second run to 9 resumes at step 6) and failing-step tests (step 5
+    raises twice; each failure restores the latest checkpoint, every 4
+    steps here (2 in the test: each save writes 3.3 GB), and the run ends
+    at step 7), each run's losses against an
+    uninterrupted run's within rtol 1e-5 (and whether bit-identical: the
+    embedding backward accumulates on the card); checkpoint bytes and
+    `save` / `restore` seconds."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-130m")
+    batch, seq = TRAIN_RESTART_SHAPE
+    ocfg = AdamWConfig(lr=1e-3, total_steps=10)
+
+    class FlakyDS(SyntheticTokenDataset):
+        fails = 0
+
+        def batch(self, step):
+            if step == 5 and FlakyDS.fails < 2:
+                FlakyDS.fails += 1
+                raise RuntimeError("injected node failure")
+            return super().batch(step)
+
+    def trainer(ckpt_dir=None, every=50, ds_cls=SyntheticTokenDataset):
+        return Trainer(cfg=cfg, opt_cfg=ocfg, dataset=ds_cls(cfg.vocab_size, seq, batch, seed=seed),
+                       ckpt_dir=ckpt_dir, ckpt_every=every, device=dev)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        _, _, whole, whole_wall = trainer().run(seed, 9)
+        want = {h["step"]: h["loss"] for h in whole}
+        a = os.path.join(root, "resume")
+        trainer(a, 4).run(seed, 6)
+        model, opt, resumed, _ = trainer(a, 4).run(seed, 9)
+        b = os.path.join(root, "flaky")
+        _, _, flaky, _ = trainer(b, 4, FlakyDS).run(seed, 8)
+        if resumed[0]["step"] != 6 or flaky[-1]["step"] != 7 or FlakyDS.fails != 2:
+            raise RuntimeError(f"train_restart: resumed at {resumed[0]['step']}, flaky ended "
+                               f"at {flaky[-1]['step']} after {FlakyDS.fails} failures")
+        agree = {}
+        for label, hist in (("resumed", resumed), ("flaky", flaky)):
+            got = np.array([h["loss"] for h in hist])
+            ref = np.array([want[h["step"]] for h in hist])
+            if not (np.isfinite(got).all() and np.allclose(got, ref, rtol=1e-5, atol=0)):
+                raise RuntimeError(f"train_restart {label}: losses {got.tolist()} vs the "
+                                   f"uninterrupted run's {ref.tolist()}")
+            agree[label] = dict(steps=[h["step"] for h in hist], losses=got.tolist(),
+                                max_rel=float(np.max(np.abs(got - ref) / np.abs(ref))),
+                                bit_identical=bool(np.array_equal(got, ref)))
+        # save / restore alone, on the resumed run's final state
+        c = os.path.join(root, "timed")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = save(c, 9, model, opt)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restore(c, 9, model, opt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ckpt_bytes = dir_bytes(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(phase="train_restart", arch=cfg.name, layers=cfg.n_layers, batch=batch, seq=seq,
+        params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+        uninterrupted=dict(losses=[h["loss"] for h in whole], wall_s=whole_wall,
+                           step_ms=whole_wall * 1e3 / len(whole)),
+        resumed_from=resumed[0]["step"], retries=FlakyDS.fails, **agree,
+        checkpoint_bytes=ckpt_bytes, save_seconds=save_s, restore_seconds=load_s,
+        seconds=time.perf_counter() - t_phase)
+    del model, opt
+    free_cuda(torch)
+
+
 def flash_row(torch, ops, k_flash, q, k, v, kv_valid: int, launches: int) -> tuple[dict, object]:
     """B10's row at one prefill shape, causal from position 0: a bf16 q
     against the f32 cache held to its plain version within one bf16 ulp
@@ -3237,7 +3600,7 @@ def autotune_phase(torch, np, ops, eng, batches) -> None:
     nprobe 64, the server's shape, at block_n 256 / 512 / 1024, each a
     retile; B3 over 2^22 candidates at 16 / 32 / 64 a block, CUDA events)
     and applies its pick before its warmup; it then serves the
-    `serving` phase's 5,000-query stream (micro-batches of 500, depth 1),
+    `serving` phase's stream (micro-batches of 500, depth 1),
     which must equal the untuned server's bit for bit with no build after
     warmup.  A second server with `autotune="cache"` on the directory must
     hit (`swept` 0).  Then one 1000-query batch at each swept block_n
@@ -3531,7 +3894,8 @@ def opq_phase(torch, np, ops, k_lut, k_rerank, args, hist, ds, batches, dev, gt,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000, help="corpus rows")
-    ap.add_argument("--batches", type=int, default=5, help="timed 1000-query batches")
+    ap.add_argument("--batches", type=int, default=3,
+                    help="timed 1000-query batches (5 before the training phases)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3581,6 +3945,12 @@ def main(argv=None) -> int:
     # == the LM serving path (B10), before the engine takes the memory ======
     lm_rows = lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, args.seed)
     lm_rows += lm_families(torch, np, ops, k_flash, dev, args.seed)
+
+    # == training (no kernel of the port: B10 is gated off in a train step) ==
+    train_phase(torch, np, ops, dev, args.seed)
+    train_consistency(torch, np, dev, args.seed)
+    train_families(torch, np, ops, dev, args.seed)
+    train_restart(torch, np, dev, args.seed)
 
     # -- data + engine ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()

@@ -1,4 +1,13 @@
-"""save_index / load_index / save_engine / load_engine / load_raw_store.
+"""save / restore / latest_step (LM training state) and save_index /
+load_index / save_engine / load_engine / load_raw_store (retrieval).
+
+`save` writes a `DecoderLM`'s parameters (+ the AdamW state, + metadata)
+in the reference's format: `step_N.tmp` renamed to `step_N`, holding
+`params/<tree path joined by "__">.npy` over the reference's stacked tree
+(e.g. `layers__attn__wq.npy` of shape (L, d, h * hd)), `opt/mu__...`,
+`opt/nu__...`, `opt/step.npy`, bf16 widened to f32, and `meta.json`
+({"step": N, **extra}).  `restore` reads such a directory, the reference's
+too, back into the port's per-layer tensors in place.
 
 An `IVFPQIndex` (and its OPQ rotation), a live `DeltaIndex` (buffered
 inserts, the dead-row mask, the kept raw vectors, tombstones), a
@@ -291,3 +300,108 @@ def load_engine(path: str, ndev: int = 8, device: torch.device | str | None = No
         tile_floor=cfg.get("tile_floor", 0), freqs=freqs, delta=delta,
         raw=load_raw_store(path, dev, cap_slack=0.5 if mutable else 0.0),
     )
+
+
+# ---------------------------------------------------------------------- #
+# LM training state (DecoderLM parameters + AdamW state)
+# ---------------------------------------------------------------------- #
+
+
+def _write_leaves(dirname: str, leaves: dict) -> None:
+    """Each leaf (a tensor, or a stacked leaf's list of per-layer tensors)
+    as `<path joined by "__">.npy`; a stacked leaf is written layer by
+    layer into a memory map, so no stacked copy is made on the host."""
+    from repro_torch.convert import host_array
+
+    for key, v in leaves.items():
+        path = os.path.join(dirname, key.replace("/", "__") + ".npy")
+        if isinstance(v, torch.Tensor):
+            np.save(path, host_array(v))
+            continue
+        first = host_array(v[0])
+        arr = np.lib.format.open_memmap(path, mode="w+", dtype=first.dtype,
+                                        shape=(len(v), *first.shape))
+        for i, t in enumerate(v):
+            arr[i] = first if i == 0 else host_array(t)
+        arr.flush()
+        del arr
+
+
+def _opt_leaves(opt_state: dict) -> dict:
+    from repro_torch.convert import reference_leaves
+
+    leaves = {}
+    for part in ("mu", "nu"):
+        for key, v in reference_leaves(opt_state[part]).items():
+            leaves[f"{part}/{key}"] = v
+    leaves["step"] = opt_state["step"]
+    return leaves
+
+
+def save(ckpt_dir: str, step: int, params, opt_state: dict | None = None,
+         extra: dict | None = None) -> str:
+    """Atomic checkpoint of a `DecoderLM` (or a name -> tensor dict) and the
+    AdamW state (`optim.init_opt_state`'s layout), in the reference's format
+    (module docstring).  Returns the checkpoint's directory."""
+    from repro_torch.convert import reference_leaves
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(os.path.join(tmp, "params"))
+    _write_leaves(os.path.join(tmp, "params"), reference_leaves(params))
+    if opt_state is not None:
+        os.makedirs(os.path.join(tmp, "opt"))
+        _write_leaves(os.path.join(tmp, "opt"), _opt_leaves(opt_state))
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump({"step": step, **(extra or {})}, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The largest N of a committed `step_N` directory (`.tmp` skipped)."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_", 1)[1]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_") and not d.endswith(".tmp")]
+    return max(steps) if steps else None
+
+
+@torch.no_grad()
+def _read_leaves(dirname: str, leaves: dict) -> None:
+    """Copy each leaf's `.npy` into its tensor(s) in place, cast to the
+    tensor's dtype (an f32-widened bf16 value rounds back to its bits)."""
+    for key, v in leaves.items():
+        path = os.path.join(dirname, key.replace("/", "__") + ".npy")
+        arr = np.load(path, mmap_mode="r")
+        targets = [v] if isinstance(v, torch.Tensor) else v
+        want = tuple(v.shape) if isinstance(v, torch.Tensor) else (len(v), *v[0].shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{path}: shape {arr.shape}, expected {want}")
+        for i, t in enumerate(targets):
+            src = np.array(arr if isinstance(v, torch.Tensor) else arr[i])
+            t.copy_(torch.from_numpy(src))
+
+
+def restore(ckpt_dir: str, step: int, params_like, opt_like: dict | None = None):
+    """Read `step_N` (this package's or the reference's) into `params_like`
+    (a `DecoderLM` or name -> tensor dict) and `opt_like` in place.
+    Returns (params, opt state, meta)."""
+    from repro_torch.convert import reference_leaves
+
+    base = os.path.join(ckpt_dir, f"step_{step}")
+    _read_leaves(os.path.join(base, "params"), reference_leaves(params_like))
+    if opt_like is not None:
+        leaves = _opt_leaves(opt_like)
+        step_t = leaves.pop("step")
+        _read_leaves(os.path.join(base, "opt"), leaves)
+        arr = np.load(os.path.join(base, "opt", "step.npy"))
+        opt_like["step"] = torch.as_tensor(arr.astype(np.int32), device=step_t.device)
+    with open(os.path.join(base, "meta.json")) as f:
+        meta = json.load(f)
+    return params_like, opt_like, meta

@@ -5,7 +5,8 @@ The reference's k-means and PQ training and its weight init draw from
 over the same state.  These functions build the port's objects from plain
 numpy arrays, or read a `save_index` directory (`index/*.npy`,
 `delta/*.npy` + `meta.json`, through `checkpoint.load_index`) without
-importing the reference.
+importing the reference; `lm_params_to_reference` carries LM weights (or
+optimizer moments) back into the reference's stacked tree.
 """
 
 from __future__ import annotations
@@ -150,3 +151,56 @@ def _leaves(tree: dict, prefix: str = ""):
             yield from _leaves(sub, f"{prefix}{name}.")
         else:
             yield prefix + name, sub
+
+
+def _reference_key(name: str) -> tuple[str, int | None]:
+    """A `DecoderLM` parameter name -> (the reference's tree path joined by
+    "/", the layer index along its stacked L axis or None): e.g.
+    "layers.3.attn.wq" -> ("layers/attn/wq", 3), "shared_attn.ln1" ->
+    ("shared_attn/ln1", None), "embed" -> ("embed", None)."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "dense_layers"):
+        return "/".join([parts[0], *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def reference_leaves(params) -> dict:
+    """Group per-layer tensors (a `DecoderLM`'s parameters, or a parameter
+    name -> tensor dict such as an optimizer moment dict) under the
+    reference's tree paths: path -> tensor, or for a stacked leaf the list
+    of its layers' tensors in layer order."""
+    tensors = params if isinstance(params, dict) else dict(params.named_parameters())
+    out: dict = {}
+    for name, t in tensors.items():
+        key, i = _reference_key(name)
+        if i is None:
+            out[key] = t
+        else:
+            out.setdefault(key, {})[i] = t
+    return {k: v if isinstance(v, torch.Tensor) else [v[i] for i in sorted(v)]
+            for k, v in out.items()}
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host, bf16 widened to f32 (exact)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def lm_params_to_reference(params) -> dict:
+    """The reference's parameter tree from a `DecoderLM` (or a name ->
+    tensor dict with its names, such as an optimizer moment dict): the
+    inverse of `lm_params_from_reference`.  Per-layer tensors are stacked
+    along a leading L axis under `layers` / `dense_layers`; leaves are numpy
+    arrays, bf16 widened to f32 (cast back with the reference's dtypes)."""
+    tree: dict = {}
+    for key, v in reference_leaves(params).items():
+        arr = np.stack([host_array(t) for t in v]) if isinstance(v, list) else host_array(v)
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree

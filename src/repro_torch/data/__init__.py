@@ -1,1 +1,3 @@
-"""Synthetic datasets with the paper's skew."""
+"""Synthetic datasets: skewed vectors (`vectors`) and tokens (`tokens`)."""
+
+from repro_torch.data.tokens import SyntheticTokenDataset

@@ -6,9 +6,9 @@
   moe.py      -- top-k routing, capacity dispatch, shared experts, aux loss
   mla.py      -- multi-head latent attention (absorbed form, latent cache)
   ssm.py      -- Mamba2: chunked SSD scan, conv state, one-step decode
-  model.py    -- DecoderLM (nn.Module): init / inference forward / prefill /
-                 decode for dense, MoE, MLA, SSM, hybrid and stub-frontend
-                 configs
+  model.py    -- DecoderLM (nn.Module): init / differentiable forward (remat)
+                 / prefill / decode for dense, MoE, MLA, SSM, hybrid and
+                 stub-frontend configs
 """
 
 from repro_torch.models.config import ModelConfig

@@ -12,8 +12,13 @@ attention, then a SwiGLU MLP or an MoE block) or `MambaLayer` -- each
 holding its parameters in the reference's layouts (`wq` is (d, h * hd) and
 applies as `x @ wq`, an expert's `w_down` is (E, f, d)), so
 `convert.lm_params_from_reference` splits the stacked arrays into
-per-layer tensors.  Weights are inference-only (no gradients, no remat, no
-optimizer); `forward_train` returns the logits and the summed MoE aux loss.
+per-layer tensors.  Parameters are created with `requires_grad=False` for
+serving; the trainer (`training.trainer`) turns gradients on.
+`forward_train` follows the caller's grad mode and returns the logits and
+the summed MoE aux loss; under `cfg.remat` and with gradients on, each
+layer module runs under `torch.utils.checkpoint` (recomputed in the
+backward), as the reference checkpoints each layer body -- not the
+hybrid's shared block, which the reference does not checkpoint either.
 
 The decode cache is a dict of tensors with a leading layer (or group)
 axis, updated in place: the GQA cache by slice assignment
@@ -31,6 +36,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -266,26 +272,33 @@ def _groups(cfg: ModelConfig) -> tuple[int, int, int]:
     return per, n_groups, cfg.n_layers - n_groups * per
 
 
-@torch.no_grad()
 def forward_train(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                   embeddings: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward, for inference: (logits (B, S, V), the
-    summed MoE aux loss f32, 0 without MoE).  `embeddings` (B, n, d): the
-    vision stub's prefix.  The reference's training forward without remat,
-    sharding or a loss."""
+    """Full-sequence causal forward: (logits (B, S, V), the summed MoE aux
+    loss f32, 0 without MoE).  `embeddings` (B, n, d): the vision stub's
+    prefix.  Differentiable under the caller's grad mode, with each layer
+    recomputed in the backward under `cfg.remat` (module docstring); the
+    reference's training forward without sharding."""
     x = _embed_inputs(params, tokens, embeddings)
     b, s, _ = x.shape
     positions = _positions(b, s, 0, x.device)
     aux_total = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(layer, *args):
+        if remat:
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
     if cfg.family in ("ssm", "hybrid"):
         per = _groups(cfg)[0] if cfg.family == "hybrid" else 0
         for i, layer in enumerate(params.layers):
-            x, _ = layer(x, cfg)
+            x, _ = run(layer, x, cfg)
             if per and (i + 1) % per == 0:
                 x, _, _ = params.shared_attn(x, positions, cfg)
     else:
         for layer in [*params.dense_layers, *params.layers]:
-            x, _, aux = layer(x, positions, cfg)
+            x, _, aux = run(layer, x, positions, cfg)
             aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm)
     return x @ params.lm_head, aux_total

@@ -30,7 +30,8 @@ keys past kv_valid and peaked scores (and hd 112 at a cut of zamba2's
 prefill shape); a reduced LM's prefill through B10 equals the chunked
 scan and the CPU, and every model family's reduced config (MoE, MLA,
 Mamba2, the hybrid, the vision and audio stubs) prefills and decodes on
-the card as on the CPU.
+the card as on the CPU, and a train step of three reduced families on the
+card (remat on) matches the CPU's loss, gradients and updated weights.
 Mutable serving (a churn stream with compactions, depths 0 and 1) and the
 failover twin (a dead device, a hung collect) on the card equal their CPU
 runs bit for bit.  An OPQ-rotated engine on the card (with inserts)
@@ -835,6 +836,54 @@ def test_lm_family_on_card_matches_cpu(cuda, case):
     assert ops.launches["flash_attention_fwd"] == n_b10
     for name in wcache:
         torch.testing.assert_close(gcache[name].cpu(), wcache[name], **tol)
+
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "phi3.5-moe-42b", "zamba2-7b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Two train steps of a reduced f32 config (remat on, warmup 1) on the
+    card against the same weights and tokens on the CPU: loss, CE and aux
+    within rtol 1e-5, each gradient within a relative norm of 1e-4, and
+    after step 2 every parameter within 1e-2 of its distance from the
+    start; the step launches no B10 (training runs the chunked scan)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.training import loss_fn, make_train_step, trainable
+
+    cfg = dataclasses.replace(reduced_config(get_config(arch), use_flash_kernel=True),
+                              remat=True)
+    cpu_model = trainable(init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    init = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    tok = torch.from_numpy(SyntheticTokenDataset(cfg.vocab_size, 160, 2).batch(0))
+    losses = []
+    for model, dev in ((cpu_model, "cpu"), (card_model, cuda)):
+        loss, (ce, aux) = loss_fn(model, cfg, tok.to(dev))
+        loss.backward()
+        losses.append([float(t.detach()) for t in (loss, ce, aux)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5, atol=1e-7)
+    for (n, a), (_, b) in zip(card_model.named_parameters(), cpu_model.named_parameters()):
+        err = float((a.grad.cpu() - b.grad).norm() / b.grad.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (n, err)
+    ocfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    opts = [init_opt_state(cpu_model), init_opt_state(card_model)]
+    ops.reset_launches()
+    for s in range(2):
+        t = torch.from_numpy(SyntheticTokenDataset(cfg.vocab_size, 160, 2).batch(s))
+        make_train_step(cfg, ocfg)(cpu_model, opts[0], t)
+        _, _, m = make_train_step(cfg, ocfg)(card_model, opts[1], t.to(cuda))
+        assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_fwd"] == 0
+    for (n, a), (_, b) in zip(card_model.named_parameters(), cpu_model.named_parameters()):
+        moved = float((b.detach() - init[n]).norm())
+        assert moved > 0, n
+        assert float((a.detach().cpu() - b.detach()).norm()) <= 1e-2 * moved, n
 
 
 # -- the onehot path (PR 21): every scan's onehot instantiation ------------

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
 A fresh interpreter imports every module of `repro_torch` (the LM's
-configs, models and launcher too) and must end with no `jax*` and no
+configs, models, training stack and launchers too) and must end with no `jax*` and no
 `repro` / `repro.*` entry in `sys.modules`.  Without a GPU, entry points
 called without `device=` raise instead of falling back to the CPU.
 """
@@ -35,7 +35,10 @@ new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.ker
        "repro_torch.retrieval.serving", "repro_torch.retrieval.faults", "repro_torch.obs.metrics",
        "repro_torch.obs.trace", "repro_torch.obs.http", "repro_torch.core.autotune",
        "repro_torch.checkpoint", "repro_torch.checkpoint.store", "repro_torch.models.moe",
-       "repro_torch.models.mla", "repro_torch.models.ssm"]
+       "repro_torch.models.mla", "repro_torch.models.ssm", "repro_torch.optim",
+       "repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.data.tokens",
+       "repro_torch.training", "repro_torch.training.trainer",
+       "repro_torch.training.compression", "repro_torch.launch.train"]
 assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """
@@ -85,7 +88,10 @@ def test_lm_entry_points_refuse_cpu_fallback():
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.convert import lm_params_from_reference
     from repro_torch.launch.serve import serve
+    from repro_torch.data import SyntheticTokenDataset
     from repro_torch.models import DecoderLM, init_decode_cache, init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
 
     cfg = reduced_config(get_config("qwen3-8b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -98,6 +104,8 @@ def test_lm_entry_points_refuse_cpu_fallback():
         init_decode_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_reference({}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg=cfg, opt_cfg=AdamWConfig(), dataset=SyntheticTokenDataset(256, 8, 1)).run(0, 1)
     assert init_params(cfg, torch.Generator(), "cpu").embed.device.type == "cpu"
     assert DecoderLM(cfg, "cpu").embed.device.type == "cpu"
     assert DecoderLM(cfg, "meta").embed.is_meta
