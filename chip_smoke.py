@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU (serving, training, examples, dry run); check it.
 
-    python3 chip_smoke.py [--n 100000000] [--batches 3] [--seed 0]
+    python3 chip_smoke.py [--n 100000000] [--batches 2] [--seed 0]
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 It builds the CUDA kernels from `src/repro_torch/csrc/`, then first serves
@@ -173,6 +173,25 @@ save at each point and saves and loads the 100M index; `opq` (last)
 rebuilds the corpus from the seed with `opq_iters=5` and checks it
 against a plain path, pruned against unpruned, and with 1000 inserts.
 
+The dry run and the examples: `train` ends with `dryrun_train`, the dry run of
+its own cell (`launch.dryrun` on the meta device, 8 layers, batch 4 x 2048)
+held exactly against the phase's objects on the card: its argument bytes
+equal the parameters', the AdamW state's and the tokens' bytes, and its
+FLOPs equal `FlopCounterMode`'s count of one more real step (which
+launches no kernel of the port); the predicted peak (arguments +
+temporaries) is printed beside `max_memory_allocated`.  After `opq`,
+`examples` runs the four example twins (`examples/*_torch.py`) on the card
+at their own sizes, each with its launches counted from 0 (their own
+asserts; every returned tensor on cuda, a retrieval twin's engine on
+cuda; each retrieval twin launches a kernel).  `dryrun` reads the card
+mesh's dry-run matrix for one arch of each family and the four retrieval
+cells, run in subprocesses on the host's other cores at nice 10 from the
+start of `opq` and joined after `examples` (`dryrun_wait`); every line
+logged meanwhile carries `cpu_load`, as its host times are taken beside
+the matrix (every cell `ok` or the reference's long_500k skip, at the
+card's peaks), and it prints each cell and the main path's `search`
+cell's closed-form bound beside its measured device-busy ms.
+
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
 outside a checkout, it exits with a non-zero code and prints no result.
@@ -270,6 +289,15 @@ SERVE_MICRO_BATCH = 500
 MUT_SERVE_ROUNDS, MUT_SERVE_INSERTS, MUT_SERVE_DELETES = 10, 350, 110
 # the spans whose profiler ranges are read, and the port's kernels by name
 PROFILED_SPANS = ("plan", "delta", "dispatch", "rerank_dispatch", "collect", "merge")
+# the dry-run matrix of the `dryrun` phase: one arch of each family of the
+# registry (moe: deepseek-v2, whose MLA no other config has; dense; vlm;
+# hybrid; ssm; audio) x every shape, and the retrieval cells; the whole
+# matrix is `python -m repro_torch.launch.dryrun_matrix`
+DRYRUN_ARCHS = ("deepseek-v2-236b", "qwen3-8b", "llava-next-34b", "zamba2-7b",
+                "mamba2-130m", "musicgen-medium")
+# the example twins the `examples` phase runs (`examples/<name>.py`)
+EXAMPLES = ("quickstart_torch", "multi_device_search_torch", "serve_rag_torch",
+            "train_lm_torch")
 PORT_KERNELS = ("adc_topk_tiles", "adc_topk_windows", "adc_topk_pairs", "adc_topk", "adc_scan",
                 "lut_build", "ext_lut", "rerank", "flash_fwd")
 
@@ -277,9 +305,16 @@ PORT_KERNELS = ("adc_topk_tiles", "adc_topk_windows", "adc_topk_pairs", "adc_top
 T0 = time.perf_counter()
 
 
+# set while the dry-run matrix runs on the host's CPU: every line logged
+# then says so, as its host times are taken under that load
+CPU_LOAD: dict = {}
+
+
 def log(**kv) -> None:
-    """One JSON line, with `t_s`: seconds since the script started."""
-    print(json.dumps({**kv, "t_s": time.perf_counter() - T0}, default=float), flush=True)
+    """One JSON line, with `t_s`: seconds since the script started (and
+    `cpu_load` while the dry-run matrix runs beside the phase)."""
+    print(json.dumps({**kv, **CPU_LOAD, "t_s": time.perf_counter() - T0}, default=float),
+          flush=True)
 
 
 def ptxas_summary(report: str) -> dict:
@@ -2350,8 +2385,49 @@ def train_phase(torch, np, ops, dev, seed: int) -> None:
                       device_ms_by_range={k: v["device_ms"] for k, v in spans["spans"].items()},
                       kernel_events=spans["kernel_events"]),
         seconds=time.perf_counter() - t_phase)
+    dryrun_train_check(torch, ops, cfg, model, opt, step, tok, peak)
     del model, opt, step, tok
     free_cuda(torch)
+
+
+def dryrun_train_check(torch, ops, cfg, model, opt, step, tok, peak_gb: float) -> None:
+    """`dryrun_train`: the dry run of the `train` cell (`launch.dryrun` on
+    the meta device, batch `TRAIN_BATCH` x `TRAIN_SEQ`) against the phase's
+    own objects on the card.  Held exactly: its `argument_bytes` equal the
+    bytes of the parameters, the AdamW state and the tokens, and its FLOPs
+    equal `FlopCounterMode`'s count of one more real step on the card,
+    which launches no kernel of the port.  For information: the predicted
+    peak (arguments + temporaries) beside the phase's
+    `max_memory_allocated`."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+
+    t = time.perf_counter()
+    cell = dryrun.lm_cell(cfg, (TRAIN_SEQ, TRAIN_BATCH, "train"), "card",
+                          device_kind=torch.cuda.get_device_name(0))
+    trace_s = time.perf_counter() - t
+    ops.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        step(model, opt, tok)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ops.launches.items() if v}
+    flops = fc.get_total_flops()
+    args = [*model.parameters(), *opt["mu"].values(), *opt["nu"].values(), opt["step"], tok]
+    arg_bytes = sum(a.numel() * a.element_size() for a in args)
+    if launched:
+        raise RuntimeError(f"dryrun_train: the real step launched kernels {launched}")
+    if cell["flops"] != flops:
+        raise RuntimeError(f"dryrun_train: meta FLOPs {cell['flops']} != card {flops}")
+    if cell["memory"]["argument_bytes"] != arg_bytes:
+        raise RuntimeError(f"dryrun_train: meta argument bytes {cell['memory']['argument_bytes']}"
+                           f" != card {arg_bytes}")
+    log(phase="dryrun_train", flops=flops, flops_equal=True, argument_bytes=arg_bytes,
+        argument_bytes_equal=True, bytes=cell["bytes"], memory=cell["memory"],
+        predicted_peak_gb=cell["predicted_peak_bytes"] / 1e9, measured_peak_gb=peak_gb,
+        model_flops=cell["model_flops"], useful_ratio=cell["useful_ratio"],
+        bound_s=cell["bound_s"], dominant=cell["dominant"], peaks_source=cell["peaks_source"],
+        trace_s=trace_s, seconds=time.perf_counter() - t)
 
 
 def train_consistency(torch, np, dev, seed: int) -> None:
@@ -3891,11 +3967,185 @@ def opq_phase(torch, np, ops, k_lut, k_rerank, args, hist, ds, batches, dev, gt,
     torch.cuda.empty_cache()
 
 
+def cuda_tensors(torch, tree) -> int:
+    """Count the tensors of nested dicts / lists / tuples; raise for one
+    that is not on a CUDA device."""
+    if isinstance(tree, torch.Tensor):
+        if tree.device.type != "cuda":
+            raise RuntimeError(f"a returned tensor is on {tree.device}, not cuda")
+        return 1
+    if isinstance(tree, (tuple, list)):
+        return sum(cuda_tensors(torch, x) for x in tree)
+    if isinstance(tree, dict):
+        return sum(cuda_tensors(torch, x) for x in tree.values())
+    return 0
+
+
+def examples_phase(torch, ops, root) -> None:
+    """`examples`: each twin of `EXAMPLES` run on the card at its own
+    sizes through its `main` (`--device cuda`; serve_rag with the autotune
+    off, so no cache under ~ retiles it; train_lm's checkpoints under
+    `build/`), its kernel launches counted from 0 just before and read just
+    after.  Checks: the twin's own asserts, every tensor it returns on
+    cuda (a retrieval twin returns numpy ids and distances and its
+    engine's device, which must be cuda), at least one kernel launch for
+    each retrieval twin (train_lm runs none: a train step runs no kernel
+    of the port).  Prints the twin's
+    figures and the kernels it launched."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name, root / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ["--device", "cuda"]
+        ckpt = None
+        if name == "train_lm_torch":
+            (root / "build").mkdir(exist_ok=True)
+            ckpt = tempfile.mkdtemp(prefix="train_lm_", dir=root / "build")
+            argv += ["--ckpt-dir", ckpt]
+        if name == "serve_rag_torch":
+            argv += ["--autotune", "off"]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launched = {k: v for k, v in ops.launches.items() if v}
+        if "tensors" in out:  # train_lm's params and state, serve_rag's logits and cache
+            n_tensors = cuda_tensors(torch, out.pop("tensors"))
+        elif out.pop("device").type == "cuda":  # a retrieval twin's engine
+            n_tensors = 0
+        else:
+            raise RuntimeError(f"examples: {name} ran off the card")
+        if name != "train_lm_torch" and not launched:
+            raise RuntimeError(f"examples: {name} launched no kernel")
+        figures = {k: v for k, v in out.items() if isinstance(v, (int, float, str, list))}
+        log(phase="example", example=name, seconds=seconds, launches=launched,
+            cuda_tensors=n_tensors, **figures)
+        del out, mod
+        if ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        free_cuda(torch)
+
+
+def start_dryrun(torch, root) -> dict:
+    """Start the `dryrun` phase's matrix in a background thread: the card
+    mesh's worklist (`launch.dryrun_matrix`) for one arch of each family
+    (`DRYRUN_ARCHS`) and the four retrieval cells, longest first, one
+    subprocess on the meta device per CPU core but the one the main
+    process keeps, at nice 10 (the thread's nice value, which its children
+    inherit; the main process keeps its own), cells under
+    `build/dryrun_torch/`.  The jobs use the host's CPU only, beside the
+    `opq` and `examples` phases on the card, whose log lines carry
+    `cpu_load` until `wait_dryrun` joins them.  Beside the kernels' build
+    instead, the build and the matrix took 188 s on an NVIDIA H100 80GB
+    HBM3 host against a 88 s build and a 30 s wait here (PERF.md §6): the
+    nvcc processes ran 1.7x slower, their nice 0 notwithstanding."""
+    import os
+    import shutil
+    import threading
+
+    from repro_torch.launch import dryrun_matrix
+
+    out = root / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    kind = torch.cuda.get_device_name(0)
+    work = dryrun_matrix.longest_first([
+        j for j in dryrun_matrix.build_worklist(("card",))
+        if "--retrieval" in j or j[j.index("--arch") + 1] in DRYRUN_ARCHS])
+    jobs = max(1, min(8, len(os.sched_getaffinity(0))) - 1)
+    state = dict(out=out, kind=kind, work=work, jobs=jobs, t0=time.perf_counter())
+    CPU_LOAD["cpu_load"] = f"the dry-run matrix, {jobs} jobs at nice 10"
+
+    def run():
+        os.nice(10)  # this thread's, inherited by the jobs it starts
+        try:
+            state["result"] = dryrun_matrix.run(work, str(out), jobs=jobs, timeout=600,
+                                                device_kind=kind, log=lambda msg: None)
+        except Exception as e:  # noqa: BLE001 -- raised by `dryrun_phase` in the main thread
+            state["error"] = e
+
+    state["thread"] = threading.Thread(target=run, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def wait_dryrun(state: dict) -> None:
+    """Join the matrix `start_dryrun` started (after `examples`) and raise
+    if it failed; later lines carry no `cpu_load`."""
+    t_wait = time.perf_counter()
+    state["thread"].join()
+    CPU_LOAD.clear()
+    state["waited_s"] = time.perf_counter() - t_wait
+    state["seconds"] = time.perf_counter() - state["t0"]
+    if "error" in state:
+        raise RuntimeError(f"dryrun: the matrix raised {state['error']!r}")
+    log(phase="dryrun_wait", waited_s=state["waited_s"], seconds=state["seconds"],
+        jobs=state["jobs"], cells=len(state["work"]))
+
+
+def dryrun_phase(torch, np, state: dict, n_rows: int, search: dict) -> None:
+    """`dryrun`: read the cells of the matrix `start_dryrun` started and
+    `wait_dryrun` joined.  Checks: every job exits 0, each LM cell is `ok`
+    or the reference's `skip` of long_500k for a full-attention arch, and each
+    `ok` cell resolved the card's peaks (`table:H100` on an H100).  Prints
+    each cell's status, FLOPs, bytes, memory, predicted peak and `fits`;
+    and, for information, the closed-form bound of the main path's `search`
+    cell (its N rows, the tiles scan: a window read factor of 1) beside
+    that cell's profiled device-busy ms (the re-rank included)."""
+    from repro_torch.configs.memanns import RetrievalConfig
+    from repro_torch.launch import dryrun, dryrun_matrix
+    from repro_torch.launch.roofline_report import peaks_for
+
+    res = state["result"]
+    if res["fail"]:
+        raise RuntimeError(f"dryrun: {res['fail']} cells failed: {res['failed']}")
+    flops_peak, bw, source = peaks_for(state["kind"])
+    counts = {"ok": 0, "skip": 0}
+    for job in state["work"]:
+        cell = json.loads((state["out"] / dryrun_matrix.cell_file(job)).read_text())
+        status = cell["status"]
+        if status.startswith("skip") and "long_500k" in job:
+            counts["skip"] += 1
+            log(phase="dryrun_cell", arch=cell["arch"], shape=cell["shape"], status=status)
+            continue
+        if status != "ok" or cell["peaks_source"] != source:
+            raise RuntimeError(f"dryrun: {dryrun_matrix.job_name(job)}: {status}, "
+                               f"peaks {cell.get('peaks_source')}")
+        counts["ok"] += 1
+        log(phase="dryrun_cell", arch=cell["arch"], shape=cell["shape"], status=status,
+            flops=cell["flops"], bytes=cell["bytes"],
+            memory={k: v for k, v in cell["memory"].items() if k != "operands"},
+            predicted_peak_gb=cell["predicted_peak_bytes"] / 1e9, share=cell["share"],
+            fits=cell["fits"], arguments_fit=cell["arguments_fit"],
+            compute_s=cell["compute_s"], memory_s=cell["memory_s"], bound_s=cell["bound_s"],
+            dominant=cell["dominant"], useful_ratio=cell.get("useful_ratio"),
+            kernels=cell.get("kernels"), trace_s=cell["trace_s"])
+    rcfg = RetrievalConfig(name="search", n_vectors=n_rows, dim=D, m=M, n_clusters=N_CLUSTERS,
+                           nprobe=NPROBE, batch_queries=BATCH, k=K, block_n=BLOCK_N)
+    shapes = dryrun.retrieval_shapes(rcfg, NDEV)
+    ana = dryrun.retrieval_roofline_analytic(rcfg, shapes, False, entry_bytes=1,
+                                             window_read_factor=1.0,
+                                             peaks=(flops_peak, bw))["analytic"]
+    bound = max(ana["compute_s"], ana["memory_s"]) * NDEV
+    log(phase="dryrun", cells=len(state["work"]), ok=counts["ok"], skipped=counts["skip"],
+        jobs=state["jobs"], archs=list(DRYRUN_ARCHS), device_kind=state["kind"],
+        peaks_source=source, peak_flops=flops_peak, hbm_bw=bw,
+        search_bound_ms=bound * 1e3, search_device_busy_ms=search["device_busy_ms"],
+        search_bound_of_busy=bound * 1e3 / search["device_busy_ms"],
+        waited_s=state["waited_s"], seconds=state["seconds"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000, help="corpus rows")
-    ap.add_argument("--batches", type=int, default=3,
-                    help="timed 1000-query batches (5 before the training phases)")
+    ap.add_argument("--batches", type=int, default=2,
+                    help="timed 1000-query batches (5 before the training phases, 3 before "
+                         "the examples and the dry run)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3987,8 +4237,9 @@ def main(argv=None) -> int:
     # -- the main path: 1000-query search batches ---------------------------
     kp = eng.k_prime(K)
     batches = [queries[i * BATCH : (i + 1) * BATCH] for i in range(args.batches + 1)]
-    launches = drive_path(torch, np, ops, "search", eng, batches,
-                          ("build_luts", "adc_topk_tiles", "rerank_dists"))["launches"]
+    search = drive_path(torch, np, ops, "search", eng, batches,
+                        ("build_luts", "adc_topk_tiles", "rerank_dists"))
+    launches = search["launches"]
     # where the host plan's time goes, by function
     log(phase="breakdown", host_plan_ms_by_function_profiled=host_by_function(
         lambda: eng.plan_batch(batches[1], NPROBE)))
@@ -4144,7 +4395,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # == OPQ at full scale (the main engine is gone: a second 100M build) ====
+    # == the dry-run matrix (meta device) on the host's other cores, beside
+    # the OPQ build and the example twins on the card (their lines carry
+    # `cpu_load`) ============================================================
+    matrix = start_dryrun(torch, root)
     opq_phase(torch, np, ops, k_lut, k_rerank, args, hist, ds, batches, dev, gt, main_quality)
+    examples_phase(torch, ops, root)
+    wait_dryrun(matrix)
+    dryrun_phase(torch, np, matrix, args.n, search)
 
     kernels += lm_rows
     log(phase="done", seconds=time.perf_counter() - t_start, nvidia_smi=smi)

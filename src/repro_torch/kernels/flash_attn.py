@@ -104,6 +104,35 @@ def flash_attention_fwd_plain(
     return out
 
 
+def causal_pairs(sq: int, q_offset: int, kv_valid: int) -> int:
+    """(query, key) pairs a head's causal rows see: query i at position
+    q_offset + i meets keys j <= q_offset + i with j < kv_valid, so the sum
+    over i < sq of min(q_offset + i + 1, kv_valid), in closed form."""
+    n_lin = max(0, min(sq, kv_valid - q_offset))
+    return n_lin * q_offset + n_lin * (n_lin + 1) // 2 + (sq - n_lin) * kv_valid
+
+
+def flash_flops(b: int, sq: int, h: int, hd: int, q_offset: int, kv_valid: int) -> int:
+    """FLOPs of one B10 call's two products (Q.K^T and P.V) over the live
+    causal pairs, an FMA as two: the work its FP32 bound counts."""
+    return 4 * b * h * hd * causal_pairs(sq, q_offset, kv_valid)
+
+
+def flash_hbm_bytes_per_layer(
+    b: int, sq: int, sk: int, h: int, kvh: int, hd: int,
+    bq: int = 512, dtype_bytes: int = 2, kv_dtype_bytes: int | None = None,
+) -> int:
+    """Analytic HBM traffic of one kernel invocation (the port of the
+    reference's `flash_hbm_bytes_per_layer`, equal at its arguments): Q+O
+    once; K+V streamed once per q-block.  `kv_dtype_bytes` (default
+    `dtype_bytes`) sizes K and V where their dtype differs from q's."""
+    kv_bytes = dtype_bytes if kv_dtype_bytes is None else kv_dtype_bytes
+    nq = max(sq // bq, 1)
+    q_o = 2 * b * sq * h * hd * dtype_bytes
+    kv = 2 * b * sk * kvh * hd * kv_bytes * nq
+    return q_o + kv
+
+
 def kernel_attributes(hd: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> dict:
     """The kernel instance's registers, spilled (local) bytes per thread and
     dynamic shared memory bytes, from the CUDA runtime (builds the library)."""

@@ -24,7 +24,11 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either launches its CUDA kernel on the current stream
 (tensors on a CUDA device) or runs the kernel's plain PyTorch version
 (tensors on the CPU).  There is no fallback: a CUDA tensor either launches
-the kernel or raises.  `launches[name]` counts kernel launches only.
+the kernel or raises.  `launches[name]` counts kernel launches only.  B10
+also takes tensors on the meta device, for the dry run (`launch.dryrun`):
+it returns an empty output of the kernel's shape and adds the kernel's
+FLOPs and bytes to `meta_work` (the branch is chosen by `device.type ==
+"meta"` alone).
 """
 
 from __future__ import annotations
@@ -53,9 +57,21 @@ SCAN_K_MAX = _topk.SCAN_K_MAX
 ADC_TOPK_K_MAX = _topk.SCAN_K_MAX
 
 
+# work of the kernels called on tensors on the meta device since
+# `reset_meta_work()`: the dry run's count of what each call would do
+# (`launch.dryrun`); nothing runs there and no launch is counted
+meta_work = {"flash_attention_fwd": {"calls": 0, "flops": 0, "bytes": 0}}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def reset_meta_work() -> None:
+    for work in meta_work.values():
+        for key in work:
+            work[key] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device: torch.device) -> None:
@@ -724,6 +740,15 @@ def flash_attention_fwd(
     if bq <= 0 or bk <= 0 or sq % bq or sk % bk:
         raise ValueError(f"blocks (bq={bq}, bk={bk}) do not divide (Sq={sq}, Sk={sk})")
     _flash.check_head_dim(hd)
+    if dev.type == "meta":
+        # the dry run: an output of the kernel's shape, and the kernel's own
+        # work (its bound's FLOPs, its byte model) in `meta_work`
+        work = meta_work["flash_attention_fwd"]
+        work["calls"] += 1
+        work["flops"] += _flash.flash_flops(b, sq, h, hd, q_offset, kv_valid)
+        work["bytes"] += _flash.flash_hbm_bytes_per_layer(
+            b, sq, sk, h, kvh, hd, bq, q.element_size(), k.element_size())
+        return torch.empty(q.shape, dtype=q.dtype, device=dev)
     if not _on_gpu(dev):
         return _flash.flash_attention_fwd_plain(q, k, v, scale, q_offset, kv_valid, bq, bk)
     if any(t.data_ptr() % 16 for t in (q, k, v)):

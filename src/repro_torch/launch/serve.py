@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.env import setup_env
 from repro_torch.models import ModelConfig, decode_step, init_params, prefill
 from repro_torch.models.model import DecoderLM
 
@@ -284,6 +285,7 @@ def serve(
 
 
 def main(argv=None) -> dict:
+    setup_env()  # before the first CUDA call
     from repro_torch.configs import get_config, reduced_config
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])

@@ -18,8 +18,11 @@ from __future__ import annotations
 import argparse
 import json
 
+from repro_torch.launch.env import setup_env
+
 
 def main(argv=None) -> dict:
+    setup_env()  # before the first CUDA call
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)

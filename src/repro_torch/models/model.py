@@ -310,8 +310,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     otherwise: GQA {"k", "v"} (L, B, max_len, KV, hd); MLA {"c_kv" (L, B,
     max_len, R), "k_rope" (L, B, max_len, dr)}; Mamba2 {"conv" (L, B, K-1,
     conv dim), "ssm" (L, B, H, P, N) f32}, the hybrid also {"attn_k",
-    "attn_v"} (groups, B, max_len, KV, hd)."""
-    device = resolve_device(device)
+    "attn_v"} (groups, B, max_len, KV, hd).  `device="meta"` allocates
+    nothing (the dry run), as for `DecoderLM`."""
+    if device is None or torch.device(device).type != "meta":
+        device = resolve_device(device)
     dtype = torch_dtype(dtype)
 
     def zeros(*shape, dt=dtype):

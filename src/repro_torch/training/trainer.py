@@ -10,7 +10,12 @@ learning rate from the optimizer's step, and AdamW in place.
 Fault tolerance is the reference's: the data is a pure function of
 (seed, step), checkpoints commit atomically, and `Trainer.run` retries a
 failed step, restores the latest checkpoint after each failure, and
-resumes from it.
+resumes from it.  The reference's jitted step returns new arrays, so a
+failed step changes nothing; here AdamW updates the state in place, so a
+failure once the update has begun (`OptimizerStepError`) is never retried
+on that state: the latest checkpoint is restored, or, without one, the
+error is raised.  A failure in the data, the forward or the backward
+changes nothing and is retried as it is.
 """
 
 from __future__ import annotations
@@ -28,6 +33,11 @@ from repro_torch.models import DecoderLM, forward_train, init_params
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule, init_opt_state
 
 log = logging.getLogger("repro_torch.trainer")
+
+
+class OptimizerStepError(RuntimeError):
+    """A train step failed inside the in-place AdamW update: the step
+    counter, the parameters and their moments may be partly updated."""
 
 
 def loss_fn(params: DecoderLM, cfg, tokens: torch.Tensor,
@@ -58,7 +68,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, grad_compress: bool = False):
     run inside `record_function` ranges ("train.forward", "train.backward",
     "train.optimizer"), which a profiler reads.  `grad_compress` is accepted and
     does nothing: one GPU has no pod axis to all-reduce over.  `metrics`:
-    `loss`, `ce`, `aux`, `grad_norm`, `lr` (0-d tensors)."""
+    `loss`, `ce`, `aux`, `grad_norm`, `lr` (0-d tensors).  A failure in the
+    update is raised as `OptimizerStepError` (its cause chained)."""
     del grad_compress
 
     def step_fn(params: DecoderLM, opt_state: dict, tokens: torch.Tensor,
@@ -72,8 +83,11 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, grad_compress: bool = False):
             loss.backward()
         grads = {n: p.grad for n, p in named.items()}
         with record_function("train.optimizer"):
-            lr = cosine_schedule(opt_state["step"], opt_cfg)
-            _, opt_state, metrics = adamw_update(named, grads, opt_state, opt_cfg, lr)
+            try:
+                lr = cosine_schedule(opt_state["step"], opt_cfg)
+                _, opt_state, metrics = adamw_update(named, grads, opt_state, opt_cfg, lr)
+            except Exception as e:
+                raise OptimizerStepError(f"AdamW update failed: {e}") from e
         del grads
         for p in named.values():
             p.grad = None
@@ -145,7 +159,7 @@ class Trainer:
                 step += 1
                 if self.ckpt_dir and step % self.ckpt_every == 0:
                     save(self.ckpt_dir, step, params, opt_state)
-            except Exception:  # noqa: BLE001 -- node-failure surface
+            except Exception as e:  # noqa: BLE001 -- node-failure surface
                 retries += 1
                 log.exception("step %d failed (retry %d)", step, retries)
                 if retries > self.max_retries:
@@ -153,6 +167,8 @@ class Trainer:
                 if self.ckpt_dir and (ls := latest_step(self.ckpt_dir)) is not None:
                     params, opt_state, meta = restore(self.ckpt_dir, ls, params, opt_state)
                     step = meta["step"]
+                elif isinstance(e, OptimizerStepError):
+                    raise  # the state is partly updated and no checkpoint can replace it
         if self.ckpt_dir:
             save(self.ckpt_dir, step, params, opt_state)
         wall = time.time() - t0

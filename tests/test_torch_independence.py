@@ -1,9 +1,12 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
 A fresh interpreter imports every module of `repro_torch` (the LM's
-configs, models, training stack and launchers too) and must end with no `jax*` and no
-`repro` / `repro.*` entry in `sys.modules`.  Without a GPU, entry points
-called without `device=` raise instead of falling back to the CPU.
+configs, models, training stack and launchers too, the dry run, its
+partition rules and the roofline report) and the four `examples/*_torch.py`
+twins, and must end with no `jax*` and no `repro` / `repro.*` entry in
+`sys.modules`.  Without a GPU, entry points called without `device=` (the
+example twins' `main` without `--device`) raise instead of falling back to
+the CPU.
 """
 
 import pathlib
@@ -15,14 +18,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+EXAMPLES = ("quickstart_torch", "multi_device_search_torch", "serve_rag_torch",
+            "train_lm_torch")
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pathlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+for ex in EXAMPLES:
+    spec = importlib.util.spec_from_file_location(ex, pathlib.Path(EX_DIR) / (ex + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -38,15 +47,19 @@ new = ["repro_torch.core.cooc", "repro_torch.retrieval.layout", "repro_torch.ker
        "repro_torch.models.mla", "repro_torch.models.ssm", "repro_torch.optim",
        "repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.data.tokens",
        "repro_torch.training", "repro_torch.training.trainer",
-       "repro_torch.training.compression", "repro_torch.launch.train"]
+       "repro_torch.training.compression", "repro_torch.launch.train",
+       "repro_torch.launch.env", "repro_torch.launch.roofline_report",
+       "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_matrix",
+       "repro_torch.models.sharding"]
 assert all(n in names for n in new), names
 print(len(names), ",".join(bad))
 """
 
 
 def test_port_imports_neither_jax_nor_reference():
+    probe = f"EXAMPLES = {EXAMPLES!r}\nEX_DIR = {str(ROOT / 'examples')!r}\n" + PROBE
     out = subprocess.run(
-        [sys.executable, "-c", PROBE], capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", probe], capture_output=True, text=True, timeout=120,
         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, check=True,
     ).stdout.strip()
     n_modules, bad = out.split(" ", 1) if " " in out else (out, "")
@@ -185,3 +198,19 @@ def test_index_and_data_entry_points_refuse_cpu_fallback(name):
         pytest.skip("a GPU is visible: cuda is a valid default here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _call(name)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_twins_refuse_cpu_fallback(name, tmp_path, monkeypatch):
+    """Each example twin runs on cuda unless `--device cpu` is passed."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: cuda is a valid default here")
+    import importlib.util
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = ["--n", "2000"] if name != "train_lm_torch" else ["--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
