@@ -192,6 +192,23 @@ the matrix (every cell `ok` or the reference's long_500k skip, at the
 card's peaks), and it prints each cell and the main path's `search`
 cell's closed-form bound beside its measured device-busy ms.
 
+The reference's whole domain (PR 27): `domain` (after `flat_search`, on the
+main engine) drives what lies past the shared-memory blocks and B10's fast
+instances -- 16 queries under the exact re-rank at k = 2048 (k' = 8192:
+B2 / B5 on their WIDE block, lists spilled) on tiles and windows, equal to
+each other and to the plain path; B2 / B5 at k = 8192 on 8 queries' pairs
+against their plain versions (rows `adc_topk_*_spill`), equal to the
+shared-memory block at k = 4096 on the entries they share, and the spill
+forced at k = 4096 timed beside that block; B8, B6 and B7 over a
+65,536-entry uint16 table (read in place) and B6 spilled (rows
+`adc_scan_gtab`, `adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`),
+bit-equal; B10's general kernel at head dims 48, 80 and 256 (rows
+`flash_attention_fwd_hd*`, one bf16 ulp) and its grid at 65,536 row tiles.
+`domain_mutable` (after `mutable_serving`) deletes 5,000 ids of 16 queries'
+fetch windows (fetch depth 8192) and holds those queries to the plain
+mutable path, no tombstoned id returned.  Every ADC and B10 row reports
+the `variant` it ran ("shared" / "fast" for every earlier row).
+
 Every phase that fails raises.  The line before last is the kernels' JSON,
 the last line `{"ok": true, "device": {...}}`.  Without a visible GPU, or
 outside a checkout, it exits with a non-zero code and prints no result.
@@ -298,6 +315,18 @@ DRYRUN_ARCHS = ("deepseek-v2-236b", "qwen3-8b", "llava-next-34b", "zamba2-7b",
 # the example twins the `examples` phase runs (`examples/<name>.py`)
 EXAMPLES = ("quickstart_torch", "multi_device_search_torch", "serve_rag_torch",
             "train_lm_torch")
+# the domain phase (PR 27): inputs past the shared-memory blocks of B2 / B5
+# / B6 / B7 / B8 and past B10's fast instances -- k past SCAN_K_MAX (4096)
+# on the scans, the engine's exact re-rank at k' = 4k, a full uint16
+# direct-address table (65,536 entries, 256 KB) under a few million rows,
+# B10's other head dims, and the mutable engine past 4032 tombstones at k' =
+# 64 (fetch depth 8192)
+DOMAIN_K, DOMAIN_EXACT_K, DOMAIN_QUERIES = 8192, 2048, 8
+DOMAIN_TABLE, DOMAIN_ROWS, DOMAIN_TOMBSTONES = 65_536, 2_000_000, 5000
+DOMAIN_FLASH_HD = (48, 80, 256)
+# B10's grid past 65,535 row tiles: 32 query heads on one KV head at this
+# many positions make 65,536 tiles of 128 (position, head) rows
+DOMAIN_GRID_POSITIONS = 262_144
 PORT_KERNELS = ("adc_topk_tiles", "adc_topk_windows", "adc_topk_pairs", "adc_topk", "adc_scan",
                 "lut_build", "ext_lut", "rerank", "flash_fwd")
 
@@ -651,11 +680,12 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     queued = cuda_ms(torch, lambda: run(True), 20, queued=True)
     lookups = (int(n_valid.sum()) - int(ps[..., 1].sum())) * w
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    scan_plan = k_topk.scan_plan(kp, tables.shape[1])
     extra = dict(
         lookup_bound_ms=lookups / (n_sm * 32 * sm_mhz * 1e6) * 1e3, lookups=lookups,
-        sms=n_sm, sm_clock_mhz=sm_mhz,
+        sms=n_sm, sm_clock_mhz=sm_mhz, variant=block_variant(k_topk, scan_plan),
         registers=scan_registers(regs, scan, k_topk.code_format(codes), w,
-                                 sort=path == "onehot"))
+                                 sort=path == "onehot", wide=k_topk.wide(scan_plan)))
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
     lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp,
                                        sort=path == "onehot")
@@ -711,6 +741,23 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
     )
 
 
+def block_variant(k_topk, plan: dict) -> str:
+    """The block a B2 / B5 / B6 / B7 plan runs: "shared" (the shared-memory
+    block of every row before PR 27), or the WIDE block's "spill", "gtab"
+    or "spill+gtab"."""
+    if not k_topk.wide(plan):
+        return "shared"
+    return "+".join(n for n in ("spill", "gtab") if plan[n])
+
+
+def pairs_variant(k_topk, tables, addrs, kp: int) -> str:
+    """The block B7 runs for (P, L, W) windows at k' (`block_variant`)."""
+    p, win, w = addrs.shape
+    return block_variant(k_topk, k_topk.topk_plan([1] * p, [win] * p, kp,
+                                                  k_topk.code_format(addrs), w,
+                                                  tables.shape[1], groups=(1,)))
+
+
 def onehot_differs(torch, name: str, codes, onehot, gather) -> int:
     """The entries where a onehot kernel's output differs from the gather
     kernel's on the same input.  On direct addresses a combo's address sits
@@ -724,14 +771,18 @@ def onehot_differs(torch, name: str, codes, onehot, gather) -> int:
     return n
 
 
-def scan_registers(regs: dict, scan: str, fmt: int, w: int, sort: bool = False) -> str | None:
+def scan_registers(regs: dict, scan: str, fmt: int, w: int, sort: bool = False,
+                   wide: bool = False) -> str | None:
     """ptxas' registers and spills of B2 / B5 (`scan` tiles | windows) for
     code format `fmt`, width `w` and path (`sort`: the onehot path on
-    direct addresses), the instantiation REPRO_ADC_DISPATCH
-    (csrc/adc_topk_common.cuh) launches: a compiled width, else 0."""
+    direct addresses), the instantiation REPRO_ADC_DISPATCH (or, `wide`,
+    REPRO_ADC_DISPATCH_WIDE; csrc/adc_topk_common.cuh) launches: a compiled
+    width, else 0."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
-    wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
-    want = f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}ELb{int(sort and fmt > 0)}EE"
+    widths = ((16,) if fmt < 2 else ()) if wide else ((8, 16, 32) if fmt == 0 else (8, 16))
+    wt = w if w in widths else 0
+    want = (f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}ELb{int(sort and fmt > 0)}E"
+            f"Lb{int(wide)}EE")
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
@@ -742,9 +793,12 @@ def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int,
     (`adc_topk_pairs_kernel`) for code format `fmt`, width `w` and path
     (`sort`: the onehot path on direct addresses)."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
-    wt = w if w in ((8, 16, 32) if fmt == 0 else (8, 16)) else 0
+    wide = "wide" in kernel  # REPRO_ADC_DISPATCH_WIDE's widths, no G
+    widths = ((16,) if fmt < 2 else ()) if wide else ((8, 16, 32) if fmt == 0 else (8, 16))
+    wt = w if w in widths else 0
     want = (f"{kernel}I{ctype}Lb{int(fmt == 0)}ELi{wt}E"
-            + (f"Li{g}E" if "pairs" not in kernel else "") + f"Lb{int(sort and fmt > 0)}E")
+            + (f"Li{g}E" if "pairs" not in kernel and not wide else "")
+            + f"Lb{int(sort and fmt > 0)}E")
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
@@ -1064,18 +1118,18 @@ def same_within_tol(np, a_d, a_i, b_d, b_i, rtol: float) -> dict:
     return dict(moved=moved // 2, crossed=crossed)
 
 
-def plain_path_check(torch, np, k_lut, k_rerank, eng, q16) -> None:
-    """The engine's answers to a few queries against a plain path
+def plain_path_check(torch, np, k_lut, k_rerank, eng, q16, k: int = K) -> None:
+    """The engine's answers to a few queries at `k` against a plain path
     (`plain_adc_topk` at k' -> plain exact re-rank).  ADC and re-ranked
     distances must be bit-equal, ids equal outside exactly tied groups."""
-    kp = eng.k_prime(K)
-    e_d, e_i = eng.search(q16, NPROBE, K)
+    kp = eng.k_prime(k)
+    e_d, e_i = eng.search(q16, NPROBE, k)
     adc_d, _ = eng.collect(eng.dispatch_plan(eng.plan_batch(q16, NPROBE), kp))
     q = torch.as_tensor(q16, device=eng.device)
     plain_adc, cand = plain_adc_topk(torch, np, k_lut, eng, q, kp)
     if not np.array_equal(np.sort(adc_d, axis=1), plain_adc):
         raise RuntimeError("engine ADC top-k' differs from the plain unpruned scan")
-    p_d, p_i = plain_rerank(torch, k_rerank, q, cand, eng.raw, K)
+    p_d, p_i = plain_rerank(torch, k_rerank, q, cand, eng.raw, k)
     if not np.array_equal(e_d, p_d):
         raise RuntimeError(f"engine re-ranked distances differ from the plain path:\n"
                            f"{e_d[:2]}\n{p_d[:2]}")
@@ -1209,6 +1263,7 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     kernels.append(dict(
         name="ext_lut_pairs", route="cuda", source=f"{SRC_ROOT}/csrc/ext_lut.cu",
         replaces="src/repro/kernels/lut_build.py:61",
+        variant="gtab" if k_lut.ext_table_in_place(cl2.shape[1]) else "shared",
         launches=paths["search_cooc_tiles"]["launches"]["build_ext_luts_pairs"],
         max_abs_err=err, ms=cuda_ms(torch, lambda: k_lut.launch_ext(cl2, combo, set_idx, out4), 20),
         queued_ms=cuda_ms(torch, lambda: k_lut.launch_ext(cl2, combo, set_idx, out4), 20,
@@ -1241,6 +1296,7 @@ def cooc_and_windows(torch, np, ops, k_lut, k_topk, k_rerank, eng, batches, dev,
     kernels.append(dict(
         name="ext_lut", route="cuda", source=f"{SRC_ROOT}/csrc/ext_lut.cu",
         replaces="src/repro/kernels/lut_build.py:110", launches=n9, max_abs_err=err,
+        variant="gtab" if k_lut.ext_table_in_place(l9.shape[1]) else "shared",
         ms=cuda_ms(torch, lambda: k_lut.launch_ext(l9, c9[None], None, out9), 50),
         queued_ms=cuda_ms(torch, lambda: k_lut.launch_ext(l9, c9[None], None, out9), 50,
                           queued=True),
@@ -1407,6 +1463,7 @@ def onehot_pairs_row(torch, np, ops, k_topk, ceng, cplan, ext, lut_row, kp, regs
     row = dict(
         name="adc_topk_pairs_onehot", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_pairs.cu",
         replaces="src/repro/kernels/adc_topk.py:642", launches=n7, max_abs_err=0.0,
+        variant=pairs_variant(k_topk, tables, addrs, kp),
         ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lib, 3),
         library_call="each row's uint16 addresses sorted, tables.gather(1, windows).sum(-1), "
@@ -1560,6 +1617,7 @@ def onehot_topk_flat_row(torch, ops, k_topk, tables, codes, regs, k=K) -> dict:
     row = dict(
         name="adc_topk_flat_onehot", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
         replaces="src/repro/kernels/adc_topk.py:702", launches=n6, max_abs_err=0.0,
+        variant=block_variant(k_topk, k_topk.topk_plan([q_n], [n], k, 1, w, tables.shape[1])),
         ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lambda: chunked_topk(torch, tables, addr_sorted, n, k,
                                                        1 << 22), 2),
@@ -1666,6 +1724,8 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         kernels.append(dict(
             name=label, route="cuda", source=f"{SRC_ROOT}/csrc/adc_scan.cu",
             replaces="src/repro/kernels/adc_scan.py:81", launches=n8, max_abs_err=err,
+            variant="gtab" if k_scan.table_in_place(table.numel(), k_topk.code_format(src),
+                                                    src.shape[1]) else "shared",
             ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out, path), 20),
             queued_ms=cuda_ms(torch, lambda: k_scan.launch(table, src, out, path), 20,
                               queued=True),
@@ -1714,6 +1774,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         kernels.append(dict(
             name=f"adc_topk_q{q_n}_k{k}", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
             replaces="src/repro/kernels/adc_topk.py:702", launches=n6, max_abs_err=err,
+            variant=block_variant(k_topk, k_topk.topk_plan([q_n], [n], k, 0, M, tab.shape[1])),
             ms=ms, queued_ms=queued, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib_ms,
             library_call="tables[:, codes + m * 256].sum(-1) then torch.topk(largest=False) "
@@ -1793,6 +1854,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     kernels.append(dict(
         name="adc_topk_pairs", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_pairs.cu",
         replaces="src/repro/kernels/adc_topk.py:642", launches=n7, max_abs_err=err,
+        variant=pairs_variant(k_topk, tables, addrs, kp),
         ms=ms7, queued_ms=queued7, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lib_pairs, 3),
         library_call="tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
@@ -1883,6 +1945,8 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     kernels.append(dict(
         name="adc_topk_flat_search", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk.cu",
         replaces="src/repro/kernels/adc_topk.py:702", launches=flat_launches["adc_topk"],
+        variant=block_variant(k_topk, k_topk.topk_plan(counts, rows_c, K, 0, M,
+                                                       lsorted.shape[1])),
         max_abs_err=err, ms=b6_kernel_ms, queued_ms=b6_queued_ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(torch, lib_flat, 3),
@@ -2096,7 +2160,8 @@ def lm_serve(torch, np, ops, k_flash, k_lut, k_rerank, dev, seed: int) -> list:
     ms32 = cuda_ms(torch, lambda: k_flash.launch(qf, k, v, out32, scale, 0, LM_PROMPT), 10)
     fmas, n_bytes32 = flash_work(qf, LM_PROMPT, kvh)[1:]
     row.update(peaked=peaked, f32_q=dict(
-        max_abs_err=err32, ms=ms32, kernel=k_flash.kernel_attributes(hd, torch.float32, k.dtype),
+        max_abs_err=err32, ms=ms32, variant=k_flash.kernel_variant(hd, qf, k, v),
+        kernel=k_flash.kernel_attributes(hd, torch.float32, k.dtype),
         bound_tc_ms=flash_bound_tc_ms(n_bytes32, fmas,
                                       k_flash.tf32_passes(torch.float32, k.dtype))[0]))
     log(phase="lm_flash_kernel", **{k_: v_ for k_, v_ in row.items() if k_ != "source"})
@@ -2687,6 +2752,7 @@ def flash_row(torch, ops, k_flash, q, k, v, kv_valid: int, launches: int) -> tup
     pairs, fmas, n_bytes = flash_work(q, kv_valid, kvh)
     bms, by = bound_ms(n_bytes, fmas)
     passes = k_flash.tf32_passes(q.dtype, k.dtype)
+    variant = k_flash.kernel_variant(hd, q, k, v)
     tc_ms, tc_by = flash_bound_tc_ms(n_bytes, fmas, passes)
     row = dict(
         name="flash_attention_fwd", route="cuda", source=f"{SRC_ROOT}/csrc/flash_attn.cu",
@@ -2696,12 +2762,361 @@ def flash_row(torch, ops, k_flash, q, k, v, kv_valid: int, launches: int) -> tup
         library_call="F.scaled_dot_product_attention(q, k, v, is_causal=True, "
                      "enable_gqa=True) in f32 on (B, H, S, hd) copies, k / v cut to kv_valid",
         bound_tc_ms=tc_ms, bound_tc_by=tc_by, tf32_passes=dict(qk=passes[0], pv=passes[1]),
-        kernel=k_flash.kernel_attributes(hd, q.dtype, k.dtype),
+        variant=variant,
+        kernel=k_flash.kernel_attributes(hd, q.dtype, k.dtype, variant),
         shape=dict(q=list(q.shape), kv=list(k.shape), q_dtype=str(q.dtype)[6:],
                    kv_dtype=str(k.dtype)[6:], kv_valid=kv_valid, causal_pairs=pairs,
                    fmas=fmas, bytes=n_bytes),
     )
     return row, got
+
+
+def wide_scan_launches(torch, k_topk, tables, lut_row, codes, plan, dv):
+    """B2 / B5 launchers for `plan`'s pairs with every pair its own query and
+    no bounds (each pair's exact top-k): `launch(scan, k, block)` enqueues
+    the scan at k into fresh outputs with the block `block` (a `scan_plan`
+    dict) and returns them."""
+    dev = codes.device
+    ndev, p = plan.pair_q.shape
+    pair_slot = torch.as_tensor(plan.pair_slot, device=dev).long()
+    pair_valid = torch.as_tensor(plan.pair_valid, device=dev)
+    nv = torch.where(pair_valid, dv["slot_size"].gather(1, pair_slot), 0).int().reshape(-1)
+    st = dv["slot_start"].gather(1, pair_slot).int().reshape(-1)
+    own_q = torch.arange(ndev * p, dtype=torch.int32, device=dev)
+    no_lb = torch.full((ndev * p,), -torch.inf, device=dev)
+    no_b = torch.full((ndev * p,), torch.inf, device=dev)
+    tiles = [torch.as_tensor(a, device=dev) for a in
+             (plan.tile_pair, plan.tile_block, plan.tile_row0)]
+    t0, t1, order_t = k_topk.pair_runs(tiles[0], p)
+    tb, tr = tiles[1].int().reshape(-1), tiles[2].int().reshape(-1)
+    filled = torch.nonzero((lut_row >= 0) & (nv > 0)).flatten().int()
+
+    def launch(scan, k, block):
+        ov = torch.full((ndev * p, k), torch.inf, device=dev)
+        oi = torch.full((ndev * p, k), -1, dtype=torch.int32, device=dev)
+        os_ = torch.zeros((ndev * p, 2), dtype=torch.int32, device=dev)
+        sq = no_b.clone()
+        if scan == "tiles":
+            k_topk.launch(tables, lut_row, codes, order_t, t0, t1, tb, tr, nv, own_q, no_lb,
+                          no_b, sq, ov, oi, os_, k, BLOCK_N, plan=block)
+        else:
+            k_topk.launch_windows(tables, lut_row, codes, filled, st, nv, own_q, no_lb, no_b,
+                                  sq, ov, oi, os_, k, BLOCK_N, plan=block)
+        return ov, oi
+
+    return launch
+
+
+def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs) -> list:
+    """B6, B7 and B8 past their shared-memory blocks: a full uint16
+    direct-address table (`DOMAIN_TABLE` entries, 256 KB: read in place) under
+    `DOMAIN_ROWS` rows of W = 16 (B8; B6 at Q = 4, k = 10; B7 on 30 windows
+    of 65,536 rows at k = `DOMAIN_K`, spilled too), and B6 spilled at k =
+    `DOMAIN_K` on raw uint8 codes of the index (`codes_raw`, one table).
+    Each bit-equal to its plain version, timed as the other rows are.
+    Returns the rows."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    a, n, w = DOMAIN_TABLE, DOMAIN_ROWS, 16
+    tables = torch.rand(4, a, device=dev, generator=g)
+    tables[:, -1] = 0.0
+    addrs = torch.randint(0, a, (n, w), device=dev, generator=g).to(torch.uint16)
+    cols = torch.arange(M, device=dev) * 256
+    rows = []
+
+    def counted(kname, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if ops.launches[kname] != 1:
+            raise RuntimeError(f"domain: {kname} launched {ops.launches[kname]} times")
+        return out
+
+    def timed_plain(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def addr16(s0, s1):
+        return addrs[s0:s1].view(torch.int16).long() & 0xFFFF
+
+    def row(name, source, replaces, variant, got, want, plain_ms, launch, n_bytes, n_ops,
+            lib, library_call, fmt=None, **shape):
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise RuntimeError(f"domain: {name} is not bit-equal to its plain version")
+        bms, by = bound_ms(n_bytes, n_ops)
+        rows.append(dict(
+            name=name, route="cuda", source=f"{SRC_ROOT}/csrc/{source}", replaces=replaces,
+            launches=1, max_abs_err=0.0, variant=variant, ms=cuda_ms(torch, launch, 5),
+            queued_ms=cuda_ms(torch, launch, 5, queued=True), plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib, 2),
+            library_call=library_call, shape=shape,
+            registers=None if fmt is None else topk_registers(regs, "adc_topk_wide_kernel",
+                                                              fmt, 16, 1)))
+
+    # B8 over the 65,536-entry table, read in place
+    table = tables[0].contiguous()
+    got = counted("adc_scan", lambda: ops.adc_scan_flat(table, addrs))
+    want, plain_ms = timed_plain(lambda: k_scan.adc_scan_plain(table, addrs))
+    out8 = torch.empty_like(got)
+
+    def lib8():
+        for s0 in range(0, n, 1 << 22):
+            out8[s0 : s0 + (1 << 22)] = table[addr16(s0, s0 + (1 << 22))].sum(-1)
+
+    row("adc_scan_gtab", "adc_scan.cu", "src/repro/kernels/adc_scan.py:81",
+        "gtab" if k_scan.table_in_place(a, 1, w) else "shared", (got,), (want,), plain_ms,
+        lambda: k_scan.launch(table, addrs, out8), n * w * 2 + n * 4 + a * 4, n * w, lib8,
+        "table[addresses].sum(-1) in 4M-row chunks", rows=n, width=w, table_width=a)
+    del got, want
+
+    # B6 at Q = 4, k = 10 over the same table (read in place)
+    plan6 = k_topk.topk_plan([4], [n], K, 1, w, a)
+    got = counted("adc_topk", lambda: ops.adc_topk_flat(tables, addrs, K, block_n=BLOCK_N))
+    inf4 = torch.full((4,), torch.inf, device=dev)
+    want, plain_ms = timed_plain(lambda: k_topk.adc_topk_plain(tables, addrs, inf4, K, BLOCK_N))
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    row("adc_topk_gtab", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:702",
+        block_variant(k_topk, plan6), got, want, plain_ms,
+        lambda: k_topk.launch_topk(tables, addrs, None, ov, oi, K, BLOCK_N, 1, plan=plan6),
+        n * w * 2 + tables.numel() * 4 + 4 * K * 8, 4 * n * w,
+        lambda: chunked_topk(torch, tables, addr16, n, K, 1 << 20),
+        "tables[:, addresses].sum(-1) then torch.topk(largest=False) per 1M-row chunk, "
+        "one more torch.topk over the chunks", fmt=1, queries=4, k=K, rows=n, width=w,
+        table_width=a)
+    del got, want
+
+    # B6 spilled: one raw uint8 table over the index's first DOMAIN_ROWS rows, k = DOMAIN_K
+    raw = codes_raw[:n].contiguous()
+    t1 = table_raw[None].contiguous()
+    plan6s = k_topk.topk_plan([1], [n], DOMAIN_K, 0, M, t1.shape[1])
+    got = counted("adc_topk", lambda: ops.adc_topk(t1, raw, DOMAIN_K, block_n=BLOCK_N))
+    want, plain_ms = timed_plain(lambda: k_topk.adc_topk_plain(
+        t1, raw, inf4[:1], DOMAIN_K, BLOCK_N))
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    row("adc_topk_spill", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:702",
+        block_variant(k_topk, plan6s), got, want, plain_ms,
+        lambda: k_topk.launch_topk(t1, raw, None, ov, oi, DOMAIN_K, BLOCK_N, 1, plan=plan6s),
+        n * M + t1.numel() * 4 + DOMAIN_K * 8, n * M,
+        lambda: chunked_topk(torch, t1, lambda s0, s1: raw[s0:s1].long() + cols, n, DOMAIN_K,
+                             1 << 22),
+        "table[codes + m * 256].sum(-1) then torch.topk(largest=False) per 4M-row chunk, "
+        "one more torch.topk over the chunks", fmt=0, queries=1, k=DOMAIN_K, rows=n, width=M,
+        table_width=t1.shape[1])
+    del got, want, raw
+
+    # B7 on (at most) 30 windows of 65,536 rows over the wide table at k = DOMAIN_K
+    win = 65_536
+    p7 = min(30, n // win)
+    win_addrs = addrs[: p7 * win].reshape(p7, win, w)
+    tab7 = tables.repeat(8, 1)[:p7].contiguous()
+    n_valid = torch.randint(0, win + 1, (p7,), device=dev, generator=g).int()
+    n_valid[:3] = torch.tensor([0, 7, win], dtype=torch.int32, device=dev)[:p7]
+    plan7 = k_topk.topk_plan([1] * p7, [win] * p7, DOMAIN_K, 1, w, a, groups=(1,))
+    got = counted("adc_topk_pairs", lambda: ops.adc_topk_pairs(
+        tab7, win_addrs, n_valid, DOMAIN_K, block_n=BLOCK_N))
+    want, plain_ms = timed_plain(lambda: k_topk.adc_topk_pairs_plain(
+        tab7, win_addrs, n_valid, DOMAIN_K))
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    valid = int(n_valid.sum())
+    lane = torch.arange(win, device=dev)
+
+    def lib7():
+        for s0 in range(0, p7, 4):
+            ad = win_addrs[s0 : s0 + 4].view(torch.int16).long() & 0xFFFF
+            d = tab7[s0 : s0 + 4].gather(1, ad.reshape(ad.shape[0], -1)).reshape(ad.shape)
+            d = torch.where(lane < n_valid[s0 : s0 + 4, None], d.sum(-1), torch.inf)
+            torch.topk(d, DOMAIN_K, dim=1, largest=False)
+
+    row("adc_topk_pairs_wide", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:642",
+        block_variant(k_topk, plan7), got, want, plain_ms,
+        lambda: k_topk.launch_pairs(tab7, win_addrs, n_valid, ov, oi, DOMAIN_K, BLOCK_N,
+                                    plan=plan7),
+        valid * w * 2 + tab7.numel() * 4 + p7 * DOMAIN_K * 8, valid * w, lib7,
+        "tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
+        "torch.topk(largest=False), 4 windows at a time", fmt=1, pairs=p7, window=win, width=w,
+        k=DOMAIN_K, valid_rows=valid, table_width=a)
+    return rows
+
+
+def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, batches,
+                 dev, regs) -> list:
+    """Inputs past the shared-memory blocks and the fast B10 (PR 27), on the
+    main engine and on synthetic tables; every kernel held to its plain
+    version and every end-to-end answer to the plain path.
+
+    End to end: 16 queries under the exact re-rank at k = `DOMAIN_EXACT_K`
+    (k' = 8192: B2 / B5 on their spilled block) on the tiles and the windows
+    scan (counts reset just before each, read just after), equal to each
+    other bit for bit and to the plain path (`plain_path_check`).  Kernels:
+    B2 and B5 at k = `DOMAIN_K` on the pairs of `DOMAIN_QUERIES` queries of
+    the search cell's plan (`check_scan`, with the launches of the run
+    above), their unpruned lists equal to the shared-memory block's at k =
+    4096 on the 4096 entries they share, and the spill's cost forced at k =
+    4096 beside the shared block (unpruned, each pair its own query,
+    bit-equal); `domain_synthetic` (B6, B7, B8 on a 65,536-entry table, B6
+    spilled); B10's general kernel at head dims `DOMAIN_FLASH_HD` (bf16 q,
+    f32 cache, `flash_row`) and at 65,536 row tiles of 128 rows."""
+    from repro_torch.core.index import filter_clusters
+
+    t_phase = time.perf_counter()
+    q16 = batches[1][:16]
+    kp = eng.k_prime(DOMAIN_EXACT_K)
+    e2e, outs = {}, {}
+    for scan in ("tiles", "windows"):
+        eng.scan = scan
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        d, i = eng.search(q16, NPROBE, DOMAIN_EXACT_K)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: v for k, v in ops.launches.items() if v}
+        for kname in ("build_luts", "adc_topk_" + scan, "rerank_dists"):
+            if launches.get(kname, 0) <= 0:
+                raise RuntimeError(f"domain: {kname} was never launched at k = "
+                                   f"{DOMAIN_EXACT_K} on {scan}")
+        if d.shape != (16, DOMAIN_EXACT_K) or not np.isfinite(d).all() or (i < 0).any() \
+                or (np.diff(d, axis=1) < 0).any():
+            raise RuntimeError(f"domain: malformed exact search at k = {DOMAIN_EXACT_K}")
+        outs[scan] = (d, i)
+        e2e[scan] = dict(wall_ms=ms, launches=launches,
+                         variant=block_variant(k_topk, k_topk.scan_plan(kp, M * 256)))
+    eng.scan = "tiles"
+    if not all(np.array_equal(a, b) for a, b in zip(outs["tiles"], outs["windows"])):
+        raise RuntimeError(f"domain: windows differs from tiles at k = {DOMAIN_EXACT_K}")
+    plain_path_check(torch, np, k_lut, k_rerank, eng, q16, DOMAIN_EXACT_K)
+    del outs
+
+    # B2 / B5 at k = DOMAIN_K on the pairs of DOMAIN_QUERIES queries
+    plan = eng.plan_batch(batches[1][:DOMAIN_QUERIES], NPROBE)
+    tables, lut_row = plan_tables(torch, np, ops, eng, plan)[:2]
+    dv = eng._device_put()
+    rows, vs_shared, spill_cost = [], {}, {}
+    launch = wide_scan_launches(torch, k_topk, tables, lut_row, dv["codes"], plan, dv)
+    shared = k_topk.scan_plan(ops.SCAN_K_MAX, tables.shape[1])
+    forced = dict(gtab=False, spill=True, smem=0)
+    for scan, line in (("tiles", 397), ("windows", 592)):
+        row = check_scan(
+            torch, ops, k_topk, name=f"adc_topk_{scan}_spill", scan=scan,
+            source=f"{SRC_ROOT}/csrc/adc_topk_{scan}.cu",
+            replaces=f"src/repro/kernels/adc_topk.py:{line}",
+            launches=e2e[scan]["launches"]["adc_topk_" + scan], tables=tables,
+            lut_row=lut_row, codes=dv["codes"], plan=plan, dv=dv, kp=DOMAIN_K, regs=regs)
+        if row["max_abs_err"] != 0.0 or row["variant"] != "spill":
+            raise RuntimeError(f"domain: {row['name']} is not the bit-equal spilled block")
+        rows.append(row)
+        v8, i8 = launch(scan, DOMAIN_K, k_topk.scan_plan(DOMAIN_K, tables.shape[1]))
+        v4, i4 = launch(scan, ops.SCAN_K_MAX, shared)
+        vf, i_f = launch(scan, ops.SCAN_K_MAX, forced)
+        torch.cuda.synchronize()
+        kk = ops.SCAN_K_MAX
+        if not (torch.equal(v8[:, :kk], v4) and torch.equal(i8[:, :kk], i4)):
+            raise RuntimeError(f"domain: {scan} at k = {DOMAIN_K} differs from the shared "
+                               f"block at k = {ops.SCAN_K_MAX} on the entries they share")
+        if not (torch.equal(vf, v4) and torch.equal(i_f, i4)):
+            raise RuntimeError(f"domain: {scan} spilled at k = {ops.SCAN_K_MAX} differs from "
+                               "the shared block")
+        vs_shared[scan] = dict(entries_compared=int(v4.numel()), equal=True)
+        spill_cost[scan] = dict(
+            k=ops.SCAN_K_MAX, pairs=int(plan.pair_valid.sum()),
+            shared_ms=cuda_ms(torch, lambda: launch(scan, ops.SCAN_K_MAX, shared), 3),
+            spill_ms=cuda_ms(torch, lambda: launch(scan, ops.SCAN_K_MAX, forced), 3))
+        del v8, i8, v4, i4, vf, i_f
+    del tables, lut_row
+
+    # B6, B7, B8 past their blocks
+    idx = eng.index
+    qt = torch.as_tensor(q16[:1], device=dev)
+    _, qmc1 = filter_clusters(dv["centroids"], qt, 1)
+    table_raw = ops.build_luts(dv["codebook"], qmc1.reshape(1, M, -1).contiguous()).reshape(-1)
+    codes_raw = torch.as_tensor(idx.codes[:DOMAIN_ROWS], device=dev)
+    rows += domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs)
+    del codes_raw
+
+    # B10's general kernel: odd head dims and more than 128
+    for hd in DOMAIN_FLASH_HD:
+        q, k, v = flash_inputs(torch, dev, hd, 32, 8, hd)
+        ops.reset_launches()
+        frow, _ = flash_row(torch, ops, k_flash, q, k, v, LM_PROMPT, 1)
+        if frow["variant"] != "general" or ops.launches["flash_attention_fwd"] != 1:
+            raise RuntimeError(f"domain: B10 at hd {hd} did not run the general kernel once")
+        frow["name"] = f"flash_attention_fwd_hd{hd}"
+        rows.append(frow)
+        del q, k, v
+    # 65,536 row tiles (32 query heads on one KV head, 262,144 positions)
+    sq, h, kv_valid = DOMAIN_GRID_POSITIONS, 32, 128
+    gq = torch.Generator(device=dev).manual_seed(65_536)
+    q = torch.randn(1, sq, h, 16, device=dev, generator=gq).bfloat16()
+    k = torch.randn(1, 512, 1, 16, device=dev, generator=gq)
+    v = torch.randn(1, 512, 1, 16, device=dev, generator=gq)
+    got = ops.flash_attention_fwd(q, k, v, scale=0.25, kv_valid=kv_valid)
+    want = k_flash.flash_attention_fwd_plain(q, k, v, 0.25, 0, kv_valid)
+    torch.cuda.synchronize()
+    if not torch.allclose(got.float(), want.float(), **FLASH_BF16_TOL):
+        raise RuntimeError("domain: B10 at 65,536 row tiles disagrees with its plain version")
+    grid = dict(row_tiles=sq * h // 128,
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                variant=k_flash.kernel_variant(16, q, k, v),
+                ms=cuda_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, scale=0.25,
+                                                                  kv_valid=kv_valid), 3))
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    log(phase="domain", exact_k=DOMAIN_EXACT_K, k_prime=kp, end_to_end=e2e,
+        plain_path_equal=True, windows_equal_tiles=True, vs_shared_block=vs_shared,
+        spill_cost=spill_cost, flash_grid=grid,
+        rows=[dict(name=r["name"], variant=r.get("variant"), ms=r["ms"]) for r in rows],
+        seconds=time.perf_counter() - t_phase)
+    return rows
+
+
+def domain_mutable(torch, np, ops, k_lut, k_rerank, k_topk, meng, batches) -> None:
+    """The mutable engine with `DOMAIN_TOMBSTONES` tombstones under the exact
+    re-rank (the fetch depth of k' + tombstones is 8192, past the
+    shared-memory scans): the ids of 16 queries' fetch windows deleted
+    first, then those queries searched (counts reset just before, read just
+    after): no tombstoned id, equal to the plain mutable path."""
+    import dataclasses
+
+    from repro_torch.retrieval import mutation
+
+    t_phase = time.perf_counter()
+    q16 = batches[1][:16]
+    _, window = dataclasses.replace(meng, rerank="off").search(q16, NPROBE, 512)
+    dead = first_unique(np, window[window >= 0])[:DOMAIN_TOMBSTONES]
+    if dead.size < DOMAIN_TOMBSTONES:
+        rest = np.setdiff1d(meng.index.vec_ids[: 4 * DOMAIN_TOMBSTONES], dead)
+        dead = np.concatenate([dead, rest[: DOMAIN_TOMBSTONES - dead.size]])
+    meng.delete(dead)
+    tombs = meng.delta.tombstone_count
+    k_fetch = mutation.fetch_depth(meng, K, tombs)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    e_d, e_i = meng.search(q16, NPROBE, K)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {k: v for k, v in ops.launches.items() if v}
+    if launches.get("adc_topk_tiles", 0) <= 0:
+        raise RuntimeError("domain_mutable: B2 was never launched")
+    if np.isin(e_i, dead).any() or (e_i < 0).any() or not np.isfinite(e_d).all():
+        raise RuntimeError("domain_mutable: a tombstoned id or a missing answer")
+    kd = min(k_fetch, meng.delta.capacity)
+    p_d, p_i = mutable_plain_path(torch, np, k_lut, k_rerank, meng, q16, k_fetch, kd)
+    if not same_outside_ties(np, e_d, e_i, p_d, p_i):
+        raise RuntimeError("domain_mutable: 16 queries differ from the plain path")
+    log(phase="domain_mutable", tombstones=tombs, k_fetch=k_fetch,
+        variant=block_variant(k_topk, k_topk.scan_plan(k_fetch, M * 256)), wall_ms=ms,
+        launches=launches, no_tombstoned_id=True, plain_path_equal=True,
+        seconds=time.perf_counter() - t_phase)
+
+
+def first_unique(np, a):
+    """The distinct values of `a` in order of first appearance."""
+    _, first = np.unique(a, return_index=True)
+    return a[np.sort(first)]
 
 
 def delta_store(delta, dev):
@@ -3030,6 +3445,7 @@ def check_delta_scan(torch, np, ops, k_topk, scan, launches: int) -> dict:
     return dict(
         name="adc_topk_windows", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_windows.cu",
         replaces="src/repro/kernels/adc_topk.py:592", launches=launches, max_abs_err=0.0,
+        variant=block_variant(k_topk, k_topk.scan_plan(kk, scan.tables.shape[1])),
         ms=cuda_ms(torch, launch, 20), queued_ms=cuda_ms(torch, launch, 20, queued=True),
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib_run, 1),
         library_call="per filled pair, its run's tables[pair][addresses].sum(-1) then "
@@ -4363,6 +4779,11 @@ def main(argv=None) -> int:
     kernels += kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev,
                                    direct_codes, direct_tables, regs)
 
+    # == inputs past the shared-memory blocks and B10's fast instances ======
+    kernels += domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng,
+                            batches, dev, regs)
+    torch.cuda.empty_cache()
+
     # == the kernel-geometry autotune (sweep, tuned serving, cache hit) ======
     autotune_phase(torch, np, ops, eng, batches)
 
@@ -4391,6 +4812,7 @@ def main(argv=None) -> int:
     del ceng
     torch.cuda.empty_cache()
     mutable_serving(torch, np, ops, k_lut, k_rerank, meng, ds, batches, dev, args.seed)
+    domain_mutable(torch, np, ops, k_lut, k_rerank, k_topk, meng, batches)
     del meng
     torch.cuda.empty_cache()
 

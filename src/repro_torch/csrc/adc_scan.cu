@@ -23,7 +23,11 @@
 // What bounds it on an H100: bytes.  Each row is read once (16 B at M = 16
 // raw codes) and its distance written once (4 B): 2.0 GB for 100M rows,
 // 0.60 ms at 3.35 TB/s.  The table is read once per block (16 KB), and the
-// W lookups per row are shared-memory gathers.
+// W lookups per row are shared-memory gathers.  A table wider than a
+// block's 227 KB of shared memory (uint16 addresses reach 65,536 entries,
+// 256 KB) is not staged: the GTAB instantiation reads it where it lies,
+// each lookup a load through the L1 and L2, the same sums in the same
+// order.
 
 #include "adc_topk_common.cuh"
 
@@ -31,30 +35,34 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool GTAB>
 __global__ void __launch_bounds__(THREADS)
 adc_scan_kernel(const float* __restrict__ table,   // (A,)
                 const CodeT* __restrict__ codes,   // (N, W)
                 float* __restrict__ out,           // (N,)
                 long long n, int w_rt, int table_width) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* tab = reinterpret_cast<float*>(smem);
-  const int tw = OFFSETS && WT > 0 ? WT * NCODES : table_width;
+  const float* tab = table;
+  if constexpr (!GTAB) {
+    float* staged = reinterpret_cast<float*>(smem);
+    const int tw = OFFSETS && WT > 0 ? WT * NCODES : table_width;
+    for (int i = threadIdx.x; i < tw; i += THREADS) staged[i] = table[i];
+    __syncthreads();
+    tab = staged;
+  }
   const int W = WT > 0 ? WT : w_rt;
-  for (int i = threadIdx.x; i < tw; i += THREADS) tab[i] = table[i];
-  __syncthreads();
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   for (long long r = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; r < n;
        r += stride)
     out[r] = adc_row<CodeT, OFFSETS, WT, SORT>(tab, codes + static_cast<size_t>(r) * W, W);
 }
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool GTAB>
 int launch(const float* table, const void* codes, float* out, long long n, int w,
            int table_width, cudaStream_t stream) {
   const int tw = OFFSETS && WT > 0 ? WT * NCODES : table_width;
-  const size_t smem = static_cast<size_t>(tw) * 4;
-  auto kernel = adc_scan_kernel<CodeT, OFFSETS, WT, SORT>;
+  const size_t smem = GTAB ? 0 : static_cast<size_t>(tw) * 4;
+  auto kernel = adc_scan_kernel<CodeT, OFFSETS, WT, SORT, GTAB>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, n_sm = 0, per_sm = 0;
@@ -76,16 +84,24 @@ int launch(const float* table, const void* codes, float* out, long long n, int w
 
 // table (table_width,) f32; codes (n, w) in `code_fmt` (0 uint8 raw +
 // column offsets, 1 uint16, 2 int32 direct addresses); onehot nonzero for
-// the onehot path; out (n,) f32.  Returns cudaGetLastError() after the
-// launch.
+// the onehot path; gtab nonzero: the table is read from device memory
+// where it lies (a table wider than a block's shared memory; the L1 and L2
+// hold its hot lines), else staged in each block's shared memory; out
+// (n,) f32.  Returns cudaGetLastError() after the launch.
 extern "C" int adc_scan_launch(const void* table, const void* codes, void* out,
                                long long n, int w, int table_width, int code_fmt,
-                               int onehot, void* stream) {
+                               int onehot, int gtab, void* stream) {
   if (n <= 0) return 0;
-#define REPRO_SCAN_LAUNCH(CodeT, OFF, WT, SORT)                                    \
-  launch<CodeT, OFF, WT, SORT>(static_cast<const float*>(table), codes,                 \
-                         static_cast<float*>(out), n, w, table_width,             \
-                         static_cast<cudaStream_t>(stream))
+#define REPRO_SCAN_ARGS                                                     \
+  static_cast<const float*>(table), codes, static_cast<float*>(out), n, w, \
+      table_width, static_cast<cudaStream_t>(stream)
+#define REPRO_SCAN_LAUNCH(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT, false>(REPRO_SCAN_ARGS)
+#define REPRO_SCAN_GTAB(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT, true>(REPRO_SCAN_ARGS)
+  if (gtab) {
+    REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_SCAN_GTAB)
+  }
   REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_SCAN_LAUNCH)
+#undef REPRO_SCAN_GTAB
 #undef REPRO_SCAN_LAUNCH
+#undef REPRO_SCAN_ARGS
 }

@@ -57,8 +57,16 @@
 // 80GB HBM3): a warp-wide lookup at random addresses takes 3.16 SM clocks
 // as LDS.32, 2.91 per entry as LDS.64 and 2.54 per entry as LDS.128, so
 // four tables interleaved cost 0.80x of four scalar lookups.
+//
+// The WIDE block (adc_topk_wide.cu, one table a unit) is this block run on
+// `WideArgs`: under spill its list and merge buffer live in device memory,
+// under gtab the unit's table is read where it lies (`multi_smem_wide`,
+// `stages_tables`).  Every function the shared-memory block runs keeps its
+// code: the WIDE parts are overloads and branches on the arguments' type.
 
 #pragma once
+
+#include <type_traits>
 
 #include "adc_topk_common.cuh"
 
@@ -95,6 +103,15 @@ struct MultiArgs {
   int n_units, n_q, n_rows, w, table_width, k, block_n;
 };
 
+// The WIDE block's arguments (G = 1): gtab reads each unit's table where it
+// lies; spill keeps the list and its merge buffer in wide_* ((G + 1) * k
+// entries a block) instead of shared memory.
+struct WideArgs : MultiArgs {
+  int gtab, spill;
+  float* wide_v;
+  int* wide_i;
+};
+
 struct Unit {
   long long row0;
   int n_rows, q0, nq;
@@ -123,9 +140,18 @@ __host__ __device__ __forceinline__ int multi_table_width(int table_width, int w
 }
 
 // Dynamic shared memory of a block: G tables, G top-k lists and one merge
-// buffer (k), one pass of candidates (PASS = 1024 at most).
-inline size_t multi_smem_bytes(int g, int a_used, int k) {
-  return (static_cast<size_t>(g) * a_used + 2 * static_cast<size_t>(g) * k + 2 * k + 2 * PASS) * 4;
+// buffer (k), one pass of candidates (PASS = 1024 at most).  The WIDE
+// block leaves out the tables under gtab and the lists under spill.
+inline size_t multi_smem_bytes(int g, int a_used, int k, bool gtab = false, bool spill = false) {
+  return (static_cast<size_t>(gtab ? 0 : g) * a_used +
+          (spill ? 0 : 2 * static_cast<size_t>(g) * k + 2 * k) + 2 * PASS) * 4;
+}
+
+inline size_t args_smem_bytes(const MultiArgs& a, int g, int a_used) {
+  return multi_smem_bytes(g, a_used, a.k);
+}
+inline size_t args_smem_bytes(const WideArgs& a, int g, int a_used) {
+  return multi_smem_bytes(g, a_used, a.k, a.gtab, a.spill);
 }
 
 // Exclusive prefix sum of v over the block (and the total), `red` holding
@@ -280,6 +306,54 @@ __device__ __forceinline__ MultiSmem multi_smem(unsigned char* smem, int a_used,
   s.cand_i = reinterpret_cast<int*>(s.cand_v + PASS);
   return s;
 }
+
+// The WIDE block's layout (`multi_smem_bytes` with gtab / spill): no table
+// under gtab (the scan reads each unit's table row where it lies), the
+// lists in this block's (G + 1) * k entries of wide_* under spill.  Every
+// merge and store runs on these generic pointers unchanged: each write to a
+// list is followed by a block barrier before any read, which orders global
+// memory within the block as it does shared memory.
+template <int G>
+__device__ __forceinline__ MultiSmem multi_smem_wide(unsigned char* smem, const WideArgs& a,
+                                                     int a_used) {
+  const int k = a.k;
+  MultiSmem s;
+  float* p = reinterpret_cast<float*>(smem);
+  s.table = a.gtab ? nullptr : p;
+  p += a.gtab ? 0 : static_cast<size_t>(G) * a_used;
+  if (a.spill) {
+    const size_t base = static_cast<size_t>(blockIdx.x) * (G + 1) * k;
+    s.top_v = a.wide_v + base;
+    s.top_i = a.wide_i + base;
+    s.nxt_v = s.top_v + G * k;
+    s.nxt_i = s.top_i + G * k;
+  } else {
+    s.top_v = p;
+    s.top_i = reinterpret_cast<int*>(s.top_v + G * k);
+    s.nxt_v = reinterpret_cast<float*>(s.top_i + G * k);
+    s.nxt_i = reinterpret_cast<int*>(s.nxt_v + k);
+    p = reinterpret_cast<float*>(s.nxt_i + k);
+  }
+  s.cand_v = p;
+  s.cand_i = reinterpret_cast<int*>(s.cand_v + PASS);
+  return s;
+}
+
+template <int G>
+__device__ __forceinline__ MultiSmem smem_layout(unsigned char* smem, const MultiArgs& a,
+                                                 int a_used) {
+  return multi_smem<G>(smem, a_used, a.k);
+}
+template <int G>
+__device__ __forceinline__ MultiSmem smem_layout(unsigned char* smem, const WideArgs& a,
+                                                 int a_used) {
+  return multi_smem_wide<G>(smem, a, a_used);
+}
+
+// Whether a run stages its unit's tables in shared memory: always, but for
+// the WIDE block under gtab.
+__device__ __forceinline__ constexpr bool stages_tables(const MultiArgs&) { return true; }
+__device__ __forceinline__ bool stages_tables(const WideArgs& a) { return !a.gtab; }
 
 // The G entries of address `addr` added to the G sums.
 template <int G>
@@ -503,9 +577,10 @@ __device__ __forceinline__ void multi_collect(const MultiSmem& s, const float (&
 }
 
 // Scan tiles [ta, tz) of unit `un` into the block's G lists (ascending by
-// (distance, row), rows numbered from the unit's row0).
-template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT>
-__device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un, long long ta,
+// (distance, row), rows numbered from the unit's row0).  The WIDE block
+// under gtab passes s.table pointing at the unit's table row itself.
+template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT, typename Args>
+__device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long long ta,
                          long long tz, int* s_ncand, float* s_red, float* s_bound) {
   constexpr int R = multi_rows<CodeT, WT>();
   constexpr int P = R * THREADS;
@@ -514,7 +589,7 @@ __device__ void scan_run(const MultiArgs& a, const MultiSmem& s, const Unit& un,
   const int W = WT > 0 ? WT : a.w;
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
   __syncthreads();  // the previous run's readers of the tables and lists are done
-  {
+  if (stages_tables(a)) {
     const float* t0 = a.tables + static_cast<size_t>(un.q0) * a.table_width;
 #pragma unroll 4
     for (int e = tid; e < a_used; e += THREADS) {
@@ -733,8 +808,8 @@ __device__ void finish_run(const MultiArgs& a, const MultiSmem& s, const Unit& u
 
 // The block's whole work: total the units' tiles, take tiles
 // [b * T / nb, (b + 1) * T / nb), scan and finish every run in them.
-template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT>
-__device__ void topk_multi(const MultiArgs& a) {
+template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT, typename Args>
+__device__ void topk_multi(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long s_start[THREADS];
   __shared__ int s_cnt[THREADS];
@@ -744,7 +819,7 @@ __device__ void topk_multi(const MultiArgs& a) {
   __shared__ int s_ncand, s_last;
   const int tid = threadIdx.x;
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
-  const MultiSmem s = multi_smem<G>(smem, a_used, a.k);
+  const MultiSmem s = smem_layout<G>(smem, a, a_used);
   const long long bn = a.block_n;
 
   long long part = 0;
@@ -773,7 +848,15 @@ __device__ void topk_multi(const MultiArgs& a) {
       if (count == 0 || start + count <= tb) continue;
       const Unit un = unit_at<G>(a, c0 + j);
       const long long ta = max(tb, start) - start, tz = min(te, start + count) - start;
-      scan_run<CodeT, OFFSETS, WT, G, SORT>(a, s, un, ta, tz, &s_ncand, s_red, s_bound);
+      if constexpr (std::is_same<Args, WideArgs>::value) {
+        static_assert(G == 1, "the WIDE block scans one table a unit");
+        MultiSmem su = s;
+        if (a.gtab)  // read in place, never written: staging is skipped
+          su.table = const_cast<float*>(a.tables + static_cast<size_t>(un.q0) * a.table_width);
+        scan_run<CodeT, OFFSETS, WT, G, SORT>(a, su, un, ta, tz, &s_ncand, s_red, s_bound);
+      } else {
+        scan_run<CodeT, OFFSETS, WT, G, SORT>(a, s, un, ta, tz, &s_ncand, s_red, s_bound);
+      }
       const long long first = ((start + 1) * nb - 1) / T;
       const long long last = ((start + count) * nb - 1) / T;
       finish_run<G>(a, s, un, c0 + j, first, last, &s_ncand, &s_last);
@@ -791,10 +874,10 @@ inline cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename Kernel>
-inline int launch_multi_kernel(Kernel kernel, const MultiArgs& a, int g, int n_blocks,
-                               int a_used, cudaStream_t stream) {
-  const size_t smem = multi_smem_bytes(g, a_used, a.k);
+template <typename Kernel, typename Args>
+inline int launch_multi_kernel(Kernel kernel, const Args& a, int g, int n_blocks, int a_used,
+                               cudaStream_t stream) {
+  const size_t smem = args_smem_bytes(a, g, a_used);
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<n_blocks, THREADS, smem, stream>>>(a);
@@ -802,8 +885,9 @@ inline int launch_multi_kernel(Kernel kernel, const MultiArgs& a, int g, int n_b
 }
 
 template <typename Kernel>
-inline int multi_blocks_per_sm(Kernel kernel, int g, int a_used, int k) {
-  const size_t smem = multi_smem_bytes(g, a_used, k);
+inline int multi_blocks_per_sm(Kernel kernel, int g, int a_used, int k, bool gtab = false,
+                               bool spill = false) {
+  const size_t smem = multi_smem_bytes(g, a_used, k, gtab, spill);
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;

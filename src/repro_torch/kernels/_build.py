@@ -47,23 +47,24 @@ SIGNATURES = {
     # threads, smem; stream
     "lut_build_wide_launch": [_P] * 4 + [_I] * 12 + [_P],
     # luts, set_idx (may be null), caddr, out, n_rows, ma, n_combos,
-    # combo_len, t_pad, stream
-    "ext_lut_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # combo_len, t_pad, gtab, stream
+    "ext_lut_launch": [_P] * 4 + [_I] * 6 + [_P],
     # tables, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
     # tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v, out_i, stats,
     # n_pairs, pairs_per_dev, cap, w, table_width, code_fmt, onehot, k,
-    # block_n, stream
-    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L, _I, _I, _I, _I, _I, _I, _P],
+    # block_n, gtab, spill, nxt_v, nxt_i, max_blocks, stream
+    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L] + [_I] * 8 + [_P, _P, _I, _P],
     # tables, lut_row, codes, pair_order, starts, n_valid, pair_q, pair_lb,
     # bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
-    # table_width, code_fmt, onehot, k, block_n, stream
-    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L, _I, _I, _I, _I, _I, _I, _P],
+    # table_width, code_fmt, onehot, k, block_n, gtab, spill, nxt_v, nxt_i,
+    # max_blocks, stream
+    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L] + [_I] * 8 + [_P, _P, _I, _P],
     # queries, cand, id_dev, id_row, row_base, vectors, out, q, k, d,
     # ids_cap, ndev, vec_is_bf16, plan (`rerank.PLAN_FIELDS` of
     # `rerank.launch_plan`, an int array), stream
     "rerank_launch": [_P] * 7 + [_I] * 6 + [_P, _P],
-    # table, codes, out, n, w, table_width, code_fmt, onehot, stream
-    "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # table, codes, out, n, w, table_width, code_fmt, onehot, gtab, stream
+    "adc_scan_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     # tables, codes, bound (may be null), units (may be null), out_v, out_i,
     # part_v, part_i, tickets, n_units, n_q, n_rows, w, table_width,
     # code_fmt, onehot, k, block_n, g, n_blocks, stream
@@ -76,12 +77,19 @@ SIGNATURES = {
     "adc_topk_pairs_launch": [_P] * 8 + [_I, _L] + [_I] * 7 + [_P],
     # code_fmt, onehot, w, table_width, k
     "adc_topk_pairs_blocks_per_sm": [_I] * 5,
+    # tables, codes, bound, units, n_valid (each may be null but tables and
+    # codes), out_v, out_i, part_v, part_i, tickets, wide_v, wide_i,
+    # win_len, n_units, n_q, n_rows, w, table_width, code_fmt, onehot, k,
+    # block_n, gtab, spill, n_blocks, stream
+    "adc_topk_wide_launch": [_P] * 12 + [_L] + [_I] * 12 + [_P],
+    # code_fmt, onehot, w, table_width, k, gtab, spill
+    "adc_topk_wide_blocks_per_sm": [_I] * 7,
     # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
-    # kv_is_bf16, scale, stream
-    "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
-    # hd, q_is_bf16, kv_is_bf16, out (3 ints: registers, spill bytes,
-    # dynamic shared memory bytes)
-    "flash_attn_attributes": [_I, _I, _I, _P],
+    # kv_is_bf16, scale, general, stream
+    "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
+    # hd, q_is_bf16, kv_is_bf16, general, out (3 ints: registers, spill
+    # bytes, dynamic shared memory bytes)
+    "flash_attn_attributes": [_I, _I, _I, _I, _P],
 }
 
 

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.adc_topk import (
+    SMEM_BUDGET,
     code_format,
     gatherable,
     sum_columns,
@@ -40,14 +41,24 @@ def adc_scan_plain(table: torch.Tensor, codes: torch.Tensor, path: str = "gather
     return out
 
 
+def table_in_place(table_width: int, fmt: int, w: int) -> bool:
+    """Whether the kernel reads the table where it lies (its GTAB
+    instantiation): the entries the codes address (W * 256 for raw codes)
+    do not fit a block's `SMEM_BUDGET` bytes of shared memory."""
+    used = w * 256 if fmt == 0 else table_width
+    return used * 4 > SMEM_BUDGET
+
+
 def launch(table: torch.Tensor, codes: torch.Tensor, out: torch.Tensor,
            path: str = "gather") -> None:
     """Enqueue `csrc/adc_scan.cu` on the current stream (checked inputs:
-    table (A,), codes (N, W), out (N,); `path` picks the instantiation)."""
+    table (A,), codes (N, W), out (N,); `path` picks the instantiation, the
+    width the table's place, `table_in_place`)."""
     n, w = codes.shape
+    fmt = code_format(codes)
     err = _build.library().adc_scan_launch(
         table.data_ptr(), codes.data_ptr(), out.data_ptr(), n, w, table.shape[0],
-        code_format(codes), int(path == "onehot"),
+        fmt, int(path == "onehot"), int(table_in_place(table.shape[0], fmt, w)),
         torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check(err, "adc_scan")

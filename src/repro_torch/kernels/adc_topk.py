@@ -4,12 +4,17 @@ windows): run planning, plain versions, CUDA launchers.
 
 The CUDA sources are `csrc/adc_topk_tiles.cu`, `csrc/adc_topk_windows.cu`,
 `csrc/adc_topk.cu` and `csrc/adc_topk_pairs.cu` (their common device code
-in `csrc/adc_topk_common.cuh`, B6 / B7's block in `csrc/adc_topk_multi.cuh`);
-`ops.adc_topk_tiles`, `ops.adc_topk_windows`, `ops.adc_topk` /
-`ops.adc_topk_flat` / `ops.adc_topk_grouped` and `ops.adc_topk_pairs` are
-the wrappers.  B6 / B7 are planned here on every device: `topk_group_size`
-(tables per block, and the refusals), `topk_units`, and `run_plan` (the
-Python twin of how the kernel cuts tiles into runs).  For B2 and B5, arrays
+in `csrc/adc_topk_common.cuh`, B6 / B7's block in `csrc/adc_topk_multi.cuh`,
+its WIDE instantiations in `csrc/adc_topk_wide.cu`); `ops.adc_topk_tiles`,
+`ops.adc_topk_windows`, `ops.adc_topk` / `ops.adc_topk_flat` /
+`ops.adc_topk_grouped` and `ops.adc_topk_pairs` are the wrappers.  Every
+scan takes any k >= 1 and any table width: `scan_plan` (B2 / B5) and
+`topk_plan` (B6 / B7: G, tables per block, too) keep the shared-memory
+blocks wherever their lists (k <= `SCAN_K_MAX`) and tables fit, and else
+pick the WIDE block, whose lists spill to device memory and whose table
+is read where it lies when too wide (`wide_layout`).  B6 / B7 are planned
+here on every device: `topk_plan`, `topk_units`, and `run_plan` (the Python
+twin of how the kernel cuts tiles into runs).  For B2 and B5, arrays
 carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
 codes (ndev, cap, W), the tile queue (ndev, T) from
 `core.scheduling.emit_tiles`, and the per-pair arrays (ndev, P).  A flat
@@ -100,8 +105,9 @@ def code_format(codes: torch.Tensor) -> int:
     return fmt
 
 
-# largest k of B2 and B5: the top-k list and its merge buffer (4k floats)
-# live in the block's shared memory beside the table
+# largest k of the shared-memory blocks of B2 / B5 / B6 / B7, whose top-k
+# lists and merge buffer (4k floats) live in shared memory beside the
+# tables; a larger k runs the WIDE block, its lists in device memory
 SCAN_K_MAX = 4096
 # shared memory one H100 block may use (227 KB), and what the scan blocks
 # declare statically beside the dynamic part
@@ -112,19 +118,46 @@ _SCAN_PASS = 1024
 
 
 def scan_smem(k: int, table_width: int) -> int:
-    """Dynamic shared memory of a B2 / B5 block (csrc `scan_smem_bytes`: the
-    table, the top-k lists (4k), the candidates), after checking the scans'
-    domain: raises ValueError for k outside [1, SCAN_K_MAX] and for a table
-    too wide to sit in `SMEM_BUDGET` bytes beside them."""
-    if not 1 <= k <= SCAN_K_MAX:
-        raise ValueError(f"k={k} outside [1, {SCAN_K_MAX}] (SCAN_K_MAX)")
-    smem = (table_width + 4 * k + 2 * _SCAN_PASS) * 4
-    if smem + _STATIC_SMEM > SMEM_BUDGET:
-        raise ValueError(
-            f"a table of {table_width} floats and k={k} need {smem} B of shared "
-            f"memory, over {SMEM_BUDGET}"
-        )
-    return smem
+    """Dynamic shared memory of the shared-memory B2 / B5 block (csrc
+    `scan_smem_bytes`): the table, the top-k list and its merge buffer
+    (4k), the candidates."""
+    return (table_width + 4 * k + 2 * _SCAN_PASS) * 4
+
+
+def wide_layout(k: int, table_width: int, static: int) -> dict:
+    """Where the WIDE block keeps what no longer fits: `spill` (k past
+    SCAN_K_MAX: the list and its merge buffer in device memory) and `gtab`
+    (the table read where it lies, when it does not fit in `SMEM_BUDGET`
+    beside what stays); `smem` the dynamic shared memory that is left
+    (csrc `scan_wide_smem_bytes` / `multi_smem_bytes` at G = 1)."""
+    spill = k > SCAN_K_MAX
+    lists = 0 if spill else 4 * k
+    gtab = (table_width + lists + 2 * _SCAN_PASS) * 4 + static > SMEM_BUDGET
+    return dict(gtab=gtab, spill=spill,
+                smem=((0 if gtab else table_width) + lists + 2 * _SCAN_PASS) * 4)
+
+
+def _check_k(k: int) -> None:
+    if k < 1:
+        raise ValueError(f"k={k} < 1")
+
+
+def scan_plan(k: int, table_width: int) -> dict:
+    """How a B2 / B5 launch holds a pair of `table_width` table entries at
+    this k: the shared-memory block (`gtab` and `spill` False, `smem` from
+    `scan_smem`) when k <= SCAN_K_MAX and everything fits `SMEM_BUDGET`,
+    else the WIDE block (`wide_layout`).  Raises ValueError for k < 1,
+    which the reference does not serve either."""
+    _check_k(k)
+    smem = scan_smem(k, table_width)
+    if k <= SCAN_K_MAX and smem + _STATIC_SMEM <= SMEM_BUDGET:
+        return dict(gtab=False, spill=False, smem=smem)
+    return wide_layout(k, table_width, _STATIC_SMEM)
+
+
+def wide(plan: dict) -> bool:
+    """Whether a plan runs the WIDE block."""
+    return plan["gtab"] or plan["spill"]
 
 
 def gatherable(codes: torch.Tensor) -> torch.Tensor:
@@ -259,14 +292,33 @@ def adc_topk_tiles_plain(
     return top_v, top_i, stats
 
 
+# resident blocks an SM can hold of a 256-thread scan block: the most a
+# WIDE B2 / B5 grid launches, so its spill buffers are sized by it
+_SCAN_BLOCKS_PER_SM = 8
+
+
+def _scan_wide_args(plan: dict, dev: torch.device, k: int) -> tuple:
+    """The launchers' trailing (gtab, spill, nxt_v, nxt_i, max_blocks): under
+    spill, one k-entry merge buffer a block of at most `_SCAN_BLOCKS_PER_SM`
+    per SM (the workspace, not the pairs, bounds it)."""
+    if not plan["spill"]:
+        return int(plan["gtab"]), 0, None, None, 0
+    blocks = _build.sm_count(dev) * _SCAN_BLOCKS_PER_SM
+    buf_v, buf_i, _ = _workspace(dev, blocks * k, 0)
+    return int(plan["gtab"]), 1, buf_v.data_ptr(), buf_i.data_ptr(), blocks
+
+
 def launch(
     luts, lut_row, codes, order, t0, t1, tile_block, tile_row0, n_valid, pair_q,
     pair_lb, bound, sq, out_v, out_i, stats, k: int, block_n: int, path: str = "gather",
+    plan: dict | None = None,
 ) -> None:
     """Enqueue `csrc/adc_topk_tiles.cu` on the current stream (checked inputs;
-    `luts` (R, A) contiguous; `path` picks the instantiation)."""
+    `luts` (R, A) contiguous; `path` picks the instantiation, `plan` from
+    `scan_plan` (default: the plan of this k and width) the block)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
+    plan = plan or scan_plan(k, luts.shape[1])
     err = _build.library().adc_topk_tiles_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
         t0.data_ptr(), t1.data_ptr(), tile_block.data_ptr(), tile_row0.data_ptr(),
@@ -274,6 +326,7 @@ def launch(
         bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         stats.data_ptr(), n_pairs, n_pairs // ndev, cap, w, luts.shape[1],
         code_format(codes), int(path == "onehot"), k, block_n,
+        *_scan_wide_args(plan, luts.device, k),
         torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_tiles")
@@ -316,17 +369,21 @@ def adc_topk_windows_plain(
 def launch_windows(
     luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound, sq,
     out_v, out_i, stats, k: int, block_n: int, path: str = "gather",
+    plan: dict | None = None,
 ) -> None:
     """Enqueue `csrc/adc_topk_windows.cu` on the current stream (checked
-    inputs): one block per entry of `order` (the filled pairs)."""
+    inputs): one block per entry of `order` (the filled pairs), or the WIDE
+    block's persistent grid over them (`plan` as `launch`)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
+    plan = plan or scan_plan(k, luts.shape[1])
     err = _build.library().adc_topk_windows_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
         starts.data_ptr(), n_valid.data_ptr(), pair_q.data_ptr(),
         pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), stats.data_ptr(), order.shape[0], n_pairs // ndev, cap,
         w, luts.shape[-1], code_format(codes), int(path == "onehot"), k, block_n,
+        *_scan_wide_args(plan, luts.device, k),
         torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_windows")
@@ -361,25 +418,26 @@ def topk_smem(g: int, k: int, a_used: int) -> int:
     return (g * a_used + 2 * g * k + 2 * k + 2 * _SCAN_PASS) * 4
 
 
-def topk_group_size(
+def topk_plan(
     nq, rows, k: int, fmt: int, w: int, table_width: int, groups=TOPK_GROUPS
-) -> int:
-    """G, the tables one B6 / B7 block scans together, for one launch whose
-    groups have nq[i] tables over rows[i] rows each.
+) -> dict:
+    """How one B6 / B7 launch runs, for groups of nq[i] tables over rows[i]
+    rows each: {"g", "gtab", "spill", "smem"}.
 
-    Of the G in `groups` whose block fits `SMEM_BUDGET` (G tables beside
-    their lists), the one of least modelled time: per unit of G tables,
-    its rows times the larger of their code bytes over the HBM rate and
-    their W * G lookups at `_LOOKUP_CLOCKS[G]`.  The same on every device;
-    raises ValueError for k outside [1, SCAN_K_MAX] and for a table too wide
-    to fit even with G = 1 -- the refusal the card would meet.
+    With k <= SCAN_K_MAX, of the G in `groups` whose shared-memory block
+    fits `SMEM_BUDGET` (G tables beside their lists), the one of least
+    modelled time: per unit of G tables, its rows times the larger of their
+    code bytes over the HBM rate and their W * G lookups at
+    `_LOOKUP_CLOCKS[G]`.  When none fits, or k is larger, the WIDE block
+    at G = 1 (`wide_layout`: the lists spilled past SCAN_K_MAX, the table
+    read where it lies when too wide).  The same on every device; raises
+    ValueError for k < 1 only.
     """
-    if not 1 <= k <= SCAN_K_MAX:
-        raise ValueError(f"k={k} outside [1, {SCAN_K_MAX}] (ADC_TOPK_K_MAX)")
+    _check_k(k)
     a_used = topk_table_width(fmt, w, table_width)
     item = (1, 2, 4)[fmt]
     best = best_cost = None
-    for g in groups:
+    for g in groups if k <= SCAN_K_MAX else ():
         if topk_smem(g, k, a_used) + _MULTI_STATIC_SMEM > SMEM_BUDGET:
             continue
         per_row = max(w * item / _HBM_BYTES_PER_S,
@@ -387,13 +445,16 @@ def topk_group_size(
         cost = sum(-(-int(q) // g) * int(r) for q, r in zip(nq, rows)) * per_row
         if best is None or cost < best_cost:
             best, best_cost = g, cost
-    if best is None:
-        smem = topk_smem(min(groups), k, a_used) + _MULTI_STATIC_SMEM
-        raise ValueError(
-            f"a table of {a_used} floats and k={k} need {smem} B of shared memory, "
-            f"over {SMEM_BUDGET}"
-        )
-    return best
+    if best is not None:
+        return dict(g=best, gtab=False, spill=False, smem=topk_smem(best, k, a_used))
+    return dict(g=1, **wide_layout(k, a_used, _MULTI_STATIC_SMEM))
+
+
+def topk_group_size(
+    nq, rows, k: int, fmt: int, w: int, table_width: int, groups=TOPK_GROUPS
+) -> int:
+    """G, the tables one B6 / B7 block scans together (`topk_plan`)."""
+    return topk_plan(nq, rows, k, fmt, w, table_width, groups)["g"]
 
 
 def topk_units(row_offsets, table_offsets, g: int) -> torch.Tensor:
@@ -532,19 +593,50 @@ def _grid(dev: torch.device, name: str, *args: int) -> int:
         name, *args)
 
 
+def _launch_wide(tables, codes, bound, units, n_valid, out_v, out_i, k: int, block_n: int,
+                 plan: dict, n_units: int, win_len: int, path: str) -> None:
+    """Enqueue `csrc/adc_topk_wide.cu` (the WIDE block at G = 1) for B6
+    (`units` or None, `n_valid` None) or B7 (`n_valid`, `win_len`)."""
+    q_n = tables.shape[0]
+    dev = tables.device
+    w, fmt = codes.shape[-1], code_format(codes)
+    onehot = int(path == "onehot")
+    gtab, spill = int(plan["gtab"]), int(plan["spill"])
+    n_blocks = _grid(dev, "adc_topk_wide_blocks_per_sm", fmt, onehot, w, tables.shape[1], k,
+                     gtab, spill)
+    part = (n_blocks + n_units) * k
+    buf_v, buf_i, tickets = _workspace(dev, part + spill * n_blocks * 2 * k,
+                                       n_blocks + 2 * n_units)
+    err = _build.library().adc_topk_wide_launch(
+        tables.data_ptr(), codes.data_ptr(), None if bound is None else bound.data_ptr(),
+        None if units is None else units.data_ptr(),
+        None if n_valid is None else n_valid.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        buf_v.data_ptr(), buf_i.data_ptr(), tickets.data_ptr(),
+        buf_v[part:].data_ptr(), buf_i[part:].data_ptr(), win_len, n_units, q_n,
+        codes.shape[0], w, tables.shape[1], fmt, onehot, k, block_n, gtab, spill, n_blocks,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "adc_topk_wide")
+
+
 def launch_topk(
     tables, codes, bound, out_v, out_i, k: int, block_n: int, g: int, units=None,
-    path: str = "gather",
+    path: str = "gather", plan: dict | None = None,
 ) -> None:
-    """Enqueue `csrc/adc_topk.cu` on the current stream (checked inputs:
-    tables (Q, A), codes (N, W), bound (Q,) or None, out (Q, k), `g` from
-    `topk_group_size`; `units` a (n_units, 4) int32 tensor on the card from
-    `topk_units`, or None for ceil(Q / g) units over all N rows): one
+    """Enqueue `csrc/adc_topk.cu` (or, for a WIDE `plan` from `topk_plan`,
+    `adc_topk_wide.cu`; None: the shared-memory block at G = g) on the
+    current stream (checked inputs: tables (Q, A), codes (N, W), bound (Q,)
+    or None, out (Q, k); `units` a (n_units, 4) int32 tensor on the card
+    from `topk_units`, or None for ceil(Q / g) units over all N rows): one
     launch, its split lists merged inside it."""
     q_n, n = tables.shape[0], codes.shape[0]
     dev = tables.device
     w, fmt = codes.shape[1], code_format(codes)
     n_units = -(-q_n // g) if units is None else units.shape[0]
+    if plan is not None and wide(plan):
+        _launch_wide(tables, codes, bound, units, None, out_v, out_i, k, block_n, plan,
+                     n_units, 0, path)
+        return
     onehot = int(path == "onehot")
     n_blocks = _grid(dev, "adc_topk_blocks_per_sm", fmt, onehot, w, tables.shape[1], k, g)
     part_v, part_i, tickets = _workspace(dev, (n_blocks + n_units) * g * k,
@@ -589,13 +681,18 @@ def adc_topk_pairs_plain(
 
 
 def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int,
-                 path: str = "gather") -> None:
-    """Enqueue `csrc/adc_topk_pairs.cu` on the current stream (checked
-    inputs: tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)
+                 path: str = "gather", plan: dict | None = None) -> None:
+    """Enqueue `csrc/adc_topk_pairs.cu` (or, for a WIDE `plan` from
+    `topk_plan`, `adc_topk_wide.cu`) on the current stream (checked inputs:
+    tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)
     pre-filled with (+inf, -1)): one launch, each pair's valid tiles cut
     into runs across the grid and merged inside it."""
     p, win, w = addrs.shape
     dev = tables.device
+    if plan is not None and wide(plan):
+        _launch_wide(tables, addrs, None, None, n_valid, out_v, out_i, k, block_n, plan, p,
+                     win, path)
+        return
     fmt = code_format(addrs)
     onehot = int(path == "onehot")
     n_blocks = _grid(dev, "adc_topk_pairs_blocks_per_sm", fmt, onehot, w, tables.shape[1], k)

@@ -14,9 +14,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-# head dims the kernel is instantiated for (every GQA config in the
+# head dims the fast kernel is instantiated for (every GQA config in the
 # registry: 128 for qwen3 / yi / mistral / phi3.5-moe / llava, 112 for
-# zamba2's shared block, 96 for phi3-mini, 64 for musicgen, 16 reduced)
+# zamba2's shared block, 96 for phi3-mini, 64 for musicgen, 16 reduced);
+# every other head dim, and tensors not 16-byte aligned, take the general
+# kernel (`kernel_variant`)
 HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 
 
@@ -28,11 +30,14 @@ def tf32_passes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> tuple[int, int]:
     return 1 + f32q + f32kv, 2 + f32kv
 
 
-def check_head_dim(hd: int) -> None:
-    """Raise ValueError unless the kernel is instantiated for head dim `hd`;
-    the wrapper calls it on every device, the plain version included."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {hd} not in {HEAD_DIMS}")
+def kernel_variant(hd: int, *tensors: torch.Tensor) -> str:
+    """The CUDA kernel a call runs: "fast" (the `cp.async` ring, head dims
+    of `HEAD_DIMS`, every tensor 16-byte aligned) or "general" (any head
+    dim and offset: element copies, the head dim in slices, output columns
+    in blocks on the grid)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return "fast" if hd in HEAD_DIMS and aligned else "general"
+
 
 
 def online_softmax_step(qg, kc, vc, mask, m, l, acc, s_eq, pv_eq):
@@ -133,25 +138,29 @@ def flash_hbm_bytes_per_layer(
     return q_o + kv
 
 
-def kernel_attributes(hd: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> dict:
+def kernel_attributes(hd: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                      variant: str = "fast") -> dict:
     """The kernel instance's registers, spilled (local) bytes per thread and
-    dynamic shared memory bytes, from the CUDA runtime (builds the library)."""
-    check_head_dim(hd)
+    dynamic shared memory bytes, from the CUDA runtime (builds the library);
+    `variant` as `kernel_variant` gives it."""
     out = (ctypes.c_int * 3)()
     err = _build.library().flash_attn_attributes(
-        hd, int(q_dtype == torch.bfloat16), int(kv_dtype == torch.bfloat16), out)
+        hd, int(q_dtype == torch.bfloat16), int(kv_dtype == torch.bfloat16),
+        int(variant == "general"), out)
     _build.check(err, "flash_attn_attributes")
     return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
 
 
 def launch(q, k, v, out, scale: float, q_offset: int, kv_valid: int) -> None:
-    """Enqueue `csrc/flash_attn.cu` on the current stream (checked inputs)."""
+    """Enqueue `csrc/flash_attn.cu` on the current stream (checked inputs;
+    the kernel `kernel_variant` picks)."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    general = kernel_variant(hd, q, k, v, out) == "general"
     err = _build.library().flash_attn_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh,
         hd, q_offset, kv_valid, int(q.dtype == torch.bfloat16),
-        int(k.dtype == torch.bfloat16), float(scale),
+        int(k.dtype == torch.bfloat16), float(scale), int(general),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attn")

@@ -14,6 +14,7 @@ from fractions import Fraction
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.adc_topk import SMEM_BUDGET
 
 NCODES = 256
 # sub-vector widths with a kernel of their own (`lut_build_kernel<DSUB>`);
@@ -184,6 +185,13 @@ def ext_lut_plain(luts: torch.Tensor, combo_addrs: torch.Tensor, t_pad: int) -> 
     return _ext_plain(luts, combo_addrs[None], None, t_pad)
 
 
+def ext_table_in_place(ma: int) -> bool:
+    """Whether B4 / B9 read the row's table of `ma` floats where it lies
+    (their GTAB instantiation) instead of a copy in shared memory: M >= 228
+    sub-spaces no longer fit a block's 227 KB."""
+    return ma * 4 > SMEM_BUDGET
+
+
 def launch_ext(
     luts: torch.Tensor, combo_addrs: torch.Tensor, set_idx: torch.Tensor | None,
     out: torch.Tensor,
@@ -196,6 +204,7 @@ def launch_ext(
     err = _build.library().ext_lut_launch(
         luts.data_ptr(), None if set_idx is None else set_idx.data_ptr(),
         combo_addrs.data_ptr(), out.data_ptr(), r, ma, n_combos, combo_len,
-        out.shape[1], torch.cuda.current_stream(luts.device).cuda_stream,
+        out.shape[1], int(ext_table_in_place(ma)),
+        torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "ext_lut")

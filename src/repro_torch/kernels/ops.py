@@ -49,11 +49,10 @@ launches = {
     "adc_topk_tiles": 0, "adc_topk_windows": 0, "rerank_dists": 0,
     "adc_scan": 0, "adc_topk": 0, "adc_topk_pairs": 0, "flash_attention_fwd": 0,
 }
-# largest k of B2 and B5 (`adc_topk.scan_smem` checks it)
+# the largest k of B2 / B5's shared-memory block (`adc_topk.scan_plan`);
+# a larger k runs their WIDE block, with the lists in device memory
 SCAN_K_MAX = _topk.SCAN_K_MAX
-# largest k of B6 and B7 (the top-k lists and their merge buffer live in the
-# block's shared memory beside the tables; `adc_topk.topk_group_size`
-# checks it, and the width of the tables)
+# the same for B6 / B7 (`adc_topk.topk_plan`)
 ADC_TOPK_K_MAX = _topk.SCAN_K_MAX
 
 
@@ -239,12 +238,12 @@ def adc_topk_tiles(
     (ndev, P, 2) int32 [tiles skipped, rows avoided]).  Pairs that emitted
     no tiles, or have no table, read (+inf, -1) and (0, 0).
 
-    Domain (the same refusals on every device): 1 <= k <= `SCAN_K_MAX`
-    (4096: the list and its merge buffer live in the block's shared
-    memory), and the block's table of A floats must fit beside them in 227
-    KB of shared memory (`adc_topk.scan_smem`), so a direct-address table
-    wider than about 39,600 entries at k = 4096 (55,800 at k = 64) raises
-    ValueError.
+    Any k >= 1 and any table width.  On the card `adc_topk.scan_plan`
+    picks the block: the shared-memory block up to k = `SCAN_K_MAX` (4096)
+    with a table that fits beside the list in 227 KB (39,664 entries at k
+    = 4096, 55,792 at k = 64), else the WIDE block (the list spilled to
+    device memory past 4096, a wider table read where it lies); the same
+    answer either way.
     """
     _check_path(path, "adc_topk_tiles")
     single = codes.dim() == 2
@@ -265,7 +264,7 @@ def adc_topk_tiles(
     lut_row = lut_row.reshape(-1)
     if cap % block_n:
         raise ValueError(f"code capacity {cap} is not a multiple of block_n={block_n}")
-    _topk.scan_smem(k, luts.shape[1])
+    plan = _topk.scan_plan(k, luts.shape[1])
     for name, t in (("tile_pair", tile_pair), ("tile_block", tile_block),
                     ("tile_row0", tile_row0)):
         if t.dim() != 2 or t.shape[0] != ndev or t.shape != tile_pair.shape:
@@ -303,7 +302,7 @@ def adc_topk_tiles(
         sq = bound.clone()
         _topk.launch(
             luts, lut_row, codes, order, t0, t1, tile_block, tile_row0, n_valid,
-            pair_q, pair_lb, bound, sq, vals, idx, stats, k, block_n, path,
+            pair_q, pair_lb, bound, sq, vals, idx, stats, k, block_n, path, plan,
         )
         launches["adc_topk_tiles"] += 1
     vals = vals.reshape(ndev, p, k)
@@ -341,10 +340,8 @@ def adc_topk_windows(
 
     Returns ((ndev, P, k) f32 distances, (ndev, P, k) int32 window rows,
     (ndev, P, 2) int32 [tiles skipped, rows avoided]); other pairs read
-    (+inf, -1) and (0, 0).  Domain as `adc_topk_tiles`: 1 <= k <=
-    `SCAN_K_MAX` (4096) and a table that fits beside the lists in 227 KB of
-    shared memory (`adc_topk.scan_smem`), refused with ValueError on every
-    device.
+    (+inf, -1) and (0, 0).  Any k >= 1 and table width, the block picked
+    as for `adc_topk_tiles` (`adc_topk.scan_plan`).
     """
     _check_path(path, "adc_topk_windows")
     single = codes.dim() == 2
@@ -363,7 +360,7 @@ def adc_topk_windows(
             raise ValueError(f"{name}: shape {tuple(t.shape)} != ({ndev}, {p})")
     if cap % block_n:
         raise ValueError(f"code capacity {cap} is not a multiple of block_n={block_n}")
-    _topk.scan_smem(k, luts.shape[1])
+    plan = _topk.scan_plan(k, luts.shape[1])
 
     def i32(t):
         return t.to(device=dev, dtype=torch.int32).contiguous().reshape(-1)
@@ -394,7 +391,7 @@ def adc_topk_windows(
         sq = bound.clone()
         _topk.launch_windows(
             luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound,
-            sq, vals, idx, stats, k, block_n, path,
+            sq, vals, idx, stats, k, block_n, path, plan,
         )
         launches["adc_topk_windows"] += 1
     vals, idx, stats = vals.reshape(ndev, p, k), idx.reshape(ndev, p, k), stats.reshape(ndev, p, 2)
@@ -466,11 +463,9 @@ def _check_codes(codes: torch.Tensor, name: str, ndim: int, direct: bool, dev) -
     return fmt
 
 
-def _check_geometry(block_n: int, k: int | None, n_rows: int) -> None:
+def _check_geometry(block_n: int, n_rows: int) -> None:
     if block_n < 1:
         raise ValueError(f"block_n={block_n} < 1")
-    if k is not None and not 1 <= k <= ADC_TOPK_K_MAX:
-        raise ValueError(f"k={k} outside [1, {ADC_TOPK_K_MAX}] (ADC_TOPK_K_MAX)")
     # a B6 / B7 pass forms row indices up to 1024 (its rows) past the last row
     if n_rows + max(block_n, 1024) >= 2**31:
         raise ValueError(f"{n_rows} rows: row indices are int32")
@@ -479,7 +474,7 @@ def _check_geometry(block_n: int, k: int | None, n_rows: int) -> None:
 def _run_scan(table: torch.Tensor, codes: torch.Tensor, block_n: int, path: str,
               name: str) -> torch.Tensor:
     _check_path(path, name)
-    _check_geometry(block_n, None, 0)
+    _check_geometry(block_n, 0)
     if not _on_gpu(table.device):
         return _scan.adc_scan_plain(table, codes, path)
     out = torch.empty((codes.shape[0],), dtype=torch.float32, device=table.device)
@@ -524,7 +519,7 @@ def _run_topk(tables, codes, k, block_n, path, bound, name, groups=None):
     dev = codes.device
     _check_path(path, name)
     q_n, n = tables.shape[0], codes.shape[0]
-    _check_geometry(block_n, k, n)
+    _check_geometry(block_n, n)
     if bound is not None:
         bound = bound.to(device=dev, dtype=torch.float32).contiguous()
         if bound.shape != (q_n,):
@@ -536,7 +531,7 @@ def _run_topk(tables, codes, k, block_n, path, bound, name, groups=None):
         r_off, t_off = groups
         nq = [b - a for a, b in zip(t_off[:-1], t_off[1:])]
         rows = [b - a for a, b in zip(r_off[:-1], r_off[1:])]
-    g = _topk.topk_group_size(nq, rows, k, fmt, w, tables.shape[1])
+    plan = _topk.topk_plan(nq, rows, k, fmt, w, tables.shape[1])
     if not _on_gpu(dev):
         if bound is None:
             bound = torch.full((q_n,), torch.inf, dtype=torch.float32, device=dev)
@@ -545,11 +540,12 @@ def _run_topk(tables, codes, k, block_n, path, bound, name, groups=None):
         return _topk.adc_topk_grouped_plain(tables, codes, bound, k, block_n, *groups, path)
     out_v = torch.full((q_n, k), torch.inf, dtype=torch.float32, device=dev)
     out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=dev)
-    units = None if groups is None else _topk.topk_units(*groups, g)
+    units = None if groups is None else _topk.topk_units(*groups, plan["g"])
     if q_n and n and (units is None or units.shape[0]):
         if units is not None:
             units = units.to(dev)
-        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n, g, units, path)
+        _topk.launch_topk(tables, codes, bound, out_v, out_i, k, block_n, plan["g"], units,
+                          path, plan)
         launches["adc_topk"] += 1
     return out_v, out_i
 
@@ -571,13 +567,10 @@ def adc_topk(
     distance is <= bound[q] (+inf: every tile).  Returns the k smallest rows
     of the merged tiles by (distance, row): ((Q, k) f32 ascending, (Q, k)
     int32 row indices), (+inf, -1) in lanes without a row.  One kernel
-    launch on the card.
-
-    Domain: 1 <= k <= `ADC_TOPK_K_MAX` (4096: the lists and their merge
-    buffer sit in shared memory beside the tables), and a table that fits
-    beside them (`adc_topk.topk_group_size`); either refusal raises
-    ValueError on every device, where the reference's Pallas kernel takes
-    any k.
+    launch on the card, for any k >= 1 and table width: `adc_topk.topk_plan`
+    picks the shared-memory block (k <= `ADC_TOPK_K_MAX`, tables that fit)
+    or the WIDE one (lists in device memory, a wide table read where it
+    lies).
     """
     dev = codes.device
     _check_codes(codes, "codes", 2, False, dev)
@@ -595,10 +588,9 @@ def adc_topk_flat(
     bound: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`adc_topk` over direct addresses (kernel B6): ext_luts (Q, A) f32,
-    addrs (N, W) uint16 / int32 addresses into each table.  Domain as
-    `adc_topk`: 1 <= k <= `ADC_TOPK_K_MAX` (4096) and a table of A floats
-    that fits in shared memory (a uint16 address space of 65,536 entries
-    does not), else ValueError on every device."""
+    addrs (N, W) uint16 / int32 addresses into each table (a uint16
+    address space of 65,536 entries too: the WIDE block reads a table too
+    wide for shared memory where it lies)."""
     dev = addrs.device
     _check_codes(addrs, "addrs", 2, True, dev)
     _check(ext_luts, "ext_luts", torch.float32, 2, dev)
@@ -664,17 +656,15 @@ def adc_topk_pairs(
     multiple of block_n, as the reference asserts); n_valid (P,) valid rows
     of each window.  Returns per pair the k smallest of its valid rows by
     (distance, row): ((P, k) f32, (P, k) int32 window rows), (+inf, -1) in
-    lanes without a row.  One kernel launch on the card.  Domain: 1 <= k
-    <= `ADC_TOPK_K_MAX` (4096) and a table that fits in shared memory beside
-    the lists (`adc_topk.topk_group_size` with one table), else ValueError
-    on every device.
+    lanes without a row.  One kernel launch on the card, for any k >= 1 and
+    table width (`adc_topk.topk_plan` with one table a block).
     """
     dev = addrs.device
     _check_path(path, "adc_topk_pairs")
     _check_codes(addrs, "addrs", 3, True, dev)
     _check(tables, "tables", torch.float32, 2, dev)
     p, win, w = addrs.shape
-    _check_geometry(block_n, k, win)
+    _check_geometry(block_n, win)
     if tables.shape[0] != p or n_valid.shape != (p,):
         raise ValueError(
             f"adc_topk_pairs: tables {tuple(tables.shape)}, addrs {tuple(addrs.shape)}, "
@@ -682,15 +672,15 @@ def adc_topk_pairs(
         )
     if win % block_n:
         raise ValueError(f"window length {win} is not a multiple of block_n={block_n}")
-    _topk.topk_group_size([1] * p, [win] * p, k, _topk.code_format(addrs), w,
-                          tables.shape[1], groups=(1,))
+    plan = _topk.topk_plan([1] * p, [win] * p, k, _topk.code_format(addrs), w,
+                           tables.shape[1], groups=(1,))
     n_valid = n_valid.to(device=dev, dtype=torch.int32).contiguous()
     if not _on_gpu(dev):
         return _topk.adc_topk_pairs_plain(tables, addrs, n_valid, k, path)
     out_v = torch.full((p, k), torch.inf, dtype=torch.float32, device=dev)
     out_i = torch.full((p, k), -1, dtype=torch.int32, device=dev)
     if p:
-        _topk.launch_pairs(tables, addrs, n_valid, out_v, out_i, k, block_n, path)
+        _topk.launch_pairs(tables, addrs, n_valid, out_v, out_i, k, block_n, path, plan)
         launches["adc_topk_pairs"] += 1
     return out_v, out_i
 
@@ -714,11 +704,10 @@ def flash_attention_fwd(
     + i and j < kv_valid (default Sk).  Returns (B, Sq, H, hd) in q's dtype;
     a row with no live key is 0.  `bq` / `bk` are the reference's block
     sizes: clipped to Sq / Sk, they must divide them, as there; the plain
-    version runs on them and the kernel tiles on its own.
-
-    Domain: head dims in `flash_attn.HEAD_DIMS` (16, 32, 64, 96, 112, 128), the
-    kernel's instantiations; any other raises ValueError on every device
-    (`flash_attn.check_head_dim`), so the CPU refuses what the card would.
+    version runs on them and the kernel tiles on its own.  Any head dim and
+    any element offset: the card runs the fast kernel for the head dims of
+    `flash_attn.HEAD_DIMS` on 16-byte aligned tensors and the general one
+    for the rest (`flash_attn.kernel_variant`).
     """
     dev = q.device
     floats = (torch.float32, torch.bfloat16)
@@ -739,7 +728,8 @@ def flash_attention_fwd(
     bq, bk = min(bq, sq), min(bk, sk)
     if bq <= 0 or bk <= 0 or sq % bq or sk % bk:
         raise ValueError(f"blocks (bq={bq}, bk={bk}) do not divide (Sq={sq}, Sk={sk})")
-    _flash.check_head_dim(hd)
+    if hd < 1:
+        raise ValueError(f"flash_attention_fwd: head dim {hd} < 1")
     if dev.type == "meta":
         # the dry run: an output of the kernel's shape, and the kernel's own
         # work (its bound's FLOPs, its byte model) in `meta_work`
@@ -751,8 +741,6 @@ def flash_attention_fwd(
         return torch.empty(q.shape, dtype=q.dtype, device=dev)
     if not _on_gpu(dev):
         return _flash.flash_attention_fwd_plain(q, k, v, scale, q_offset, kv_valid, bq, bk)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_fwd kernel: q, k, v must be 16-byte aligned")
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _flash.launch(q, k, v, out, scale, q_offset, kv_valid)
     launches["flash_attention_fwd"] += 1

@@ -145,12 +145,8 @@ def fetch_depth(engine: "MemANNSEngine", k: int, tombstones: int,
                 overfetch: int | None = None) -> int:
     """The main path's candidate count under mutation (the reference's
     rule): k + overfetch (default k) when tombstones exist, else k; with
-    rerank="exact", the pow2 bucket of k' + tombstones (floor k').
-
-    Raises ValueError past `ops.SCAN_K_MAX` (ROADMAP C5): B2 and B5 keep
-    their lists in shared memory, so past about 4032 tombstones at k' = 64
-    the port refuses on every device where the reference still serves;
-    compaction lifts the limit."""
+    rerank="exact", the pow2 bucket of k' + tombstones (floor k').  Any
+    depth: past `ops.SCAN_K_MAX` the scans run their WIDE block."""
     from repro_torch.retrieval.engine import round_capacity
 
     over = k + (overfetch if overfetch is not None else k)
@@ -160,12 +156,6 @@ def fetch_depth(engine: "MemANNSEngine", k: int, tombstones: int,
         k_fetch = round_capacity(max(base, over if tombstones else 0), floor=kp)
     else:
         k_fetch = over if tombstones else k
-    if k_fetch > ops.SCAN_K_MAX:
-        raise ValueError(
-            f"{tombstones} tombstones need a fetch depth of {k_fetch} candidates, over "
-            f"the scans' SCAN_K_MAX = {ops.SCAN_K_MAX} (ROADMAP.md C5); compact() "
-            "the engine to drop them"
-        )
     return k_fetch
 
 

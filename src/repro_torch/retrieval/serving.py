@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.delta import DeltaIndex, delta_topk_rows, merge_results
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build
 from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
 from repro_torch.retrieval.engine import MemANNSEngine, SearchPlan, round_capacity
@@ -516,14 +516,6 @@ class ServingEngine:
             int(tombstone_limit) if tombstone_limit is not None
             else max(64, (engine.delta.capacity if engine.delta else delta_capacity) // 4)
         )
-        # the deepest fetch this config dispatches
-        k_max = (self.k + self.overfetch if self.mutable and engine.rerank != "exact"
-                 else self._k_fetch())
-        if k_max > ops.SCAN_K_MAX:
-            raise ValueError(
-                f"overfetch {self.overfetch} needs a fetch depth of {k_max} candidates, over "
-                f"the scans' SCAN_K_MAX = {ops.SCAN_K_MAX} (ROADMAP.md C5)"
-            )
         # the server's own stream: its dispatches queue behind each other,
         # while the next batch's cluster filter and delta scan run on the
         # default stream

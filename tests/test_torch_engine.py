@@ -27,6 +27,7 @@ from repro_torch.core import index as tindex  # noqa: E402
 from repro_torch.core import pq as tpq  # noqa: E402
 from repro_torch.core.index import search as port_flat_search  # noqa: E402
 from repro_torch.core.placement import place_clusters  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.retrieval.engine import MemANNSEngine  # noqa: E402
 
 NPROBE, K, BLOCK_N = 8, 10, 256
@@ -358,3 +359,21 @@ def test_port_build_quality(engines, clustered_data):
                               generator=torch.Generator().manual_seed(1))
         assert cent.shape == (32, xs.shape[1]) and int(assign.max()) < 32
         assert float(((sample - cent[assign]) ** 2).sum(1).mean()) < 2.0 * inertia(ref.index)
+
+
+def test_exact_rerank_past_scan_k_max(engines, clustered_data):
+    """k = 1100 under the exact re-rank overfetches k' = 4k = 4400 ADC
+    candidates, past the shared-memory scans' SCAN_K_MAX (once refused,
+    ROADMAP C5): the port answers as the reference does, pruned or not."""
+    ref, port1, _ = engines
+    qs = clustered_data[2][:4]
+    k = 1100
+    assert port1.k_prime(k) > ops.SCAN_K_MAX
+    ref.prune, ref.rerank = True, "exact"
+    rd, ri = ref.search(qs, nprobe=32, k=k)
+    for prune in (True, False):
+        port1.prune, port1.rerank = prune, "exact"
+        td, ti = port1.search(qs, nprobe=32, k=k)
+        assert np.isfinite(td).all()
+        np.testing.assert_allclose(td, rd, **TOL)
+        _same_outside_ties(np.asarray(rd), ti, np.asarray(ri))

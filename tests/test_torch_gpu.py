@@ -38,6 +38,12 @@ runs bit for bit.  An OPQ-rotated engine on the card (with inserts)
 equals the CPU engine; a retile, a non-default `rerank_block` and a swept
 geometry change no bit on plain and co-occurrence shards; an engine saved
 from the card loads on the CPU and answers as on the card.
+Past the shared-memory blocks (PR 27): B2 / B5 with their lists spilled
+(k 4097, 8192), a 65,536-entry table read in place, or both, bit-equal
+per pair and equal to the shared block when forced at k = 4096; B6 / B7
+spilled and in place, B8 and B4 / B9 in place, bit-equal; B10's general
+kernel at head dims 8-256 and on unaligned views within the tolerances,
+and its grid at 65,536 row tiles.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -100,13 +106,14 @@ def test_lut_kernel_rows_bit_equal(cuda, dsub, n_pairs):
     assert torch.equal(got, lut_build.build_luts_plain(cb, qmc[rows.long()]))
 
 
-def _tile_case(dev, seed, q=6, nprobe=8, m=16, dsub=8, block_n=128, k=32, spread=1.0):
+def _tile_case(dev, seed, q=6, nprobe=8, m=16, dsub=8, block_n=128, k=32, spread=1.0,
+               tiles=5):
     rng = np.random.default_rng(seed)
     p = q * nprobe
     cb = rng.normal(size=(m, 256, dsub)).astype(np.float32)
     qmc = rng.normal(0, 2, size=(q, nprobe, m * dsub)).astype(np.float32)
     qmc *= (1.0 + spread * np.arange(nprobe, dtype=np.float32))[None, :, None]
-    sizes = rng.integers(0, 5 * block_n, p).astype(np.int32)
+    sizes = rng.integers(0, tiles * block_n, p).astype(np.int32)
     # an empty pair, a pair of 5 rows, and one whose rows are a multiple of
     # neither 32 nor block_n
     sizes[0], sizes[1], sizes[3] = 0, 5, 2 * block_n + 33
@@ -346,6 +353,63 @@ def test_direct_tiles_kernel_matches_plain(cuda, dtype):
     assert torch.equal(kv, rv) and torch.equal(ki, ri)  # sentinel columns add 0.0
 
 
+def _wide_scan_case(dev, k, width, seed=0):
+    """`_tile_case`'s layout with pairs of up to 40 tiles of 256 rows, over
+    uint16 direct addresses into tables `width` wide (the sentinel's 0.0
+    last), when width > 0 (no residual bounds then: pruning rests on the
+    pairs' own k-th alone); raw uint8 codes otherwise."""
+    c = _tile_case(dev, seed, q=4, nprobe=8, m=16, dsub=4, block_n=256, k=k, tiles=40)
+    if width:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        p = c["luts"].shape[0]
+        c["luts"] = torch.rand(p, width, device=dev, generator=g)
+        c["luts"][:, -1] = 0.0
+        c["codes"] = torch.randint(0, width, c["codes"].shape, device=dev,
+                                   generator=g).to(torch.uint16)
+        c["pair_lb"] = torch.full_like(c["pair_lb"], -torch.inf)
+        c["bound"] = torch.full_like(c["bound"], torch.inf)
+    return c
+
+
+@pytest.mark.parametrize("k,width", [(8192, 0), (4097, 4353), (64, 65_536), (8192, 65_536)])
+@pytest.mark.parametrize("scan", ["tiles", "windows"])
+def test_scan_wide_kernels_match_plain(cuda, scan, k, width):
+    """B2 / B5's WIDE block: lists spilled past SCAN_K_MAX, a 65,536-entry
+    table read in place, or both.  Unpruned: bit-equal to the plain version
+    per pair; pruned: the same per-query merge."""
+    c = _wide_scan_case(cuda, k, width)
+    plan = adc_topk.scan_plan(k, c["luts"].shape[1])
+    assert adc_topk.wide(plan) and plan["spill"] == (k > ops.SCAN_K_MAX)
+    run = _run_tiles if scan == "tiles" else _run_windows
+    ops.reset_launches()
+    kv, ki, _ = run(c, bounds=False, plain=False)
+    assert ops.launches["adc_topk_" + scan] == 1
+    pv, pi, _ = run(c, bounds=False, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    bv, bi, _ = run(c, bounds=True, plain=False)
+    for (d1, i1), (d2, i2) in zip(_merge(bv, bi, c["pair_q"], c["q"], c["k"]),
+                                  _merge(kv, ki, c["pair_q"], c["q"], c["k"])):
+        np.testing.assert_array_equal(d1, d2)
+        np.testing.assert_array_equal(i1, i2)
+
+
+def test_scan_spill_at_k_4096_equals_shared_block(cuda, monkeypatch):
+    """The spill forced at k = 4096, where the shared-memory block also
+    runs: the same per-query results (the WIDE block changes where the
+    lists live, not what they hold)."""
+    c = _wide_scan_case(cuda, 4096, 0)
+    shared = _run_tiles(c, bounds=True, plain=False)
+    monkeypatch.setattr(adc_topk, "scan_plan",
+                        lambda k, a: dict(gtab=False, spill=True, smem=2 * 1024 * 4))
+    spilled = _run_tiles(c, bounds=True, plain=False)
+    torch.cuda.synchronize()
+    for (d1, i1), (d2, i2) in zip(_merge(*shared[:2], c["pair_q"], c["q"], c["k"]),
+                                  _merge(*spilled[:2], c["pair_q"], c["q"], c["k"])):
+        np.testing.assert_array_equal(d1, d2)
+        np.testing.assert_array_equal(i1, i2)
+
+
 def test_cooc_engine_on_card_matches_cpu(cuda, clustered_data):
     from repro_torch.retrieval.engine import MemANNSEngine
 
@@ -567,22 +631,101 @@ def test_adc_topk_pairs_kernel_bit_equal(cuda, dtype, k):
 
 @pytest.mark.parametrize("call", ["adc_topk_flat", "adc_topk_grouped", "adc_topk_pairs"])
 def test_topk_table_too_wide_refused_on_card(cuda, call):
-    """A 65,536-entry uint16 direct-address table cannot sit in a block's
-    shared memory: the card refuses it with the CPU's ValueError, before
-    any launch."""
-    tables = torch.zeros(2, 65_536, device=cuda)
-    addrs = torch.zeros(128, 4, dtype=torch.int32, device=cuda).to(torch.uint16)
+    """A 65,536-entry uint16 direct-address table, wider than a block's
+    shared memory: the WIDE block reads it in place, one launch, bit-equal
+    to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = 65_536
+    tables = torch.rand(2, a, device=cuda, generator=g)
+    addrs = torch.randint(0, a, (4096, 16), device=cuda, generator=g).to(torch.uint16)
+    assert adc_topk.topk_plan([1], [4096], 10, 1, 16, a)["gtab"]
     ops.reset_launches()
-    with pytest.raises(ValueError, match="a table of 65536 floats and k=10 need .* B of "
-                                         "shared memory"):
-        if call == "adc_topk_flat":
-            ops.adc_topk_flat(tables, addrs, 10)
-        elif call == "adc_topk_grouped":
-            ops.adc_topk_grouped(tables, addrs, 10, [0, 64, 128], [0, 1, 2])
-        else:
-            ops.adc_topk_pairs(tables, addrs.reshape(2, 64, 4),
-                               torch.tensor([64, 3], device=cuda), 10, block_n=64)
-    assert ops.launches["adc_topk"] == ops.launches["adc_topk_pairs"] == 0
+    if call == "adc_topk_flat":
+        got = ops.adc_topk_flat(tables, addrs, 10)
+        want = adc_topk.adc_topk_plain(tables, addrs, torch.full((2,), torch.inf, device=cuda),
+                                       10, 1024)
+    elif call == "adc_topk_grouped":
+        got = ops.adc_topk_grouped(tables, addrs, 10, [0, 1000, 4096], [0, 1, 2])
+        want = adc_topk.adc_topk_grouped_plain(
+            tables, addrs, torch.full((2,), torch.inf, device=cuda), 10, 1024,
+            [0, 1000, 4096], [0, 1, 2])
+    else:
+        nv = torch.tensor([2048, 3], dtype=torch.int32, device=cuda)
+        got = ops.adc_topk_pairs(tables, addrs.reshape(2, 2048, 16), nv, 10, block_n=256)
+        want = adc_topk.adc_topk_pairs_plain(tables, addrs.reshape(2, 2048, 16), nv, 10)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk"] + ops.launches["adc_topk_pairs"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype,w", TOPK_FORMATS)
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("k", [4097, 8192])
+def test_adc_topk_spill_bit_equal(cuda, dtype, w, q, k):
+    """B6 past the shared-memory block's k (its lists spilled to device
+    memory), with and without a finite bound: bit-equal to the plain
+    version in one launch."""
+    tables, codes = _api_case(cuda, k + q, 100_003, w, dtype, q=q)
+    assert adc_topk.topk_plan([q], [100_003], k, adc_topk.code_format(codes), w,
+                              tables.shape[1])["spill"]
+    inf = torch.full((q,), torch.inf, device=cuda)
+    fn = ops.adc_topk if dtype == torch.uint8 else ops.adc_topk_flat
+    for bound in (None, _tile_bound(tables, codes, 1024, q)):
+        ops.reset_launches()
+        got = fn(tables, codes, k, bound=bound)
+        torch.cuda.synchronize()
+        assert ops.launches["adc_topk"] == 1
+        want = adc_topk.adc_topk_plain(tables, codes, inf if bound is None else bound, k, 1024)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("table_width", [4096 + 40, 65_536])
+def test_adc_topk_pairs_spill_bit_equal(cuda, table_width):
+    """B7 at k = 8192 (spilled lists), with a table that fits and one that
+    does not (spilled and read in place): bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(table_width)
+    p, win, w = 4, 40_960, 16
+    tables = torch.rand(p, table_width, device=cuda, generator=g)
+    addrs = torch.randint(0, table_width, (p, win, w), device=cuda, generator=g).to(torch.uint16)
+    n_valid = torch.tensor([0, 7, win, 9000], dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    got = ops.adc_topk_pairs(tables, addrs, n_valid, 8192, block_n=512)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk_pairs"] == 1
+    want = adc_topk.adc_topk_pairs_plain(tables, addrs, n_valid, 8192)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("path", ["gather", "onehot"])
+def test_adc_scan_wide_table_bit_equal(cuda, path):
+    """B8 over a 65,536-entry table (read in place): bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.rand(65_536, device=cuda, generator=g)
+    codes = torch.randint(0, 65_536, (300_001, 16), device=cuda, generator=g).to(torch.uint16)
+    assert adc_scan.table_in_place(65_536, 1, 16)
+    got = ops.adc_scan_flat(table, codes, path=path)
+    torch.cuda.synchronize()
+    assert torch.equal(got, adc_scan.adc_scan_plain(table, codes, path))
+
+
+def test_ext_lut_wide_table_bit_equal(cuda):
+    """B4 / B9 with M = 232 sub-spaces (a 59,392-float table, wider than a
+    block's shared memory): the combo sums read the table in place."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    r, m, n_combos, length = 9, 232, 300, 3
+    luts = torch.rand(r, m, 256, device=cuda, generator=g)
+    assert lut_build.ext_table_in_place(m * 256)
+    cols = torch.randint(0, m, (n_combos, length), device=cuda, generator=g).int()
+    codes = torch.randint(0, 256, (n_combos, length), device=cuda, generator=g).int()
+    got = ops.build_ext_luts(luts, cols, codes)
+    caddr = (cols * 256 + codes).contiguous()
+    assert torch.equal(got, lut_build.ext_lut_plain(luts.flatten(1), caddr, got.shape[1]))
+    sets = torch.stack([caddr, caddr.flip(0)])
+    set_idx = torch.tensor([0, 1] * 4 + [1], dtype=torch.int32, device=cuda)
+    got = ops.build_ext_luts_pairs(luts, sets, set_idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_build.ext_lut_pairs_plain(luts.flatten(1), sets, set_idx,
+                                                          got.shape[1]))
 
 
 def test_flat_search_on_card_matches_cpu(cuda, clustered_data):
@@ -741,6 +884,50 @@ def test_flash_kernel_no_live_key_is_zero(cuda):
     got = ops.flash_attention_fwd(q, k, k.clone(), scale=0.2, kv_valid=0)
     torch.cuda.synchronize()
     assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", FLASH_DTYPES)
+@pytest.mark.parametrize("hd", [8, 20, 48, 80, 100, 129, 200, 256])
+def test_flash_kernel_general_head_dims_match_plain(cuda, hd, q_dtype, kv_dtype):
+    """Head dims without a fast instance (the general kernel: slices of the
+    head dim, column blocks past 128): within the f32 tolerance or one bf16
+    ulp of the plain version, GQA 4, an offset and dead keys."""
+    assert flash_attn.kernel_variant(hd, torch.zeros(4, device=cuda)) == "general"
+    q, k, v = _flash_inputs(cuda, hd, 2, 77, 200, 8, 2, hd, q_dtype, kv_dtype, 30, 90)
+    _flash_check(q, k, v, 30, 90)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", FLASH_DTYPES)
+def test_flash_kernel_unaligned_views_match_plain(cuda, q_dtype, kv_dtype):
+    """q, k, v at an odd element offset (not 16-byte aligned) at a fast
+    head dim: the general kernel, within the tolerance."""
+    q, k, v = _flash_inputs(cuda, 3, 1, 130, 160, 8, 2, 64, q_dtype, kv_dtype, 20, 150)
+    views = []
+    for x in (q, k, v):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        buf[1:] = x.reshape(-1)
+        views.append(buf[1:].view(x.shape))
+    assert flash_attn.kernel_variant(64, *views) == "general"
+    _flash_check(*views, 20, 150)
+
+
+def test_flash_kernel_past_65535_row_tiles(cuda):
+    """65,536 row tiles of 128 (position, head) rows on one KV head (32
+    query heads, 262,144 positions): once past the grid's y limit, now the
+    grid's x; within one bf16 ulp of the plain version."""
+    b, sq, h, kvh, hd = 1, 262_144, 32, 1, 16
+    q, k, v = _flash_inputs(cuda, 9, b, sq, 512, h, kvh, hd, torch.bfloat16, torch.float32,
+                            0, 128)
+    assert sq * h // 128 == 65_536
+    _flash_check(q, k, v, 0, 128)
+
+
+def test_flash_kernel_general_attributes(cuda):
+    for hd in (48, 256):
+        for q_dtype, kv_dtype in FLASH_DTYPES:
+            a = flash_attn.kernel_attributes(hd, q_dtype, kv_dtype, "general")
+            print(hd, q_dtype, kv_dtype, a)
+            assert 0 < a["registers"] <= 255 and a["smem_bytes"] <= 232448
 
 
 def test_lm_prefill_on_card_flash_vs_chunked(cuda):

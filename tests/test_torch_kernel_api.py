@@ -291,8 +291,14 @@ def test_refusals():
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         with pytest.raises(ValueError, match="path must be"):
             call(path="mxu")
-    with pytest.raises(ValueError, match="ADC_TOPK_K_MAX"):
-        ops.adc_topk(lut[None], codes, ops.ADC_TOPK_K_MAX + 1)
+    # k past the shared-memory block's range (ADC_TOPK_K_MAX) is served, as
+    # the reference serves it (the WIDE block on the card)
+    rng = np.random.default_rng(7)
+    big_lut = rng.random((1, 8, 256), dtype=np.float32)
+    big_codes = rng.integers(0, 256, (4500, 8)).astype(np.uint8)
+    k = ops.ADC_TOPK_K_MAX + 1
+    assert_topk(ops.adc_topk(_t(big_lut), _t(big_codes), k),
+                jops.adc_topk(jnp.asarray(big_lut), jnp.asarray(big_codes), k))
     with pytest.raises(TypeError, match="uint8"):
         ops.adc_scan_flat(lut.reshape(-1), codes)
     with pytest.raises(ValueError, match="multiple of block_n"):

@@ -286,17 +286,28 @@ def test_prefill_decode_matches_forward(case, flash):
     torch.testing.assert_close(l2[:, 0], full[:, 32], rtol=2e-3, atol=2e-3)
 
 
-def test_unsupported_head_dim_raises_not_falls_back():
-    """A head dim B10 is not instantiated for (48) raises in a flash
-    prefill on the CPU too, as on the card, instead of taking the chunked
-    scan; without the flash kernel the same model prefills."""
-    _, tcfg = _cfgs("qwen3-gqa", "float32")
-    tcfg = dataclasses.replace(tcfg, head_dim=48)
-    model = tmodels.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    tok = torch.from_numpy(_tokens(tcfg)[:, :PROMPT])
-    with pytest.raises(ValueError, match="head dim 48"):
-        tmodels.prefill(model, dataclasses.replace(tcfg, use_flash_kernel=True), tok, max_len=S)
-    assert tmodels.prefill(model, tcfg, tok, max_len=S)[0].shape == (B, 1, tcfg.vocab_size)
+def test_unsupported_head_dim_raises_not_falls_back(monkeypatch):
+    """A head dim without a fast B10 instance (48): the flash prefill goes
+    through B10's wrapper (the general kernel on the card), never the
+    chunked scan, and equals the reference's flash prefill (logits and
+    caches at F32_TOL)."""
+    rcfg, tcfg = _cfgs("qwen3-gqa", "float32")
+    rcfg = dataclasses.replace(rcfg, head_dim=48, use_flash_kernel=True)
+    tcfg = dataclasses.replace(tcfg, head_dim=48, use_flash_kernel=True)
+    model = _port_model(rcfg, tcfg)
+    tok = _tokens(tcfg)[:, :PROMPT]
+    calls = []
+    flash = ops.flash_attention_fwd
+    monkeypatch.setattr(ops, "flash_attention_fwd",
+                        lambda *a, **kw: calls.append(a[0].shape) or flash(*a, **kw))
+    got, gcache = tmodels.prefill(model, tcfg, torch.from_numpy(tok), max_len=S,
+                                  cache_dtype=torch.float32)
+    want, wcache = rmodels.prefill(_ref_params(rcfg), rcfg, jnp.asarray(tok), max_len=S,
+                                   cache_dtype=jnp.float32)
+    assert len(calls) == tcfg.n_layers and all(c[-1] == 48 for c in calls)
+    assert_close(got, want, "float32")
+    assert_close(gcache["k"], wcache["k"], "float32")
+    assert_close(gcache["v"], wcache["v"], "float32")
 
 
 def test_forward_matches_reference():

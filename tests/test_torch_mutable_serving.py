@@ -424,11 +424,19 @@ def test_onehot_churn_equals_gather(port_engines, clustered_data, scan, rerank):
         np.testing.assert_array_equal(d0, d1)
 
 
-def test_overfetch_past_scan_k_max_refused(port_engines):
-    """A fetch bucket past SCAN_K_MAX is refused at construction (ROADMAP
-    C5), where the reference would serve it."""
-    eng = fresh(port_engines, rerank="exact")
-    with pytest.raises(ValueError, match="C5"):
-        ServingEngine(eng, nprobe=NPROBE, k=K, mutable=True, overfetch=ops.SCAN_K_MAX)
-    srv = ServingEngine(eng, nprobe=NPROBE, k=K, mutable=True, overfetch=10)
-    assert srv._k_fetch() == 128 and srv.tombstone_limit == 64
+def test_overfetch_past_scan_k_max_refused(ref_engines, port_engines, clustered_data):
+    """An overfetch whose fetch bucket (8,192 under the exact re-rank) lies
+    past the shared-memory scans' SCAN_K_MAX: the server is built and
+    serves a churn stream (two rounds and a compaction) as the reference's
+    does (once refused, ROADMAP C5)."""
+    centers, qs = clustered_data[1], clustered_data[2]
+    kw = dict(SERVE, overfetch=ops.SCAN_K_MAX)
+    srv = ServingEngine(fresh(port_engines, rerank="exact"), **kw)
+    rsrv = RefServing(ref_fresh(ref_engines, rerank="exact"), autotune="off", **kw)
+    assert srv._k_fetch() == rsrv._k_fetch() == 2 * ops.SCAN_K_MAX
+    steps = _churn_stream(centers, seed=5, rounds=2)
+    for (pd, pi), (rd, ri) in zip(_run_stream(srv, steps, qs), _run_stream(rsrv, steps, qs)):
+        _check_twin(pd, pi, rd, ri)
+    small = ServingEngine(fresh(port_engines, rerank="exact"), nprobe=NPROBE, k=K, mutable=True,
+                          overfetch=10)
+    assert small._k_fetch() == 128 and small.tombstone_limit == 64

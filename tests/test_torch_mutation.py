@@ -271,20 +271,26 @@ def test_compaction_equals_mutable_search_rerank_off(port_engines, clustered_dat
     np.testing.assert_array_equal(d[:, 0], np.zeros(16, np.float32))
 
 
-def test_fetch_depth_limit_c5(port_engines, clustered_data):
-    """ROADMAP C5: under the exact re-rank the main path fetches the pow2
-    bucket of k' + tombstones; past SCAN_K_MAX (about 4032 tombstones at
-    k' = 64) the port raises ValueError naming C5, on the CPU as on the
-    card, and never returns a short result; compaction lifts it."""
+def test_fetch_depth_limit_c5(port_engines, ref_engines, clustered_data):
+    """Under the exact re-rank the main path fetches the pow2 bucket of k' +
+    tombstones: 4,033 tombstones at k' = 64 need 8,192 candidates, past the
+    shared-memory scans' SCAN_K_MAX.  The port serves it as the reference
+    does (once ROADMAP C5): no tombstoned id, ids equal to the reference's
+    mutable engine outside exact ties, distances allclose."""
     qs = clustered_data[2]
     eng = fresh(port_engines, own_raw=True, rerank="exact", k_overfetch=64)
+    ref = dataclasses.replace(ref_engines[False], rerank="exact", delta=RefDelta.create(8, 2048),
+                              _dev_arrays=None)
     assert mutation.fetch_depth(eng, K, 4032) == ops.SCAN_K_MAX
-    eng.delete(np.arange(4033))
-    with pytest.raises(ValueError, match="C5"):
-        eng.search(qs, NPROBE, K)
-    eng.compact()
+    assert mutation.fetch_depth(eng, K, 4033) == 2 * ops.SCAN_K_MAX
+    dead = np.arange(4033)
+    eng.delete(dead)
+    ref.delete(dead)
     d, i = eng.search(qs, NPROBE, K)
-    assert np.isfinite(d).all() and not np.isin(i, np.arange(4033)).any()
+    rd, ri = ref.search(qs, nprobe=NPROBE, k=K)
+    assert not np.isin(i, dead).any()
+    np.testing.assert_allclose(d, np.asarray(rd), **TOL)
+    _same_ids_outside_ties(np.asarray(rd), i, np.asarray(ri))
 
 
 def test_inactive_delta_is_the_immutable_path(port_engines, clustered_data):

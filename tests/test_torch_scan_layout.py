@@ -1,16 +1,19 @@
-"""The port's refused domain (ROADMAP C5) and the B2 / B5 block budget,
-on the CPU.
+"""The B2 / B5 / B6 / B7 / B8 / B10 domain and the blocks' planners, on
+the CPU.
 
-A B2 / B5 block holds its pair's table, the top-k list and its merge buffer
-(4k floats) and a pass of candidates in shared memory
-(`adc_topk.scan_smem`); every code format at the compiled widths and at a
-runtime width fits 227 KB up to k = 4096, and a table too wide is refused.
-B6 / B7 blocks hold G tables beside G lists (`adc_topk.topk_group_size`):
-k up to 4096 is taken, with G = 1 where four tables no longer fit.  The
-refusals (k beyond 4096 for B2 / B5 / B6 / B7, a table too wide for the
-shared memory, B10 head dims outside the kernel's instantiations) raise on
-the CPU as they do on the card.  The raw-code scans at each compiled width equal the reference's
-Pallas kernels (interpret mode) on the same numpy inputs.
+A shared-memory B2 / B5 block holds its pair's table, the top-k list and
+its merge buffer (4k floats) and a pass of candidates (`adc_topk.scan_smem`);
+every code format at the compiled widths and at a runtime width fits 227 KB
+up to k = 4096.  Past that range (k > `SCAN_K_MAX`, or a table too wide to
+sit beside the lists) the planners (`adc_topk.scan_plan`, `topk_plan`,
+`adc_scan.table_in_place`, `lut_build.ext_table_in_place`,
+`flash_attn.kernel_variant`) pick the WIDE block or the general kernel,
+and every such input gives the reference's answer: each case that the port
+once refused (ROADMAP C5) is held here to the reference's Pallas kernel
+(interpret mode) on the same numpy inputs, at the parity tests' tolerance
+(distances rtol = atol = 1e-5, ids equal outside exact ties; B10 rtol 1e-4,
+atol 1e-5 in f32).  The raw-code scans at each compiled width equal the
+reference's Pallas kernels too.
 """
 
 import numpy as np
@@ -19,14 +22,31 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
+from _one_thread import one_thread  # noqa: E402,F401
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import adc_scan as k_scan  # noqa: E402
 from repro_torch.kernels import adc_topk as k_topk  # noqa: E402
 from repro_torch.kernels import flash_attn as k_flash  # noqa: E402
+from repro_torch.kernels import lut_build as k_lut  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from test_torch_flash_attn import TOL as FLASH_TOL  # noqa: E402
+from test_torch_flash_attn import _both, _qkv  # noqa: E402
+from test_torch_kernel_api import assert_topk  # noqa: E402
 from test_torch_ref_parity import TOL, jax_tiles, tile_case  # noqa: E402
-from test_torch_windows import jax_windows, port_tiles, port_windows  # noqa: E402
+from test_torch_windows import (  # noqa: E402
+    jax_direct_tiles,
+    jax_windows,
+    port_tiles,
+    port_windows,
+)
 
 BUDGET = 232_448  # bytes of shared memory one H100 block may use
 FORMATS = ("uint8", "uint16", "int32")
+SHARED = dict(gtab=False, spill=False)
+
+
+def _variant(plan):
+    return {k: plan[k] for k in ("gtab", "spill")}
 
 
 @pytest.mark.parametrize("k", [1, 64, 1024, 4096])
@@ -39,53 +59,121 @@ def test_every_format_fits_the_budget(fmt, w, k):
     smem = k_topk.scan_smem(k, width)
     assert smem == (width + 4 * k + 2 * 1024) * 4
     assert smem + 64 <= BUDGET
+    assert k_topk.scan_plan(k, width) == dict(SHARED, smem=smem)
+
+
+GTAB = dict(gtab=True, spill=False)
+SPILL = dict(gtab=False, spill=True)
+BOTH = dict(gtab=True, spill=True)
+
+
+@pytest.mark.parametrize("kernel,k,width,want", [
+    # B2 / B5: the old boundary, the widest tables the shared-memory block
+    # holds, on the shared side; one entry more reads the table in place
+    ("scan", 4096, 39_664, SHARED), ("scan", 64, 55_792, SHARED), ("scan", 1, 4096, SHARED),
+    ("scan", 4096, 39_665, GTAB), ("scan", 64, 55_793, GTAB), ("scan", 64, 65_536, GTAB),
+    # past SCAN_K_MAX the lists spill; a table that fits stays staged
+    ("scan", 4097, 4096, SPILL), ("scan", 8192, 4353, SPILL), ("scan", 65_536, 56_048, SPILL),
+    ("scan", 8192, 56_049, BOTH), ("scan", 8192, 65_536, BOTH),
+    # B6 / B7 at one table a block (its 4 KB of static shared memory moves
+    # each boundary 1,008 entries lower)
+    ("topk", 4096, 38_656, SHARED), ("topk", 64, 54_784, SHARED),
+    ("topk", 4096, 38_657, GTAB), ("topk", 64, 54_785, GTAB), ("topk", 10, 65_536, GTAB),
+    ("topk", 4097, 4096, SPILL), ("topk", 8192, 55_040, SPILL),
+    ("topk", 8192, 55_041, BOTH), ("topk", 8192, 65_536, BOTH),
+])
+def test_planners_choice(kernel, k, width, want):
+    """Which (k, table width) takes the shared-memory block and which the
+    WIDE block's spill or global table: B2 / B5 (`scan_plan`), B6 / B7
+    (`topk_plan` on uint16 addresses, one table a block); and whether B8
+    and B4 / B9 read their table in place."""
+    if kernel == "scan":
+        plan, static = k_topk.scan_plan(k, width), 64
+    else:
+        plan, static = k_topk.topk_plan([1], [10**6], k, 1, 16, width, groups=(1,)), 4096
+        assert plan["g"] == 1
+    assert _variant(plan) == want
+    assert plan["smem"] + static <= BUDGET
+    assert k_scan.table_in_place(width, 1, 16) == (width > 58_112)
+    assert not k_scan.table_in_place(width, 0, 16)  # raw M = 16 codes address 4096
+    assert k_lut.ext_table_in_place(width) == (width > 58_112)
 
 
 def test_scan_budget_refusals():
-    # the widest table that fits at k = 4096 and at k = 64, and one more
+    """A uint16 direct-address table too wide for the shared-memory block
+    (55,793 entries at k = 64, the widest plus one): served through both
+    scans, equal to the reference's kernels on the same inputs."""
     assert k_topk.scan_smem(4096, 39_664) + 64 == BUDGET
     assert k_topk.scan_smem(64, 55_792) + 64 == BUDGET
-    for k, width in ((4096, 39_665), (64, 55_793)):
-        with pytest.raises(ValueError, match="shared memory"):
-            k_topk.scan_smem(k, width)
-    # through the wrapper: a uint16 direct-address table too wide to hold
-    luts = torch.zeros(1, 55_793)
-    codes = torch.zeros(1, 64, 8, dtype=torch.int32)
-    one = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.adc_topk_windows(luts, codes, one, one, 64, block_n=64, lut_row=one)
+    c = _wide_case(55_793, "uint16", k=64)
+    jv, ji = jax_direct_tiles(c, False)
+    for port in (port_tiles, port_windows):
+        v, i, _ = port(c, False)
+        np.testing.assert_allclose(v, jv, **TOL)
+        np.testing.assert_array_equal(i, ji)
+    wv, wi, _ = jax_windows(c, False)
+    np.testing.assert_allclose(wv, jv, **TOL)
+    np.testing.assert_array_equal(wi, ji)
+
+
+def _wide_case(width, dtype, k, seed=5):
+    """tile_case's layout over direct addresses into tables `width` wide
+    (random entries, the sentinel's 0.0 last), each row 8 random addresses."""
+    c = tile_case(seed, q=2, nprobe=3, k=k)
+    p = c["luts"].shape[0]
+    rng = np.random.default_rng(seed)
+    tables = rng.random((p, width), dtype=np.float32)
+    tables[:, -1] = 0.0
+    codes = rng.integers(0, width, (c["codes"].shape[0], 8)).astype(dtype)
+    return dict(c, codes=codes, tables=tables)
 
 
 @pytest.mark.parametrize("k", [0, 4097])
 @pytest.mark.parametrize("scan", ["tiles", "windows"])
 def test_scan_k_limit_refused(scan, k):
+    """k = 4097, past the shared-memory block's SCAN_K_MAX, is served and
+    equals the reference's kernel; k = 0 raises, as the reference's does."""
     c = tile_case(0)
     c["k"] = k
-    with pytest.raises(ValueError, match="SCAN_K_MAX"):
-        (port_tiles if scan == "tiles" else port_windows)(c, False)
+    port = port_tiles if scan == "tiles" else port_windows
+    if k == 0:
+        with pytest.raises(ValueError, match="k=0"):
+            port(c, False)
+        with pytest.raises(Exception):
+            jax_tiles(c, False) if scan == "tiles" else jax_windows(c, False)
+        return
+    v, i, _ = port(c, False)
+    jv, ji = jax_tiles(c, False) if scan == "tiles" else jax_windows(c, False)[:2]
+    if scan == "windows":
+        empty = c["sizes"] <= 0
+        jv[empty], ji[empty] = np.inf, -1
+    np.testing.assert_allclose(v, jv, **TOL)
+    np.testing.assert_array_equal(i, ji)
 
 
 @pytest.mark.parametrize("call", ["adc_topk", "adc_topk_flat", "adc_topk_pairs"])
 def test_topk_k_limit_refused(call):
+    """k = 4097 (ADC_TOPK_K_MAX + 1) through B6 / B7: the reference's answer."""
     rng = np.random.default_rng(3)
-    lut = torch.as_tensor(rng.normal(0, 1, (1, 8 * 256)).astype(np.float32))
-    codes = torch.as_tensor(rng.integers(0, 256, (64, 8)).astype(np.uint8))
-    addrs = (codes.int() + torch.arange(8, dtype=torch.int32) * 256).contiguous()
-
-    def run(k):
-        if call == "adc_topk":
-            return ops.adc_topk(lut, codes, k)
-        if call == "adc_topk_flat":
-            return ops.adc_topk_flat(lut, addrs, k)
-        return ops.adc_topk_pairs(lut, addrs[None], torch.tensor([64]), k, block_n=64)
-
+    lut = rng.normal(0, 1, (1, 8 * 256)).astype(np.float32)
+    codes = rng.integers(0, 256, (4608, 8)).astype(np.uint8)
+    addrs = (codes.astype(np.int32) + np.arange(8, dtype=np.int32) * 256)
+    k = ops.ADC_TOPK_K_MAX + 1
     assert ops.ADC_TOPK_K_MAX == 4096 == ops.SCAN_K_MAX
-    with pytest.raises(ValueError, match="ADC_TOPK_K_MAX"):
-        run(ops.ADC_TOPK_K_MAX + 1)
-    # the limit itself is taken: 64 rows, then (+inf, -1)
-    v, i = run(ops.ADC_TOPK_K_MAX)
-    assert v.shape == (1, ops.ADC_TOPK_K_MAX)
-    assert bool((i[0, :64] >= 0).all()) and bool((i[0, 64:] == -1).all())
+    if call == "adc_topk":
+        got = ops.adc_topk(torch.from_numpy(lut), torch.from_numpy(codes), k)
+        want = jops.adc_topk(jnp.asarray(lut.reshape(1, 8, 256)), jnp.asarray(codes), k)
+    elif call == "adc_topk_flat":
+        got = ops.adc_topk_flat(torch.from_numpy(lut), torch.from_numpy(addrs), k)
+        want = jops.adc_topk_flat(jnp.asarray(lut), jnp.asarray(addrs), k)
+    else:
+        nv = np.array([4500], np.int32)
+        got = ops.adc_topk_pairs(torch.from_numpy(lut), torch.from_numpy(addrs[None]),
+                                 torch.from_numpy(nv), k, block_n=512)
+        want = jops.adc_topk_pairs(jnp.asarray(lut), jnp.asarray(addrs[None]), jnp.asarray(nv),
+                                   k, block_n=512)
+    assert got[0].shape == (1, k)
+    assert_topk(got, want)
 
 
 def test_topk_group_size():
@@ -105,38 +193,63 @@ def test_topk_group_size():
 
 @pytest.mark.parametrize("call", ["adc_topk_flat", "adc_topk_grouped", "adc_topk_pairs"])
 def test_topk_table_too_wide_refused(call):
-    """uint16 direct addresses into a 65,536-entry table (256 KB) cannot sit
-    in one block's shared memory: refused on the CPU with the message the
-    card's path raises (the same planning function), before any launch."""
+    """uint16 direct addresses into a 65,536-entry table (256 KB, more than
+    one block's shared memory): the WIDE block's global table on the card,
+    the reference's answer here."""
     a = 65_536
-    tables = torch.zeros(2, a)
-    addrs = torch.zeros(128, 4, dtype=torch.int32).to(torch.uint16)
-    with pytest.raises(ValueError, match=f"a table of {a} floats and k=10 need .* B of shared "
-                                         f"memory, over {BUDGET}"):
-        if call == "adc_topk_flat":
-            ops.adc_topk_flat(tables, addrs, 10)
-        elif call == "adc_topk_grouped":
-            ops.adc_topk_grouped(tables, addrs, 10, [0, 64, 128], [0, 1, 2])
-        else:
-            ops.adc_topk_pairs(tables, addrs.reshape(2, 64, 4), torch.tensor([64, 3]), 10,
-                               block_n=64)
-    # the widest direct table one block holds at k = 10 is taken
+    rng = np.random.default_rng(11)
+    tables = rng.random((2, a), dtype=np.float32)
+    addrs = rng.integers(0, a, (128, 4)).astype(np.uint16)
+    tt, ta = torch.from_numpy(tables), torch.from_numpy(addrs)
+    if call == "adc_topk_flat":
+        got = ops.adc_topk_flat(tt, ta, 10)
+        want = jops.adc_topk_flat(jnp.asarray(tables), jnp.asarray(addrs), 10)
+    elif call == "adc_topk_grouped":
+        got = ops.adc_topk_grouped(tt, ta, 10, [0, 64, 128], [0, 1, 2])
+        want = [np.concatenate(x) for x in zip(*(
+            jops.adc_topk_flat(jnp.asarray(tables[g:g + 1]), jnp.asarray(addrs[64 * g:64 * g + 64]),
+                               10) for g in range(2)))]
+    else:
+        nv = np.array([64, 3], np.int32)
+        got = ops.adc_topk_pairs(tt, ta.reshape(2, 64, 4), torch.from_numpy(nv), 10, block_n=64)
+        want = jops.adc_topk_pairs(jnp.asarray(tables), jnp.asarray(addrs.reshape(2, 64, 4)),
+                                   jnp.asarray(nv), 10, block_n=64)
+    assert_topk(got, want)
+    # the widest direct table one block holds at k = 10 stays in shared memory
     widest = (BUDGET - 4096) // 4 - 2 * 10 - 2 * 10 - 2 * 1024
-    assert k_topk.topk_group_size([1], [128], 10, 1, 4, widest) == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        k_topk.topk_group_size([1], [128], 10, 1, 4, widest + 1)
+    assert not k_topk.wide(k_topk.topk_plan([1], [128], 10, 1, 4, widest))
+    assert _variant(k_topk.topk_plan([1], [128], 10, 1, 4, widest + 1)) == dict(
+        gtab=True, spill=False)
 
 
 @pytest.mark.parametrize("hd", [8, 48, 256])
 def test_flash_head_dim_refused_on_cpu(hd):
-    q = torch.zeros(1, 64, 2, hd)
-    kv = torch.zeros(1, 64, 1, hd)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention_fwd(q, kv, kv, scale=hd**-0.5)
-    with pytest.raises(ValueError, match="head dim"):
-        k_flash.check_head_dim(hd)
-    for ok in k_flash.HEAD_DIMS:
-        k_flash.check_head_dim(ok)
+    """Head dims without a fast kernel (8, 48, 256 > 128): the general
+    kernel on the card, the Pallas kernel's answer here."""
+    q, k, v = _qkv(hd, 1, 64, 128, 4, 2, hd)
+    got, want = _both(q, k, v, scale=hd**-0.5, q_offset=64, bq=64, bk=64)
+    np.testing.assert_allclose(got, want, **FLASH_TOL)
+    assert k_flash.kernel_variant(hd, *map(torch.from_numpy, (q, k, v))) == "general"
+    for fast in k_flash.HEAD_DIMS:
+        assert k_flash.kernel_variant(fast, torch.zeros(4)) == "fast"
+
+
+def test_flash_unaligned_views_served():
+    """q, k, v that start off a 16-byte boundary (views at an odd element
+    offset) take the general kernel on the card; here their answer is the
+    reference's on the same values."""
+    b, sq, sk, h, kvh, hd = 1, 64, 64, 2, 1, 32
+    q, k, v = _qkv(3, b, sq, sk, h, kvh, hd)
+    views = []
+    for x in (q, k, v):
+        buf = torch.zeros(x.size + 1)
+        buf[1:] = torch.from_numpy(x).reshape(-1)
+        views.append(buf[1:].view(x.shape))
+    assert all(t.data_ptr() % 16 for t in views)
+    assert k_flash.kernel_variant(hd, *views) == "general"
+    got = ops.flash_attention_fwd(*views, scale=hd**-0.5, bq=64, bk=64)
+    _, want = _both(q, k, v, scale=hd**-0.5, bq=64, bk=64)
+    np.testing.assert_allclose(got.numpy(), want, **FLASH_TOL)
 
 
 @pytest.mark.parametrize("m", [8, 16, 32])

@@ -6,8 +6,9 @@ of the same C interface (an earlier design of `csrc/flash_attn.cu`).
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 It builds the port's kernels and, with `--baseline`, that source (which
-must export `flash_attn_launch` with the port's C signature) into a library
-of its own under build/bench_flash/.  At `chip_smoke.py`'s B10 shape (q
+must export `flash_attn_launch` with the C signature of `csrc/flash_attn.cu`
+as of PRs 17-26, `BASELINE_SIGNATURE`: the port's without the `general`
+flag) into a library of its own under build/bench_flash/.  At `chip_smoke.py`'s B10 shape (q
 (4, 2048, 32, 128), k / v (4, 2560, 8, 128) f32, kv_valid 2048, the same
 seed) it holds each build to the smoke's tolerances, for a bf16 and an f32
 q: against the plain version with normal scores, against float64 with
@@ -34,6 +35,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
+# flash_attn_launch before PR 27: q, k, v, out, b, sq, sk, h, kvh, hd,
+# q_offset, kv_valid, q_is_bf16, kv_is_bf16, scale, stream
+BASELINE_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+
 
 def build_baseline(src: pathlib.Path):
     """(flash_attn_launch of `src` built into its own library, ptxas report)."""
@@ -47,7 +53,7 @@ def build_baseline(src: pathlib.Path):
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
     fn = ctypes.CDLL(str(lib)).flash_attn_launch
-    fn.argtypes = _build.SIGNATURES["flash_attn_launch"]
+    fn.argtypes = BASELINE_SIGNATURE
     fn.restype = ctypes.c_int
     return fn, r.stdout + r.stderr
 
@@ -55,7 +61,7 @@ def build_baseline(src: pathlib.Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=pathlib.Path, default=None,
-                    help="CUDA source exporting flash_attn_launch (the port's signature)")
+                    help="CUDA source exporting flash_attn_launch (BASELINE_SIGNATURE)")
     ap.add_argument("--reps", type=int, default=10, help="launches per timed turn")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
