@@ -115,7 +115,8 @@ all N codes of the same index, and the flat baseline search:
      for 16 queries, against the engine with the re-rank off: distances
      bit-equal, ids equal outside exactly tied groups; one search under
      cProfile (host ms by function) and one under torch.profiler (device
-     busy and idle, B6's device time), and its grouped B6 call held against
+     busy and idle, B6's device time: the search twice in the session, the
+     second read, which must show B6), and its grouped B6 call held against
      its plain version and timed beside it and a per-cluster PyTorch
      expression.
 Each kernel is held against its plain version and timed as in 2, with a
@@ -200,10 +201,14 @@ each other and to the plain path; B2 / B5 at k = 8192 on 8 queries' pairs
 against their plain versions (rows `adc_topk_*_spill`), equal to the
 shared-memory block at k = 4096 on the entries they share, and the spill
 forced at k = 4096 timed beside that block; B8, B6 and B7 over a
-65,536-entry uint16 table (read in place) and B6 spilled (rows
-`adc_scan_gtab`, `adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`),
-bit-equal; B10's general kernel at head dims 48, 80 and 256 (rows
-`flash_attention_fwd_hd*`, one bf16 ulp) and its grid at 65,536 row tiles.
+65,536-entry uint16 table (read in place) and B6 at k = 8192 (rows
+`adc_scan_gtab`, `adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`;
+B6 / B7 past k = 4096 on the select kernels, with their CUDA
+launches and time `split` by step, and `adc_topk_select_ties`, over 8,192
+rows tied at the k-th), bit-equal; B10's general kernel at
+head dims 48, 80 and 256 (staged) and at hd 128 on views one element off
+alignment (element copies; rows `flash_attention_fwd_hd*`, one bf16 ulp)
+and its grid at 65,536 row tiles.
 `domain_mutable` (after `mutable_serving`) deletes 5,000 ids of 16 queries'
 fetch windows (fetch depth 8192) and holds those queries to the plain
 mutable path, no tombstoned id returned.  Every ADC and B10 row reports
@@ -294,6 +299,10 @@ FLASH_PEAK_LOGIT = 30.0
 SRC_ROOT = "src/repro_torch"
 # bytes written between two cold launches (`cold_ms`): five times the L2
 FLUSH_BYTES = 256 << 20
+# host seconds between the untimed and the timed call of a `warm` profile:
+# late in the smoke torch.profiler lost up to ~0.3 s of a session's first
+# CUDA activities (`PERF.md` §7)
+WARM_WAIT_S = 2.0
 # the mutable phase: inserts and deletes below the reference's auto-compaction
 # point (0.75 of the default 4096-row delta), and the co-occurrence cell's rows
 MUT_INSERTS, MUT_DELETES, MUT_COOC_ROWS = 3000, 1000, 4_000_000
@@ -541,26 +550,45 @@ def host_by_function(fn, top: int = 12) -> list:
     return sorted(rows, key=lambda x: -x[1])[:top]
 
 
-def profile_call(torch, fn, top: int | None = 8) -> tuple[float, dict, int, float]:
-    """(device busy ms, ms by kernel (the `top` largest, all if None),
-    device activities, wall ms) of
-    one call of `fn` under torch.profiler, synchronised at its end.  Busy
-    is the union of the device's own activities (kernels, copies, memsets)
-    in time; the CPU-side ops that launched them, which `key_averages`
-    also credits with device time, are not counted again, nor CUPTI's
-    "Command Buffer Full" overhead records (host stalls), nor the device-side
-    copies of `record_function` ranges (a train step's), which span gaps."""
+def device_activities(torch, fn, warm: bool = False) -> tuple[list, float]:
+    """(the device's own activities (kernels, copies, memsets) that start
+    inside one call of `fn` under torch.profiler, by start; the call's wall
+    ms, synchronised at its end).  CUPTI's "Command Buffer Full" overhead
+    records (host stalls) and the device-side copies of `record_function`
+    ranges (a train step's), which span gaps, are left out.  With `warm`,
+    `fn` runs once more first, untimed, in the same session (and the host
+    waits `WARM_WAIT_S`): the profiler can lose a session's first CUDA
+    activities (`PERF.md` §7), never later ones."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as tp:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    acts = [e for e in tp.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name != "Command Buffer Full" and not getattr(e, "is_user_annotation", False)]
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(WARM_WAIT_S)
+        with torch.profiler.record_function("device_activities.timed"):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    events = tp.events()
+    t0 = min(e.time_range.start for e in events if e.name == "device_activities.timed")
+    acts = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name != "Command Buffer Full" and not getattr(e, "is_user_annotation", False)
+            and e.time_range.start >= t0]
+    return sorted(acts, key=lambda e: e.time_range.start), wall
+
+
+def profile_call(torch, fn, top: int | None = 8,
+                 warm: bool = False) -> tuple[float, dict, int, float]:
+    """(device busy ms, ms by kernel (the `top` largest, all if None),
+    device activities, wall ms) of one call of `fn` (`device_activities`,
+    `warm` as there).  Busy is the union of the activities in time; the
+    CPU-side ops that launched them, which `key_averages` also credits with
+    device time, are not counted again."""
+    acts, wall = device_activities(torch, fn, warm)
     by_kernel, busy, end = {}, 0.0, -float("inf")
-    for e in sorted(acts, key=lambda e: e.time_range.start):
+    for e in acts:
         t0, t1 = e.time_range.start, e.time_range.end
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
@@ -743,11 +771,13 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
 
 def block_variant(k_topk, plan: dict) -> str:
     """The block a B2 / B5 / B6 / B7 plan runs: "shared" (the shared-memory
-    block of every row before PR 27), or the WIDE block's "spill", "gtab"
-    or "spill+gtab"."""
+    block), the WIDE block's "spill", "gtab" or
+    "spill+gtab" (B2 / B5; B6 / B7 "gtab"), or B6 / B7's select kernels past
+    k = 4096, "select" or "select+gtab"."""
     if not k_topk.wide(plan):
         return "shared"
-    return "+".join(n for n in ("spill", "gtab") if plan[n])
+    names = ("select", "gtab") if plan.get("select") else ("spill", "gtab")
+    return "+".join(n for n in names if plan.get(n))
 
 
 def pairs_variant(k_topk, tables, addrs, kp: int) -> str:
@@ -793,7 +823,7 @@ def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int,
     (`adc_topk_pairs_kernel`) for code format `fmt`, width `w` and path
     (`sort`: the onehot path on direct addresses)."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
-    wide = "wide" in kernel  # REPRO_ADC_DISPATCH_WIDE's widths, no G
+    wide = "wide" in kernel or "select" in kernel  # REPRO_ADC_DISPATCH_WIDE's widths, no G
     widths = ((16,) if fmt < 2 else ()) if wide else ((8, 16, 32) if fmt == 0 else (8, 16))
     wt = w if w in widths else 0
     want = (f"{kernel}I{ctype}Lb{int(fmt == 0)}ELi{wt}E"
@@ -1897,18 +1927,14 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
     # where the wall time goes: the host by function (one search under
     # cProfile) and the device (one search under torch.profiler)
     host_top = host_by_function(lambda: search(idx, q16, NPROBE, K, device=dev))
-    # torch.profiler now and then records none of the port's own kernels
-    # in a call (seen on the H100 with every ATen kernel present), so a
-    # profile that lacks B6 is taken again, at most three times in all
-    for prof_attempts in range(1, 4):
-        busy, by_kernel, n_acts, prof_wall = profile_call(
-            torch, lambda: search(idx, q16, NPROBE, K, device=dev), top=None)
-        b6_prof = sum(ms for name, ms in by_kernel.items() if "adc_topk_kernel" in name)
-        if b6_prof > 0:
-            break
-    else:
-        raise RuntimeError(f"flat_search: no B6 kernel in {prof_attempts} profiles: "
-                           f"{list(by_kernel)}")
+    # one profile, and B6 must be in it: the search runs twice in the
+    # session, the second timed, since the profiler can lose a session's
+    # first activities (B1 and B6 are the call's first kernels)
+    busy, by_kernel, n_acts, prof_wall = profile_call(
+        torch, lambda: search(idx, q16, NPROBE, K, device=dev), top=None, warm=True)
+    b6_prof = sum(ms for name, ms in by_kernel.items() if "adc_topk_kernel" in name)
+    if b6_prof <= 0:
+        raise RuntimeError(f"flat_search: no B6 kernel in the profile: {list(by_kernel)}")
     # that search's grouped B6 call, against its plain version and timed alone
     qrot = torch.as_tensor(idx.rotate(np.asarray(q16, np.float32)), device=dev)
     cids, qmc = filter_clusters(torch.as_tensor(idx.centroids, device=dev), qrot, NPROBE)
@@ -1961,7 +1987,7 @@ def kernel_api_and_flat(torch, np, ops, k_scan, k_topk, eng, batches, dev, direc
         equal_to_engine_rerank_off=True,
         host_ms_by_function_profiled=host_top,
         profiled=dict(wall_ms=prof_wall, device_busy_ms=busy, device_idle_ms=prof_wall - busy,
-                      device_activities=n_acts, b6_device_ms=b6_prof, attempts=prof_attempts),
+                      device_activities=n_acts, b6_device_ms=b6_prof),
         b6=dict(launches=flat_launches["adc_topk"], device_ms=b6_prof, kernel_ms=b6_kernel_ms,
                 bound_ms=bms, rows=n_rows, tables=n_tables, tables_per_block=g))
     return kernels
@@ -2811,17 +2837,22 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
     """B6, B7 and B8 past their shared-memory blocks: a full uint16
     direct-address table (`DOMAIN_TABLE` entries, 256 KB: read in place) under
     `DOMAIN_ROWS` rows of W = 16 (B8; B6 at Q = 4, k = 10; B7 on 30 windows
-    of 65,536 rows at k = `DOMAIN_K`, spilled too), and B6 spilled at k =
-    `DOMAIN_K` on raw uint8 codes of the index (`codes_raw`, one table).
-    Each bit-equal to its plain version, timed as the other rows are.
-    Returns the rows."""
+    of 65,536 rows at k = `DOMAIN_K`, on the select kernels), B6 at k =
+    `DOMAIN_K` on raw uint8 codes of the index (`codes_raw`, one table: the
+    select kernels), and B6 at k = `DOMAIN_K` where over 8,192 rows tie at
+    the k-th distance (the select's second side: a third digit and the
+    runs' tie counts).  Each bit-equal to its plain version, timed as the
+    other rows are; a select row carries the CUDA launches its counted
+    call made (`cuda_launches`, as the launcher counts them) and one more
+    call's time on the card by step (`split`, CUDA events between the
+    steps).  Returns the rows."""
     g = torch.Generator(device=dev).manual_seed(27)
     a, n, w = DOMAIN_TABLE, DOMAIN_ROWS, 16
     tables = torch.rand(4, a, device=dev, generator=g)
     tables[:, -1] = 0.0
     addrs = torch.randint(0, a, (n, w), device=dev, generator=g).to(torch.uint16)
     cols = torch.arange(M, device=dev) * 256
-    rows = []
+    rows, counts = [], {}
 
     def counted(kname, fn):
         torch.cuda.synchronize()
@@ -2830,6 +2861,8 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         torch.cuda.synchronize()
         if ops.launches[kname] != 1:
             raise RuntimeError(f"domain: {kname} launched {ops.launches[kname]} times")
+        counts.update(launches=ops.launches[kname],
+                      select=k_topk.cuda_launches["adc_topk_select"])
         return out
 
     def timed_plain(fn):
@@ -2847,14 +2880,27 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise RuntimeError(f"domain: {name} is not bit-equal to its plain version")
         bms, by = bound_ms(n_bytes, n_ops)
+        select = variant.startswith("select")
+        kname = "adc_topk_select_kernel" if select else "adc_topk_wide_kernel"
+        # CUDA launches the counted call made (the select: its chain of steps)
+        cuda_launches = counts["select"] if select else counts["launches"]
+        if select and cuda_launches != len(k_topk.SELECT_STEPS):
+            raise RuntimeError(f"domain: {name} enqueued {cuda_launches} of the select's "
+                               f"{len(k_topk.SELECT_STEPS)} steps")
+        split = None
+        if select:  # one more call, its steps timed on the card
+            split = {}
+            launch(split_ms=split)
+            if not all(0.0 <= t < 1e3 for t in split.values()):
+                raise RuntimeError(f"domain: {name}'s split {split} is not a time")
+            split["sum_ms"] = sum(split.values())
         rows.append(dict(
             name=name, route="cuda", source=f"{SRC_ROOT}/csrc/{source}", replaces=replaces,
-            launches=1, max_abs_err=0.0, variant=variant, ms=cuda_ms(torch, launch, 5),
-            queued_ms=cuda_ms(torch, launch, 5, queued=True), plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib, 2),
-            library_call=library_call, shape=shape,
-            registers=None if fmt is None else topk_registers(regs, "adc_topk_wide_kernel",
-                                                              fmt, 16, 1)))
+            launches=counts["launches"], max_abs_err=0.0, variant=variant,
+            ms=cuda_ms(torch, launch, 5), queued_ms=cuda_ms(torch, launch, 5, queued=True),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib, 2),
+            library_call=library_call, shape=shape, cuda_launches=cuda_launches, split=split,
+            registers=None if fmt is None else topk_registers(regs, kname, fmt, 16, 1)))
 
     # B8 over the 65,536-entry table, read in place
     table = tables[0].contiguous()
@@ -2896,9 +2942,10 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
     want, plain_ms = timed_plain(lambda: k_topk.adc_topk_plain(
         t1, raw, inf4[:1], DOMAIN_K, BLOCK_N))
     ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
-    row("adc_topk_spill", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:702",
+    row("adc_topk_spill", "adc_topk_select.cu", "src/repro/kernels/adc_topk.py:702",
         block_variant(k_topk, plan6s), got, want, plain_ms,
-        lambda: k_topk.launch_topk(t1, raw, None, ov, oi, DOMAIN_K, BLOCK_N, 1, plan=plan6s),
+        lambda **kw: k_topk.launch_topk(t1, raw, None, ov, oi, DOMAIN_K, BLOCK_N, 1,
+                                        plan=plan6s, **kw),
         n * M + t1.numel() * 4 + DOMAIN_K * 8, n * M,
         lambda: chunked_topk(torch, t1, lambda s0, s1: raw[s0:s1].long() + cols, n, DOMAIN_K,
                              1 << 22),
@@ -2906,6 +2953,33 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         "one more torch.topk over the chunks", fmt=0, queries=1, k=DOMAIN_K, rows=n, width=M,
         table_width=t1.shape[1])
     del got, want, raw
+
+    # B6 at k = DOMAIN_K where the k-th distance is shared by over 8,192 rows:
+    # uniform raw codes, a table of 0 on even codes and 1 / 64 on odd ones
+    # (every sum exact), so a row's distance counts its odd codes, binomial
+    # (M = 16, 1 / 2): the k-th is 3 / 64, about 17,000 rows tie there
+    raw = torch.randint(0, 256, (n, M), device=dev, generator=g).to(torch.uint8)
+    tt = ((torch.arange(M * 256, device=dev) & 1) / 64.0)[None].contiguous()
+    got = counted("adc_topk", lambda: ops.adc_topk(tt, raw, DOMAIN_K, block_n=BLOCK_N))
+    want, plain_ms = timed_plain(lambda: k_topk.adc_topk_plain(
+        tt, raw, inf4[:1], DOMAIN_K, BLOCK_N))
+    kth = want[0][0, -1]
+    ties = int((tt[0][raw.long() + cols].sum(-1) == kth).sum())
+    if ties <= k_topk._SELECT_BUCKET:
+        raise RuntimeError(f"domain: {ties} rows tie at the k-th, not past the select's bucket")
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+    plan_t = k_topk.topk_plan([1], [n], DOMAIN_K, 0, M, tt.shape[1])
+    row("adc_topk_select_ties", "adc_topk_select.cu", "src/repro/kernels/adc_topk.py:702",
+        block_variant(k_topk, plan_t), got, want, plain_ms,
+        lambda **kw: k_topk.launch_topk(tt, raw, None, ov, oi, DOMAIN_K, BLOCK_N, 1,
+                                        plan=plan_t, **kw),
+        n * M + tt.numel() * 4 + DOMAIN_K * 8, n * M,
+        lambda: chunked_topk(torch, tt, lambda s0, s1: raw[s0:s1].long() + cols, n, DOMAIN_K,
+                             1 << 22),
+        "table[codes + m * 256].sum(-1) then torch.topk(largest=False) per 4M-row chunk, "
+        "one more torch.topk over the chunks", fmt=0, queries=1, k=DOMAIN_K, rows=n, width=M,
+        table_width=tt.shape[1], kth=float(kth), ties_at_kth=ties)
+    del got, want, raw, tt
 
     # B7 on (at most) 30 windows of 65,536 rows over the wide table at k = DOMAIN_K
     win = 65_536
@@ -2930,10 +3004,10 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
             d = torch.where(lane < n_valid[s0 : s0 + 4, None], d.sum(-1), torch.inf)
             torch.topk(d, DOMAIN_K, dim=1, largest=False)
 
-    row("adc_topk_pairs_wide", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:642",
+    row("adc_topk_pairs_wide", "adc_topk_select.cu", "src/repro/kernels/adc_topk.py:642",
         block_variant(k_topk, plan7), got, want, plain_ms,
-        lambda: k_topk.launch_pairs(tab7, win_addrs, n_valid, ov, oi, DOMAIN_K, BLOCK_N,
-                                    plan=plan7),
+        lambda **kw: k_topk.launch_pairs(tab7, win_addrs, n_valid, ov, oi, DOMAIN_K, BLOCK_N,
+                                         plan=plan7, **kw),
         valid * w * 2 + tab7.numel() * 4 + p7 * DOMAIN_K * 8, valid * w, lib7,
         "tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
         "torch.topk(largest=False), 4 windows at a time", fmt=1, pairs=p7, window=win, width=w,
@@ -2957,8 +3031,10 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
     4096 on the 4096 entries they share, and the spill's cost forced at k =
     4096 beside the shared block (unpruned, each pair its own query,
     bit-equal); `domain_synthetic` (B6, B7, B8 on a 65,536-entry table, B6
-    spilled); B10's general kernel at head dims `DOMAIN_FLASH_HD` (bf16 q,
-    f32 cache, `flash_row`) and at 65,536 row tiles of 128 rows."""
+    past k = 4096 on the select kernels); B10's general kernel at head dims
+    `DOMAIN_FLASH_HD` (bf16 q, f32 cache, `flash_row`; staged), at hd 128 on
+    views one element off alignment (element copies) and at 65,536 row
+    tiles of 128 rows."""
     from repro_torch.core.index import filter_clusters
 
     t_phase = time.perf_counter()
@@ -3041,11 +3117,28 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
         q, k, v = flash_inputs(torch, dev, hd, 32, 8, hd)
         ops.reset_launches()
         frow, _ = flash_row(torch, ops, k_flash, q, k, v, LM_PROMPT, 1)
-        if frow["variant"] != "general" or ops.launches["flash_attention_fwd"] != 1:
-            raise RuntimeError(f"domain: B10 at hd {hd} did not run the general kernel once")
+        if frow["variant"] != "staged" or ops.launches["flash_attention_fwd"] != 1:
+            raise RuntimeError(f"domain: B10 at hd {hd} did not run the general kernel "
+                               "(staged) once")
         frow["name"] = f"flash_attention_fwd_hd{hd}"
+        frow["general_shape"] = k_flash.general_shape(hd, frow["variant"])
         rows.append(frow)
         del q, k, v
+    # the element-copy path: hd 128 on views one element past a 16-byte boundary
+    views = []
+    for x in flash_inputs(torch, dev, 128, 32, 8, 128):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.reshape(-1)
+        views.append(buf[1:].view(x.shape))
+        del buf, x
+    ops.reset_launches()
+    frow, _ = flash_row(torch, ops, k_flash, *views, LM_PROMPT, 1)
+    if frow["variant"] != "general" or ops.launches["flash_attention_fwd"] != 1:
+        raise RuntimeError("domain: B10 on unaligned views did not run the element copies once")
+    frow["name"] = "flash_attention_fwd_hd128_unaligned"
+    frow["general_shape"] = k_flash.general_shape(128, "general")
+    rows.append(frow)
+    del views
     # 65,536 row tiles (32 query heads on one KV head, 262,144 positions)
     sq, h, kv_valid = DOMAIN_GRID_POSITIONS, 32, 128
     gq = torch.Generator(device=dev).manual_seed(65_536)
@@ -3067,7 +3160,8 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
     log(phase="domain", exact_k=DOMAIN_EXACT_K, k_prime=kp, end_to_end=e2e,
         plain_path_equal=True, windows_equal_tiles=True, vs_shared_block=vs_shared,
         spill_cost=spill_cost, flash_grid=grid,
-        rows=[dict(name=r["name"], variant=r.get("variant"), ms=r["ms"]) for r in rows],
+        rows=[dict(name=r["name"], variant=r.get("variant"), ms=r["ms"], split=r.get("split"))
+              for r in rows],
         seconds=time.perf_counter() - t_phase)
     return rows
 

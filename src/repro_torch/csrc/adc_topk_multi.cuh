@@ -59,10 +59,11 @@
 // four tables interleaved cost 0.80x of four scalar lookups.
 //
 // The WIDE block (adc_topk_wide.cu, one table a unit) is this block run on
-// `WideArgs`: under spill its list and merge buffer live in device memory,
-// under gtab the unit's table is read where it lies (`multi_smem_wide`,
+// `WideArgs`: the unit's table is read where it lies (`multi_smem_wide`,
 // `stages_tables`).  Every function the shared-memory block runs keeps its
 // code: the WIDE parts are overloads and branches on the arguments' type.
+// Past the lists' k (k > 4096) B6 / B7 run the select kernels of
+// adc_topk_select.cu, which score through `multi_load` / `multi_score`.
 
 #pragma once
 
@@ -104,12 +105,9 @@ struct MultiArgs {
 };
 
 // The WIDE block's arguments (G = 1): gtab reads each unit's table where it
-// lies; spill keeps the list and its merge buffer in wide_* ((G + 1) * k
-// entries a block) instead of shared memory.
+// lies.
 struct WideArgs : MultiArgs {
-  int gtab, spill;
-  float* wide_v;
-  int* wide_i;
+  int gtab;
 };
 
 struct Unit {
@@ -141,17 +139,17 @@ __host__ __device__ __forceinline__ int multi_table_width(int table_width, int w
 
 // Dynamic shared memory of a block: G tables, G top-k lists and one merge
 // buffer (k), one pass of candidates (PASS = 1024 at most).  The WIDE
-// block leaves out the tables under gtab and the lists under spill.
-inline size_t multi_smem_bytes(int g, int a_used, int k, bool gtab = false, bool spill = false) {
-  return (static_cast<size_t>(gtab ? 0 : g) * a_used +
-          (spill ? 0 : 2 * static_cast<size_t>(g) * k + 2 * k) + 2 * PASS) * 4;
+// block leaves out the tables under gtab.
+inline size_t multi_smem_bytes(int g, int a_used, int k, bool gtab = false) {
+  return (static_cast<size_t>(gtab ? 0 : g) * a_used + 2 * static_cast<size_t>(g) * k + 2 * k +
+          2 * PASS) * 4;
 }
 
 inline size_t args_smem_bytes(const MultiArgs& a, int g, int a_used) {
   return multi_smem_bytes(g, a_used, a.k);
 }
 inline size_t args_smem_bytes(const WideArgs& a, int g, int a_used) {
-  return multi_smem_bytes(g, a_used, a.k, a.gtab, a.spill);
+  return multi_smem_bytes(g, a_used, a.k, a.gtab);
 }
 
 // Exclusive prefix sum of v over the block (and the total), `red` holding
@@ -307,12 +305,8 @@ __device__ __forceinline__ MultiSmem multi_smem(unsigned char* smem, int a_used,
   return s;
 }
 
-// The WIDE block's layout (`multi_smem_bytes` with gtab / spill): no table
-// under gtab (the scan reads each unit's table row where it lies), the
-// lists in this block's (G + 1) * k entries of wide_* under spill.  Every
-// merge and store runs on these generic pointers unchanged: each write to a
-// list is followed by a block barrier before any read, which orders global
-// memory within the block as it does shared memory.
+// The WIDE block's layout (`multi_smem_bytes` with gtab): no table under
+// gtab (the scan reads each unit's table row where it lies).
 template <int G>
 __device__ __forceinline__ MultiSmem multi_smem_wide(unsigned char* smem, const WideArgs& a,
                                                      int a_used) {
@@ -321,20 +315,11 @@ __device__ __forceinline__ MultiSmem multi_smem_wide(unsigned char* smem, const 
   float* p = reinterpret_cast<float*>(smem);
   s.table = a.gtab ? nullptr : p;
   p += a.gtab ? 0 : static_cast<size_t>(G) * a_used;
-  if (a.spill) {
-    const size_t base = static_cast<size_t>(blockIdx.x) * (G + 1) * k;
-    s.top_v = a.wide_v + base;
-    s.top_i = a.wide_i + base;
-    s.nxt_v = s.top_v + G * k;
-    s.nxt_i = s.top_i + G * k;
-  } else {
-    s.top_v = p;
-    s.top_i = reinterpret_cast<int*>(s.top_v + G * k);
-    s.nxt_v = reinterpret_cast<float*>(s.top_i + G * k);
-    s.nxt_i = reinterpret_cast<int*>(s.nxt_v + k);
-    p = reinterpret_cast<float*>(s.nxt_i + k);
-  }
-  s.cand_v = p;
+  s.top_v = p;
+  s.top_i = reinterpret_cast<int*>(s.top_v + G * k);
+  s.nxt_v = reinterpret_cast<float*>(s.top_i + G * k);
+  s.nxt_i = reinterpret_cast<int*>(s.nxt_v + k);
+  s.cand_v = reinterpret_cast<float*>(s.nxt_i + k);
   s.cand_i = reinterpret_cast<int*>(s.cand_v + PASS);
   return s;
 }
@@ -885,9 +870,8 @@ inline int launch_multi_kernel(Kernel kernel, const Args& a, int g, int n_blocks
 }
 
 template <typename Kernel>
-inline int multi_blocks_per_sm(Kernel kernel, int g, int a_used, int k, bool gtab = false,
-                               bool spill = false) {
-  const size_t smem = multi_smem_bytes(g, a_used, k, gtab, spill);
+inline int multi_blocks_per_sm(Kernel kernel, int g, int a_used, int k, bool gtab = false) {
+  const size_t smem = multi_smem_bytes(g, a_used, k, gtab);
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;

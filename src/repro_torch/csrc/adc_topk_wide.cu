@@ -1,28 +1,23 @@
-// Kernels B6 and B7 past their shared-memory block: k beyond the
-// shared-memory path's range (the lists spill to device memory) or a table
-// too wide to stage (read where it lies), one table a unit.
+// Kernels B6 and B7 past their shared-memory block at k <= 4096: a table
+// too wide to stage, read where it lies, one table a unit (a larger k runs
+// the select kernels of adc_topk_select.cu).
 //
 // Replaces: src/repro/kernels/adc_topk.py `adc_topk_kernel` (B6) and
 //           `adc_topk_pairs_kernel` (B7), over the part of their domain
 //           the blocks of adc_topk.cu / adc_topk_pairs.cu do not hold: the
-//           Pallas kernels keep a (k,) scratch of any k and a table of any
-//           width in VMEM.
+//           Pallas kernels keep a table of any width in VMEM.
 //
 // It is the multi-table block of adc_topk_multi.cuh at G = 1 run on
 // `WideArgs`: the same units, runs, passes, candidate test, merges and
 // merge tree, so the same rows by (distance, row), bit-equal to the plain
-// versions.  What moves (`WideArgs::gtab`, `spill`, chosen by
-// kernels/adc_topk.py `topk_plan`): under gtab the unit's table row is read
-// from device memory at each lookup (the L1 and L2 hold its hot lines)
-// instead of being staged in shared memory; under spill the block's list
-// and merge buffer live in device memory, 2k entries a resident block, and
-// only a pass of candidates stays in shared memory.  B6's and B7's units
-// differ only in where they come from (`unit_at`), so one kernel serves
-// both launchers below.
+// versions.  What moves (`WideArgs::gtab`, chosen by kernels/adc_topk.py
+// `topk_plan`): the unit's table row is read from device memory at each
+// lookup (the L1 and L2 hold its hot lines) instead of being staged in
+// shared memory.  B6's and B7's units differ only in where they come from
+// (`unit_at`), so one kernel serves both launchers below.
 //
-// What bounds it on an H100: as B6 / B7, the code bytes for few tables;
-// under spill also the merges, each of which reads and writes the k-entry
-// list in device memory (mostly L2) once per pass with candidates.
+// What bounds it on an H100: as B6 / B7, the code bytes for few tables,
+// and the table's lookups through L1.
 
 #include "adc_topk_multi.cuh"
 
@@ -43,9 +38,9 @@ int launch(const WideArgs& a, int n_blocks, cudaStream_t stream) {
 }
 
 template <typename CodeT, bool OFFSETS, int WT, bool SORT>
-int blocks_per_sm(int table_width, int w, int k, int gtab, int spill) {
+int blocks_per_sm(int table_width, int w, int k, int gtab) {
   return multi_blocks_per_sm(adc_topk_wide_kernel<CodeT, OFFSETS, WT, SORT>, 1,
-                             multi_table_width<OFFSETS, WT>(table_width, w), k, gtab, spill);
+                             multi_table_width<OFFSETS, WT>(table_width, w), k, gtab);
 }
 
 }  // namespace
@@ -56,22 +51,21 @@ int blocks_per_sm(int table_width, int w, int k, int gtab, int spill) {
 // null.  tables (n_q, table_width) f32; codes in `code_fmt` (0 uint8 raw +
 // column offsets, 1 uint16, 2 int32 direct addresses); bound (n_q,) f32 or
 // null; out_* (n_q, k); part_* (n_blocks + n_units) * k scratch entries,
-// tickets n_blocks + 2 * n_units int32 zeros (left zero); wide_* 2k
-// entries a block under spill.  Returns cudaGetLastError() after the launch.
+// tickets n_blocks + 2 * n_units int32 zeros (left zero).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int adc_topk_wide_launch(const void* tables, const void* codes, const void* bound,
                                     const void* units, const void* n_valid, void* out_v,
                                     void* out_i, void* part_v, void* part_i, void* tickets,
-                                    void* wide_v, void* wide_i, long long win_len, int n_units,
-                                    int n_q, int n_rows, int w, int table_width, int code_fmt,
-                                    int onehot, int k, int block_n, int gtab, int spill,
-                                    int n_blocks, void* stream) {
+                                    long long win_len, int n_units, int n_q, int n_rows, int w,
+                                    int table_width, int code_fmt, int onehot, int k, int block_n,
+                                    int gtab, int n_blocks, void* stream) {
   if (n_units <= 0 || n_blocks <= 0) return 0;
   WideArgs a{{static_cast<const float*>(tables), codes, static_cast<const float*>(bound),
                static_cast<const int*>(units), static_cast<const int*>(n_valid),
                static_cast<float*>(out_v), static_cast<int*>(out_i), static_cast<float*>(part_v),
                static_cast<int*>(part_i), static_cast<int*>(tickets), win_len, n_units, n_q,
                n_rows, w, table_width, k, block_n},
-              gtab, spill, static_cast<float*>(wide_v), static_cast<int*>(wide_i)};
+              gtab};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_WIDE_LAUNCH(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT>(a, n_blocks, st)
   REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_WIDE_LAUNCH)
@@ -81,9 +75,9 @@ extern "C" int adc_topk_wide_launch(const void* tables, const void* codes, const
 // Resident blocks per SM of the instantiation `adc_topk_wide_launch` would
 // run, or minus a cudaError_t.
 extern "C" int adc_topk_wide_blocks_per_sm(int code_fmt, int onehot, int w, int table_width,
-                                           int k, int gtab, int spill) {
+                                           int k, int gtab) {
 #define REPRO_WIDE_OCC(CodeT, OFF, WT, SORT) \
-  blocks_per_sm<CodeT, OFF, WT, SORT>(table_width, w, k, gtab, spill)
+  blocks_per_sm<CodeT, OFF, WT, SORT>(table_width, w, k, gtab)
   REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_WIDE_OCC)
 #undef REPRO_WIDE_OCC
 }

@@ -78,16 +78,23 @@ SIGNATURES = {
     # code_fmt, onehot, w, table_width, k
     "adc_topk_pairs_blocks_per_sm": [_I] * 5,
     # tables, codes, bound, units, n_valid (each may be null but tables and
-    # codes), out_v, out_i, part_v, part_i, tickets, wide_v, wide_i,
-    # win_len, n_units, n_q, n_rows, w, table_width, code_fmt, onehot, k,
-    # block_n, gtab, spill, n_blocks, stream
-    "adc_topk_wide_launch": [_P] * 12 + [_L] + [_I] * 12 + [_P],
-    # code_fmt, onehot, w, table_width, k, gtab, spill
-    "adc_topk_wide_blocks_per_sm": [_I] * 7,
+    # codes), out_v, out_i, part_v, part_i, tickets, win_len, n_units, n_q,
+    # n_rows, w, table_width, code_fmt, onehot, k, block_n, gtab, n_blocks,
+    # stream
+    "adc_topk_wide_launch": [_P] * 10 + [_L] + [_I] * 11 + [_P],
+    # code_fmt, onehot, w, table_width, k, gtab
+    "adc_topk_wide_blocks_per_sm": [_I] * 6,
+    # tables, codes, bound, units, n_valid (as above), out_v, out_i,
+    # scratch, win_len, n_units, n_q, n_rows, w, table_width, code_fmt,
+    # onehot, k, block_n, gtab, n_blocks, launched (host int), split_ms
+    # (host floats or null), stream
+    "adc_topk_select_launch": [_P] * 8 + [_L] + [_I] * 11 + [_P] * 3,
+    # code_fmt, onehot, w, table_width, gtab
+    "adc_topk_select_blocks_per_sm": [_I] * 5,
     # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
-    # kv_is_bf16, scale, general, stream
+    # kv_is_bf16, scale, variant (`flash_attn.VARIANTS`), stream
     "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _I, _P],
-    # hd, q_is_bf16, kv_is_bf16, general, out (3 ints: registers, spill
+    # hd, q_is_bf16, kv_is_bf16, variant, out (3 ints: registers, spill
     # bytes, dynamic shared memory bytes)
     "flash_attn_attributes": [_I, _I, _I, _I, _P],
 }

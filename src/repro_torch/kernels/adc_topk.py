@@ -5,14 +5,17 @@ windows): run planning, plain versions, CUDA launchers.
 The CUDA sources are `csrc/adc_topk_tiles.cu`, `csrc/adc_topk_windows.cu`,
 `csrc/adc_topk.cu` and `csrc/adc_topk_pairs.cu` (their common device code
 in `csrc/adc_topk_common.cuh`, B6 / B7's block in `csrc/adc_topk_multi.cuh`,
-its WIDE instantiations in `csrc/adc_topk_wide.cu`); `ops.adc_topk_tiles`,
+its WIDE instantiations in `csrc/adc_topk_wide.cu`, B6 / B7 past k = 4096
+in `csrc/adc_topk_select.cu`); `ops.adc_topk_tiles`,
 `ops.adc_topk_windows`, `ops.adc_topk` / `ops.adc_topk_flat` /
 `ops.adc_topk_grouped` and `ops.adc_topk_pairs` are the wrappers.  Every
 scan takes any k >= 1 and any table width: `scan_plan` (B2 / B5) and
 `topk_plan` (B6 / B7: G, tables per block, too) keep the shared-memory
 blocks wherever their lists (k <= `SCAN_K_MAX`) and tables fit, and else
-pick the WIDE block, whose lists spill to device memory and whose table
-is read where it lies when too wide (`wide_layout`).  B6 / B7 are planned
+pick the WIDE block, whose lists (B2 / B5) spill to device memory and
+whose table is read where it lies when too wide (`wide_layout`); B6 / B7
+past `SCAN_K_MAX` select each unit's k-th key and sort its k winners
+(`select` plans, `select_scratch`).  B6 / B7 are planned
 here on every device: `topk_plan`, `topk_units`, and `run_plan` (the Python
 twin of how the kernel cuts tiles into runs).  For B2 and B5, arrays
 carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
@@ -44,6 +47,7 @@ k-th distance.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -156,8 +160,8 @@ def scan_plan(k: int, table_width: int) -> dict:
 
 
 def wide(plan: dict) -> bool:
-    """Whether a plan runs the WIDE block."""
-    return plan["gtab"] or plan["spill"]
+    """Whether a plan runs the WIDE block (B6 / B7: or the select kernels)."""
+    return plan["gtab"] or plan.get("spill", False) or plan.get("select", False)
 
 
 def gatherable(codes: torch.Tensor) -> torch.Tensor:
@@ -422,16 +426,18 @@ def topk_plan(
     nq, rows, k: int, fmt: int, w: int, table_width: int, groups=TOPK_GROUPS
 ) -> dict:
     """How one B6 / B7 launch runs, for groups of nq[i] tables over rows[i]
-    rows each: {"g", "gtab", "spill", "smem"}.
+    rows each: {"g", "gtab", "select", "smem"}.
 
     With k <= SCAN_K_MAX, of the G in `groups` whose shared-memory block
     fits `SMEM_BUDGET` (G tables beside their lists), the one of least
     modelled time: per unit of G tables, its rows times the larger of their
     code bytes over the HBM rate and their W * G lookups at
-    `_LOOKUP_CLOCKS[G]`.  When none fits, or k is larger, the WIDE block
-    at G = 1 (`wide_layout`: the lists spilled past SCAN_K_MAX, the table
-    read where it lies when too wide).  The same on every device; raises
-    ValueError for k < 1 only.
+    `_LOOKUP_CLOCKS[G]`.  When none fits, the WIDE block at G = 1 (the
+    table read where it lies, `gtab`); past SCAN_K_MAX the select kernels
+    (`select`: no list is kept; `gtab` and `smem` from `wide_layout`'s
+    spilled layout, whose candidate buffer is the select's histogram of
+    `_SELECT_BINS` words).  The same on every device; raises ValueError for
+    k < 1 only.
     """
     _check_k(k)
     a_used = topk_table_width(fmt, w, table_width)
@@ -446,8 +452,9 @@ def topk_plan(
         if best is None or cost < best_cost:
             best, best_cost = g, cost
     if best is not None:
-        return dict(g=best, gtab=False, spill=False, smem=topk_smem(best, k, a_used))
-    return dict(g=1, **wide_layout(k, a_used, _MULTI_STATIC_SMEM))
+        return dict(g=best, gtab=False, select=False, smem=topk_smem(best, k, a_used))
+    layout = wide_layout(k, a_used, _MULTI_STATIC_SMEM)
+    return dict(g=1, gtab=layout["gtab"], select=layout["spill"], smem=layout["smem"])
 
 
 def topk_group_size(
@@ -578,6 +585,20 @@ def _workspace(dev: torch.device, entries: int, n_tickets: int):
     return part_v, part_i, tickets
 
 
+# per (device, stream): the select kernels' int32 scratch (`select_scratch`;
+# the launcher zeroes what it needs), grown as calls need and kept
+_SELECT_WORKSPACE: dict = {}
+
+
+def _select_workspace(dev: torch.device, entries: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SELECT_WORKSPACE.get(key)
+    if buf is None or buf.numel() < entries:
+        buf = torch.empty((max(entries, 1 << 16),), dtype=torch.int32, device=dev)
+        _SELECT_WORKSPACE[key] = buf
+    return buf
+
+
 @functools.lru_cache(maxsize=None)
 def _blocks_per_sm(name: str, *args: int) -> int:
     n = getattr(_build.library(), name)(*args)
@@ -593,49 +614,109 @@ def _grid(dev: torch.device, name: str, *args: int) -> int:
         name, *args)
 
 
+# csrc/adc_topk_select.cu: histogram bins of a digit (the size of the
+# candidate buffer it takes the place of, 2 * _SCAN_PASS), int32 fields of a
+# unit's state, rows of a unit's bucket buffer, keys one sort block holds in
+# shared memory
+_SELECT_BINS = 2048
+_SELECT_STATE = 12
+_SELECT_BUCKET = 8192
+_SORT_CHUNK = 16384
+
+
+def select_scratch(n_units: int, n_blocks: int) -> int:
+    """int32 scratch entries of one call of the select kernels: each unit's
+    state and histogram, a tie count for each of at most n_blocks + n_units
+    runs (to an even count), and each unit's bucket buffer of
+    `_SELECT_BUCKET` 8-byte (key, row) pairs.  The k winners go to the
+    output itself, and rows are scored again in every pass, so nothing
+    grows with k or the rows."""
+    head = n_units * (_SELECT_STATE + _SELECT_BINS) + n_blocks + n_units
+    return head + head % 2 + n_units * 2 * _SELECT_BUCKET
+
+
+def select_sort_smem(k: int) -> int:
+    """Dynamic shared memory of the select's sort block: 8-byte keys of the
+    k winners rounded up to a power of two of at least 8,192 (eight a
+    thread of its 1,024) and at most `_SORT_CHUNK` (a larger k sorts its
+    long strides in device memory)."""
+    n2 = 8192
+    while n2 < k and n2 < _SORT_CHUNK:
+        n2 *= 2
+    return n2 * 8
+
+
+# the steps of one select call in launch order (csrc `SEL_STEPS`): a
+# memset of the states and histograms, six scoring passes (the last three
+# empty unless a unit's bucket overflows), the bucket pass, the sort
+SELECT_STEPS = ("memset", "hist0", "hist1", "compact", "hist2", "compact2", "ties", "bucket",
+                "sort")
+# CUDA launches (kernels and memsets) the select chain enqueued since
+# `ops.reset_launches()`, as its launcher counts them
+cuda_launches = {"adc_topk_select": 0}
+
+
 def _launch_wide(tables, codes, bound, units, n_valid, out_v, out_i, k: int, block_n: int,
-                 plan: dict, n_units: int, win_len: int, path: str) -> None:
-    """Enqueue `csrc/adc_topk_wide.cu` (the WIDE block at G = 1) for B6
-    (`units` or None, `n_valid` None) or B7 (`n_valid`, `win_len`)."""
+                 plan: dict, n_units: int, win_len: int, path: str,
+                 split_ms: dict | None = None) -> None:
+    """Enqueue the WIDE block at G = 1 for B6 (`units` or None, `n_valid`
+    None) or B7 (`n_valid`, `win_len`): `csrc/adc_topk_select.cu` for a
+    `select` plan, else `csrc/adc_topk_wide.cu` (the table read in place).
+    A select call adds its CUDA launches to `cuda_launches`; given a dict
+    `split_ms`, it waits for its steps and fills in each one's ms on the
+    card (`SELECT_STEPS`, timed by CUDA events)."""
     q_n = tables.shape[0]
     dev = tables.device
     w, fmt = codes.shape[-1], code_format(codes)
     onehot = int(path == "onehot")
-    gtab, spill = int(plan["gtab"]), int(plan["spill"])
+    gtab = int(plan["gtab"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = [None if x is None else x.data_ptr() for x in (bound, units, n_valid)]
+    if plan["select"]:
+        n_blocks = _grid(dev, "adc_topk_select_blocks_per_sm", fmt, onehot, w, tables.shape[1],
+                         gtab)
+        scratch = _select_workspace(dev, select_scratch(n_units, n_blocks))
+        launched = ctypes.c_int(0)
+        split = None if split_ms is None else (ctypes.c_float * len(SELECT_STEPS))()
+        err = _build.library().adc_topk_select_launch(
+            tables.data_ptr(), codes.data_ptr(), *ptr, out_v.data_ptr(), out_i.data_ptr(),
+            scratch.data_ptr(), win_len, n_units, q_n, codes.shape[0], w, tables.shape[1], fmt,
+            onehot, k, block_n, gtab, n_blocks, ctypes.addressof(launched),
+            None if split is None else ctypes.addressof(split), stream)
+        cuda_launches["adc_topk_select"] += launched.value
+        _build.check(err, "adc_topk_select")
+        if split_ms is not None:
+            split_ms.update(zip(SELECT_STEPS, split))
+        return
     n_blocks = _grid(dev, "adc_topk_wide_blocks_per_sm", fmt, onehot, w, tables.shape[1], k,
-                     gtab, spill)
-    part = (n_blocks + n_units) * k
-    buf_v, buf_i, tickets = _workspace(dev, part + spill * n_blocks * 2 * k,
-                                       n_blocks + 2 * n_units)
+                     gtab)
+    buf_v, buf_i, tickets = _workspace(dev, (n_blocks + n_units) * k, n_blocks + 2 * n_units)
     err = _build.library().adc_topk_wide_launch(
-        tables.data_ptr(), codes.data_ptr(), None if bound is None else bound.data_ptr(),
-        None if units is None else units.data_ptr(),
-        None if n_valid is None else n_valid.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        buf_v.data_ptr(), buf_i.data_ptr(), tickets.data_ptr(),
-        buf_v[part:].data_ptr(), buf_i[part:].data_ptr(), win_len, n_units, q_n,
-        codes.shape[0], w, tables.shape[1], fmt, onehot, k, block_n, gtab, spill, n_blocks,
-        torch.cuda.current_stream(dev).cuda_stream,
+        tables.data_ptr(), codes.data_ptr(), *ptr, out_v.data_ptr(), out_i.data_ptr(),
+        buf_v.data_ptr(), buf_i.data_ptr(), tickets.data_ptr(), win_len, n_units, q_n,
+        codes.shape[0], w, tables.shape[1], fmt, onehot, k, block_n, gtab, n_blocks, stream,
     )
     _build.check(err, "adc_topk_wide")
 
 
 def launch_topk(
     tables, codes, bound, out_v, out_i, k: int, block_n: int, g: int, units=None,
-    path: str = "gather", plan: dict | None = None,
+    path: str = "gather", plan: dict | None = None, split_ms: dict | None = None,
 ) -> None:
     """Enqueue `csrc/adc_topk.cu` (or, for a WIDE `plan` from `topk_plan`,
     `adc_topk_wide.cu`; None: the shared-memory block at G = g) on the
     current stream (checked inputs: tables (Q, A), codes (N, W), bound (Q,)
     or None, out (Q, k); `units` a (n_units, 4) int32 tensor on the card
     from `topk_units`, or None for ceil(Q / g) units over all N rows): one
-    launch, its split lists merged inside it."""
+    launch, its split lists merged inside it (a `select` plan: the chain of
+    `SELECT_STEPS`, `adc_topk_select.cu`, `split_ms` as `_launch_wide`'s)."""
     q_n, n = tables.shape[0], codes.shape[0]
     dev = tables.device
     w, fmt = codes.shape[1], code_format(codes)
     n_units = -(-q_n // g) if units is None else units.shape[0]
     if plan is not None and wide(plan):
         _launch_wide(tables, codes, bound, units, None, out_v, out_i, k, block_n, plan,
-                     n_units, 0, path)
+                     n_units, 0, path, split_ms)
         return
     onehot = int(path == "onehot")
     n_blocks = _grid(dev, "adc_topk_blocks_per_sm", fmt, onehot, w, tables.shape[1], k, g)
@@ -681,9 +762,11 @@ def adc_topk_pairs_plain(
 
 
 def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int,
-                 path: str = "gather", plan: dict | None = None) -> None:
+                 path: str = "gather", plan: dict | None = None,
+                 split_ms: dict | None = None) -> None:
     """Enqueue `csrc/adc_topk_pairs.cu` (or, for a WIDE `plan` from
-    `topk_plan`, `adc_topk_wide.cu`) on the current stream (checked inputs:
+    `topk_plan`, `adc_topk_wide.cu` / `adc_topk_select.cu`, `split_ms` as
+    `_launch_wide`'s) on the current stream (checked inputs:
     tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)
     pre-filled with (+inf, -1)): one launch, each pair's valid tiles cut
     into runs across the grid and merged inside it."""
@@ -691,7 +774,7 @@ def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int,
     dev = tables.device
     if plan is not None and wide(plan):
         _launch_wide(tables, addrs, None, None, n_valid, out_v, out_i, k, block_n, plan, p,
-                     win, path)
+                     win, path, split_ms)
         return
     fmt = code_format(addrs)
     onehot = int(path == "onehot")

@@ -20,6 +20,11 @@ from repro_torch.kernels import _build
 # every other head dim, and tensors not 16-byte aligned, take the general
 # kernel (`kernel_variant`)
 HEAD_DIMS = (16, 32, 64, 96, 112, 128)
+# the widest head dim the general kernel stages by `cp.async` (eight warps
+# of 128 columns a row tile); past it, element copies in slices
+STAGED_HD_MAX = 1024
+# csrc/flash_attn.cu's `variant` argument
+VARIANTS = {"fast": 0, "staged": 1, "general": 2}
 
 
 def tf32_passes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> tuple[int, int]:
@@ -32,12 +37,33 @@ def tf32_passes(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> tuple[int, int]:
 
 def kernel_variant(hd: int, *tensors: torch.Tensor) -> str:
     """The CUDA kernel a call runs: "fast" (the `cp.async` ring, head dims
-    of `HEAD_DIMS`, every tensor 16-byte aligned) or "general" (any head
-    dim and offset: element copies, the head dim in slices, output columns
-    in blocks on the grid)."""
+    of `HEAD_DIMS`, every tensor 16-byte aligned); else the general kernel
+    (`general_shape`), "staged" (its rows by `cp.async` in the same ring:
+    every tensor 16-byte aligned, every row of hd elements a multiple of 16
+    bytes, hd <= `STAGED_HD_MAX`) or "general" (element copies: any head
+    dim and offset)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
-    return "fast" if hd in HEAD_DIMS and aligned else "general"
+    if hd in HEAD_DIMS and aligned:
+        return "fast"
+    rows = all(hd * t.element_size() % 16 == 0 for t in tensors)
+    return "staged" if aligned and rows and hd <= STAGED_HD_MAX else "general"
 
+
+def general_shape(hd: int, variant: str) -> dict:
+    """The general kernel's instance for head dim hd (csrc/flash_attn.cuh
+    `general_shape`): `wpr` warps a row tile of `cw` head-dim columns each
+    (hd padded to wpr * cw), `rows` (position, head) rows and `keys` keys a
+    tile.  "staged": one warp up to 128 (hd rounded up to 48, 64, 80 or
+    128), two up to 256, four up to 512, eight up to 1024 (128 columns
+    each); "general": one, two or eight warps of 128 columns (slices of
+    1024 past 1024)."""
+    if hd > 128:
+        wpr = 2 if hd <= 256 else (4 if hd <= 512 and variant == "staged" else 8)
+        cw = 128
+    else:
+        wpr = 1
+        cw = 128 if variant == "general" else next(c for c in (48, 64, 80, 128) if hd <= c)
+    return dict(wpr=wpr, cw=cw, rows=16 * 8 // wpr, keys=64 // wpr)
 
 
 def online_softmax_step(qg, kc, vc, mask, m, l, acc, s_eq, pv_eq):
@@ -146,7 +172,7 @@ def kernel_attributes(hd: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
     out = (ctypes.c_int * 3)()
     err = _build.library().flash_attn_attributes(
         hd, int(q_dtype == torch.bfloat16), int(kv_dtype == torch.bfloat16),
-        int(variant == "general"), out)
+        VARIANTS[variant], out)
     _build.check(err, "flash_attn_attributes")
     return dict(registers=out[0], spill_bytes=out[1], smem_bytes=out[2])
 
@@ -156,11 +182,11 @@ def launch(q, k, v, out, scale: float, q_offset: int, kv_valid: int) -> None:
     the kernel `kernel_variant` picks)."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    general = kernel_variant(hd, q, k, v, out) == "general"
+    variant = VARIANTS[kernel_variant(hd, q, k, v, out)]
     err = _build.library().flash_attn_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh,
         hd, q_offset, kv_valid, int(q.dtype == torch.bfloat16),
-        int(k.dtype == torch.bfloat16), float(scale), int(general),
+        int(k.dtype == torch.bfloat16), float(scale), variant,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attn")

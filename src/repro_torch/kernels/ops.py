@@ -65,6 +65,8 @@ meta_work = {"flash_attention_fwd": {"calls": 0, "flops": 0, "bytes": 0}}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for name in _topk.cuda_launches:
+        _topk.cuda_launches[name] = 0
 
 
 def reset_meta_work() -> None:

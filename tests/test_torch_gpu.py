@@ -38,12 +38,15 @@ runs bit for bit.  An OPQ-rotated engine on the card (with inserts)
 equals the CPU engine; a retile, a non-default `rerank_block` and a swept
 geometry change no bit on plain and co-occurrence shards; an engine saved
 from the card loads on the CPU and answers as on the card.
-Past the shared-memory blocks (PR 27): B2 / B5 with their lists spilled
+Past the shared-memory blocks: B2 / B5 with their lists spilled
 (k 4097, 8192), a 65,536-entry table read in place, or both, bit-equal
 per pair and equal to the shared block when forced at k = 4096; B6 / B7
-spilled and in place, B8 and B4 / B9 in place, bit-equal; B10's general
-kernel at head dims 8-256 and on unaligned views within the tolerances,
-and its grid at 65,536 row tiles.
+past k = 4096 (the select kernels: thousands of rows tied at the k-th,
+k at and past a unit's rows, grouped units, k 40,000 sorted past shared
+memory, B7 windows of 0 / 7 / all / k valid rows) and in place, B8 and
+B4 / B9 in place, bit-equal; B10's general kernel (staged and element by
+element) at head dims 8-1040, aligned and at an odd offset, peaked at
+hd 256, within the tolerances, and its grid at 65,536 row tiles.
 This file imports no JAX (the card's machine has none).
 """
 
@@ -667,7 +670,7 @@ def test_adc_topk_spill_bit_equal(cuda, dtype, w, q, k):
     version in one launch."""
     tables, codes = _api_case(cuda, k + q, 100_003, w, dtype, q=q)
     assert adc_topk.topk_plan([q], [100_003], k, adc_topk.code_format(codes), w,
-                              tables.shape[1])["spill"]
+                              tables.shape[1])["select"]
     inf = torch.full((q,), torch.inf, device=cuda)
     fn = ops.adc_topk if dtype == torch.uint8 else ops.adc_topk_flat
     for bound in (None, _tile_bound(tables, codes, 1024, q)):
@@ -693,6 +696,123 @@ def test_adc_topk_pairs_spill_bit_equal(cuda, table_width):
     torch.cuda.synchronize()
     assert ops.launches["adc_topk_pairs"] == 1
     want = adc_topk.adc_topk_pairs_plain(tables, addrs, n_valid, 8192)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _tie_case(dev, seed, n, w, dtype, q):
+    """Tables of two values (0 and 1 / 64: every sum is exact, a row's
+    distance one of w + 1 values), so thousands of rows tie at any k-th
+    distance past the first few hundred rows."""
+    tables, codes = _api_case(dev, seed, n, w, dtype, q=q)
+    return torch.floor(tables * 2) / 64, codes
+
+
+@pytest.mark.parametrize("dtype,w", [(torch.uint8, 16), (torch.uint16, 16), (torch.int32, 8)])
+@pytest.mark.parametrize("k", [4097, 8192, 40_000])
+def test_adc_topk_select_ties_bit_equal(cuda, dtype, w, k):
+    """B6 past k = 4096 (the select kernels) where thousands of rows tie at
+    the k-th distance, Q 3 with a finite bound on table 0 and without:
+    bit-equal to the plain version (ties broken by the lower row), one
+    launch per call; k 40,000 sorts past one block's shared memory."""
+    q = 3
+    tables, codes = _tie_case(cuda, k + 7, 100_003, w, dtype, q)
+    plan = adc_topk.topk_plan([q], [100_003], k, adc_topk.code_format(codes), w, tables.shape[1])
+    assert plan["select"] and "spill" not in plan
+    fn = ops.adc_topk if dtype == torch.uint8 else ops.adc_topk_flat
+    inf = torch.full((q,), torch.inf, device=cuda)
+    for bound in (None, _tile_bound(tables, codes, 1024, q)):
+        ops.reset_launches()
+        got = fn(tables, codes, k, bound=bound)
+        torch.cuda.synchronize()
+        assert ops.launches["adc_topk"] == 1
+        # the launcher's own count: every step of the chain, once
+        assert adc_topk.cuda_launches["adc_topk_select"] == len(adc_topk.SELECT_STEPS)
+        want = adc_topk.adc_topk_plain(tables, codes, inf if bound is None else bound, k, 1024)
+        # table 1 (unbounded): a thousand rows of the whole array tie at its k-th
+        fmt = adc_topk.code_format(codes)
+        full = adc_topk.sum_columns(
+            tables[1][adc_topk.table_addresses(adc_topk.gatherable(codes), fmt)])
+        assert int((full == want[0][1, k - 1]).sum()) > 1000
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_adc_topk_select_all_rows_tie(cuda, bounded):
+    """Every row at one distance (zero tables): the bucket of the k-th's
+    22 key bits overflows its buffer, so the third digit, the tie counts
+    of the runs and their row-order numbering pick the k lowest rows;
+    with a bound of 0.0 every tile is kept, at -1.0 none."""
+    tables, codes = _api_case(cuda, 5, 300_000, 16, torch.uint8, q=2)
+    tables.zero_()
+    k = 5000
+    bound = torch.tensor([0.0, -1.0], device=cuda) if bounded else None
+    got = ops.adc_topk(tables, codes, k, bound=bound)
+    want = adc_topk.adc_topk_plain(
+        tables, codes, torch.full((2,), torch.inf, device=cuda) if bound is None else bound, k,
+        1024)
+    torch.cuda.synchronize()
+    assert torch.equal(want[1][0], torch.arange(k, dtype=torch.int32, device=cuda))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_adc_topk_select_split_times_each_step(cuda, ties):
+    """`launch_topk(..., split_ms=)` on a select plan waits for the call and
+    names each step's time on the card; the output is the same bits as a
+    call without it, on a bucket that fits its buffer and on one that
+    overflows it (every row tied)."""
+    tables, codes = _api_case(cuda, 11, 300_000, 16, torch.uint8, q=1)
+    if ties:
+        tables.zero_()
+    k = 8192
+    plan = adc_topk.topk_plan([1], [300_000], k, 0, 16, tables.shape[1])
+    out = [torch.empty((1, k), dtype=dt, device=cuda) for dt in (torch.float32, torch.int32)]
+    ops.reset_launches()
+    adc_topk.launch_topk(tables, codes, None, *out, k, 1024, 1, plan=plan)
+    split = {}
+    adc_topk.launch_topk(tables, codes, None, *out, k, 1024, 1, plan=plan, split_ms=split)
+    assert adc_topk.cuda_launches["adc_topk_select"] == 2 * len(adc_topk.SELECT_STEPS)
+    assert list(split) == list(adc_topk.SELECT_STEPS)
+    assert all(0.0 <= t < 1e3 for t in split.values()) and split["sort"] > 0.0
+    want = adc_topk.adc_topk_plain(tables, codes, torch.full((1,), torch.inf, device=cuda), k,
+                                   1024)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("n", [5000, 6000, 4097])
+def test_adc_topk_select_k_at_and_past_rows(cuda, n):
+    """k = 5000 over n rows: k past the rows (every row wins, the rest
+    padded with (+inf, -1)), k equal to the rows, and fewer rows than k
+    with one grouped unit holding k rows exactly: bit-equal."""
+    k = 5000
+    tables, codes = _api_case(cuda, n, n + 5000, 16, torch.uint8, q=3)
+    codes = codes[:n] if n != 4097 else codes
+    inf = torch.full((3,), torch.inf, device=cuda)
+    got = ops.adc_topk(tables, codes, k)
+    want = adc_topk.adc_topk_plain(tables, codes, inf, k, 1024)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rows = [0, k, codes.shape[0]]  # group 0: k rows exactly; group 1: the rest
+    got = ops.adc_topk_grouped(tables, codes, k, rows, [0, 1, 3])
+    want = adc_topk.adc_topk_grouped_plain(tables, codes, inf, k, 1024, rows, [0, 1, 3])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("path", ["gather", "onehot"])
+def test_adc_topk_pairs_select_ties_bit_equal(cuda, path):
+    """B7 at k = 8192 on tied distances, n_valid 0, 7, the window and k
+    exactly, gather and onehot: bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(81)
+    p, win, w, a = 4, 40_960, 16, 4096 + 40
+    tables = torch.floor(torch.rand(p, a, device=cuda, generator=g) * 2) / 64
+    addrs = torch.randint(0, a, (p, win, w), device=cuda, generator=g).to(torch.uint16)
+    n_valid = torch.tensor([0, 7, win, 8192], dtype=torch.int32, device=cuda)
+    ops.reset_launches()
+    got = ops.adc_topk_pairs(tables, addrs, n_valid, 8192, block_n=512, path=path)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk_pairs"] == 1
+    want = adc_topk.adc_topk_pairs_plain(tables, addrs, n_valid, 8192, path)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -892,8 +1012,9 @@ def test_flash_kernel_general_head_dims_match_plain(cuda, hd, q_dtype, kv_dtype)
     """Head dims without a fast instance (the general kernel: slices of the
     head dim, column blocks past 128): within the f32 tolerance or one bf16
     ulp of the plain version, GQA 4, an offset and dead keys."""
-    assert flash_attn.kernel_variant(hd, torch.zeros(4, device=cuda)) == "general"
     q, k, v = _flash_inputs(cuda, hd, 2, 77, 200, 8, 2, hd, q_dtype, kv_dtype, 30, 90)
+    rows16 = hd * q.element_size() % 16 == 0 and hd * k.element_size() % 16 == 0
+    assert flash_attn.kernel_variant(hd, q, k, v) == ("staged" if rows16 else "general")
     _flash_check(q, k, v, 30, 90)
 
 
@@ -911,6 +1032,57 @@ def test_flash_kernel_unaligned_views_match_plain(cuda, q_dtype, kv_dtype):
     _flash_check(*views, 20, 150)
 
 
+def _odd_views(dev, *xs):
+    """Copies of xs that start one element past a 16-byte boundary."""
+    views = []
+    for x in xs:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.reshape(-1)
+        views.append(buf[1:].view(x.shape))
+    return views
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("hd", [136, 192, 256, 264, 1040])
+def test_flash_kernel_general_wide_head_dims_match_plain(cuda, hd, aligned, q_dtype):
+    """The general kernel past hd 128 (two, four or eight warps a row tile
+    splitting the head dim; element copies in slices past 1024), staged on
+    aligned tensors and element by element at an odd offset, f32 k / v:
+    within the f32 tolerance or one bf16 ulp of the plain version."""
+    q, k, v = _flash_inputs(cuda, hd + aligned, 1, 77, 200, 8, 2, hd, q_dtype, torch.float32,
+                            30, 90)
+    if not aligned:
+        q, k, v = _odd_views(cuda, q, k, v)
+    want = "staged" if aligned and hd <= flash_attn.STAGED_HD_MAX else "general"
+    assert flash_attn.kernel_variant(hd, q, k, v) == want
+    _flash_check(q, k, v, 30, 90)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("q_dtype,kv_dtype", FLASH_DTYPES)
+def test_flash_kernel_general_peaked_hd256_matches_f64(cuda, q_dtype, kv_dtype, aligned):
+    """hd 256 with the largest live logit at 30 (the partial scores of two
+    warps added in shared memory): within the tolerance of float64."""
+    q, k, v = _flash_inputs(cuda, 256, 1, 300, 384, 16, 4, 256, q_dtype, kv_dtype, 0, 300,
+                            peak=30.0)
+    if not aligned:
+        q, k, v = _odd_views(cuda, q, k, v)
+    _flash_check(q, k, v, 0, 300, f64=True)
+
+
+def test_flash_kernel_general_instances_fit(cuda):
+    """Every general instance (each `general_shape` x dtype pair) fits a
+    block's shared memory and the register file (printed)."""
+    for variant, dims in (("staged", (24, 48, 80, 96, 120, 136, 256, 400, 1024)),
+                          ("general", (48, 128, 200, 1040))):
+        for hd in dims:
+            for q_dtype, kv_dtype in FLASH_DTYPES:
+                a = flash_attn.kernel_attributes(hd, q_dtype, kv_dtype, variant)
+                print(variant, hd, flash_attn.general_shape(hd, variant), q_dtype, kv_dtype, a)
+                assert 0 < a["registers"] <= 255 and a["smem_bytes"] <= 232448
+
+
 def test_flash_kernel_past_65535_row_tiles(cuda):
     """65,536 row tiles of 128 (position, head) rows on one KV head (32
     query heads, 262,144 positions): once past the grid's y limit, now the
@@ -925,7 +1097,7 @@ def test_flash_kernel_past_65535_row_tiles(cuda):
 def test_flash_kernel_general_attributes(cuda):
     for hd in (48, 256):
         for q_dtype, kv_dtype in FLASH_DTYPES:
-            a = flash_attn.kernel_attributes(hd, q_dtype, kv_dtype, "general")
+            a = flash_attn.kernel_attributes(hd, q_dtype, kv_dtype, "staged")
             print(hd, q_dtype, kv_dtype, a)
             assert 0 < a["registers"] <= 255 and a["smem_bytes"] <= 232448
 

@@ -46,7 +46,9 @@ SHARED = dict(gtab=False, spill=False)
 
 
 def _variant(plan):
-    return {k: plan[k] for k in ("gtab", "spill")}
+    """Whether the table is read in place, and whether the lists leave shared
+    memory: B2 / B5's `spill`, B6 / B7's `select` (which keeps no list)."""
+    return dict(gtab=plan["gtab"], spill=plan["spill"] if "spill" in plan else plan["select"])
 
 
 @pytest.mark.parametrize("k", [1, 64, 1024, 4096])
@@ -65,6 +67,7 @@ def test_every_format_fits_the_budget(fmt, w, k):
 GTAB = dict(gtab=True, spill=False)
 SPILL = dict(gtab=False, spill=True)
 BOTH = dict(gtab=True, spill=True)
+ALIGNED, ODD = 0, 1  # B10's views: 16-byte aligned, or one element past
 
 
 @pytest.mark.parametrize("kernel,k,width,want", [
@@ -81,22 +84,83 @@ BOTH = dict(gtab=True, spill=True)
     ("topk", 4096, 38_657, GTAB), ("topk", 64, 54_785, GTAB), ("topk", 10, 65_536, GTAB),
     ("topk", 4097, 4096, SPILL), ("topk", 8192, 55_040, SPILL),
     ("topk", 8192, 55_041, BOTH), ("topk", 8192, 65_536, BOTH),
+    # B10: the fast kernel's head dims; any other staged by cp.async when
+    # every row is 16-byte aligned, else copied element by element
+    ("flash", 48, ALIGNED, "staged"), ("flash", 80, ALIGNED, "staged"),
+    ("flash", 256, ALIGNED, "staged"), ("flash", 48, ODD, "general"),
+    ("flash", 80, ODD, "general"), ("flash", 256, ODD, "general"),
+    ("flash", 128, ALIGNED, "fast"), ("flash", 128, ODD, "general"),
+    ("flash", 20, ALIGNED, "general"), ("flash", 1040, ALIGNED, "general"),
 ])
 def test_planners_choice(kernel, k, width, want):
     """Which (k, table width) takes the shared-memory block and which the
     WIDE block's spill or global table: B2 / B5 (`scan_plan`), B6 / B7
-    (`topk_plan` on uint16 addresses, one table a block); and whether B8
-    and B4 / B9 read their table in place."""
+    (`topk_plan` on uint16 addresses, one table a block: past SCAN_K_MAX
+    the select kernels); whether B8 and B4 / B9 read their table in place;
+    and which B10 kernel a (head dim, alignment) takes (`kernel_variant`,
+    k the head dim, width the view's element offset; bf16 q, f32 k / v)."""
+    if kernel == "flash":
+        _flash_choice(k, width, want)
+        return
     if kernel == "scan":
         plan, static = k_topk.scan_plan(k, width), 64
+        assert "select" not in plan
     else:
         plan, static = k_topk.topk_plan([1], [10**6], k, 1, 16, width, groups=(1,)), 4096
-        assert plan["g"] == 1
+        assert plan["g"] == 1 and "spill" not in plan
+        assert plan["select"] == (k > k_topk.SCAN_K_MAX)
     assert _variant(plan) == want
     assert plan["smem"] + static <= BUDGET
     assert k_scan.table_in_place(width, 1, 16) == (width > 58_112)
     assert not k_scan.table_in_place(width, 0, 16)  # raw M = 16 codes address 4096
     assert k_lut.ext_table_in_place(width) == (width > 58_112)
+
+
+def _flash_choice(hd, offset, want):
+    def view(dtype, shape):
+        buf = torch.zeros(int(np.prod(shape)) + 8, dtype=dtype)
+        return buf[offset:offset + int(np.prod(shape))].view(shape)
+
+    q = view(torch.bfloat16, (1, 4, 2, hd))
+    k, v = view(torch.float32, (1, 4, 1, hd)), view(torch.float32, (1, 4, 1, hd))
+    assert all(t.data_ptr() % 16 == 0 for t in (q, k, v)) == (offset == ALIGNED)
+    assert k_flash.kernel_variant(hd, q, k, v) == want
+    if want != "fast":
+        shape = k_flash.general_shape(hd, want)
+        assert shape["wpr"] * shape["cw"] >= min(hd, 1024) and shape["cw"] <= 128
+        assert shape["rows"] * shape["wpr"] == 128 and shape["cw"] % 16 == 0
+
+
+@pytest.mark.parametrize("k", [4097, 8192, 65_536])
+@pytest.mark.parametrize("rows", [2_000_000, 100_000_000])
+def test_select_scratch_sizing(k, rows):
+    """B6 / B7 past SCAN_K_MAX (the select kernels): the scratch is each
+    unit's state and 2,048-bin histogram plus a tie count a run, whatever k
+    and the rows (rows are scored again in every pass); the candidates are
+    the output's own k entries a unit; the sort block's keys fit shared
+    memory at any k.  The sizes mirror csrc/adc_topk_select.cu."""
+    import re
+
+    src = (k_topk._build.CSRC / "adc_topk_select.cu").read_text()
+    consts = dict(re.findall(
+        r"constexpr int (SEL_BINS|SEL_STATE|SEL_BUCKET|SORT_CHUNK) = (\d+);", src))
+    assert int(consts["SEL_BINS"]) == k_topk._SELECT_BINS == 2 * k_topk._SCAN_PASS
+    assert int(consts["SEL_STATE"]) == k_topk._SELECT_STATE
+    assert int(consts["SEL_BUCKET"]) == k_topk._SELECT_BUCKET
+    assert int(consts["SORT_CHUNK"]) == k_topk._SORT_CHUNK
+    plan = k_topk.topk_plan([1], [rows], k, 0, 16, 4096)
+    assert plan["select"] and not plan["gtab"]
+    assert plan["smem"] == (4096 + k_topk._SELECT_BINS) * 4
+    n_blocks = 132 * 8
+    for units in (1, 30, 1024):
+        entries = k_topk.select_scratch(units, n_blocks)
+        head = units * (12 + 2048) + n_blocks + units
+        assert entries == head + head % 2 + units * 2 * 8192
+        assert entries * 4 <= units * 74_000 + 4 * n_blocks + 8  # 73.8 KB a unit: no row or k term
+    sort = k_topk.select_sort_smem(k)
+    assert sort == min(max(1 << (k - 1).bit_length(), 8192), 16_384) * 8 <= BUDGET
+    # the bucket pass sorts a whole bucket buffer in one block
+    assert k_topk._SELECT_BUCKET * 8 <= BUDGET
 
 
 def test_scan_budget_refusals():
@@ -225,11 +289,12 @@ def test_topk_table_too_wide_refused(call):
 @pytest.mark.parametrize("hd", [8, 48, 256])
 def test_flash_head_dim_refused_on_cpu(hd):
     """Head dims without a fast kernel (8, 48, 256 > 128): the general
-    kernel on the card, the Pallas kernel's answer here."""
+    kernel (staged: aligned rows) on the card, the Pallas kernel's answer
+    here."""
     q, k, v = _qkv(hd, 1, 64, 128, 4, 2, hd)
     got, want = _both(q, k, v, scale=hd**-0.5, q_offset=64, bq=64, bk=64)
     np.testing.assert_allclose(got, want, **FLASH_TOL)
-    assert k_flash.kernel_variant(hd, *map(torch.from_numpy, (q, k, v))) == "general"
+    assert k_flash.kernel_variant(hd, *map(torch.from_numpy, (q, k, v))) == "staged"
     for fast in k_flash.HEAD_DIMS:
         assert k_flash.kernel_variant(fast, torch.zeros(4)) == "fast"
 

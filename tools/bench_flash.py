@@ -6,9 +6,10 @@ of the same C interface (an earlier design of `csrc/flash_attn.cu`).
 
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc.
 It builds the port's kernels and, with `--baseline`, that source (which
-must export `flash_attn_launch` with the C signature of `csrc/flash_attn.cu`
-as of PRs 17-26, `BASELINE_SIGNATURE`: the port's without the `general`
-flag) into a library of its own under build/bench_flash/.  At `chip_smoke.py`'s B10 shape (q
+must export `flash_attn_launch` with the C signature `csrc/flash_attn.cu`
+had before its general kernel, `BASELINE_SIGNATURE`: the port's without its
+last int, now the kernel `variant`, once a `general` flag) into a library of its
+own under build/bench_flash/.  At `chip_smoke.py`'s B10 shape (q
 (4, 2048, 32, 128), k / v (4, 2560, 8, 128) f32, kv_valid 2048, the same
 seed) it holds each build to the smoke's tolerances, for a bf16 and an f32
 q: against the plain version with normal scores, against float64 with
