@@ -196,16 +196,19 @@ cell's closed-form bound beside its measured device-busy ms.
 The reference's whole domain (PR 27): `domain` (after `flat_search`, on the
 main engine) drives what lies past the shared-memory blocks and B10's fast
 instances -- 16 queries under the exact re-rank at k = 2048 (k' = 8192:
-B2 / B5 on their WIDE block, lists spilled) on tiles and windows, equal to
+B2 / B5 on the select kernels) on tiles and windows, equal to
 each other and to the plain path; B2 / B5 at k = 8192 on 8 queries' pairs
-against their plain versions (rows `adc_topk_*_spill`), equal to the
-shared-memory block at k = 4096 on the entries they share, and the spill
-forced at k = 4096 timed beside that block; B8, B6 and B7 over a
-65,536-entry uint16 table (read in place) and B6 at k = 8192 (rows
-`adc_scan_gtab`, `adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`;
-B6 / B7 past k = 4096 on the select kernels, with their CUDA
-launches and time `split` by step, and `adc_topk_select_ties`, over 8,192
-rows tied at the k-th), bit-equal; B10's general kernel at
+against their plain versions (rows `adc_topk_*_select`, with their CUDA
+launches and time `split` by step), equal to the shared-memory block at k
+= 4096 on the entries they share, the select forced at k = 4096 timed
+beside that block, and `adc_topk_tiles_select_ties` (a two-valued table:
+over 8,192 rows tied at a pair's k-th); B2 / B5 at k = 64 and B8, B6 and B7
+over a 65,536-entry uint16 table (read in place) and B6 at k = 8192 (rows
+`adc_topk_tiles_gtab`, `adc_topk_windows_gtab`, `adc_scan_gtab`,
+`adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`; B6 / B7 past k =
+4096 on the select kernels, with their CUDA launches and `split`, and
+`adc_topk_select_ties`, over 8,192 rows tied at the k-th), bit-equal;
+B10's general kernel at
 head dims 48, 80 and 256 (staged) and at hd 128 on views one element off
 alignment (element copies; rows `flash_attention_fwd_hd*`, one bf16 ulp)
 and its grid at 65,536 row tiles.
@@ -646,9 +649,9 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                 torch.arange(ndev * p, dtype=torch.int32, device=dev), no_lb, no_b,
                 t0, t1, kp, BLOCK_N, path)
 
-        def launch(lb, b, sq, ov, oi, os_):
+        def launch(lb, b, sq, ov, oi, os_, **kw):
             k_topk.launch(tables, lut_row, codes, order, t0, t1, tb, tr, flat_nv, flat_q,
-                          lb, b, sq, ov, oi, os_, kp, BLOCK_N, path)
+                          lb, b, sq, ov, oi, os_, kp, BLOCK_N, path, **kw)
     else:
         _, _, ps = ops.adc_topk_windows(tables, codes, starts, n_valid, kp,
                                           block_n=BLOCK_N, pair_q=pair_q, pair_lb=pair_lb,
@@ -666,9 +669,9 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                 torch.arange(ndev * p, dtype=torch.int32, device=dev), no_lb, no_b,
                 kp, BLOCK_N, path)
 
-        def launch(lb, b, sq, ov, oi, os_):
+        def launch(lb, b, sq, ov, oi, os_, **kw):
             k_topk.launch_windows(tables, lut_row, codes, order, flat_st, flat_nv, flat_q,
-                                  lb, b, sq, ov, oi, os_, kp, BLOCK_N, path)
+                                  lb, b, sq, ov, oi, os_, kp, BLOCK_N, path, **kw)
     kv, ki, _ = unpruned(path)
     t = time.perf_counter()
     plv, pli, _ = plain()
@@ -699,21 +702,30 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
                    torch.empty(ndev * p, 2, dtype=torch.int32, device=dev))
     w, item = codes.shape[2], codes.element_size()
 
-    def run(pruned: bool):
+    def run(pruned: bool, **kw):
         sq.copy_(qbound if pruned else torch.full_like(qbound, torch.inf))
         launch(flat_lb if pruned else no_lb,
-               qbound if pruned else torch.full_like(qbound, torch.inf), sq, ov, oi, os_)
+               qbound if pruned else torch.full_like(qbound, torch.inf), sq, ov, oi, os_, **kw)
 
+    scan_plan = k_topk.scan_plan(kp, tables.shape[1])
+    select = {}
+    if scan_plan["select"]:  # the chain's CUDA launches, and one call's split by step
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        run(True)
+        torch.cuda.synchronize()
+        select["cuda_launches"] = k_topk.cuda_launches["adc_topk_select"]
+        select["split"] = select_split(torch, k_topk, name, lambda **kw: run(True, **kw),
+                                      select["cuda_launches"])
     ms, sm_mhz = clocked_ms(torch, lambda: run(True), 20)
     queued = cuda_ms(torch, lambda: run(True), 20, queued=True)
     lookups = (int(n_valid.sum()) - int(ps[..., 1].sum())) * w
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    scan_plan = k_topk.scan_plan(kp, tables.shape[1])
     extra = dict(
         lookup_bound_ms=lookups / (n_sm * 32 * sm_mhz * 1e6) * 1e3, lookups=lookups,
         sms=n_sm, sm_clock_mhz=sm_mhz, variant=block_variant(k_topk, scan_plan),
         registers=scan_registers(regs, scan, k_topk.code_format(codes), w,
-                                 sort=path == "onehot", wide=k_topk.wide(scan_plan)))
+                                 sort=path == "onehot", plan=scan_plan), **select)
     unpruned_ms = cuda_ms(torch, lambda: run(False), 10)
     lib_run, lib_groups = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, kp,
                                        sort=path == "onehot")
@@ -771,13 +783,27 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
 
 def block_variant(k_topk, plan: dict) -> str:
     """The block a B2 / B5 / B6 / B7 plan runs: "shared" (the shared-memory
-    block), the WIDE block's "spill", "gtab" or
-    "spill+gtab" (B2 / B5; B6 / B7 "gtab"), or B6 / B7's select kernels past
-    k = 4096, "select" or "select+gtab"."""
+    block), the WIDE block's "gtab" (its table read in place), or past k =
+    4096 the select kernels, "select" or "select+gtab"."""
     if not k_topk.wide(plan):
         return "shared"
-    names = ("select", "gtab") if plan.get("select") else ("spill", "gtab")
-    return "+".join(n for n in names if plan.get(n))
+    return "+".join(n for n in ("select", "gtab") if plan.get(n))
+
+
+def select_split(torch, k_topk, name: str, launch, cuda_launches: int) -> dict:
+    """A select call's time on the card by step: `launch(split_ms=...)`
+    once more (CUDA events between the steps, in the launcher), after the
+    counted call enqueued `cuda_launches`, every step of the chain."""
+    if cuda_launches != len(k_topk.SELECT_STEPS):
+        raise RuntimeError(f"domain: {name} enqueued {cuda_launches} of the select's "
+                           f"{len(k_topk.SELECT_STEPS)} steps")
+    split = {}
+    launch(split_ms=split)
+    if list(split) != list(k_topk.SELECT_STEPS) or not all(0.0 <= t < 1e3
+                                                            for t in split.values()):
+        raise RuntimeError(f"domain: {name}'s split {split} is not a time by step")
+    split["sum_ms"] = sum(split.values())
+    return split
 
 
 def pairs_variant(k_topk, tables, addrs, kp: int) -> str:
@@ -802,17 +828,22 @@ def onehot_differs(torch, name: str, codes, onehot, gather) -> int:
 
 
 def scan_registers(regs: dict, scan: str, fmt: int, w: int, sort: bool = False,
-                   wide: bool = False) -> str | None:
+                   plan: dict | None = None) -> str | None:
     """ptxas' registers and spills of B2 / B5 (`scan` tiles | windows) for
     code format `fmt`, width `w` and path (`sort`: the onehot path on
-    direct addresses), the instantiation REPRO_ADC_DISPATCH (or, `wide`,
-    REPRO_ADC_DISPATCH_WIDE; csrc/adc_topk_common.cuh) launches: a compiled
-    width, else 0."""
+    direct addresses), the instantiation its `plan` launches (None: the
+    shared-memory block): REPRO_ADC_DISPATCH's, or REPRO_ADC_DISPATCH_WIDE's
+    (csrc/adc_topk_common.cuh) for the WIDE block and for the select
+    kernels (`adc_topk_scan_select_kernel`); a compiled width, else 0."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
+    wide = plan is not None and (plan["gtab"] or plan["select"])
     widths = ((16,) if fmt < 2 else ()) if wide else ((8, 16, 32) if fmt == 0 else (8, 16))
     wt = w if w in widths else 0
-    want = (f"adc_topk_{scan}_kernelI{ctype}Lb{int(fmt == 0)}ELi{wt}ELb{int(sort and fmt > 0)}E"
-            f"Lb{int(wide)}EE")
+    args = f"I{ctype}Lb{int(fmt == 0)}ELi{wt}ELb{int(sort and fmt > 0)}E"
+    if wide and plan["select"]:
+        want = f"adc_topk_scan_select_kernel{args}"
+    else:
+        want = f"adc_topk_{scan}_kernel{args}Lb{int(wide)}EE"
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
@@ -2833,6 +2864,94 @@ def wide_scan_launches(torch, k_topk, tables, lut_row, codes, plan, dv):
     return launch
 
 
+def scan_ties_row(torch, ops, k_topk, plan, dv, lut_row, n_tables, regs) -> dict:
+    """B2 at k = `DOMAIN_K` on `plan`'s pairs (each its own query, no
+    bounds) with one two-valued table for every pair: 1 / 64 on the odd
+    codes of column 0, 0 elsewhere, so every distance is 0 or 1 / 64 and the
+    large pairs hold far more than 8,192 rows at their k-th (the select's
+    third digit, the runs' tie counts, their row-order numbering).  Bit-equal
+    to the plain version per pair; timed as `domain_synthetic`'s rows, with
+    the chain's CUDA launches and `split`."""
+    import numpy as np
+
+    dev = lut_row.device
+    codes = dv["codes"]
+    ndev, p = plan.pair_q.shape
+    w = codes.shape[2]
+    two = torch.zeros(w, 256, device=dev)
+    two[0] = (torch.arange(256, device=dev) & 1) / 64.0
+    tables = two.reshape(1, -1).expand(n_tables, -1).contiguous()
+    pair_slot = torch.as_tensor(plan.pair_slot, device=dev).long()
+    nv = torch.where(torch.as_tensor(plan.pair_valid, device=dev),
+                     dv["slot_size"].gather(1, pair_slot), 0).int()
+    st = dv["slot_start"].gather(1, pair_slot).int()
+    tiles = [torch.as_tensor(a, device=dev) for a in
+             (plan.tile_pair, plan.tile_block, plan.tile_row0)]
+    t0, t1, order = k_topk.pair_runs(tiles[0], p)
+    tb, tr, flat_nv, flat_st = (tiles[1].int().reshape(-1), tiles[2].int().reshape(-1),
+                                nv.reshape(-1), st.reshape(-1))
+    own = torch.arange(ndev * p, dtype=torch.int32, device=dev)
+    no_lb = torch.full((ndev * p,), -torch.inf, device=dev)
+    no_b = torch.full((ndev * p,), torch.inf, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = ops.adc_topk_tiles(tables, codes, *tiles, nv, DOMAIN_K, lut_row=lut_row.reshape(ndev, p),
+                             block_n=BLOCK_N)
+    torch.cuda.synchronize()
+    launches = ops.launches["adc_topk_tiles"]
+    cuda_launches = k_topk.cuda_launches["adc_topk_select"]
+    if launches != 1:
+        raise RuntimeError(f"domain: B2's ties call launched {launches} times")
+    t = time.perf_counter()
+    want = k_topk.adc_topk_tiles_plain(tables, lut_row, codes, tb, tr, flat_nv, own, no_lb, no_b,
+                                       t0, t1, DOMAIN_K, BLOCK_N)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    gv, gi = got[0].reshape(ndev * p, -1), got[1].reshape(ndev * p, -1)
+    if not (torch.equal(gv, want[0]) and torch.equal(gi, want[1])):
+        raise RuntimeError("domain: B2's ties row is not bit-equal to its plain version")
+    # the largest pair's rows tied at its k-th
+    big = int(torch.argmax(flat_nv))
+    s0, n0 = int(flat_st[big]), int(flat_nv[big])
+    rows = codes[big // p, s0 : s0 + n0]
+    d = k_topk.sum_columns(tables[0][k_topk.table_addresses(rows, 0)])
+    ties = int((d == gv[big, -1]).sum())
+    if ties <= k_topk._SELECT_BUCKET:
+        raise RuntimeError(f"domain: {ties} rows tie at the largest pair's k-th, not past the "
+                           "select's bucket")
+    block = k_topk.scan_plan(DOMAIN_K, tables.shape[1])
+    sq = no_b.clone()
+    outs = (torch.empty_like(gv), torch.empty_like(gi),
+            torch.empty((ndev * p, 2), dtype=torch.int32, device=dev))
+
+    def launch(**kw):
+        sq.fill_(torch.inf)
+        k_topk.launch(tables, lut_row, codes, order, t0, t1, tb, tr, flat_nv, own, no_lb, no_b,
+                      sq, *outs, DOMAIN_K, BLOCK_N, plan=block, **kw)
+
+    split = select_split(torch, k_topk, "adc_topk_tiles_select_ties", launch, cuda_launches)
+    lib, _ = scan_library(torch, tables, lut_row, codes, flat_st, flat_nv, DOMAIN_K)
+    s_n = dv["slot_size"].shape[1]
+    regions = np.unique(np.nonzero(plan.pair_valid)[0] * s_n + plan.pair_slot[plan.pair_valid])
+    distinct = int(dv["slot_size"].reshape(-1)[torch.as_tensor(regions, device=dev)].sum())
+    valid = int(flat_nv.sum())
+    bms, by = bound_ms(distinct * w + n_tables * tables.shape[1] * 4 + ndev * p * DOMAIN_K * 8,
+                       valid * w)
+    return dict(
+        name="adc_topk_tiles_select_ties", route="cuda", source=f"{SRC_ROOT}/csrc/adc_topk_select.cu",
+        replaces="src/repro/kernels/adc_topk.py:397", launches=launches, max_abs_err=0.0,
+        variant=block_variant(k_topk, block),
+        ms=cuda_ms(torch, launch, 3), queued_ms=cuda_ms(torch, launch, 3, queued=True),
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib, 1),
+        library_call="per filled pair, its valid rows' tables[pair][codes + m * 256].sum(-1) "
+                     "then torch.topk(k', largest=False), pairs of like length batched",
+        cuda_launches=cuda_launches, split=split,
+        registers=scan_registers(regs, "tiles", 0, w, plan=block),
+        shape=dict(pairs=ndev * p, pairs_scanned=int((flat_nv > 0).sum()), k=DOMAIN_K,
+                   valid_rows=valid, largest_pair_rows=n0, ties_at_largest_kth=ties,
+                   kth=float(gv[big, -1])))
+
+
 def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs) -> list:
     """B6, B7 and B8 past their shared-memory blocks: a full uint16
     direct-address table (`DOMAIN_TABLE` entries, 256 KB: read in place) under
@@ -2876,7 +2995,7 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         return addrs[s0:s1].view(torch.int16).long() & 0xFFFF
 
     def row(name, source, replaces, variant, got, want, plain_ms, launch, n_bytes, n_ops,
-            lib, library_call, fmt=None, **shape):
+            lib, library_call, fmt=None, registers=None, **shape):
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise RuntimeError(f"domain: {name} is not bit-equal to its plain version")
         bms, by = bound_ms(n_bytes, n_ops)
@@ -2884,23 +3003,17 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         kname = "adc_topk_select_kernel" if select else "adc_topk_wide_kernel"
         # CUDA launches the counted call made (the select: its chain of steps)
         cuda_launches = counts["select"] if select else counts["launches"]
-        if select and cuda_launches != len(k_topk.SELECT_STEPS):
-            raise RuntimeError(f"domain: {name} enqueued {cuda_launches} of the select's "
-                               f"{len(k_topk.SELECT_STEPS)} steps")
-        split = None
-        if select:  # one more call, its steps timed on the card
-            split = {}
-            launch(split_ms=split)
-            if not all(0.0 <= t < 1e3 for t in split.values()):
-                raise RuntimeError(f"domain: {name}'s split {split} is not a time")
-            split["sum_ms"] = sum(split.values())
+        # one more call, its steps timed on the card
+        split = select_split(torch, k_topk, name, launch, cuda_launches) if select else None
+        if registers is None and fmt is not None:
+            registers = topk_registers(regs, kname, fmt, 16, 1)
         rows.append(dict(
             name=name, route="cuda", source=f"{SRC_ROOT}/csrc/{source}", replaces=replaces,
             launches=counts["launches"], max_abs_err=0.0, variant=variant,
             ms=cuda_ms(torch, launch, 5), queued_ms=cuda_ms(torch, launch, 5, queued=True),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib, 2),
             library_call=library_call, shape=shape, cuda_launches=cuda_launches, split=split,
-            registers=None if fmt is None else topk_registers(regs, kname, fmt, 16, 1)))
+            registers=registers))
 
     # B8 over the 65,536-entry table, read in place
     table = tables[0].contiguous()
@@ -3012,6 +3125,56 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         "tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
         "torch.topk(largest=False), 4 windows at a time", fmt=1, pairs=p7, window=win, width=w,
         k=DOMAIN_K, valid_rows=valid, table_width=a)
+    del got, want
+
+    # B2 / B5 at k' = 64 over the same windows and tables (read in place),
+    # each window a pair of its own query (unpruned): the WIDE block
+    codes25 = addrs[: p7 * win].reshape(1, p7 * win, w)
+    starts = torch.arange(p7, dtype=torch.int32, device=dev) * win
+    own = torch.arange(p7, dtype=torch.int32, device=dev)
+    no_lb = torch.full((p7,), -torch.inf, device=dev)
+    no_b = torch.full((p7,), torch.inf, device=dev)
+    t0, t1, blk, row0 = k_topk.window_runs(starts, n_valid, own, BLOCK_N)
+    tile_pair = torch.repeat_interleave(own, (t1 - t0).long())
+    t0, t1, order = k_topk.pair_runs(tile_pair[None], p7)
+    filled = torch.nonzero(n_valid > 0).flatten().int()
+    kg = 64
+    plan25 = k_topk.scan_plan(kg, a)
+    lib25 = scan_library(torch, tab7, own, codes25, starts, n_valid, kg)[0]
+    sq = no_b.clone()
+    outs = [torch.empty((p7, kg), dtype=dt, device=dev) for dt in (torch.float32, torch.int32)]
+    stats = torch.empty((p7, 2), dtype=torch.int32, device=dev)
+    for scan, line in (("tiles", 397), ("windows", 592)):
+        if scan == "tiles":
+            got = counted("adc_topk_tiles", lambda: ops.adc_topk_tiles(
+                tab7, codes25[0], tile_pair, blk, row0, n_valid, kg, lut_row=own,
+                block_n=BLOCK_N))
+            want, plain_ms = timed_plain(lambda: k_topk.adc_topk_tiles_plain(
+                tab7, own, codes25, blk, row0, n_valid, own, no_lb, no_b, t0, t1, kg, BLOCK_N))
+
+            def launch25():
+                sq.fill_(torch.inf)
+                k_topk.launch(tab7, own, codes25, order, t0, t1, blk, row0, n_valid, own, no_lb,
+                              no_b, sq, *outs, stats, kg, BLOCK_N, plan=plan25)
+        else:
+            got = counted("adc_topk_windows", lambda: ops.adc_topk_windows(
+                tab7, codes25[0], starts, n_valid, kg, lut_row=own, block_n=BLOCK_N))
+            want, plain_ms = timed_plain(lambda: k_topk.adc_topk_windows_plain(
+                tab7, own, codes25, starts, n_valid, own, no_lb, no_b, kg, BLOCK_N))
+
+            def launch25():
+                sq.fill_(torch.inf)
+                k_topk.launch_windows(tab7, own, codes25, filled, starts, n_valid, own, no_lb,
+                                      no_b, sq, *outs, stats, kg, BLOCK_N, plan=plan25)
+        row(f"adc_topk_{scan}_gtab", f"adc_topk_{scan}.cu", f"src/repro/kernels/adc_topk.py:{line}",
+            block_variant(k_topk, plan25), got[:2], want[:2], plain_ms, launch25,
+            valid * w * 2 + tab7.numel() * 4 + p7 * kg * 8, valid * w, lib25,
+            "per window, its valid rows' tables[pair][addresses].sum(-1) then "
+            "torch.topk(k', largest=False), windows of like length batched",
+            registers=scan_registers(regs, scan, 1, w, plan=plan25), pairs=p7, window=win,
+            width=w, k=kg, valid_rows=valid, table_width=a,
+            bound_counts="code bytes, not the table's L2 sectors")
+        del got, want
     return rows
 
 
@@ -3022,16 +3185,20 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
     version and every end-to-end answer to the plain path.
 
     End to end: 16 queries under the exact re-rank at k = `DOMAIN_EXACT_K`
-    (k' = 8192: B2 / B5 on their spilled block) on the tiles and the windows
+    (k' = 8192: B2 / B5 on the select kernels) on the tiles and the windows
     scan (counts reset just before each, read just after), equal to each
     other bit for bit and to the plain path (`plain_path_check`).  Kernels:
     B2 and B5 at k = `DOMAIN_K` on the pairs of `DOMAIN_QUERIES` queries of
     the search cell's plan (`check_scan`, with the launches of the run
-    above), their unpruned lists equal to the shared-memory block's at k =
-    4096 on the 4096 entries they share, and the spill's cost forced at k =
-    4096 beside the shared block (unpruned, each pair its own query,
-    bit-equal); `domain_synthetic` (B6, B7, B8 on a 65,536-entry table, B6
-    past k = 4096 on the select kernels); B10's general kernel at head dims
+    above, the select chain's CUDA launches and its `split` by step), their
+    unpruned lists equal to the shared-memory block's at k = 4096 on the
+    4096 entries they share, and the select forced at k = 4096 beside the
+    shared block (unpruned, each pair its own query, bit-equal); B2 at k =
+    `DOMAIN_K` on the same pairs with a two-valued table (over 8,192 rows
+    tied at a pair's k-th: the select's third digit and tie counts),
+    bit-equal to its plain version; `domain_synthetic` (B2, B5, B6, B7, B8
+    on a 65,536-entry table, B6 past k = 4096 on the select kernels); B10's
+    general kernel at head dims
     `DOMAIN_FLASH_HD` (bf16 q, f32 cache, `flash_row`; staged), at hd 128 on
     views one element off alignment (element copies) and at 65,536 row
     tiles of 128 rows."""
@@ -3070,19 +3237,19 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
     plan = eng.plan_batch(batches[1][:DOMAIN_QUERIES], NPROBE)
     tables, lut_row = plan_tables(torch, np, ops, eng, plan)[:2]
     dv = eng._device_put()
-    rows, vs_shared, spill_cost = [], {}, {}
+    rows, vs_shared, select_cost = [], {}, {}
     launch = wide_scan_launches(torch, k_topk, tables, lut_row, dv["codes"], plan, dv)
     shared = k_topk.scan_plan(ops.SCAN_K_MAX, tables.shape[1])
-    forced = dict(gtab=False, spill=True, smem=0)
+    forced = dict(gtab=False, select=True, smem=0)
     for scan, line in (("tiles", 397), ("windows", 592)):
         row = check_scan(
-            torch, ops, k_topk, name=f"adc_topk_{scan}_spill", scan=scan,
-            source=f"{SRC_ROOT}/csrc/adc_topk_{scan}.cu",
+            torch, ops, k_topk, name=f"adc_topk_{scan}_select", scan=scan,
+            source=f"{SRC_ROOT}/csrc/adc_topk_select.cu",
             replaces=f"src/repro/kernels/adc_topk.py:{line}",
             launches=e2e[scan]["launches"]["adc_topk_" + scan], tables=tables,
             lut_row=lut_row, codes=dv["codes"], plan=plan, dv=dv, kp=DOMAIN_K, regs=regs)
-        if row["max_abs_err"] != 0.0 or row["variant"] != "spill":
-            raise RuntimeError(f"domain: {row['name']} is not the bit-equal spilled block")
+        if row["max_abs_err"] != 0.0 or row["variant"] != "select":
+            raise RuntimeError(f"domain: {row['name']} is not the bit-equal select kernels")
         rows.append(row)
         v8, i8 = launch(scan, DOMAIN_K, k_topk.scan_plan(DOMAIN_K, tables.shape[1]))
         v4, i4 = launch(scan, ops.SCAN_K_MAX, shared)
@@ -3093,14 +3260,15 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
             raise RuntimeError(f"domain: {scan} at k = {DOMAIN_K} differs from the shared "
                                f"block at k = {ops.SCAN_K_MAX} on the entries they share")
         if not (torch.equal(vf, v4) and torch.equal(i_f, i4)):
-            raise RuntimeError(f"domain: {scan} spilled at k = {ops.SCAN_K_MAX} differs from "
+            raise RuntimeError(f"domain: {scan}'s select at k = {ops.SCAN_K_MAX} differs from "
                                "the shared block")
         vs_shared[scan] = dict(entries_compared=int(v4.numel()), equal=True)
-        spill_cost[scan] = dict(
+        select_cost[scan] = dict(
             k=ops.SCAN_K_MAX, pairs=int(plan.pair_valid.sum()),
             shared_ms=cuda_ms(torch, lambda: launch(scan, ops.SCAN_K_MAX, shared), 3),
-            spill_ms=cuda_ms(torch, lambda: launch(scan, ops.SCAN_K_MAX, forced), 3))
+            select_ms=cuda_ms(torch, lambda: launch(scan, ops.SCAN_K_MAX, forced), 3))
         del v8, i8, v4, i4, vf, i_f
+    rows.append(scan_ties_row(torch, ops, k_topk, plan, dv, lut_row, tables.shape[0], regs))
     del tables, lut_row
 
     # B6, B7, B8 past their blocks
@@ -3159,7 +3327,7 @@ def domain_phase(torch, np, ops, k_flash, k_lut, k_rerank, k_scan, k_topk, eng, 
     torch.cuda.empty_cache()
     log(phase="domain", exact_k=DOMAIN_EXACT_K, k_prime=kp, end_to_end=e2e,
         plain_path_equal=True, windows_equal_tiles=True, vs_shared_block=vs_shared,
-        spill_cost=spill_cost, flash_grid=grid,
+        select_cost=select_cost, flash_grid=grid,
         rows=[dict(name=r["name"], variant=r.get("variant"), ms=r["ms"], split=r.get("split"))
               for r in rows],
         seconds=time.perf_counter() - t_phase)
@@ -3665,7 +3833,7 @@ def mutable_cooc_cell(torch, np, ops, meng, ds, batches, dev, seed, n_rows=MUT_C
     return ceng
 
 
-def profiled_spans(torch, fn, spans=PROFILED_SPANS) -> dict:
+def profiled_spans(torch, fn, spans=PROFILED_SPANS, warm: bool = False) -> dict:
     """One call of `fn` under torch.profiler (CPU + CUDA), its spans opened
     as `record_function` ranges (`Tracer(profiler=True)`): for each span
     name, the port's kernels whose launch falls inside the range, counted
@@ -3674,21 +3842,31 @@ def profiled_spans(torch, fn, spans=PROFILED_SPANS) -> dict:
     trace the profiler exports (under build/, which git ignores):
     `user_annotation` ranges, `cuda_runtime` launches and `kernel` events
     joined on their correlation id.  `kernel_events` 0 means the profiler
-    saw no device activity."""
+    saw no device activity.  With `warm`, `fn` runs once more first in the
+    same session and only the second call's ranges are read
+    (`device_activities`' reason: the profiler can lose a session's first
+    CUDA activities)."""
     path = pathlib.Path("build") / "smoke_profile.json"
     path.parent.mkdir(exist_ok=True)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as tp:
-        fn()
-        torch.cuda.synchronize()
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(WARM_WAIT_S)
+        with torch.profiler.record_function("profiled_spans.timed"):
+            fn()
+            torch.cuda.synchronize()
     tp.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    ranges = [e for e in events if e.get("cat") == "user_annotation" and e["name"] in spans]
+    t0 = min(e["ts"] for e in events if e.get("name") == "profiled_spans.timed")
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and e["name"] in spans
+              and e["ts"] >= t0]
     out = {}
     for r in ranges:
         row = out.setdefault(r["name"], {"ranges": 0, "kernels": {}, "device_ms": 0.0})
@@ -3797,7 +3975,7 @@ def serving_obs_faults(torch, np, ops, eng, batches) -> dict:
         for node in r.walk():
             span_ms[node.name] = span_ms.get(node.name, 0.0) + (node.t1 - node.t0) * 1e3
     prof_srv = server(tracer=Tracer(profiler=True))
-    profiled = profiled_spans(torch, lambda: prof_srv.search(stream[:mb]))
+    profiled = profiled_spans(torch, lambda: prof_srv.search(stream[:mb]), warm=True)
     eng.tracer = NULL_TRACER
     if profiled["kernel_events"]:
         inside = profiled["spans"]

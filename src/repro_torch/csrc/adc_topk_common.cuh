@@ -46,13 +46,12 @@
 // any k and a table of any width in VMEM).  The shared-memory block holds
 // the table, the list and its merge buffer (4k) and a pass of candidates,
 // 227 KB at most: it runs for k <= 4096 with a table that fits beside them
-// (kernels/adc_topk.py `scan_plan`).  Every other input runs the same
-// `scan_pair` with its WIDE template flag (`ScanWide`): the list spills to
-// the pair's output row and a per-block merge buffer in device memory (a
-// persistent grid sizes those buffers by resident blocks, not by pairs),
-// and a table too wide to stage is read where it lies; the candidates, the
-// bitonic sort, the merge path, the skip rule and the sums are unchanged,
-// so the results are the same bits.
+// (kernels/adc_topk.py `scan_plan`).  A table too wide to stage at k <=
+// 4096 runs the same `scan_pair` with its WIDE template flag: the table is
+// read where it lies, the rest unchanged, so the results are the same
+// bits.  Past k = 4096 B2 / B5 run the select kernels of
+// adc_topk_select.cu (one pair's tiles cut over many blocks, its k-th key
+// selected, its k winners sorted), under the same contract.
 
 #pragma once
 
@@ -357,27 +356,10 @@ struct TileRef {
   int blk;   // block index of the tile in the device's code array
 };
 
-// Where a WIDE scan block keeps what does not fit in its shared memory
-// (`scan_plan` in kernels/adc_topk.py picks it; the shared-memory block
-// ignores it).  gtab: the pair's table is read from device memory where it
-// lies (the L1 and L2 hold its hot lines) instead of being staged; spill:
-// the pair's top-k list is its output row out_v / out_i itself and the
-// merge buffer this block's k entries of nxt_v / nxt_i, both in device
-// memory, while the candidates of a pass stay in shared memory.  The
-// merge is the same code on generic pointers: every write to the list is
-// followed by a block barrier before it is read, which orders global
-// memory within the block as it does shared memory.
-struct ScanWide {
-  int gtab, spill;
-  float* nxt_v;  // (blocks, k) merge buffers, spill only
-  int* nxt_i;
-};
-
-// Dynamic shared memory of a WIDE scan block: the table unless gtab, the
-// list and its merge buffer (4k) unless spill, the candidates.
-inline size_t scan_wide_smem_bytes(int table_width, int k, bool gtab, bool spill) {
-  return (static_cast<size_t>(gtab ? 0 : table_width) + (spill ? 0 : 4 * static_cast<size_t>(k)) +
-          2 * PASS) * 4;
+// Dynamic shared memory of a WIDE scan block (a table read in place): the
+// list and its merge buffer (4k), the candidates.
+inline size_t scan_wide_smem_bytes(int k) {
+  return (4 * static_cast<size_t>(k) + 2 * PASS) * 4;
 }
 
 // One pair's scan, by the whole block: load its table row into shared
@@ -387,45 +369,24 @@ inline size_t scan_wide_smem_bytes(int table_width, int k, bool gtab, bool spill
 // (cap, W) codes.  Raw codes of a compile-time width address only the
 // first WT * 256 entries, so that many are loaded, a compile-time count
 // that also fixes the shared-memory offsets of the lists behind the table.
-// WIDE: the table and the lists sit where `wide` says (the layout of
-// `scan_wide_smem_bytes`); the same rows, sums, skips and merges.
+// WIDE: the table is read where it lies (`table_row`) and the lists start
+// the shared memory (`scan_wide_smem_bytes`); the same rows, sums, skips
+// and merges.
 template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool WIDE = false, typename TileAt>
 __device__ void scan_pair(const float* __restrict__ table_row, int table_width_rt,
                           const CodeT* __restrict__ cdev, int w_rt,
                           int n_tiles, TileAt tile_at, int nv, int qi,
                           float lb, float b0, float* sq, int k, int block_n,
                           float* __restrict__ out_v, int* __restrict__ out_i,
-                          int* __restrict__ stats, const ScanWide wide = ScanWide{}) {
+                          int* __restrict__ stats) {
   const int table_width = OFFSETS && WT > 0 ? WT * NCODES : table_width_rt;
   extern __shared__ __align__(16) unsigned char smem[];
   float* table = reinterpret_cast<float*>(smem);
-  float* top_v;
-  int* top_i;
-  float* nxt_v;
-  int* nxt_i;
-  float* cand_v;
-  if constexpr (!WIDE) {
-    top_v = table + table_width;
-    top_i = reinterpret_cast<int*>(top_v + k);
-    nxt_v = reinterpret_cast<float*>(top_i + k);
-    nxt_i = reinterpret_cast<int*>(nxt_v + k);
-    cand_v = reinterpret_cast<float*>(nxt_i + k);
-  } else {
-    float* rest = table + (wide.gtab ? 0 : table_width);
-    if (wide.spill) {
-      top_v = out_v;
-      top_i = out_i;
-      nxt_v = wide.nxt_v + static_cast<size_t>(blockIdx.x) * k;
-      nxt_i = wide.nxt_i + static_cast<size_t>(blockIdx.x) * k;
-      cand_v = rest;
-    } else {
-      top_v = rest;
-      top_i = reinterpret_cast<int*>(top_v + k);
-      nxt_v = reinterpret_cast<float*>(top_i + k);
-      nxt_i = reinterpret_cast<int*>(nxt_v + k);
-      cand_v = reinterpret_cast<float*>(nxt_i + k);
-    }
-  }
+  float* top_v = WIDE ? table : table + table_width;
+  int* top_i = reinterpret_cast<int*>(top_v + k);
+  float* nxt_v = reinterpret_cast<float*>(top_i + k);
+  int* nxt_i = reinterpret_cast<int*>(nxt_v + k);
+  float* cand_v = reinterpret_cast<float*>(nxt_i + k);
   int* cand_i = reinterpret_cast<int*>(cand_v + PASS);
   __shared__ int s_ncand;
   __shared__ int s_skip;
@@ -433,10 +394,8 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
 
   const int W = WT > 0 ? WT : w_rt;
   const int tid = threadIdx.x;
-  const bool staged = !WIDE || !wide.gtab;
-  const bool spilled = WIDE && wide.spill;
-  const float* tab = staged ? table : table_row;
-  if (staged) {
+  const float* tab = WIDE ? table_row : table;
+  if constexpr (!WIDE) {
     for (int i = tid; i < table_width; i += THREADS) table[i] = table_row[i];
   }
   for (int i = tid; i < k; i += THREADS) {
@@ -475,11 +434,9 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
     __syncthreads();
   }
 
-  if (!spilled) {
-    for (int i = tid; i < k; i += THREADS) {
-      out_v[i] = top_v[i];
-      out_i[i] = top_i[i];
-    }
+  for (int i = tid; i < k; i += THREADS) {
+    out_v[i] = top_v[i];
+    out_i[i] = top_i[i];
   }
   if (tid == 0) {
     stats[0] = n_skip;
@@ -497,11 +454,9 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // Blocks of a WIDE launch over n_items pairs: as many as fit on the card
-// at once (a persistent grid), at most max_blocks (> 0: the merge buffers
-// the wrapper allocated) and n_items.
+// at once (a persistent grid), at most n_items.
 template <typename Kernel>
-inline cudaError_t wide_grid(Kernel kernel, size_t smem, int n_items, int max_blocks,
-                             int* grid) {
+inline cudaError_t wide_grid(Kernel kernel, size_t smem, int n_items, int* grid) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -512,7 +467,6 @@ inline cudaError_t wide_grid(Kernel kernel, size_t smem, int n_items, int max_bl
     return e;
   long long g = static_cast<long long>(n_sm) * (per_sm > 0 ? per_sm : 1);
   if (g > n_items) g = n_items;
-  if (max_blocks > 0 && g > max_blocks) g = max_blocks;
   *grid = static_cast<int>(g > 0 ? g : 1);
   return cudaSuccess;
 }

@@ -62,8 +62,9 @@
 // `WideArgs`: the unit's table is read where it lies (`multi_smem_wide`,
 // `stages_tables`).  Every function the shared-memory block runs keeps its
 // code: the WIDE parts are overloads and branches on the arguments' type.
-// Past the lists' k (k > 4096) B6 / B7 run the select kernels of
-// adc_topk_select.cu, which score through `multi_load` / `multi_score`.
+// Past the lists' k (k > 4096) B6 / B7 (and B2 / B5) run the select
+// kernels of adc_topk_select.cu, which score through `multi_load` /
+// `multi_score`.
 
 #pragma once
 

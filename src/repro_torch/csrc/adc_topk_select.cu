@@ -1,42 +1,54 @@
-// Kernels B6 and B7 past the shared-memory block's k (k > 4096, the
-// "select" plan of kernels/adc_topk.py `topk_plan`): the k-th key of each
-// unit is selected once, then exactly its k winners are sorted.
+// Kernels B2, B5, B6 and B7 past the shared-memory blocks' k (k > 4096,
+// the "select" plans of kernels/adc_topk.py `scan_plan` / `topk_plan`): the
+// k-th key of each unit is selected once, then exactly its k winners are
+// sorted.
 //
-// Replaces: src/repro/kernels/adc_topk.py `adc_topk_kernel` (B6) and
+// Replaces: src/repro/kernels/adc_topk.py `adc_topk_tiles_kernel` (B2),
+//           `adc_topk_windows_kernel` (B5), `adc_topk_kernel` (B6) and
 //           `adc_topk_pairs_kernel` (B7) where k is past the shared-memory
 //           block's range: the Pallas kernels keep a (k,) scratch of any k
 //           in VMEM and merge every tile into it.
 //
-// Work.  The units, their tiles and the runs that cut them over the grid
-// are B6 / B7's (adc_topk_multi.cuh: `unit_at`, `block_scan`, one table a
-// unit, B7's n_valid read on the card, B6's finite bound skipping a whole
-// tile whose smallest distance is above it).  Every row is scored with the
-// same `multi_load` / `multi_score` sums as the shared-memory block
-// (__fadd_rn in column or address order), so each distance is the same
-// bits.  A distance d becomes a 32-bit key that orders as d does (the sign
-// bit set on d >= 0, every bit flipped on d < 0); +inf and NaN are no
-// candidate (the merging block never took them either).
+// Units.  B6 / B7: their units (adc_topk_multi.cuh `unit_at`: one table
+// a unit, B7's n_valid read on the card, B6's finite bound skipping a whole
+// tile whose smallest distance is above it).  B2 / B5: their filled pairs
+// (`ScanSelectArgs`), in the launch order the wrapper gives; a pair's table
+// is row lut_row[pair] of the (R, A) tables, its tiles B2's run of the tile
+// queue (`tile_block` / `tile_row0`, ascending rows) or B5's blocks 0 ..
+// ceil(n_valid / block_n) - 1 of its window from `starts`.  The plan step
+// writes each unit's first tile (`ustart`, the units' tile counts summed);
+// the T tiles are cut over nb = min(grid, T) blocks, block b taking
+// [b * T / nb, (b + 1) * T / nb), so a 258k-row pair runs on many blocks
+// (kernels/adc_topk.py `run_plan` is the twin).  Every row is scored with
+// the same `multi_load` / `multi_score` sums as the shared-memory blocks
+// (__fadd_rn in column or address order; `adc_row`'s sums), so each
+// distance is the same bits.  A distance d becomes a 32-bit key that orders
+// as d does (the sign bit set on d >= 0, every bit flipped on d < 0); +inf
+// and NaN are no candidate (the merging blocks never took them either).
 //
-// Passes (one launch each, on the caller's stream; `adc_topk_select_launch`):
+// Passes (one launch each, on the caller's stream; `run_chain`):
+//   plan  the units' first tiles (and B2 / B5's bounds at the start, sq0).
 //   hist0, hist1  score every run and count its candidates' keys by one
 //        digit in a shared-memory histogram (bits 31..21, then 20..10 of
-//        the keys whose first digit is the k-th's), added to the unit's
-//        histogram in device memory.  The last block to finish a unit's
-//        runs (an atomic ticket after __threadfence, as the merge tree of
-//        adc_topk_multi.cuh) resolves the digit: the bucket of keys that
-//        share the k-th's 22 bits, the count c of keys below it, and the
-//        rank still needed in it.  A unit with at most k candidates takes
-//        all of them and stops selecting.
+//        the keys whose first digit is the k-th's).  A unit whose tiles lie
+//        in one block resolves the digit there; a unit cut over blocks adds
+//        to the histogram of its first block's slot in device memory, and
+//        the last block to finish its runs (an atomic ticket after
+//        __threadfence, as the merge tree of adc_topk_multi.cuh) resolves
+//        it: the bucket of keys that share the k-th's 22 bits, the count c
+//        of keys below it, and the rank still needed in it.  A unit with at
+//        most k candidates takes all of them and stops selecting.
 //   compact  every key below the bucket (or every candidate) goes to the
 //        unit's output row at a position from one atomic counter, and the
-//        bucket's (key, row) pairs to the unit's bucket buffer, when the
-//        bucket holds at most SEL_BUCKET rows (the rows near the k-th, a
-//        few hundred on the smoke's data).
+//        bucket's (key, row) pairs to the unit's part of a shared bucket
+//        pool (taken when the digit resolves: at most SEL_BUCKET rows, while
+//        the pool lasts; the rows near the k-th, a few hundred on the
+//        smoke's data).
 //   bucket  one block a unit sorts its bucket by (key, row) and writes the
 //        k - c smallest at c onwards.
-// A bucket past SEL_BUCKET rows (many rows tied within 2^-13 of the k-th)
-// takes three more passes over the codes instead, launched in every call
-// and empty for the other units:
+// A bucket past SEL_BUCKET rows (many rows tied within 2^-13 of the k-th),
+// or one the pool cannot hold, takes three more passes over the codes
+// instead, launched in every call and empty for the other units:
 //   hist2  the last 10 bits, to the k-th key K* itself and the ties at it;
 //   compact2  every key below K* (and every tie where all are taken) as
 //        above; where not, each run counts its ties;
@@ -51,14 +63,32 @@
 //        SORT_CHUNK keys, a larger k runs its strides of SORT_CHUNK and
 //        more in device memory), and pads with (+inf, -1) as the plain
 //        versions do.
-// Rows are scored again in every pass rather than kept: scratch is one
-// histogram, a bucket buffer and a few counters a unit plus a tie count a
-// run, whatever the rows (kernels/adc_topk.py `select_scratch`); the k
-// winners are written into the output itself.
+// Rows are scored again in every pass rather than kept: scratch is a state
+// a unit, a histogram a block, a tie count a run, each unit's first tile
+// and the bucket pool (kernels/adc_topk.py `select_scratch`); the k winners
+// are written into the output itself.
+//
+// B2 / B5's pruning (the contract of adc_topk_common.cuh: whatever is
+// dropped lies strictly beyond the query's final k-th).  The three digit
+// passes of a unit must score the same rows, or their ranks would not add
+// up, so they read a bound fixed for the call: qb0 = min(bound[q], sq0[q]),
+// the pair skipped whole when its lower bound lb > qb0 and a row a
+// candidate only if d <= qb0.  Each digit resolved tightens sq[q] by
+// atomicMin with the largest key its prefix allows (K* itself after the
+// third): at least k of the pair's rows lie at or below it, so the query's
+// final k-th does too.  The compactions and the last two steps read the
+// tightened sq: a pair with lb > min(bound[q], sq[q]) is skipped whole (its
+// tiles counted in `stats`), and the sort drops every winner with d above
+// that bound.  (A select resolves the pair's own K*, and lb <= every
+// distance of the pair, so `lb >= k-th` -- the shared block's running test,
+// sound there because that k-th comes from lower rows -- has nothing to
+// skip here: a tile before K*'s row can hold a winner tied with K*.)
 //
 // What bounds it on an H100: the code bytes, read once a pass (three
 // passes), and the table lookups of the scoring; then the sort of k keys
 // by one block a unit.
+
+#include <type_traits>
 
 #include "adc_topk_multi.cuh"
 
@@ -68,29 +98,56 @@ using namespace repro_adc;
 
 constexpr int SEL_BINS = 2048;              // histogram bins of a digit (11 bits)
 constexpr int SEL_STATE = 12;               // int32 fields of a unit's state
-constexpr int SEL_BUCKET = 8192;            // rows a unit's bucket buffer holds
+constexpr int SEL_BUCKET = 8192;            // rows a unit's bucket may hold
+constexpr int SEL_POOL_PER_UNIT = 256;      // bucket pool rows a unit adds
 constexpr unsigned SEL_EXCL = 0xffffffffu;  // the key of a row that is no candidate
 constexpr int SORT_THREADS = 1024;
 constexpr int SORT_CHUNK = 16384;           // keys a sort block holds (128 KB)
 
 // a unit's state in device memory (zeroed by the launcher)
 enum {
-  ST_MODE, ST_PREFIX, ST_NEED, ST_LESS, ST_TIES, ST_WRITTEN, ST_NOUT, ST_TICKET, ST_BUCKET
+  ST_MODE, ST_PREFIX, ST_NEED, ST_LESS, ST_TIES, ST_WRITTEN, ST_NOUT, ST_TICKET, ST_BUCKET,
+  ST_BOFF, ST_DROP
 };
 // ST_MODE: selecting, every candidate wins, K* resolved, or the bucket
-// buffered after two digits (ST_TIES then its rows)
+// buffered after two digits (ST_TIES then its rows, from pool row ST_BOFF)
 enum { M_SELECT = 0, M_ALL = 1, M_KTH = 2, M_BUCKET = 3 };
 // phases: 0-2 the histogram digits, then
 enum { PH_COMPACT2 = 3, PH_TIES = 4, PH_COMPACT = 5 };
 
 struct SelectArgs : MultiArgs {
-  int gtab;          // the table read where it lies
-  int phase;         // 0-2 histogram digit, PH_COMPACT, PH_COMPACT2, PH_TIES
-  int* state;        // (n_units, SEL_STATE)
-  unsigned* hist;    // (n_units, SEL_BINS), zero between passes
-  int* tiecnt;       // (n_blocks + n_units,): ties of run slot b + u
-  unsigned long long* bucket;  // (n_units, SEL_BUCKET) (key, row)
+  int gtab;                    // the table read where it lies
+  int phase;                   // 0-2 histogram digit, PH_COMPACT, PH_COMPACT2, PH_TIES
+  int* state;                  // (n_units, SEL_STATE)
+  unsigned* hist;              // (n_blocks, SEL_BINS): a split unit's, at its first block; zero
+  int* tiecnt;                 // (n_blocks + n_units,): ties of run slot b + u
+  unsigned long long* bucket;  // (pool_cap,) (key, row) rows of the units' buckets
+  int* pool_used;              // pool rows taken
+  long long pool_cap;
+  long long* ustart;           // (n_units + 1,): the first tile of each unit, then T
 };
+
+// B2 / B5's units and bounds: unit u is pair order[u].
+struct ScanSelectArgs : SelectArgs {
+  const int* lut_row;     // (P_all,) table row of each pair
+  const int* order;       // (n_units,)
+  const int* pair_t0;     // B2: (P_all,) the pair's tiles [t0, t1) of the queue; null for B5
+  const int* pair_t1;
+  const int* tile_block;  // B2: (ndev * T_queue,)
+  const int* tile_row0;
+  const int* starts;      // B5: (P_all,) the window's first row (block-aligned)
+  const int* pair_nv;     // (P_all,) valid rows
+  const int* pair_q;      // (P_all,)
+  const float* pair_lb;   // (P_all,)
+  float* sq;              // (Q,) the queries' shared bound (`bound` holds b0)
+  float* sq0;             // (Q,) sq at the call's start
+  int* stats;             // (P_all, 2) [tiles skipped, rows avoided]
+  long long cap;          // code rows a device
+  int pairs_per_dev;
+};
+
+template <typename Args>
+constexpr bool kPairs = std::is_same<Args, ScanSelectArgs>::value;
 
 __device__ __forceinline__ unsigned order_bits(float d) {
   const unsigned x = __float_as_uint(d);
@@ -115,18 +172,67 @@ __device__ __forceinline__ void hist_add(unsigned* h, bool hit, unsigned bin) {
   }
 }
 
-// Score rows [ta * bn, min(tz * bn, n_rows)) of unit `un` and hand each
-// pass's keys to visit(lo, key[R]) (row lo + j * THREADS + tid in key[j];
-// SEL_EXCL past the run).  With a finite bound a tile whose smallest
-// distance is above it is not visited (`scan_run`'s rule: that minimum from
-// the same sums when the tile fits one pass, else from a first sweep).
-// Every thread calls it and every call of visit.
+// Tiles of unit u: B6 / B7's rows cut at block_n; B2 / B5's pair, none
+// without a table.
+__device__ __forceinline__ long long unit_tiles(const SelectArgs& a, int u) {
+  return (unit_at<1>(a, u).n_rows + a.block_n - 1) / a.block_n;
+}
+__device__ __forceinline__ long long unit_tiles(const ScanSelectArgs& a, int u) {
+  const int p = __ldg(a.order + u);
+  if (__ldg(a.lut_row + p) < 0) return 0;
+  if (a.pair_t0 != nullptr) return max(__ldg(a.pair_t1 + p) - __ldg(a.pair_t0 + p), 0);
+  return (max(__ldg(a.pair_nv + p), 0) + a.block_n - 1) / a.block_n;
+}
+
+// The unit's table row, and its output row (B6: grouped units' q0, else
+// the unit; B7: the pair; B2 / B5: the pair).
+__device__ __forceinline__ int table_row(const SelectArgs& a, int u) { return unit_at<1>(a, u).q0; }
+__device__ __forceinline__ int table_row(const ScanSelectArgs& a, int u) {
+  return __ldg(a.lut_row + __ldg(a.order + u));
+}
+
+// B2 / B5: the bound the digit passes read (fixed for the call) and the
+// one the compactions read (tightened by the resolved digits).
+__device__ __forceinline__ float fixed_bound(const ScanSelectArgs& a, int qi) {
+  return fminf(__ldg(a.bound + qi), __ldcg(a.sq0 + qi));
+}
+__device__ __forceinline__ float live_bound(const ScanSelectArgs& a, int qi) {
+  return fminf(__ldg(a.bound + qi), __ldcg(a.sq + qi));
+}
+
+// The plan step, one block: ustart[u] = the tiles of units 0 .. u-1,
+// ustart[n_units] = T; B2 / B5 also keep sq as the call found it.
+template <typename Args>
+__global__ void __launch_bounds__(THREADS) adc_topk_select_plan_kernel(const Args a) {
+  __shared__ long long s_red64[THREADS / 32];
+  long long base = 0;
+  for (int c0 = 0; c0 < a.n_units; c0 += THREADS) {
+    const int u = c0 + static_cast<int>(threadIdx.x);
+    long long chunk;
+    const long long before = block_scan(u < a.n_units ? unit_tiles(a, u) : 0, s_red64, &chunk);
+    if (u < a.n_units) a.ustart[u] = base + before;
+    base += chunk;
+  }
+  if (threadIdx.x == 0) a.ustart[a.n_units] = base;
+  if constexpr (kPairs<Args>) {
+    for (int q = threadIdx.x; q < a.n_q; q += THREADS) a.sq0[q] = a.sq[q];
+  }
+}
+
+// Score rows [ta * bn, min(tz * bn, n_rows)) of B6 / B7's unit u and hand
+// each pass's keys to visit(lo, key[R]) (row lo + j * THREADS + tid in
+// key[j]; SEL_EXCL past the run).  With a finite bound a tile whose
+// smallest distance is above it is not visited (`scan_run`'s rule: that
+// minimum from the same sums when the tile fits one pass, else from a first
+// sweep).  Every thread calls it and every call of visit.
 template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename Visit>
-__device__ void select_scan(const SelectArgs& a, const float* table, const Unit& un, long long ta,
-                            long long tz, float bnd, float* s_red, Visit&& visit) {
+__device__ void unit_scan(const SelectArgs& a, const float* table, int u, long long ta,
+                          long long tz, float* s_red, Visit&& visit) {
   constexpr int R = multi_rows<CodeT, WT>();
   constexpr int P = R * THREADS;
   constexpr int NW = row_words<CodeT, WT>();
+  const Unit un = unit_at<1>(a, u);
+  const float bnd = a.bound != nullptr ? __ldg(a.bound + un.q0) : CUDART_INF_F;
   const int bn = a.block_n;
   const int W = WT > 0 ? WT : a.w;
   const CodeT* codes = static_cast<const CodeT*>(a.codes) + un.row0 * W;
@@ -193,6 +299,78 @@ __device__ void select_scan(const SelectArgs& a, const float* table, const Unit&
   }
 }
 
+// The same for B2 / B5's pair u: its tiles [ta, tz), each up to block_n
+// rows of its own code block (row numbers from the tile's row0), all at
+// the fixed bound qb0: nothing when the pair's lb > qb0, else a row's key
+// only when d <= qb0.  Passes follow one another across tiles, the next
+// one's codes loading while one is scored.
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename Visit>
+__device__ void unit_scan(const ScanSelectArgs& a, const float* table, int u, long long ta,
+                          long long tz, float*, Visit&& visit) {
+  constexpr int R = multi_rows<CodeT, WT>();
+  constexpr int P = R * THREADS;
+  constexpr int NW = row_words<CodeT, WT>();
+  const int pair = __ldg(a.order + u);
+  const float qb = fixed_bound(a, __ldg(a.pair_q + pair));
+  if (__ldg(a.pair_lb + pair) > qb) return;
+  const int bn = a.block_n;
+  const int W = WT > 0 ? WT : a.w;
+  const int nv = __ldg(a.pair_nv + pair);
+  const CodeT* cdev =
+      static_cast<const CodeT*>(a.codes) + static_cast<size_t>(pair / a.pairs_per_dev) * a.cap * W;
+  // the cursor: pass [lo, lo + P) of tile t (rows [0, n) from row0, codes c)
+  long long t = ta - 1;
+  int lo = -P, n = 0, row0 = 0;
+  const CodeT* c = cdev;
+  auto next = [&]() {  // to the run's next pass with rows, or t == tz
+    lo += P;
+    while (lo >= n && ++t < tz) {
+      long long blk;
+      if (a.pair_t0 != nullptr) {
+        const long long q = __ldg(a.pair_t0 + pair) + t;
+        row0 = __ldg(a.tile_row0 + q);
+        blk = __ldg(a.tile_block + q);
+      } else {
+        row0 = static_cast<int>(t * bn);
+        blk = __ldg(a.starts + pair) / bn + t;
+      }
+      n = min(bn, nv - row0);
+      lo = 0;
+      c = cdev + static_cast<size_t>(blk) * bn * W;
+    }
+  };
+  float d[R][1];
+  unsigned key[R];
+  auto emit = [&](int base) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) key[j] = d[j][0] <= qb ? order_key(d[j][0]) : SEL_EXCL;
+    visit(base, key);
+  };
+  next();
+  if constexpr (WT > 0) {
+    uint32_t cur[R][NW], nxt[R][NW];
+    if (t < tz) multi_load<CodeT, WT, R>(c, lo, n, cur);
+    while (t < tz) {
+      const CodeT* cc = c;
+      const int clo = lo, chi = min(lo + P, n), cbase = row0 + lo;
+      next();
+      if (t < tz) multi_load<CodeT, WT, R>(c, lo, n, nxt);
+      multi_score<CodeT, OFFSETS, WT, 1, R, SORT>(table, cc, W, clo, chi, cur, d);
+      emit(cbase);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+#pragma unroll
+        for (int q = 0; q < NW; ++q) cur[j][q] = nxt[j][q];
+      }
+    }
+  } else {
+    for (; t < tz; next()) {
+      multi_pass<CodeT, OFFSETS, WT, 1, R, SORT>(table, c, W, lo, min(lo + P, n), d);
+      emit(row0 + lo);
+    }
+  }
+}
+
 // The block's shared scratch beside the table.
 struct SelShared {
   unsigned* hist;      // [SEL_BINS]
@@ -203,12 +381,15 @@ struct SelShared {
   int* last;
 };
 
-// The last block of unit u's runs resolves pass p's digit from the unit's
-// histogram (and zeroes it for the next pass): the bin where the count
-// from the smallest key reaches the rank still needed.
-__device__ void resolve(const SelectArgs& a, int u, int p, const SelShared& sh) {
+// Resolve pass p's digit of unit u from histogram h (the block's own in
+// shared memory, or a split unit's slot in device memory, zeroed here for
+// the next pass): the bin where the count from the smallest key reaches
+// the rank still needed.  B2 / B5 tighten their query's sq with the
+// largest key the digits so far allow.
+template <typename Args>
+__device__ void resolve(const Args& a, int u, int p, unsigned* h, bool global,
+                        const SelShared& sh) {
   int* st = a.state + static_cast<size_t>(u) * SEL_STATE;
-  unsigned* h = a.hist + static_cast<size_t>(u) * SEL_BINS;
   const int tid = threadIdx.x;
   constexpr int PER = SEL_BINS / THREADS;
   const int n_bins = p == 2 ? 1024 : SEL_BINS;
@@ -217,8 +398,8 @@ __device__ void resolve(const SelectArgs& a, int u, int p, const SelShared& sh) 
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int bin = tid * PER + i;
-    c[i] = bin < n_bins ? __ldcg(h + bin) : 0u;
-    h[bin] = 0u;
+    c[i] = bin < n_bins ? (global ? __ldcg(h + bin) : h[bin]) : 0u;
+    if (global) h[bin] = 0u;
     sum += c[i];
   }
   // read before the scan's barriers: the one thread below rewrites it
@@ -242,24 +423,35 @@ __device__ void resolve(const SelectArgs& a, int u, int p, const SelShared& sh) 
     st[ST_NEED] = static_cast<int>(need - cum);
     st[ST_LESS] = static_cast<int>((p == 0 ? 0 : st[ST_LESS]) + cum);
     if (p == 1 && c[i] <= SEL_BUCKET) {
-      st[ST_TIES] = static_cast<int>(c[i]);
-      st[ST_NOUT] = a.k;
-      st[ST_MODE] = M_BUCKET;
+      const int off = atomicAdd(a.pool_used, static_cast<int>(c[i]));
+      if (off + static_cast<long long>(c[i]) <= a.pool_cap) {
+        st[ST_BOFF] = off;
+        st[ST_TIES] = static_cast<int>(c[i]);
+        st[ST_NOUT] = a.k;
+        st[ST_MODE] = M_BUCKET;
+      }
     }
     if (p == 2) {
       st[ST_TIES] = static_cast<int>(c[i]);
       st[ST_NOUT] = a.k;
       st[ST_MODE] = M_KTH;
     }
+    if constexpr (kPairs<Args>) {
+      const float v = key_value(prefix | ((1u << digit_shift(p)) - 1u));
+      const int qi = __ldg(a.pair_q + __ldg(a.order + u));
+      if (v >= 0.f && v < CUDART_INF_F)  // non-negative floats order as their bits
+        atomicMin(reinterpret_cast<int*>(a.sq + qi), __float_as_int(v));
+    }
   }
 }
 
 // The block's run of unit u (tiles [ta, tz), rows numbered from the unit's
-// row0) in this launch's phase.
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
-__device__ void select_run(const SelectArgs& a, float* s_table, const SelShared& sh,
-                           const Unit& un, int u, long long ta, long long tz, long long first,
-                           long long last) {
+// first) in this launch's phase; its runs are those of blocks first ..
+// last.
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename Args>
+__device__ void select_run(const Args& a, float* s_table, const SelShared& sh, int u,
+                           long long ta, long long tz, long long first, long long last,
+                           int out_row) {
   constexpr int R = multi_rows<CodeT, WT>();
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -275,6 +467,14 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
   if (phase == PH_COMPACT) runs = mode == M_ALL || mode == M_BUCKET;
   if (phase == PH_COMPACT2) runs = mode == M_KTH;
   if (!runs) return;
+  if constexpr (kPairs<Args>) {
+    // a compaction skips a pair whose every row lies above the tightened bound
+    const int pair = __ldg(a.order + u);
+    if (phase >= PH_COMPACT2 && __ldg(a.pair_lb + pair) > live_bound(a, __ldg(a.pair_q + pair))) {
+      if (tid == 0) st[ST_DROP] = 1;
+      return;
+    }
+  }
   const long long slot = static_cast<long long>(blockIdx.x) + u;
   long long base = 0;  // ties in the unit's earlier runs
   if (phase == PH_TIES) {
@@ -286,7 +486,7 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
   const int k = a.k;
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
   __syncthreads();  // the previous run's readers of the table and histogram are done
-  const float* row_tab = a.tables + static_cast<size_t>(un.q0) * a.table_width;
+  const float* row_tab = a.tables + static_cast<size_t>(table_row(a, u)) * a.table_width;
   const float* table = a.gtab ? row_tab : s_table;
   if (!a.gtab) {
     for (int e = tid; e < a_used; e += THREADS) s_table[e] = __ldg(row_tab + e);
@@ -296,16 +496,15 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
   }
   if (tid == 0) *sh.count = 0;
   __syncthreads();
-  const float bnd = a.bound != nullptr ? __ldg(a.bound + un.q0) : CUDART_INF_F;
-  float* ov = a.out_v + static_cast<size_t>(un.q0) * k;
-  int* oi = a.out_i + static_cast<size_t>(un.q0) * k;
+  float* ov = a.out_v + static_cast<size_t>(out_row) * k;
+  int* oi = a.out_i + static_cast<size_t>(out_row) * k;
 
   if (phase < PH_COMPACT2) {
     const int sh_d = digit_shift(phase);
     const int sh_hi = phase == 0 ? 0 : digit_shift(phase - 1);
     const unsigned mask = phase == 2 ? 0x3ffu : 0x7ffu;
-    select_scan<CodeT, OFFSETS, WT, SORT>(a, table, un, ta, tz, bnd, sh.red,
-                                          [&](int, const unsigned (&key)[R]) {
+    unit_scan<CodeT, OFFSETS, WT, SORT>(a, table, u, ta, tz, sh.red,
+                                        [&](int, const unsigned (&key)[R]) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const bool hit = key[j] != SEL_EXCL && (phase == 0 || (key[j] >> sh_hi) == (kstar >> sh_hi));
@@ -313,13 +512,17 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
       }
     });
     __syncthreads();
-    unsigned* gh = a.hist + static_cast<size_t>(u) * SEL_BINS;
+    if (first == last) {  // the unit's one run: resolve here
+      resolve(a, u, phase, sh.hist, false, sh);
+      return;
+    }
+    unsigned* gh = a.hist + static_cast<size_t>(first) * SEL_BINS;
     for (int i = tid; i < SEL_BINS; i += THREADS) {
       const unsigned c = sh.hist[i];
       if (c) atomicAdd(gh + i, c);
     }
     if (last_to_arrive(st + ST_TICKET, static_cast<int>(last - first + 1), sh.last))
-      resolve(a, u, phase, sh);
+      resolve(a, u, phase, gh, true, sh);
     return;
   }
 
@@ -333,9 +536,9 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
 
   if (phase == PH_COMPACT) {
     const unsigned hi22 = kstar >> 10;
-    unsigned long long* bk = a.bucket + static_cast<size_t>(u) * SEL_BUCKET;
-    select_scan<CodeT, OFFSETS, WT, SORT>(a, table, un, ta, tz, bnd, sh.red,
-                                          [&](int lo, const unsigned (&key)[R]) {
+    unsigned long long* bk = a.bucket + st[ST_BOFF];
+    unit_scan<CodeT, OFFSETS, WT, SORT>(a, table, u, ta, tz, sh.red,
+                                        [&](int lo, const unsigned (&key)[R]) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const unsigned kk = key[j];
@@ -357,8 +560,8 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
 
   if (phase == PH_COMPACT2) {
     const bool take_ties = need == ties;
-    select_scan<CodeT, OFFSETS, WT, SORT>(a, table, un, ta, tz, bnd, sh.red,
-                                          [&](int lo, const unsigned (&key)[R]) {
+    unit_scan<CodeT, OFFSETS, WT, SORT>(a, table, u, ta, tz, sh.red,
+                                        [&](int lo, const unsigned (&key)[R]) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const unsigned kk = key[j];
@@ -380,8 +583,8 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
   }
 
   // PH_TIES: number this run's ties in row order after the earlier runs'
-  select_scan<CodeT, OFFSETS, WT, SORT>(a, table, un, ta, tz, bnd, sh.red,
-                                        [&](int lo, const unsigned (&key)[R]) {
+  unit_scan<CodeT, OFFSETS, WT, SORT>(a, table, u, ta, tz, sh.red,
+                                      [&](int lo, const unsigned (&key)[R]) {
     unsigned tb[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -411,59 +614,60 @@ __device__ void select_run(const SelectArgs& a, float* s_table, const SelShared&
   });
 }
 
-// The block's whole work in one phase: the units' tiles cut into runs as
-// `topk_multi` cuts them (so slot b + u and the unit's first / last
-// blocks are the same in every phase).
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
-__global__ void __launch_bounds__(THREADS, multi_min_blocks<1>())
-adc_topk_select_kernel(const SelectArgs a) {
+// The unit's output row (B6: grouped units' q0, else the unit; B7: the
+// window; B2 / B5: the pair).
+__device__ __forceinline__ int out_row(const SelectArgs& a, int u) {
+  return a.n_valid != nullptr ? u : (a.units != nullptr ? __ldg(a.units + 4 * u + 2) : u);
+}
+__device__ __forceinline__ int out_row(const ScanSelectArgs& a, int u) { return __ldg(a.order + u); }
+
+// The block's whole work in one phase: tiles [b * T / nb, (b + 1) * T / nb)
+// and the runs of the units they cover (so slot b + u and the unit's first
+// / last blocks are the same in every phase).
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename Args>
+__device__ void select_pass(const Args& a) {
   constexpr int R = multi_rows<CodeT, WT>();
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ long long s_start[THREADS];
-  __shared__ int s_cnt[THREADS];
   __shared__ long long s_red64[THREADS / 32];
   __shared__ float s_red[THREADS / 32];
   __shared__ int s_rank[R * (THREADS / 32)];
   __shared__ int s_count, s_last;
-  const int tid = threadIdx.x;
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
   float* s_table = reinterpret_cast<float*>(smem);
   const SelShared sh{reinterpret_cast<unsigned*>(smem) + (a.gtab ? 0 : a_used), s_red64, s_red,
                      s_rank, &s_count, &s_last};
-  const long long bn = a.block_n;
-
-  long long part = 0;
-  for (int u = tid; u < a.n_units; u += THREADS) part += (unit_at<1>(a, u).n_rows + bn - 1) / bn;
-  long long T;
-  block_scan(part, s_red64, &T);
+  const long long T = a.ustart[a.n_units];
   const long long nb = min(static_cast<long long>(gridDim.x), T);
   const long long b = blockIdx.x;
   if (b >= nb) return;
   const long long tb = b * T / nb, te = (b + 1) * T / nb;
-
-  long long base = 0;  // first tile of the chunk of units
-  for (int c0 = 0; c0 < a.n_units && base < te; c0 += THREADS) {
-    const int u = c0 + tid;
-    const int cnt = u < a.n_units ? static_cast<int>((unit_at<1>(a, u).n_rows + bn - 1) / bn) : 0;
-    long long chunk;
-    s_start[tid] = base + block_scan(cnt, s_red64, &chunk);
-    s_cnt[tid] = cnt;
-    __syncthreads();
-    const int n_here = min(THREADS, a.n_units - c0);
-    for (int j = 0; j < n_here; ++j) {
-      const long long start = s_start[j];
-      const int count = s_cnt[j];
-      if (start >= te) break;
-      if (count == 0 || start + count <= tb) continue;
-      const Unit un = unit_at<1>(a, c0 + j);
-      const long long ta = max(tb, start) - start, tz = min(te, start + count) - start;
-      const long long first = ((start + 1) * nb - 1) / T;
-      const long long last = ((start + count) * nb - 1) / T;
-      select_run<CodeT, OFFSETS, WT, SORT>(a, s_table, sh, un, c0 + j, ta, tz, first, last);
-    }
-    base += chunk;
-    __syncthreads();
+  int lo = 0, hi = a.n_units;  // the unit of tile tb: the last u with ustart[u] <= tb
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (a.ustart[mid] <= tb) lo = mid; else hi = mid;
   }
+  for (int u = lo; u < a.n_units; ++u) {
+    const long long start = a.ustart[u];
+    if (start >= te) break;
+    const long long count = a.ustart[u + 1] - start;
+    if (count == 0) continue;
+    const long long ta = max(tb, start) - start, tz = min(te, start + count) - start;
+    const long long first = ((start + 1) * nb - 1) / T;
+    const long long last = ((start + count) * nb - 1) / T;
+    select_run<CodeT, OFFSETS, WT, SORT>(a, s_table, sh, u, ta, tz, first, last, out_row(a, u));
+  }
+}
+
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+__global__ void __launch_bounds__(THREADS, multi_min_blocks<1>())
+adc_topk_select_kernel(const SelectArgs a) {
+  select_pass<CodeT, OFFSETS, WT, SORT>(a);
+}
+
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+__global__ void __launch_bounds__(THREADS, multi_min_blocks<1>())
+adc_topk_scan_select_kernel(const ScanSelectArgs a) {
+  select_pass<CodeT, OFFSETS, WT, SORT>(a);
 }
 
 // 64-bit sort key of an output entry: (the distance's order bits, row).
@@ -576,6 +780,8 @@ __device__ void sort_steps(unsigned long long* keys, int n, int n2, int size0, i
 }
 
 
+
+
 struct SortArgs {
   const int* state;
   const int* units;
@@ -586,11 +792,29 @@ struct SortArgs {
   int n_q, k;
 };
 
+// B2 / B5's last two steps also read each pair's tiles, bound and counters.
+struct ScanSortArgs : SortArgs {
+  const long long* ustart;
+  const int* order;
+  const int* pair_t0;     // B2, or null
+  const int* tile_row0;
+  const int* pair_nv;
+  const int* pair_q;
+  const float* bound;
+  const float* sq;
+  int* stats;
+  int block_n;
+};
+
+template <typename SArgs>
+constexpr bool kScanSort = std::is_same<SArgs, ScanSortArgs>::value;
+
 // The output row of unit u: B7's pair u, grouped B6's unit table, or B6's
-// table u.
+// table u; B2 / B5's pair.
 __device__ __forceinline__ int unit_row(const SortArgs& a, int u) {
   return a.n_valid != nullptr ? u : (a.units != nullptr ? __ldg(a.units + 4 * u + 2) : u);
 }
+__device__ __forceinline__ int unit_row(const ScanSortArgs& a, int u) { return __ldg(a.order + u); }
 
 // Keys of a bucket ranked by counting (each against all, O(n^2 / threads))
 // rather than sorted: the bucket's usual few hundred rows need no network.
@@ -598,14 +822,16 @@ constexpr int BUCKET_COUNT_MAX = 1024;
 
 // The bucket pass: one block per unit with its bucket buffered puts the
 // k - c smallest of the bucket's (key, row) pairs, in order, at c onwards:
-// by each key's rank among them, or past BUCKET_COUNT_MAX by sorting.
-__global__ void __launch_bounds__(SORT_THREADS) adc_topk_select_bucket_kernel(const SortArgs a) {
+// by each key's rank among them, or past BUCKET_COUNT_MAX by sorting.  A
+// B2 / B5 pair its compaction skipped has nothing to place.
+template <typename SArgs>
+__global__ void __launch_bounds__(SORT_THREADS) adc_topk_select_bucket_kernel(const SArgs a) {
   extern __shared__ __align__(16) unsigned long long keys[];
   const int u = blockIdx.x;
   const int* st = a.state + static_cast<size_t>(u) * SEL_STATE;
-  if (st[ST_MODE] != M_BUCKET) return;
+  if (st[ST_MODE] != M_BUCKET || st[ST_DROP]) return;
   const int n = st[ST_BUCKET], need = st[ST_NEED], less = st[ST_LESS];
-  const unsigned long long* bk = a.bucket + static_cast<size_t>(u) * SEL_BUCKET;
+  const unsigned long long* bk = a.bucket + st[ST_BOFF];
   for (int i = threadIdx.x; i < n; i += SORT_THREADS) keys[i] = bk[i];
   __syncthreads();
   const size_t row = static_cast<size_t>(unit_row(a, u)) * a.k + less;
@@ -626,20 +852,71 @@ __global__ void __launch_bounds__(SORT_THREADS) adc_topk_select_bucket_kernel(co
   for (int i = threadIdx.x; i < need; i += SORT_THREADS) put(i, keys[i]);
 }
 
-__device__ void sort_long(const SortArgs& a, unsigned long long* keys, float* ov, int* oi,
+// A B2 / B5 pair its compaction skipped: every entry (+inf, -1), and its
+// tiles with rows and those rows counted as skipped (the shared block's
+// counters).
+__device__ void skipped_pair(const ScanSortArgs& a, int u, int pair) {
+  __shared__ int s_tiles, s_rows;
+  const int tid = threadIdx.x;
+  const int k = a.k;
+  for (int i = tid; i < k; i += SORT_THREADS) {
+    a.out_v[static_cast<size_t>(pair) * k + i] = CUDART_INF_F;
+    a.out_i[static_cast<size_t>(pair) * k + i] = -1;
+  }
+  if (tid == 0) s_tiles = s_rows = 0;
+  __syncthreads();
+  const int nt = static_cast<int>(a.ustart[u + 1] - a.ustart[u]);
+  const int nv = __ldg(a.pair_nv + pair);
+  int tiles = 0, rows = 0;
+  for (int t = tid; t < nt; t += SORT_THREADS) {
+    const int row0 = a.pair_t0 != nullptr ? __ldg(a.tile_row0 + __ldg(a.pair_t0 + pair) + t)
+                                          : t * a.block_n;
+    const int r = min(max(nv - row0, 0), a.block_n);
+    tiles += r > 0;
+    rows += r;
+  }
+  if (tiles) atomicAdd(&s_tiles, tiles);
+  if (rows) atomicAdd(&s_rows, rows);
+  __syncthreads();
+  if (tid == 0) {
+    a.stats[2 * static_cast<size_t>(pair)] = s_tiles;
+    a.stats[2 * static_cast<size_t>(pair) + 1] = s_rows;
+  }
+}
+
+template <typename SArgs>
+__device__ void sort_long(const SArgs& a, unsigned long long* keys, float* ov, int* oi,
                           int n_out, int n2);
 
 // The last pass: one block per unit sorts its output row's first n_out
 // entries by (distance, row) and pads the rest with (+inf, -1); E keys a
-// thread: 8 for k <= 8192, else 16 (chunks of SORT_CHUNK past that).
-template <int E>
-__global__ void __launch_bounds__(SORT_THREADS) adc_topk_select_sort_kernel(const SortArgs a) {
+// thread: 8 for k <= 8192, else 16 (chunks of SORT_CHUNK past that).  B2 /
+// B5: a pair without tiles is left as it is, a skipped pair is
+// `skipped_pair`, and any other drops its winners above min(bound[q],
+// sq[q]) (a suffix of the sorted row) and counts nothing skipped.
+template <int E, typename SArgs>
+__global__ void __launch_bounds__(SORT_THREADS) adc_topk_select_sort_kernel(const SArgs a) {
   extern __shared__ __align__(16) unsigned long long keys[];
   const int u = blockIdx.x;
   const int tid = threadIdx.x;
+  const int* st = a.state + static_cast<size_t>(u) * SEL_STATE;
   const int q0 = unit_row(a, u);
   const int k = a.k;
-  const int n_out = a.state[static_cast<size_t>(u) * SEL_STATE + ST_NOUT];
+  float cut = CUDART_INF_F;
+  if constexpr (kScanSort<SArgs>) {
+    if (a.ustart[u + 1] == a.ustart[u]) return;
+    if (st[ST_DROP]) {
+      skipped_pair(a, u, q0);
+      return;
+    }
+    const int qi = __ldg(a.pair_q + q0);
+    cut = fminf(__ldg(a.bound + qi), __ldcg(a.sq + qi));
+    if (tid == 0) {
+      a.stats[2 * static_cast<size_t>(q0)] = 0;
+      a.stats[2 * static_cast<size_t>(q0) + 1] = 0;
+    }
+  }
+  const int n_out = st[ST_NOUT];
   float* ov = a.out_v + static_cast<size_t>(q0) * k;
   int* oi = a.out_i + static_cast<size_t>(q0) * k;
   int n2 = 8 * SORT_THREADS;  // k > 4096: n2 >= 8192 keys, 8 or more a thread
@@ -650,19 +927,31 @@ __global__ void __launch_bounds__(SORT_THREADS) adc_topk_select_sort_kernel(cons
     __syncthreads();
     sort_steps<E>(keys, n_out, n2, 2, n2, 1);
     for (int i = tid; i < k; i += SORT_THREADS) {
-      const bool real = i < n_out;
-      ov[i] = real ? key_value(static_cast<unsigned>(keys[i] >> 32)) : CUDART_INF_F;
+      const float v = key_value(static_cast<unsigned>(keys[i] >> 32));
+      const bool real = i < n_out && v <= cut;
+      ov[i] = real ? v : CUDART_INF_F;
       oi[i] = real ? static_cast<int>(keys[i] & 0xffffffffu) : -1;
     }
     return;
   }
-  if constexpr (E == SORT_CHUNK / SORT_THREADS) sort_long(a, keys, ov, oi, n_out, n2);
+  if constexpr (E == SORT_CHUNK / SORT_THREADS) {
+    sort_long(a, keys, ov, oi, n_out, n2);
+    if constexpr (kScanSort<SArgs>) {
+      for (int i = tid; i < k; i += SORT_THREADS) {
+        if (!(ov[i] <= cut)) {
+          ov[i] = CUDART_INF_F;
+          oi[i] = -1;
+        }
+      }
+    }
+  }
 }
 
 // The sort of a k past a block's shared memory (from the sort kernel with
 // SORT_CHUNK keys a block): chunks of SORT_CHUNK sorted in shared memory,
 // the longer strides on the output row in device memory.
-__device__ void sort_long(const SortArgs& a, unsigned long long* keys, float* ov, int* oi,
+template <typename SArgs>
+__device__ void sort_long(const SArgs& a, unsigned long long* keys, float* ov, int* oi,
                           int n_out, int n2) {
   constexpr int E = SORT_CHUNK / SORT_THREADS;
   const int tid = threadIdx.x;
@@ -720,9 +1009,17 @@ inline size_t sort_smem_bytes(int k) {
   return static_cast<size_t>(n2) * 8;
 }
 
+// The scoring kernel of an instantiation for B6 / B7's or B2 / B5's units.
 template <typename CodeT, bool OFFSETS, int WT, bool SORT>
-int launch_phase(const SelectArgs& a, int n_blocks, cudaStream_t stream) {
-  auto kernel = adc_topk_select_kernel<CodeT, OFFSETS, WT, SORT>;
+auto kernel_of(const SelectArgs*) { return adc_topk_select_kernel<CodeT, OFFSETS, WT, SORT>; }
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+auto kernel_of(const ScanSelectArgs*) {
+  return adc_topk_scan_select_kernel<CodeT, OFFSETS, WT, SORT>;
+}
+
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename Args>
+int launch_phase(const Args& a, int n_blocks, cudaStream_t stream) {
+  auto kernel = kernel_of<CodeT, OFFSETS, WT, SORT>(&a);
   const size_t smem = select_smem_bytes(multi_table_width<OFFSETS, WT>(a.table_width, a.w), a.gtab);
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -730,9 +1027,9 @@ int launch_phase(const SelectArgs& a, int n_blocks, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename Args>
 int blocks_per_sm(int table_width, int w, int gtab) {
-  auto kernel = adc_topk_select_kernel<CodeT, OFFSETS, WT, SORT>;
+  auto kernel = kernel_of<CodeT, OFFSETS, WT, SORT>(static_cast<const Args*>(nullptr));
   const size_t smem = select_smem_bytes(multi_table_width<OFFSETS, WT>(table_width, w), gtab);
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
@@ -741,44 +1038,76 @@ int blocks_per_sm(int table_width, int w, int gtab) {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-int dispatch_phase(const SelectArgs& a, int code_fmt, int w, int onehot, int n_blocks,
+template <typename Args>
+int dispatch_phase(const Args& a, int code_fmt, int w, int onehot, int n_blocks,
                    cudaStream_t st) {
 #define REPRO_SELECT_LAUNCH(CodeT, OFF, WT, SORT) launch_phase<CodeT, OFF, WT, SORT>(a, n_blocks, st)
   REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_SELECT_LAUNCH)
 #undef REPRO_SELECT_LAUNCH
 }
 
-}  // namespace
+template <typename Args>
+int dispatch_blocks_per_sm(int code_fmt, int onehot, int w, int table_width, int gtab) {
+#define REPRO_SELECT_OCC(CodeT, OFF, WT, SORT) \
+  blocks_per_sm<CodeT, OFF, WT, SORT, Args>(table_width, w, gtab)
+  REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_SELECT_OCC)
+#undef REPRO_SELECT_OCC
+}
 
 // Each step of one select call (a memset, then kernels), in launch order:
-// the length of the `split_ms` array `adc_topk_select_launch` fills.
-constexpr int SEL_STEPS = 9;
+// the length of the `split_ms` array the launchers fill.
+constexpr int SEL_STEPS = 10;
 
-// One call of B6 / B7 under the select plan: a memset of the state and
-// histograms, the six scoring passes (hist0, hist1, compact, hist2,
-// compact2, ties), the bucket pass and the sort, on `stream`.  B6:
-// units (n_units, 4) int32 {row0, n_rows, q0, nq = 1} or null (n_q units
-// over all n_rows rows), n_valid null.  B7: n_valid (n_units,) int32 and
-// win_len rows a window, units null.  tables (n_q, table_width) f32; codes
-// in `code_fmt` (0 uint8 raw + column offsets, 1 uint16, 2 int32 direct
-// addresses); bound (n_q,) f32 or null; out_* (n_q, k), every row a unit
-// covers rewritten; scratch (kernels/adc_topk.py `select_scratch`) int32
-// entries: the units' states and histograms, a tie count for each of
-// n_blocks + n_units runs, to an even count, and the units' buckets
-// (2 * SEL_BUCKET each).  `launched` (host int, or null) gains one for
-// each step enqueued.  `split_ms` (host, SEL_STEPS floats, or null): when
-// given, CUDA events are recorded on the stream around every step, the
-// call waits for the last, and entry i is step i's time on the card, from
-// the end of the step before it.  Returns the first non-zero cudaError_t,
-// or 0.
-extern "C" int adc_topk_select_launch(const void* tables, const void* codes, const void* bound,
-                                      const void* units, const void* n_valid, void* out_v,
-                                      void* out_i, void* scratch, long long win_len, int n_units,
-                                      int n_q, int n_rows, int w, int table_width, int code_fmt,
-                                      int onehot, int k, int block_n, int gtab, int n_blocks,
-                                      int* launched, float* split_ms, void* stream) {
-  if (n_units <= 0 || n_blocks <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The scratch of one call (kernels/adc_topk.py `select_scratch`, int32
+// entries): the units' states, the blocks' histograms and the pool counter
+// (zeroed by the call's memset: `zero_bytes`), a tie count a run, each
+// unit's first tile, B2 / B5's bounds at the start (n_q), the bucket pool.
+struct Scratch {
+  int* state;
+  unsigned* hist;
+  int* pool_used;
+  int* tiecnt;
+  long long* ustart;
+  float* sq0;
+  unsigned long long* bucket;
+  long long pool_cap;
+  size_t zero_bytes;
+};
+
+Scratch carve(void* scratch, int n_units, int n_blocks, int n_q) {
+  int* p = static_cast<int*>(scratch);
+  Scratch s;
+  size_t at = 0;
+  s.state = p;
+  at += static_cast<size_t>(n_units) * SEL_STATE;
+  s.hist = reinterpret_cast<unsigned*>(p + at);
+  at += static_cast<size_t>(n_blocks) * SEL_BINS;
+  s.pool_used = p + at;
+  at += 2;
+  s.zero_bytes = at * sizeof(int);
+  s.tiecnt = p + at;
+  at += static_cast<size_t>(n_blocks) + n_units;
+  at += at & 1;
+  s.ustart = reinterpret_cast<long long*>(p + at);
+  at += 2 * (static_cast<size_t>(n_units) + 1);
+  s.sq0 = reinterpret_cast<float*>(p + at);
+  at += static_cast<size_t>(n_q) + (n_q & 1);
+  s.bucket = reinterpret_cast<unsigned long long*>(p + at);
+  s.pool_cap = static_cast<long long>(n_units) * SEL_POOL_PER_UNIT + SEL_BUCKET;
+  return s;
+}
+
+// The chain of one call on `st`: a memset of the zeroed scratch, the plan,
+// the six scoring passes (hist0, hist1, compact, hist2, compact2, ties),
+// the bucket pass and the sort.  `launched` (host int, or null) gains one
+// for each step enqueued.  `split_ms` (host, SEL_STEPS floats, or null):
+// when given, CUDA events are recorded on the stream around every step,
+// the call waits for the last, and entry i is step i's time on the card,
+// from the end of the step before it.  Returns the first non-zero
+// cudaError_t, or 0.
+template <typename Args, typename SArgs>
+int run_chain(Args& a, const SArgs& s, const Scratch& sc, int code_fmt, int w, int onehot,
+              int n_blocks, int* launched, float* split_ms, cudaStream_t st) {
   cudaEvent_t ev[SEL_STEPS + 1] = {};
   const int n_ev = split_ms != nullptr ? SEL_STEPS + 1 : 0;
   int step = 0;
@@ -794,38 +1123,25 @@ extern "C" int adc_topk_select_launch(const void* tables, const void* codes, con
   auto run = [&]() -> cudaError_t {
     cudaError_t err = n_ev ? cudaEventRecord(ev[0], st) : cudaSuccess;
     if (err != cudaSuccess) return err;
-    int* state = static_cast<int*>(scratch);
-    unsigned* hist =
-        reinterpret_cast<unsigned*>(state + static_cast<size_t>(n_units) * SEL_STATE);
-    int* tiecnt = reinterpret_cast<int*>(hist + static_cast<size_t>(n_units) * SEL_BINS);
-    size_t at = static_cast<size_t>(n_units) * (SEL_STATE + SEL_BINS) + n_blocks + n_units;
-    auto* bucket = reinterpret_cast<unsigned long long*>(state + at + (at & 1));
-    err = done(cudaMemsetAsync(
-        state, 0, static_cast<size_t>(n_units) * (SEL_STATE + SEL_BINS) * sizeof(int), st));
-    if (err != cudaSuccess) return err;
-    SelectArgs a{{static_cast<const float*>(tables), codes, static_cast<const float*>(bound),
-                  static_cast<const int*>(units), static_cast<const int*>(n_valid),
-                  static_cast<float*>(out_v), static_cast<int*>(out_i), nullptr, nullptr,
-                  nullptr, win_len, n_units, n_q, n_rows, w, table_width, k, block_n},
-                 gtab, 0, state, hist, tiecnt, bucket};
+    if ((err = done(cudaMemsetAsync(sc.state, 0, sc.zero_bytes, st))) != cudaSuccess) return err;
+    adc_topk_select_plan_kernel<Args><<<1, THREADS, 0, st>>>(a);
+    if ((err = done(cudaGetLastError())) != cudaSuccess) return err;
     for (const int phase : {0, 1, static_cast<int>(PH_COMPACT), 2,
                             static_cast<int>(PH_COMPACT2), static_cast<int>(PH_TIES)}) {
       a.phase = phase;
       err = done(static_cast<cudaError_t>(dispatch_phase(a, code_fmt, w, onehot, n_blocks, st)));
       if (err != cudaSuccess) return err;
     }
-    const SortArgs s{state, static_cast<const int*>(units), static_cast<const int*>(n_valid),
-                     bucket, static_cast<float*>(out_v), static_cast<int*>(out_i), n_q, k};
     const size_t bucket_smem = static_cast<size_t>(SEL_BUCKET) * 8;
-    err = set_smem(adc_topk_select_bucket_kernel, bucket_smem);
+    err = set_smem(adc_topk_select_bucket_kernel<SArgs>, bucket_smem);
     if (err != cudaSuccess) return err;
-    adc_topk_select_bucket_kernel<<<n_units, SORT_THREADS, bucket_smem, st>>>(s);
+    adc_topk_select_bucket_kernel<SArgs><<<a.n_units, SORT_THREADS, bucket_smem, st>>>(s);
     if ((err = done(cudaGetLastError())) != cudaSuccess) return err;
-    const size_t smem = sort_smem_bytes(k);
-    auto sort = k <= 8 * SORT_THREADS ? adc_topk_select_sort_kernel<8>
-                                      : adc_topk_select_sort_kernel<16>;
+    const size_t smem = sort_smem_bytes(a.k);
+    auto sort = a.k <= 8 * SORT_THREADS ? adc_topk_select_sort_kernel<8, SArgs>
+                                        : adc_topk_select_sort_kernel<16, SArgs>;
     if ((err = set_smem(sort, smem)) != cudaSuccess) return err;
-    sort<<<n_units, SORT_THREADS, smem, st>>>(s);
+    sort<<<a.n_units, SORT_THREADS, smem, st>>>(s);
     return done(cudaGetLastError());
   };
   if (e == cudaSuccess) e = run();
@@ -837,11 +1153,79 @@ extern "C" int adc_topk_select_launch(const void* tables, const void* codes, con
   return static_cast<int>(e);
 }
 
-// Resident blocks per SM of the scoring kernel `adc_topk_select_launch`
-// would run, or minus a cudaError_t.
+}  // namespace
+
+// One call of B6 / B7 under the select plan (`run_chain`).  B6: units
+// (n_units, 4) int32 {row0, n_rows, q0, nq = 1} or null (n_q units over all
+// n_rows rows), n_valid null.  B7: n_valid (n_units,) int32 and win_len rows
+// a window, units null.  tables (n_q, table_width) f32; codes in `code_fmt`
+// (0 uint8 raw + column offsets, 1 uint16, 2 int32 direct addresses); bound
+// (n_q,) f32 or null; out_* (n_q, k), every row a unit covers rewritten;
+// scratch (kernels/adc_topk.py `select_scratch` with n_q 0) int32 entries.
+// `launched` and `split_ms` as `run_chain`.  Returns the first non-zero
+// cudaError_t, or 0.
+extern "C" int adc_topk_select_launch(const void* tables, const void* codes, const void* bound,
+                                      const void* units, const void* n_valid, void* out_v,
+                                      void* out_i, void* scratch, long long win_len, int n_units,
+                                      int n_q, int n_rows, int w, int table_width, int code_fmt,
+                                      int onehot, int k, int block_n, int gtab, int n_blocks,
+                                      int* launched, float* split_ms, void* stream) {
+  if (n_units <= 0 || n_blocks <= 0) return 0;
+  const Scratch sc = carve(scratch, n_units, n_blocks, 0);
+  SelectArgs a{{static_cast<const float*>(tables), codes, static_cast<const float*>(bound),
+                static_cast<const int*>(units), static_cast<const int*>(n_valid),
+                static_cast<float*>(out_v), static_cast<int*>(out_i), nullptr, nullptr,
+                nullptr, win_len, n_units, n_q, n_rows, w, table_width, k, block_n},
+               gtab, 0, sc.state, sc.hist, sc.tiecnt, sc.bucket, sc.pool_used, sc.pool_cap,
+               sc.ustart};
+  const SortArgs s{sc.state, static_cast<const int*>(units), static_cast<const int*>(n_valid),
+                   sc.bucket, static_cast<float*>(out_v), static_cast<int*>(out_i), n_q, k};
+  return run_chain(a, s, sc, code_fmt, w, onehot, n_blocks, launched, split_ms,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// One call of B2 (pair_t0 / pair_t1 / tile_block / tile_row0 given,
+// starts null) or B5 (starts given, the tile arrays null) under the select
+// plan (`run_chain`), over the n_units pairs of `order`, as
+// adc_topk_tiles_launch / adc_topk_windows_launch take them: tables (R,
+// table_width) f32, lut_row / n_valid / pair_q / pair_lb (P_all,), codes
+// (ndev, cap, w), bound and sq (n_q,) f32 (sq tightened in place), out_*
+// (P_all, k) and stats (P_all, 2): each unit's pair rewritten but for a
+// pair without tiles.  scratch: `select_scratch(n_units, n_blocks, n_q)`
+// int32 entries.  `launched` and `split_ms` as `run_chain`.
+extern "C" int adc_topk_scan_select_launch(
+    const void* tables, const void* lut_row, const void* codes, const void* order,
+    const void* pair_t0, const void* pair_t1, const void* tile_block, const void* tile_row0,
+    const void* starts, const void* n_valid, const void* pair_q, const void* pair_lb,
+    const void* bound, void* sq, void* out_v, void* out_i, void* stats, void* scratch,
+    int n_units, int n_q, int pairs_per_dev, long long cap, int w, int table_width,
+    int code_fmt, int onehot, int k, int block_n, int gtab, int n_blocks, int* launched,
+    float* split_ms, void* stream) {
+  if (n_units <= 0 || n_blocks <= 0) return 0;
+  const Scratch sc = carve(scratch, n_units, n_blocks, n_q);
+  auto ci = [](const void* p) { return static_cast<const int*>(p); };
+  ScanSelectArgs a{{{static_cast<const float*>(tables), codes, static_cast<const float*>(bound),
+                     nullptr, nullptr, static_cast<float*>(out_v), static_cast<int*>(out_i),
+                     nullptr, nullptr, nullptr, 0, n_units, n_q, 0, w, table_width, k, block_n},
+                    gtab, 0, sc.state, sc.hist, sc.tiecnt, sc.bucket, sc.pool_used, sc.pool_cap,
+                    sc.ustart},
+                   ci(lut_row), ci(order), ci(pair_t0), ci(pair_t1), ci(tile_block),
+                   ci(tile_row0), ci(starts), ci(n_valid), ci(pair_q),
+                   static_cast<const float*>(pair_lb), static_cast<float*>(sq), sc.sq0,
+                   static_cast<int*>(stats), cap, pairs_per_dev};
+  ScanSortArgs s{{sc.state, nullptr, nullptr, sc.bucket, static_cast<float*>(out_v),
+                  static_cast<int*>(out_i), n_q, k},
+                 sc.ustart, ci(order), ci(pair_t0), ci(tile_row0), ci(n_valid), ci(pair_q),
+                 static_cast<const float*>(bound), static_cast<const float*>(sq),
+                 static_cast<int*>(stats), block_n};
+  return run_chain(a, s, sc, code_fmt, w, onehot, n_blocks, launched, split_ms,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of the scoring kernel a select call would run
+// (`pairs` nonzero: B2 / B5's, else B6 / B7's), or minus a cudaError_t.
 extern "C" int adc_topk_select_blocks_per_sm(int code_fmt, int onehot, int w, int table_width,
-                                             int gtab) {
-#define REPRO_SELECT_OCC(CodeT, OFF, WT, SORT) blocks_per_sm<CodeT, OFF, WT, SORT>(table_width, w, gtab)
-  REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_SELECT_OCC)
-#undef REPRO_SELECT_OCC
+                                             int gtab, int pairs) {
+  return pairs ? dispatch_blocks_per_sm<ScanSelectArgs>(code_fmt, onehot, w, table_width, gtab)
+               : dispatch_blocks_per_sm<SelectArgs>(code_fmt, onehot, w, table_width, gtab);
 }

@@ -29,9 +29,11 @@
 // contraction (`adc_row`'s SORT, adc_topk_common.cuh); the launch's
 // `onehot` flag picks the instantiation.
 //
-// Past k = 4096 or a table too wide for shared memory the WIDE
-// instantiation runs (adc_topk_common.cuh): a persistent grid walks the
-// pairs in the same order, each pair's list in its output row.
+// A table too wide for shared memory (k <= 4096) runs the WIDE
+// instantiation (adc_topk_common.cuh): a persistent grid walks the pairs in
+// the same order, each reading its table where it lies.  Past k = 4096 the
+// wrapper runs the select kernels of adc_topk_select.cu instead
+// (kernels/adc_topk.py `scan_plan`).
 //
 // The per-pair tails past the k-th and the (P, 2) skip counters depend on
 // the launch order and differ from the TPU's; the merged per-query output
@@ -74,7 +76,7 @@ adc_topk_tiles_kernel(const float* __restrict__ tables,     // (R, A)
                       int* __restrict__ out_i,              // (P_all, k)
                       int* __restrict__ stats,              // (P_all, 2)
                       int n_pairs, int pairs_per_dev, long long cap, int w_rt,
-                      int table_width, int k, int block_n, const ScanWide wide) {
+                      int table_width, int k, int block_n) {
   auto run = [&](int j) {
     const int pair = pair_order[j];
     const int t0 = pair_t0[pair];
@@ -91,11 +93,11 @@ adc_topk_tiles_kernel(const float* __restrict__ tables,     // (R, A)
         tables + static_cast<size_t>(row) * table_width, table_width, cdev, W,
         t1 - t0, tile_at, n_valid[pair], qi, pair_lb[pair], bound[qi], sq, k,
         block_n, out_v + static_cast<size_t>(pair) * k,
-        out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair), wide);
+        out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair));
   };
   if constexpr (!WIDE) {
     run(blockIdx.x);
-  } else {  // a persistent grid: the spill's merge buffers are per block
+  } else {  // a persistent grid over the pairs
     for (int j = blockIdx.x; j < n_pairs; j += gridDim.x) {
       run(j);
       __syncthreads();
@@ -110,21 +112,20 @@ int launch(const float* tables, const int* lut_row, const void* codes,
            const float* pair_lb, const float* bound, float* sq, float* out_v,
            int* out_i, int* stats, int n_pairs, int pairs_per_dev,
            long long cap, int w, int table_width, int k, int block_n,
-           const ScanWide& wide, int max_blocks, cudaStream_t stream) {
+           cudaStream_t stream) {
   auto kernel = adc_topk_tiles_kernel<CodeT, OFFSETS, WT, SORT, WIDE>;
-  const size_t smem = WIDE ? scan_wide_smem_bytes(table_width, k, wide.gtab, wide.spill)
-                           : scan_smem_bytes(table_width, k);
+  const size_t smem = WIDE ? scan_wide_smem_bytes(k) : scan_smem_bytes(table_width, k);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int grid = n_pairs;
   if constexpr (WIDE) {
-    if ((e = wide_grid(kernel, smem, n_pairs, max_blocks, &grid)) != cudaSuccess)
+    if ((e = wide_grid(kernel, smem, n_pairs, &grid)) != cudaSuccess)
       return static_cast<int>(e);
   }
   kernel<<<grid, THREADS, smem, stream>>>(
       tables, lut_row, static_cast<const CodeT*>(codes), order, t0, t1,
       tile_block, tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v,
-      out_i, stats, n_pairs, pairs_per_dev, cap, w, table_width, k, block_n, wide);
+      out_i, stats, n_pairs, pairs_per_dev, cap, w, table_width, k, block_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,8 +133,7 @@ int launch(const float* tables, const int* lut_row, const void* codes,
 
 // code_fmt: 0 = uint8 raw codes (+ column offsets), 1 = uint16 direct
 // addresses, 2 = int32 direct addresses; onehot: nonzero for the onehot
-// path.  gtab / spill nonzero: the WIDE block (`ScanWide`; at most
-// max_blocks blocks, each with k entries of nxt_v / nxt_i under spill),
+// path.  gtab nonzero: the WIDE block (the table read in place; k <= 4096),
 // else the shared-memory block, one per pair.  Returns cudaGetLastError()
 // after the launch (0 = launched).
 extern "C" int adc_topk_tiles_launch(
@@ -143,10 +143,8 @@ extern "C" int adc_topk_tiles_launch(
     const void* pair_q, const void* pair_lb, const void* bound, void* sq,
     void* out_v, void* out_i, void* stats, int n_pairs, int pairs_per_dev,
     long long cap, int w, int table_width, int code_fmt, int onehot, int k,
-    int block_n, int gtab, int spill, void* nxt_v, void* nxt_i, int max_blocks,
-    void* stream) {
+    int block_n, int gtab, void* stream) {
   if (n_pairs <= 0) return 0;
-  const ScanWide wide{gtab, spill, static_cast<float*>(nxt_v), static_cast<int*>(nxt_i)};
 #define REPRO_TILES_ARGS                                                        \
       static_cast<const float*>(tables), static_cast<const int*>(lut_row),    \
       codes, static_cast<const int*>(pair_order),                             \
@@ -156,13 +154,13 @@ extern "C" int adc_topk_tiles_launch(
       static_cast<const float*>(pair_lb), static_cast<const float*>(bound),   \
       static_cast<float*>(sq), static_cast<float*>(out_v),                    \
       static_cast<int*>(out_i), static_cast<int*>(stats), n_pairs,            \
-      pairs_per_dev, cap, w, table_width, k, block_n, wide, max_blocks,       \
+      pairs_per_dev, cap, w, table_width, k, block_n,                         \
       static_cast<cudaStream_t>(stream)
 #define REPRO_TILES_LAUNCH(CodeT, OFF, WT, SORT) \
   launch<CodeT, OFF, WT, SORT, false>(REPRO_TILES_ARGS)
 #define REPRO_TILES_WIDE(CodeT, OFF, WT, SORT) \
   launch<CodeT, OFF, WT, SORT, true>(REPRO_TILES_ARGS)
-  if (gtab || spill) {
+  if (gtab) {
     REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_TILES_WIDE)
   }
   REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TILES_LAUNCH)

@@ -19,9 +19,9 @@
 // B2's (`scan_pair`, adc_topk_common.cuh), for raw uint8 codes with column
 // offsets or uint16 / int32 direct addresses.  The wrapper launches the
 // filled pairs best-first (ascending lower bound), so `sq` tightens early;
-// the merged per-query output does not depend on the order; past k = 4096
-// or a table too wide for shared memory the WIDE instantiation runs, as
-// B2's does.  Path: as B2
+// the merged per-query output does not depend on the order; a table too
+// wide for shared memory runs the WIDE instantiation and k past 4096 the
+// select kernels, as B2's do.  Path: as B2
 // ("gather" column order, "onehot" ascending address order, `onehot`).
 //
 // What bounds it on an H100: as B2, not bytes but the shared memory's
@@ -51,7 +51,7 @@ adc_topk_windows_kernel(const float* __restrict__ tables,     // (R, A)
                         int* __restrict__ out_i,              // (P_all, k)
                         int* __restrict__ stats,              // (P_all, 2)
                         int n_blocks, int pairs_per_dev, long long cap, int w_rt,
-                        int table_width, int k, int block_n, const ScanWide wide) {
+                        int table_width, int k, int block_n) {
   auto run = [&](int j) {
     const int pair = pair_order[j];
     const int row = lut_row[pair];
@@ -66,11 +66,11 @@ adc_topk_windows_kernel(const float* __restrict__ tables,     // (R, A)
         tables + static_cast<size_t>(row) * table_width, table_width, cdev, W,
         (nv + block_n - 1) / block_n, tile_at, nv, qi, pair_lb[pair], bound[qi],
         sq, k, block_n, out_v + static_cast<size_t>(pair) * k,
-        out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair), wide);
+        out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair));
   };
   if constexpr (!WIDE) {
     run(blockIdx.x);
-  } else {  // a persistent grid: the spill's merge buffers are per block
+  } else {  // a persistent grid over the pairs
     for (int j = blockIdx.x; j < n_blocks; j += gridDim.x) {
       run(j);
       __syncthreads();
@@ -84,39 +84,35 @@ int launch(const float* tables, const int* lut_row, const void* codes,
            const int* pair_q, const float* pair_lb, const float* bound,
            float* sq, float* out_v, int* out_i, int* stats, int n_blocks,
            int pairs_per_dev, long long cap, int w, int table_width, int k,
-           int block_n, const ScanWide& wide, int max_blocks, cudaStream_t stream) {
+           int block_n, cudaStream_t stream) {
   auto kernel = adc_topk_windows_kernel<CodeT, OFFSETS, WT, SORT, WIDE>;
-  const size_t smem = WIDE ? scan_wide_smem_bytes(table_width, k, wide.gtab, wide.spill)
-                           : scan_smem_bytes(table_width, k);
+  const size_t smem = WIDE ? scan_wide_smem_bytes(k) : scan_smem_bytes(table_width, k);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int grid = n_blocks;
   if constexpr (WIDE) {
-    if ((e = wide_grid(kernel, smem, n_blocks, max_blocks, &grid)) != cudaSuccess)
+    if ((e = wide_grid(kernel, smem, n_blocks, &grid)) != cudaSuccess)
       return static_cast<int>(e);
   }
   kernel<<<grid, THREADS, smem, stream>>>(
       tables, lut_row, static_cast<const CodeT*>(codes), order, starts, n_valid,
       pair_q, pair_lb, bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
-      table_width, k, block_n, wide);
+      table_width, k, block_n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // n_blocks: number of entries of pair_order (the filled pairs).  code_fmt,
-// onehot, gtab, spill, nxt_v / nxt_i and max_blocks as
-// adc_topk_tiles_launch.  Returns cudaGetLastError() after the launch.
+// onehot and gtab as adc_topk_tiles_launch.  Returns cudaGetLastError() after the launch.
 extern "C" int adc_topk_windows_launch(
     const void* tables, const void* lut_row, const void* codes,
     const void* pair_order, const void* starts, const void* n_valid,
     const void* pair_q, const void* pair_lb, const void* bound, void* sq,
     void* out_v, void* out_i, void* stats, int n_blocks, int pairs_per_dev,
     long long cap, int w, int table_width, int code_fmt, int onehot, int k,
-    int block_n, int gtab, int spill, void* nxt_v, void* nxt_i, int max_blocks,
-    void* stream) {
+    int block_n, int gtab, void* stream) {
   if (n_blocks <= 0) return 0;
-  const ScanWide wide{gtab, spill, static_cast<float*>(nxt_v), static_cast<int*>(nxt_i)};
 #define REPRO_WINDOWS_ARGS                                                   \
       static_cast<const float*>(tables), static_cast<const int*>(lut_row),   \
       codes, static_cast<const int*>(pair_order),                            \
@@ -125,12 +121,12 @@ extern "C" int adc_topk_windows_launch(
       static_cast<const float*>(bound), static_cast<float*>(sq),             \
       static_cast<float*>(out_v), static_cast<int*>(out_i),                  \
       static_cast<int*>(stats), n_blocks, pairs_per_dev, cap, w, table_width, \
-      k, block_n, wide, max_blocks, static_cast<cudaStream_t>(stream)
+      k, block_n, static_cast<cudaStream_t>(stream)
 #define REPRO_WINDOWS_LAUNCH(CodeT, OFF, WT, SORT) \
   launch<CodeT, OFF, WT, SORT, false>(REPRO_WINDOWS_ARGS)
 #define REPRO_WINDOWS_WIDE(CodeT, OFF, WT, SORT) \
   launch<CodeT, OFF, WT, SORT, true>(REPRO_WINDOWS_ARGS)
-  if (gtab || spill) {
+  if (gtab) {
     REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_WINDOWS_WIDE)
   }
   REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_WINDOWS_LAUNCH)

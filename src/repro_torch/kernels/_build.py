@@ -52,13 +52,12 @@ SIGNATURES = {
     # tables, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
     # tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v, out_i, stats,
     # n_pairs, pairs_per_dev, cap, w, table_width, code_fmt, onehot, k,
-    # block_n, gtab, spill, nxt_v, nxt_i, max_blocks, stream
-    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L] + [_I] * 8 + [_P, _P, _I, _P],
+    # block_n, gtab, stream
+    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L] + [_I] * 7 + [_P],
     # tables, lut_row, codes, pair_order, starts, n_valid, pair_q, pair_lb,
     # bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
-    # table_width, code_fmt, onehot, k, block_n, gtab, spill, nxt_v, nxt_i,
-    # max_blocks, stream
-    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L] + [_I] * 8 + [_P, _P, _I, _P],
+    # table_width, code_fmt, onehot, k, block_n, gtab, stream
+    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L] + [_I] * 7 + [_P],
     # queries, cand, id_dev, id_row, row_base, vectors, out, q, k, d,
     # ids_cap, ndev, vec_is_bf16, plan (`rerank.PLAN_FIELDS` of
     # `rerank.launch_plan`, an int array), stream
@@ -89,8 +88,15 @@ SIGNATURES = {
     # onehot, k, block_n, gtab, n_blocks, launched (host int), split_ms
     # (host floats or null), stream
     "adc_topk_select_launch": [_P] * 8 + [_L] + [_I] * 11 + [_P] * 3,
-    # code_fmt, onehot, w, table_width, gtab
-    "adc_topk_select_blocks_per_sm": [_I] * 5,
+    # tables, lut_row, codes, order, pair_t0, pair_t1, tile_block,
+    # tile_row0 (B2; null for B5), starts (B5; null for B2), n_valid,
+    # pair_q, pair_lb, bound, sq, out_v, out_i, stats, scratch, n_units,
+    # n_q, pairs_per_dev, cap, w, table_width, code_fmt, onehot, k,
+    # block_n, gtab, n_blocks, launched (host int), split_ms (host floats or
+    # null), stream
+    "adc_topk_scan_select_launch": [_P] * 18 + [_I, _I, _I, _L] + [_I] * 8 + [_P] * 3,
+    # code_fmt, onehot, w, table_width, gtab, pairs (B2 / B5's kernel)
+    "adc_topk_select_blocks_per_sm": [_I] * 6,
     # q, k, v, out, b, sq, sk, h, kvh, hd, q_offset, kv_valid, q_is_bf16,
     # kv_is_bf16, scale, variant (`flash_attn.VARIANTS`), stream
     "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _I, _P],

@@ -6,18 +6,18 @@ The CUDA sources are `csrc/adc_topk_tiles.cu`, `csrc/adc_topk_windows.cu`,
 `csrc/adc_topk.cu` and `csrc/adc_topk_pairs.cu` (their common device code
 in `csrc/adc_topk_common.cuh`, B6 / B7's block in `csrc/adc_topk_multi.cuh`,
 its WIDE instantiations in `csrc/adc_topk_wide.cu`, B6 / B7 past k = 4096
-in `csrc/adc_topk_select.cu`); `ops.adc_topk_tiles`,
+in `csrc/adc_topk_select.cu`, and B2 / B5 past it too); `ops.adc_topk_tiles`,
 `ops.adc_topk_windows`, `ops.adc_topk` / `ops.adc_topk_flat` /
 `ops.adc_topk_grouped` and `ops.adc_topk_pairs` are the wrappers.  Every
 scan takes any k >= 1 and any table width: `scan_plan` (B2 / B5) and
 `topk_plan` (B6 / B7: G, tables per block, too) keep the shared-memory
-blocks wherever their lists (k <= `SCAN_K_MAX`) and tables fit, and else
-pick the WIDE block, whose lists (B2 / B5) spill to device memory and
-whose table is read where it lies when too wide (`wide_layout`); B6 / B7
-past `SCAN_K_MAX` select each unit's k-th key and sort its k winners
-(`select` plans, `select_scratch`).  B6 / B7 are planned
-here on every device: `topk_plan`, `topk_units`, and `run_plan` (the Python
-twin of how the kernel cuts tiles into runs).  For B2 and B5, arrays
+blocks wherever their lists (k <= `SCAN_K_MAX`) and tables fit, else pick
+the WIDE block, whose table is read where it lies (`gtab`), and past
+`SCAN_K_MAX` the select kernels, which select each unit's k-th key and
+sort its k winners (`select` plans, `wide_layout`, `select_scratch`).  B6 /
+B7 are planned here on every device: `topk_plan`, `topk_units`, and
+`run_plan` (the Python twin of how the kernels cut tiles into runs; B2 /
+B5's units for it from `scan_unit_tiles`).  For B2 and B5, arrays
 carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
 codes (ndev, cap, W), the tile queue (ndev, T) from
 `core.scheduling.emit_tiles`, and the per-pair arrays (ndev, P).  A flat
@@ -111,7 +111,7 @@ def code_format(codes: torch.Tensor) -> int:
 
 # largest k of the shared-memory blocks of B2 / B5 / B6 / B7, whose top-k
 # lists and merge buffer (4k floats) live in shared memory beside the
-# tables; a larger k runs the WIDE block, its lists in device memory
+# tables; a larger k runs the select kernels, which keep no list
 SCAN_K_MAX = 4096
 # shared memory one H100 block may use (227 KB), and what the scan blocks
 # declare statically beside the dynamic part
@@ -129,16 +129,17 @@ def scan_smem(k: int, table_width: int) -> int:
 
 
 def wide_layout(k: int, table_width: int, static: int) -> dict:
-    """Where the WIDE block keeps what no longer fits: `spill` (k past
-    SCAN_K_MAX: the list and its merge buffer in device memory) and `gtab`
+    """What runs past a shared-memory block: `select` (k past SCAN_K_MAX:
+    the select kernels, whose shared memory holds the table and a
+    histogram of `_SELECT_BINS` words in place of the lists) and `gtab`
     (the table read where it lies, when it does not fit in `SMEM_BUDGET`
     beside what stays); `smem` the dynamic shared memory that is left
-    (csrc `scan_wide_smem_bytes` / `multi_smem_bytes` at G = 1)."""
-    spill = k > SCAN_K_MAX
-    lists = 0 if spill else 4 * k
-    gtab = (table_width + lists + 2 * _SCAN_PASS) * 4 + static > SMEM_BUDGET
-    return dict(gtab=gtab, spill=spill,
-                smem=((0 if gtab else table_width) + lists + 2 * _SCAN_PASS) * 4)
+    (csrc `select_smem_bytes`, or `scan_wide_smem_bytes` /
+    `multi_smem_bytes` at G = 1 under gtab)."""
+    select = k > SCAN_K_MAX
+    rest = 2 * _SCAN_PASS + (0 if select else 4 * k)
+    gtab = (table_width + rest) * 4 + static > SMEM_BUDGET
+    return dict(gtab=gtab, select=select, smem=((0 if gtab else table_width) + rest) * 4)
 
 
 def _check_k(k: int) -> None:
@@ -148,20 +149,24 @@ def _check_k(k: int) -> None:
 
 def scan_plan(k: int, table_width: int) -> dict:
     """How a B2 / B5 launch holds a pair of `table_width` table entries at
-    this k: the shared-memory block (`gtab` and `spill` False, `smem` from
-    `scan_smem`) when k <= SCAN_K_MAX and everything fits `SMEM_BUDGET`,
-    else the WIDE block (`wide_layout`).  Raises ValueError for k < 1,
-    which the reference does not serve either."""
+    this k: {"gtab", "select", "smem"}.  The shared-memory block (`gtab`
+    and `select` False, `smem` from `scan_smem`) when k <= SCAN_K_MAX and
+    everything fits `SMEM_BUDGET`; else, at k <= SCAN_K_MAX, the WIDE
+    block with its table read in place (`gtab`); past SCAN_K_MAX the select
+    kernels (`select`; `gtab` and `smem` from `wide_layout`, as B6 / B7's
+    `topk_plan`).  Raises ValueError for k < 1, which the reference does
+    not serve either."""
     _check_k(k)
     smem = scan_smem(k, table_width)
     if k <= SCAN_K_MAX and smem + _STATIC_SMEM <= SMEM_BUDGET:
-        return dict(gtab=False, spill=False, smem=smem)
-    return wide_layout(k, table_width, _STATIC_SMEM)
+        return dict(gtab=False, select=False, smem=smem)
+    return wide_layout(k, table_width, _MULTI_STATIC_SMEM if k > SCAN_K_MAX else _STATIC_SMEM)
 
 
 def wide(plan: dict) -> bool:
-    """Whether a plan runs the WIDE block (B6 / B7: or the select kernels)."""
-    return plan["gtab"] or plan.get("spill", False) or plan.get("select", False)
+    """Whether a plan leaves the shared-memory block (the WIDE block or the
+    select kernels)."""
+    return plan["gtab"] or plan["select"]
 
 
 def gatherable(codes: torch.Tensor) -> torch.Tensor:
@@ -296,41 +301,31 @@ def adc_topk_tiles_plain(
     return top_v, top_i, stats
 
 
-# resident blocks an SM can hold of a 256-thread scan block: the most a
-# WIDE B2 / B5 grid launches, so its spill buffers are sized by it
-_SCAN_BLOCKS_PER_SM = 8
-
-
-def _scan_wide_args(plan: dict, dev: torch.device, k: int) -> tuple:
-    """The launchers' trailing (gtab, spill, nxt_v, nxt_i, max_blocks): under
-    spill, one k-entry merge buffer a block of at most `_SCAN_BLOCKS_PER_SM`
-    per SM (the workspace, not the pairs, bounds it)."""
-    if not plan["spill"]:
-        return int(plan["gtab"]), 0, None, None, 0
-    blocks = _build.sm_count(dev) * _SCAN_BLOCKS_PER_SM
-    buf_v, buf_i, _ = _workspace(dev, blocks * k, 0)
-    return int(plan["gtab"]), 1, buf_v.data_ptr(), buf_i.data_ptr(), blocks
-
-
 def launch(
     luts, lut_row, codes, order, t0, t1, tile_block, tile_row0, n_valid, pair_q,
     pair_lb, bound, sq, out_v, out_i, stats, k: int, block_n: int, path: str = "gather",
-    plan: dict | None = None,
+    plan: dict | None = None, split_ms: dict | None = None,
 ) -> None:
     """Enqueue `csrc/adc_topk_tiles.cu` on the current stream (checked inputs;
     `luts` (R, A) contiguous; `path` picks the instantiation, `plan` from
-    `scan_plan` (default: the plan of this k and width) the block)."""
+    `scan_plan` (default: the plan of this k and width) the block), or for a
+    `select` plan the chain of `csrc/adc_topk_select.cu` over the pairs of
+    `order` (`split_ms` as `_launch_wide`'s)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
     plan = plan or scan_plan(k, luts.shape[1])
+    if plan["select"]:
+        _launch_scan_select(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq,
+                            out_v, out_i, stats, k, block_n, path, plan, split_ms,
+                            tiles=(t0, t1, tile_block, tile_row0))
+        return
     err = _build.library().adc_topk_tiles_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
         t0.data_ptr(), t1.data_ptr(), tile_block.data_ptr(), tile_row0.data_ptr(),
         n_valid.data_ptr(), pair_q.data_ptr(), pair_lb.data_ptr(),
         bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         stats.data_ptr(), n_pairs, n_pairs // ndev, cap, w, luts.shape[1],
-        code_format(codes), int(path == "onehot"), k, block_n,
-        *_scan_wide_args(plan, luts.device, k),
+        code_format(codes), int(path == "onehot"), k, block_n, int(plan["gtab"]),
         torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_tiles")
@@ -373,24 +368,48 @@ def adc_topk_windows_plain(
 def launch_windows(
     luts, lut_row, codes, order, starts, n_valid, pair_q, pair_lb, bound, sq,
     out_v, out_i, stats, k: int, block_n: int, path: str = "gather",
-    plan: dict | None = None,
+    plan: dict | None = None, split_ms: dict | None = None,
 ) -> None:
     """Enqueue `csrc/adc_topk_windows.cu` on the current stream (checked
     inputs): one block per entry of `order` (the filled pairs), or the WIDE
-    block's persistent grid over them (`plan` as `launch`)."""
+    block's persistent grid over them, or for a `select` plan the chain of
+    `csrc/adc_topk_select.cu` over them (`plan` and `split_ms` as
+    `launch`)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
     plan = plan or scan_plan(k, luts.shape[1])
+    if plan["select"]:
+        _launch_scan_select(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq,
+                            out_v, out_i, stats, k, block_n, path, plan, split_ms,
+                            starts=starts)
+        return
     err = _build.library().adc_topk_windows_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
         starts.data_ptr(), n_valid.data_ptr(), pair_q.data_ptr(),
         pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), stats.data_ptr(), order.shape[0], n_pairs // ndev, cap,
         w, luts.shape[-1], code_format(codes), int(path == "onehot"), k, block_n,
-        *_scan_wide_args(plan, luts.device, k),
-        torch.cuda.current_stream(luts.device).cuda_stream,
+        int(plan["gtab"]), torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_windows")
+
+
+def scan_unit_tiles(order, lut_row, n_valid, block_n: int, t0=None, t1=None) -> np.ndarray:
+    """B2 / B5's units under a `select` plan (the twin of csrc
+    `unit_tiles` on `ScanSelectArgs`): unit u is pair order[u], with its
+    tiles t1 - t0 of the queue (B2: `t0` / `t1` from `pair_runs`) or its
+    window's ceil(n_valid / block_n) blocks (B5), none without a table
+    (lut_row < 0).  All inputs flat over the pairs; returns the units' tile
+    counts, the `unit_tiles` of `run_plan`, as int64 numpy."""
+    def host(x):
+        return np.asarray(torch.as_tensor(x).cpu(), np.int64)
+
+    pair = host(order)
+    if t0 is not None:
+        nt = np.maximum(host(t1)[pair] - host(t0)[pair], 0)
+    else:
+        nt = (np.maximum(host(n_valid)[pair], 0) + block_n - 1) // block_n
+    return np.where(host(lut_row)[pair] >= 0, nt, 0)
 
 
 # -- B6 / B7: the multi-table block (csrc/adc_topk_multi.cuh) --------------
@@ -434,10 +453,8 @@ def topk_plan(
     code bytes over the HBM rate and their W * G lookups at
     `_LOOKUP_CLOCKS[G]`.  When none fits, the WIDE block at G = 1 (the
     table read where it lies, `gtab`); past SCAN_K_MAX the select kernels
-    (`select`: no list is kept; `gtab` and `smem` from `wide_layout`'s
-    spilled layout, whose candidate buffer is the select's histogram of
-    `_SELECT_BINS` words).  The same on every device; raises ValueError for
-    k < 1 only.
+    (`select`: no list is kept; `gtab` and `smem` from `wide_layout`).  The
+    same on every device; raises ValueError for k < 1 only.
     """
     _check_k(k)
     a_used = topk_table_width(fmt, w, table_width)
@@ -453,8 +470,7 @@ def topk_plan(
             best, best_cost = g, cost
     if best is not None:
         return dict(g=best, gtab=False, select=False, smem=topk_smem(best, k, a_used))
-    layout = wide_layout(k, a_used, _MULTI_STATIC_SMEM)
-    return dict(g=1, gtab=layout["gtab"], select=layout["spill"], smem=layout["smem"])
+    return dict(g=1, **wide_layout(k, a_used, _MULTI_STATIC_SMEM))
 
 
 def topk_group_size(
@@ -480,7 +496,10 @@ def topk_units(row_offsets, table_offsets, g: int) -> torch.Tensor:
 
 def run_plan(unit_tiles, n_blocks: int) -> dict:
     """How the B6 / B7 launch cuts the units' tiles into runs (the twin of
-    `topk_multi`, csrc/adc_topk_multi.cuh).
+    `topk_multi`, csrc/adc_topk_multi.cuh, and of the select kernels'
+    `select_pass`, csrc/adc_topk_select.cu, for B2 / B5's units too:
+    `scan_unit_tiles`; there a unit with runs in several blocks counts its
+    histogram in slot `first`).
 
     The units' tiles, concatenated, are T tiles; nb = min(n_blocks, T)
     blocks take [b * T // nb, (b + 1) * T // nb) each, and a run is the part
@@ -616,23 +635,31 @@ def _grid(dev: torch.device, name: str, *args: int) -> int:
 
 # csrc/adc_topk_select.cu: histogram bins of a digit (the size of the
 # candidate buffer it takes the place of, 2 * _SCAN_PASS), int32 fields of a
-# unit's state, rows of a unit's bucket buffer, keys one sort block holds in
-# shared memory
+# unit's state, rows a unit's bucket may hold, bucket pool rows a unit adds,
+# keys one sort block holds in shared memory
 _SELECT_BINS = 2048
 _SELECT_STATE = 12
 _SELECT_BUCKET = 8192
+_SELECT_POOL_PER_UNIT = 256
 _SORT_CHUNK = 16384
 
 
-def select_scratch(n_units: int, n_blocks: int) -> int:
-    """int32 scratch entries of one call of the select kernels: each unit's
-    state and histogram, a tie count for each of at most n_blocks + n_units
-    runs (to an even count), and each unit's bucket buffer of
-    `_SELECT_BUCKET` 8-byte (key, row) pairs.  The k winners go to the
-    output itself, and rows are scored again in every pass, so nothing
-    grows with k or the rows."""
-    head = n_units * (_SELECT_STATE + _SELECT_BINS) + n_blocks + n_units
-    return head + head % 2 + n_units * 2 * _SELECT_BUCKET
+def select_scratch(n_units: int, n_blocks: int, n_q: int = 0) -> int:
+    """int32 scratch entries of one call of the select kernels (csrc
+    `carve`): each unit's state, a histogram for each block's slot (a unit
+    whose runs lie in one block counts in shared memory; one cut over blocks
+    in the slot of its first), the bucket pool's counter, a tie count for
+    each of at most n_blocks + n_units runs, each unit's first tile
+    (int64), B2 / B5's n_q query bounds at the call's start, and a pool of
+    `_SELECT_POOL_PER_UNIT` 8-byte (key, row) rows a unit (at least one
+    `_SELECT_BUCKET`) for the buckets; a bucket the pool cannot hold takes
+    the third digit instead.  The k winners go to the output itself, and
+    rows are scored again in every pass, so nothing grows with k or the
+    rows: 2,108 bytes a unit and 8,196 a block (B2 / B5 also 4 a query)
+    beside the outputs' 8k a unit."""
+    head = n_units * _SELECT_STATE + n_blocks * _SELECT_BINS + 2 + n_blocks + n_units
+    head += head % 2 + 2 * (n_units + 1) + n_q + n_q % 2
+    return head + 2 * (n_units * _SELECT_POOL_PER_UNIT + _SELECT_BUCKET)
 
 
 def select_sort_smem(k: int) -> int:
@@ -647,10 +674,11 @@ def select_sort_smem(k: int) -> int:
 
 
 # the steps of one select call in launch order (csrc `SEL_STEPS`): a
-# memset of the states and histograms, six scoring passes (the last three
-# empty unless a unit's bucket overflows), the bucket pass, the sort
-SELECT_STEPS = ("memset", "hist0", "hist1", "compact", "hist2", "compact2", "ties", "bucket",
-                "sort")
+# memset of the states and histograms, the plan (the units' first tiles),
+# six scoring passes (the last three empty unless a unit's bucket
+# overflows), the bucket pass, the sort
+SELECT_STEPS = ("memset", "plan", "hist0", "hist1", "compact", "hist2", "compact2", "ties",
+                "bucket", "sort")
 # CUDA launches (kernels and memsets) the select chain enqueued since
 # `ops.reset_launches()`, as its launcher counts them
 cuda_launches = {"adc_topk_select": 0}
@@ -674,19 +702,13 @@ def _launch_wide(tables, codes, bound, units, n_valid, out_v, out_i, k: int, blo
     ptr = [None if x is None else x.data_ptr() for x in (bound, units, n_valid)]
     if plan["select"]:
         n_blocks = _grid(dev, "adc_topk_select_blocks_per_sm", fmt, onehot, w, tables.shape[1],
-                         gtab)
+                         gtab, 0)
         scratch = _select_workspace(dev, select_scratch(n_units, n_blocks))
-        launched = ctypes.c_int(0)
-        split = None if split_ms is None else (ctypes.c_float * len(SELECT_STEPS))()
-        err = _build.library().adc_topk_select_launch(
+        _select_call(
+            _build.library().adc_topk_select_launch, dev, split_ms,
             tables.data_ptr(), codes.data_ptr(), *ptr, out_v.data_ptr(), out_i.data_ptr(),
             scratch.data_ptr(), win_len, n_units, q_n, codes.shape[0], w, tables.shape[1], fmt,
-            onehot, k, block_n, gtab, n_blocks, ctypes.addressof(launched),
-            None if split is None else ctypes.addressof(split), stream)
-        cuda_launches["adc_topk_select"] += launched.value
-        _build.check(err, "adc_topk_select")
-        if split_ms is not None:
-            split_ms.update(zip(SELECT_STEPS, split))
+            onehot, k, block_n, gtab, n_blocks)
         return
     n_blocks = _grid(dev, "adc_topk_wide_blocks_per_sm", fmt, onehot, w, tables.shape[1], k,
                      gtab)
@@ -697,6 +719,45 @@ def _launch_wide(tables, codes, bound, units, n_valid, out_v, out_i, k: int, blo
         codes.shape[0], w, tables.shape[1], fmt, onehot, k, block_n, gtab, n_blocks, stream,
     )
     _build.check(err, "adc_topk_wide")
+
+
+def _launch_scan_select(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq,
+                        out_v, out_i, stats, k: int, block_n: int, path: str, plan: dict,
+                        split_ms: dict | None, tiles=None, starts=None) -> None:
+    """Enqueue B2 (`tiles` = (t0, t1, tile_block, tile_row0)) or B5
+    (`starts`) under a `select` plan: `csrc/adc_topk_select.cu` over the
+    pairs of `order`, arguments as `launch` / `launch_windows` take them.
+    It adds its CUDA launches to `cuda_launches` and fills `split_ms` as
+    `_launch_wide` does."""
+    ndev, cap, w = codes.shape
+    dev = luts.device
+    fmt, onehot, gtab = code_format(codes), int(path == "onehot"), int(plan["gtab"])
+    n_units, n_q = order.shape[0], bound.shape[0]
+    n_blocks = _grid(dev, "adc_topk_select_blocks_per_sm", fmt, onehot, w, luts.shape[1], gtab,
+                     1)
+    scratch = _select_workspace(dev, select_scratch(n_units, n_blocks, n_q))
+    t0, t1, tb, tr = (None,) * 4 if tiles is None else (t.data_ptr() for t in tiles)
+    _select_call(
+        _build.library().adc_topk_scan_select_launch, dev, split_ms,
+        luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(), t0, t1, tb, tr,
+        None if starts is None else starts.data_ptr(), n_valid.data_ptr(), pair_q.data_ptr(),
+        pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        stats.data_ptr(), scratch.data_ptr(), n_units, n_q, lut_row.shape[0] // ndev, cap, w,
+        luts.shape[1], fmt, onehot, k, block_n, gtab, n_blocks)
+
+
+def _select_call(fn, dev: torch.device, split_ms: dict | None, *args) -> None:
+    """Call a select launcher with `args`, then its step counter, its split
+    array (when `split_ms` is a dict) and `dev`'s current stream: add its
+    CUDA launches to `cuda_launches`, raise on an error, fill `split_ms`."""
+    launched = ctypes.c_int(0)
+    split = None if split_ms is None else (ctypes.c_float * len(SELECT_STEPS))()
+    err = fn(*args, ctypes.addressof(launched), None if split is None else ctypes.addressof(split),
+             torch.cuda.current_stream(dev).cuda_stream)
+    cuda_launches["adc_topk_select"] += launched.value
+    _build.check(err, "adc_topk_select")
+    if split_ms is not None:
+        split_ms.update(zip(SELECT_STEPS, split))
 
 
 def launch_topk(

@@ -50,7 +50,7 @@ launches = {
     "adc_scan": 0, "adc_topk": 0, "adc_topk_pairs": 0, "flash_attention_fwd": 0,
 }
 # the largest k of B2 / B5's shared-memory block (`adc_topk.scan_plan`);
-# a larger k runs their WIDE block, with the lists in device memory
+# a larger k runs the select kernels
 SCAN_K_MAX = _topk.SCAN_K_MAX
 # the same for B6 / B7 (`adc_topk.topk_plan`)
 ADC_TOPK_K_MAX = _topk.SCAN_K_MAX
@@ -243,9 +243,12 @@ def adc_topk_tiles(
     Any k >= 1 and any table width.  On the card `adc_topk.scan_plan`
     picks the block: the shared-memory block up to k = `SCAN_K_MAX` (4096)
     with a table that fits beside the list in 227 KB (39,664 entries at k
-    = 4096, 55,792 at k = 64), else the WIDE block (the list spilled to
-    device memory past 4096, a wider table read where it lies); the same
-    answer either way.
+    = 4096, 55,792 at k = 64), else the WIDE block (a wider table read
+    where it lies); past 4096 the select kernels (each pair's tiles cut
+    over the grid, its k-th key selected, its winners sorted; a table too
+    wide read in place).  The merged per-query answer is the same either
+    way; the pairs' tails past the query's k-th and the counters may
+    differ.
     """
     _check_path(path, "adc_topk_tiles")
     single = codes.dim() == 2

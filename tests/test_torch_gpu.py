@@ -38,9 +38,12 @@ runs bit for bit.  An OPQ-rotated engine on the card (with inserts)
 equals the CPU engine; a retile, a non-default `rerank_block` and a swept
 geometry change no bit on plain and co-occurrence shards; an engine saved
 from the card loads on the CPU and answers as on the card.
-Past the shared-memory blocks: B2 / B5 with their lists spilled
-(k 4097, 8192), a 65,536-entry table read in place, or both, bit-equal
-per pair and equal to the shared block when forced at k = 4096; B6 / B7
+Past the shared-memory blocks: B2 / B5 past k = 4096 on the select
+kernels (k 4097, 8192; pairs cut over many blocks; thousands of rows tied
+at a pair's k-th; every code format and the onehot path), a 65,536-entry
+table read in place, or both, bit-equal per pair unpruned, the same
+per-query merge pruned, and equal to the shared block when forced at k =
+4096; B6 / B7
 past k = 4096 (the select kernels: thousands of rows tied at the k-th,
 k at and past a unit's rows, grouped units, k 40,000 sorted past shared
 memory, B7 windows of 0 / 7 / all / k valid rows) and in place, B8 and
@@ -144,7 +147,7 @@ def _tile_case(dev, seed, q=6, nprobe=8, m=16, dsub=8, block_n=128, k=32, spread
     )
 
 
-def _run_tiles(c, bounds, plain, lut_row=None):
+def _run_tiles(c, bounds, plain, lut_row=None, path="gather"):
     p = c["n_valid"].shape[0]
     dev = c["luts"].device
     pq = torch.arange(p, dtype=torch.int32, device=dev)
@@ -155,14 +158,14 @@ def _run_tiles(c, bounds, plain, lut_row=None):
             kw = dict(pair_q=c["pair_q"], pair_lb=c["pair_lb"], bound=c["bound"])
         return ops.adc_topk_tiles(
             c["luts"], c["codes"], c["tile_pair"], c["tile_block"], c["tile_row0"],
-            c["n_valid"], c["k"], lut_row=lut_row, block_n=c["block_n"], **kw,
+            c["n_valid"], c["k"], lut_row=lut_row, block_n=c["block_n"], path=path, **kw,
         )
     t0, t1, _ = adc_topk.pair_runs(c["tile_pair"][None], p)
     return adc_topk.adc_topk_tiles_plain(
         c["luts"], lut_row, c["codes"][None],
         c["tile_block"].int(), c["tile_row0"].int(),
         c["n_valid"].int(), pq, torch.full((p,), -torch.inf, device=dev),
-        torch.full((p,), torch.inf, device=dev), t0, t1, c["k"], c["block_n"],
+        torch.full((p,), torch.inf, device=dev), t0, t1, c["k"], c["block_n"], path,
     )
 
 
@@ -298,7 +301,7 @@ def _direct(c, dtype):
     return dict(c, codes=addr.to(dtype).contiguous(), luts=tables.contiguous())
 
 
-def _run_windows(c, bounds, plain):
+def _run_windows(c, bounds, plain, path="gather"):
     p = c["n_valid"].shape[0]
     dev = c["luts"].device
     lut_row = torch.arange(p, dtype=torch.int32, device=dev)
@@ -308,12 +311,12 @@ def _run_windows(c, bounds, plain):
             kw = dict(pair_q=c["pair_q"], pair_lb=c["pair_lb"], bound=c["bound"])
         return ops.adc_topk_windows(
             c["luts"], c["codes"], c["starts"], c["n_valid"], c["k"], lut_row=lut_row,
-            block_n=c["block_n"], **kw,
+            block_n=c["block_n"], path=path, **kw,
         )
     return adc_topk.adc_topk_windows_plain(
         c["luts"], lut_row, c["codes"][None], c["starts"].int(), c["n_valid"].int(),
         lut_row, torch.full((p,), -torch.inf, device=dev),
-        torch.full((p,), torch.inf, device=dev), c["k"], c["block_n"],
+        torch.full((p,), torch.inf, device=dev), c["k"], c["block_n"], path,
     )
 
 
@@ -374,41 +377,122 @@ def _wide_scan_case(dev, k, width, seed=0):
     return c
 
 
-@pytest.mark.parametrize("k,width", [(8192, 0), (4097, 4353), (64, 65_536), (8192, 65_536)])
-@pytest.mark.parametrize("scan", ["tiles", "windows"])
-def test_scan_wide_kernels_match_plain(cuda, scan, k, width):
-    """B2 / B5's WIDE block: lists spilled past SCAN_K_MAX, a 65,536-entry
-    table read in place, or both.  Unpruned: bit-equal to the plain version
-    per pair; pruned: the same per-query merge."""
-    c = _wide_scan_case(cuda, k, width)
+def _split_pairs(dev, c, k, scan):
+    """The pairs whose tiles a select launch cuts over several blocks
+    (`adc_topk.run_plan` on `scan_unit_tiles`, the kernel's mapping)."""
+    p = c["n_valid"].shape[0]
+    lut_row = torch.arange(p, dtype=torch.int32)
     plan = adc_topk.scan_plan(k, c["luts"].shape[1])
-    assert adc_topk.wide(plan) and plan["spill"] == (k > ops.SCAN_K_MAX)
+    n_blocks = adc_topk._grid(dev, "adc_topk_select_blocks_per_sm",
+                              adc_topk.code_format(c["codes"]), 0, c["codes"].shape[1],
+                              c["luts"].shape[1], int(plan["gtab"]), 1)
+    if scan == "tiles":
+        t0, t1, order = adc_topk.pair_runs(c["tile_pair"][None].cpu(), p)
+        tiles = adc_topk.scan_unit_tiles(order, lut_row, c["n_valid"].cpu(), c["block_n"], t0, t1)
+    else:
+        order = torch.nonzero(c["n_valid"].cpu() > 0).flatten()
+        tiles = adc_topk.scan_unit_tiles(order, lut_row, c["n_valid"].cpu(), c["block_n"])
+    runs = adc_topk.run_plan(tiles, n_blocks)
+    return int((runs["first"] < runs["last"]).sum()), int(tiles.max()), runs["T"] / runs["nb"]
+
+
+def _assert_scan_select(c, scan, path="gather"):
+    """Unpruned per pair bit-equal to the plain version, pruned the same
+    per-query merge, one launch each."""
     run = _run_tiles if scan == "tiles" else _run_windows
+    select = adc_topk.scan_plan(c["k"], c["luts"].shape[1])["select"]
     ops.reset_launches()
-    kv, ki, _ = run(c, bounds=False, plain=False)
+    kv, ki, _ = run(c, bounds=False, plain=False, path=path)
     assert ops.launches["adc_topk_" + scan] == 1
-    pv, pi, _ = run(c, bounds=False, plain=True)
+    # the select chain's launcher counts each of its steps once
+    assert adc_topk.cuda_launches["adc_topk_select"] == select * len(adc_topk.SELECT_STEPS)
+    pv, pi, _ = run(c, bounds=False, plain=True, path=path)
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
-    bv, bi, _ = run(c, bounds=True, plain=False)
+    bv, bi, bs = run(c, bounds=True, plain=False, path=path)
+    n_tiles = (c["n_valid"] + c["block_n"] - 1) // c["block_n"]
+    assert bool((bs[:, 0] <= n_tiles).all()) and bool((bs[:, 1] <= c["n_valid"]).all())
     for (d1, i1), (d2, i2) in zip(_merge(bv, bi, c["pair_q"], c["q"], c["k"]),
                                   _merge(kv, ki, c["pair_q"], c["q"], c["k"])):
         np.testing.assert_array_equal(d1, d2)
         np.testing.assert_array_equal(i1, i2)
+    return kv
+
+
+@pytest.mark.parametrize("k,width", [(8192, 0), (4097, 4353), (64, 65_536), (8192, 65_536)])
+@pytest.mark.parametrize("scan", ["tiles", "windows"])
+def test_scan_wide_kernels_match_plain(cuda, scan, k, width):
+    """B2 / B5 past the shared-memory block: the select kernels past
+    SCAN_K_MAX (each pair's tiles cut over the grid: some pair holds more
+    tiles than one block's share and runs on several blocks), a
+    65,536-entry table read in place, or both.  Unpruned: bit-equal to the
+    plain version per pair; pruned: the same per-query merge."""
+    c = _wide_scan_case(cuda, k, width)
+    plan = adc_topk.scan_plan(k, c["luts"].shape[1])
+    assert adc_topk.wide(plan) and plan["select"] == (k > ops.SCAN_K_MAX)
+    if plan["select"]:
+        split, most, share = _split_pairs(cuda, c, k, scan)
+        assert split > 0 and most > share
+    _assert_scan_select(c, scan)
+
+
+@pytest.mark.parametrize("scan", ["tiles", "windows"])
+@pytest.mark.parametrize("fmt", ["uint8_w12", "int32", "uint16_onehot", "int32_onehot"])
+def test_scan_select_formats(cuda, scan, fmt):
+    """The select kernels' other instantiations (a runtime width of raw
+    codes, int32 addresses, the onehot path on direct addresses) at k =
+    4097: as `test_scan_wide_kernels_match_plain`."""
+    w = 12 if fmt == "uint8_w12" else 16
+    c = _tile_case(cuda, 9, q=4, nprobe=8, m=w, dsub=4, block_n=256, k=4097, tiles=40)
+    if fmt != "uint8_w12":
+        c = _direct(c, torch.int32 if fmt.startswith("int32") else torch.uint16)
+    _assert_scan_select(c, scan, path="onehot" if fmt.endswith("onehot") else "gather")
+
+
+@pytest.mark.parametrize("scan", ["tiles", "windows"])
+def test_scan_select_ties_bit_equal(cuda, scan):
+    """B2 / B5 at k = 8192 with a two-valued table (0 or 1 / 64 by the
+    first code's parity, 0 elsewhere: every distance 0 or 1 / 64): the
+    large pairs hold over 8,192 rows at their k-th, past a bucket, so the
+    third digit, the runs' tie counts and their row-order numbering pick
+    the winners (the lower rows); bit-equal per pair, the same merge with
+    the query bound the digits tighten."""
+    c = _tile_case(cuda, 3, q=4, nprobe=8, m=16, dsub=4, block_n=256, k=8192, tiles=120)
+    p = c["luts"].shape[0]
+    two = torch.zeros(16, 256, device=cuda)
+    two[0] = (torch.arange(256, device=cuda) & 1) / 64.0
+    c["luts"] = two.reshape(1, -1).expand(p, -1).contiguous()
+    # the residual bounds belong to the old tables: no warm start, no lower
+    # bound (the pruned run then rests on the sq the resolved digits tighten)
+    c["pair_lb"] = torch.full_like(c["pair_lb"], -torch.inf)
+    c["bound"] = torch.full_like(c["bound"], torch.inf)
+    kv = _assert_scan_select(c, scan)
+    kth = kv[:, -1]
+    d = adc_topk.sum_columns(two.reshape(-1)[adc_topk.table_addresses(c["codes"], 0)])
+    ties = [int((d[s:s + n] == kth[i]).sum()) for i, (s, n) in
+            enumerate(zip(c["starts"].tolist(), c["n_valid"].tolist())) if n >= 8192]
+    assert max(ties) > adc_topk._SELECT_BUCKET
 
 
 def test_scan_spill_at_k_4096_equals_shared_block(cuda, monkeypatch):
-    """The spill forced at k = 4096, where the shared-memory block also
-    runs: the same per-query results (the WIDE block changes where the
-    lists live, not what they hold)."""
+    """The select kernels forced at k = 4096 (where the spilled WIDE block
+    ran before them), where the shared-memory block also runs: the same
+    lists per pair unpruned (each the pair's exact top-k) and the same
+    per-query results pruned."""
     c = _wide_scan_case(cuda, 4096, 0)
     shared = _run_tiles(c, bounds=True, plain=False)
+    shared_own = _run_tiles(c, bounds=False, plain=False)
     monkeypatch.setattr(adc_topk, "scan_plan",
-                        lambda k, a: dict(gtab=False, spill=True, smem=2 * 1024 * 4))
-    spilled = _run_tiles(c, bounds=True, plain=False)
+                        lambda k, a: dict(gtab=False, select=True, smem=(a + 2048) * 4))
+    ops.reset_launches()
+    selected = _run_tiles(c, bounds=True, plain=False)
+    assert adc_topk.cuda_launches["adc_topk_select"] == len(adc_topk.SELECT_STEPS)
+    selected_own = _run_tiles(c, bounds=False, plain=False)
     torch.cuda.synchronize()
+    assert torch.equal(shared_own[0], selected_own[0])
+    assert torch.equal(shared_own[1], selected_own[1])
     for (d1, i1), (d2, i2) in zip(_merge(*shared[:2], c["pair_q"], c["q"], c["k"]),
-                                  _merge(*spilled[:2], c["pair_q"], c["q"], c["k"])):
+                                  _merge(*selected[:2], c["pair_q"], c["q"], c["k"])):
         np.testing.assert_array_equal(d1, d2)
         np.testing.assert_array_equal(i1, i2)
 

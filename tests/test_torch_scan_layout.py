@@ -42,13 +42,13 @@ from test_torch_windows import (  # noqa: E402
 
 BUDGET = 232_448  # bytes of shared memory one H100 block may use
 FORMATS = ("uint8", "uint16", "int32")
-SHARED = dict(gtab=False, spill=False)
+SHARED = dict(gtab=False, select=False)
 
 
 def _variant(plan):
-    """Whether the table is read in place, and whether the lists leave shared
-    memory: B2 / B5's `spill`, B6 / B7's `select` (which keeps no list)."""
-    return dict(gtab=plan["gtab"], spill=plan["spill"] if "spill" in plan else plan["select"])
+    """Whether the table is read in place, and whether the select kernels
+    (which keep no list) run past the shared-memory block's k."""
+    return dict(gtab=plan["gtab"], select=plan["select"])
 
 
 @pytest.mark.parametrize("k", [1, 64, 1024, 4096])
@@ -64,9 +64,9 @@ def test_every_format_fits_the_budget(fmt, w, k):
     assert k_topk.scan_plan(k, width) == dict(SHARED, smem=smem)
 
 
-GTAB = dict(gtab=True, spill=False)
-SPILL = dict(gtab=False, spill=True)
-BOTH = dict(gtab=True, spill=True)
+GTAB = dict(gtab=True, select=False)
+SELECT = dict(gtab=False, select=True)
+BOTH = dict(gtab=True, select=True)
 ALIGNED, ODD = 0, 1  # B10's views: 16-byte aligned, or one element past
 
 
@@ -75,14 +75,15 @@ ALIGNED, ODD = 0, 1  # B10's views: 16-byte aligned, or one element past
     # holds, on the shared side; one entry more reads the table in place
     ("scan", 4096, 39_664, SHARED), ("scan", 64, 55_792, SHARED), ("scan", 1, 4096, SHARED),
     ("scan", 4096, 39_665, GTAB), ("scan", 64, 55_793, GTAB), ("scan", 64, 65_536, GTAB),
-    # past SCAN_K_MAX the lists spill; a table that fits stays staged
-    ("scan", 4097, 4096, SPILL), ("scan", 8192, 4353, SPILL), ("scan", 65_536, 56_048, SPILL),
-    ("scan", 8192, 56_049, BOTH), ("scan", 8192, 65_536, BOTH),
+    # past SCAN_K_MAX the select kernels, as B6 / B7's below: a table that
+    # fits beside their histogram stays staged
+    ("scan", 4097, 4096, SELECT), ("scan", 8192, 4353, SELECT), ("scan", 65_536, 55_040, SELECT),
+    ("scan", 8192, 55_041, BOTH), ("scan", 8192, 65_536, BOTH),
     # B6 / B7 at one table a block (its 4 KB of static shared memory moves
     # each boundary 1,008 entries lower)
     ("topk", 4096, 38_656, SHARED), ("topk", 64, 54_784, SHARED),
     ("topk", 4096, 38_657, GTAB), ("topk", 64, 54_785, GTAB), ("topk", 10, 65_536, GTAB),
-    ("topk", 4097, 4096, SPILL), ("topk", 8192, 55_040, SPILL),
+    ("topk", 4097, 4096, SELECT), ("topk", 8192, 55_040, SELECT),
     ("topk", 8192, 55_041, BOTH), ("topk", 8192, 65_536, BOTH),
     # B10: the fast kernel's head dims; any other staged by cp.async when
     # every row is 16-byte aligned, else copied element by element
@@ -93,18 +94,20 @@ ALIGNED, ODD = 0, 1  # B10's views: 16-byte aligned, or one element past
     ("flash", 20, ALIGNED, "general"), ("flash", 1040, ALIGNED, "general"),
 ])
 def test_planners_choice(kernel, k, width, want):
-    """Which (k, table width) takes the shared-memory block and which the
-    WIDE block's spill or global table: B2 / B5 (`scan_plan`), B6 / B7
-    (`topk_plan` on uint16 addresses, one table a block: past SCAN_K_MAX
-    the select kernels); whether B8 and B4 / B9 read their table in place;
+    """Which (k, table width) takes the shared-memory block, which the WIDE
+    block's global table and which the select kernels (past SCAN_K_MAX,
+    their table staged or read in place): B2 / B5 (`scan_plan`), B6 / B7
+    (`topk_plan` on uint16 addresses, one table a block); whether B8 and
+    B4 / B9 read their table in place;
     and which B10 kernel a (head dim, alignment) takes (`kernel_variant`,
     k the head dim, width the view's element offset; bf16 q, f32 k / v)."""
     if kernel == "flash":
         _flash_choice(k, width, want)
         return
     if kernel == "scan":
-        plan, static = k_topk.scan_plan(k, width), 64
-        assert "select" not in plan
+        plan = k_topk.scan_plan(k, width)
+        static = 4096 if plan["select"] else 64  # the select kernels' static reserve
+        assert plan["select"] == (k > k_topk.SCAN_K_MAX) and "spill" not in plan
     else:
         plan, static = k_topk.topk_plan([1], [10**6], k, 1, 16, width, groups=(1,)), 4096
         assert plan["g"] == 1 and "spill" not in plan
@@ -134,32 +137,42 @@ def _flash_choice(hd, offset, want):
 @pytest.mark.parametrize("k", [4097, 8192, 65_536])
 @pytest.mark.parametrize("rows", [2_000_000, 100_000_000])
 def test_select_scratch_sizing(k, rows):
-    """B6 / B7 past SCAN_K_MAX (the select kernels): the scratch is each
-    unit's state and 2,048-bin histogram plus a tie count a run, whatever k
-    and the rows (rows are scored again in every pass); the candidates are
-    the output's own k entries a unit; the sort block's keys fit shared
-    memory at any k.  The sizes mirror csrc/adc_topk_select.cu."""
+    """B2 / B5 / B6 / B7 past SCAN_K_MAX (the select kernels): the scratch
+    is each unit's state, first tile, a tie count a run and its share of
+    the bucket pool, and a 2,048-bin histogram a block (B2 / B5 also the
+    queries' starting bounds), whatever k and the rows (rows are scored
+    again in every pass); the candidates are the output's own k entries a
+    unit, and at B2 / B5's largest batch (1,000 queries x 64 probes) the
+    scratch stays below the (P, k) outputs; the sort block's keys fit
+    shared memory at any k.  The sizes mirror csrc/adc_topk_select.cu."""
     import re
 
     src = (k_topk._build.CSRC / "adc_topk_select.cu").read_text()
     consts = dict(re.findall(
-        r"constexpr int (SEL_BINS|SEL_STATE|SEL_BUCKET|SORT_CHUNK) = (\d+);", src))
+        r"constexpr int (SEL_BINS|SEL_STATE|SEL_BUCKET|SEL_POOL_PER_UNIT|SORT_CHUNK) = (\d+);",
+        src))
     assert int(consts["SEL_BINS"]) == k_topk._SELECT_BINS == 2 * k_topk._SCAN_PASS
     assert int(consts["SEL_STATE"]) == k_topk._SELECT_STATE
     assert int(consts["SEL_BUCKET"]) == k_topk._SELECT_BUCKET
+    assert int(consts["SEL_POOL_PER_UNIT"]) == k_topk._SELECT_POOL_PER_UNIT
     assert int(consts["SORT_CHUNK"]) == k_topk._SORT_CHUNK
     plan = k_topk.topk_plan([1], [rows], k, 0, 16, 4096)
     assert plan["select"] and not plan["gtab"]
     assert plan["smem"] == (4096 + k_topk._SELECT_BINS) * 4
+    assert k_topk.scan_plan(k, 4096) == dict(gtab=False, select=True, smem=plan["smem"])
     n_blocks = 132 * 8
-    for units in (1, 30, 1024):
-        entries = k_topk.select_scratch(units, n_blocks)
-        head = units * (12 + 2048) + n_blocks + units
-        assert entries == head + head % 2 + units * 2 * 8192
-        assert entries * 4 <= units * 74_000 + 4 * n_blocks + 8  # 73.8 KB a unit: no row or k term
+    for units, n_q in ((1, 0), (30, 0), (1024, 16), (64_000, 1000)):
+        entries = k_topk.select_scratch(units, n_blocks, n_q)
+        head = units * 12 + n_blocks * 2048 + 2 + n_blocks + units
+        head += head % 2 + 2 * (units + 1) + n_q + n_q % 2
+        assert entries == head + 2 * (units * 256 + 8192)
+        # 2,108 bytes a unit, 8,196 a block, 4 a query: no row or k term
+        assert entries * 4 <= units * 2108 + n_blocks * 8196 + n_q * 4 + 8 * 8192 + 32
+        if units == 64_000:
+            assert entries * 4 < units * k * 8  # beside the (P, k) f32 + int32 outputs
     sort = k_topk.select_sort_smem(k)
     assert sort == min(max(1 << (k - 1).bit_length(), 8192), 16_384) * 8 <= BUDGET
-    # the bucket pass sorts a whole bucket buffer in one block
+    # the bucket pass sorts a whole bucket in one block
     assert k_topk._SELECT_BUCKET * 8 <= BUDGET
 
 
@@ -282,8 +295,7 @@ def test_topk_table_too_wide_refused(call):
     # the widest direct table one block holds at k = 10 stays in shared memory
     widest = (BUDGET - 4096) // 4 - 2 * 10 - 2 * 10 - 2 * 1024
     assert not k_topk.wide(k_topk.topk_plan([1], [128], 10, 1, 4, widest))
-    assert _variant(k_topk.topk_plan([1], [128], 10, 1, 4, widest + 1)) == dict(
-        gtab=True, spill=False)
+    assert _variant(k_topk.topk_plan([1], [128], 10, 1, 4, widest + 1)) == GTAB
 
 
 @pytest.mark.parametrize("hd", [8, 48, 256])

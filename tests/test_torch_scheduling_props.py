@@ -242,3 +242,84 @@ def test_topk_launch_plan_covers_every_tile_once(groups, g, sms, resident, block
         assert per_block.min() >= t_all // nb and per_block.max() <= -(-t_all // nb)
     assert len(np.unique(plan["slot"])) == len(plan["slot"])
     assert (plan["slot"] < nb + len(units)).all()
+
+
+def _select_pass_loop(ustart, n_blocks):
+    """The select kernels' block loop (csrc/adc_topk_select.cu
+    `select_pass`) in plain Python: each block finds the unit of its first
+    tile by binary search over the units' first tiles and walks the units
+    its tiles cover.  Returns its runs (block, unit, t0, t1, first, last)."""
+    n_units, t_all = len(ustart) - 1, int(ustart[-1])
+    nb = min(n_blocks, t_all)
+    runs = []
+    for b in range(nb):
+        tb, te = b * t_all // nb, (b + 1) * t_all // nb
+        lo, hi = 0, n_units
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if ustart[mid] <= tb:
+                lo = mid
+            else:
+                hi = mid
+        for u in range(lo, n_units):
+            start, count = int(ustart[u]), int(ustart[u + 1] - ustart[u])
+            if start >= te:
+                break
+            if count == 0:
+                continue
+            runs.append((b, u, max(tb, start) - start, min(te, start + count) - start,
+                         ((start + 1) * nb - 1) // t_all, ((start + count) * nb - 1) // t_all))
+    return runs
+
+
+@given(
+    n_pairs=st.integers(1, 60),
+    sms=st.integers(1, 140),
+    resident=st.integers(1, 8),
+    block_n=st.sampled_from([64, 256, 1024]),
+    windows=st.booleans(),
+    seed=st.integers(0, 2**16),
+)
+@settings(**SETTINGS)
+def test_scan_select_run_mapping_matches_a_loop(n_pairs, sms, resident, block_n, windows, seed):
+    """B2 / B5's units under a select plan (`adc_topk.scan_unit_tiles`, the
+    twin of csrc `unit_tiles`: pair order[u]'s run of the tile queue, or its
+    window's valid blocks, none without a table) cut by `run_plan` equal the
+    kernel's block loop run for run; every tile of every unit lies in one
+    run, and the units cut over several blocks have distinct first blocks
+    (the histogram slot each counts in, below nb)."""
+    import torch
+
+    from repro_torch.kernels.adc_topk import pair_runs, run_plan, scan_unit_tiles
+
+    rng = np.random.default_rng(seed)
+    n_valid = rng.integers(0, 40 * block_n, n_pairs).astype(np.int32)
+    n_valid[rng.random(n_pairs) < 0.2] = 0
+    lut_row = np.where(rng.random(n_pairs) < 0.15, -1, np.arange(n_pairs)).astype(np.int32)
+    if windows:
+        filled = np.flatnonzero((lut_row >= 0) & (n_valid > 0))
+        order = filled[rng.permutation(filled.size)]
+        tiles = scan_unit_tiles(order, lut_row, n_valid, block_n)
+        want = [-(-int(n_valid[p]) // block_n) for p in order]
+    else:
+        # the tile queue of `emit_tiles` on one device: each pair's tiles
+        # contiguous, the pairs in a random order, dummy tiles (id P) between
+        nt = -(-n_valid // block_n)
+        seq = np.concatenate([np.full(int(nt[p]), p) for p in rng.permutation(n_pairs)]
+                             + [np.full(3, n_pairs)]).astype(np.int32)
+        t0, t1, order = pair_runs(torch.as_tensor(seq)[None], n_pairs)
+        tiles = scan_unit_tiles(order, lut_row, n_valid, block_n, t0, t1)
+        order = order.numpy()
+        want = [int(nt[p]) if lut_row[p] >= 0 else 0 for p in order]
+    np.testing.assert_array_equal(tiles, want)
+    ustart = np.concatenate([[0], np.cumsum(tiles)])
+    plan = run_plan(tiles, sms * resident)
+    got = list(zip(*(plan[f].tolist() for f in ("block", "unit", "t0", "t1", "first", "last"))))
+    assert got == _select_pass_loop(ustart, sms * resident)
+    for u, n_t in enumerate(tiles):
+        sel = plan["unit"] == u
+        assert int((plan["t1"][sel] - plan["t0"][sel]).sum()) == n_t
+    split = plan["first"] < plan["last"]
+    firsts = np.unique(plan["first"][split])
+    assert len(firsts) == len(np.unique(plan["unit"][split]))
+    assert (firsts < max(plan["nb"], 1)).all()
