@@ -205,7 +205,9 @@ beside that block, and `adc_topk_tiles_select_ties` (a two-valued table:
 over 8,192 rows tied at a pair's k-th); B2 / B5 at k = 64 and B8, B6 and B7
 over a 65,536-entry uint16 table (read in place) and B6 at k = 8192 (rows
 `adc_topk_tiles_gtab`, `adc_topk_windows_gtab`, `adc_scan_gtab`,
-`adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`; B6 / B7 past k =
+`adc_topk_gtab`, `adc_topk_spill`, `adc_topk_pairs_wide`,
+`adc_topk_pairs_gtab`: B7 at k' = 64 in place; each in-place row with its
+`g` and `table_loads`; B6 / B7 past k =
 4096 on the select kernels, with their CUDA launches and `split`, and
 `adc_topk_select_ties`, over 8,192 rows tied at the k-th), bit-equal;
 B10's general kernel at
@@ -783,7 +785,7 @@ def check_scan(torch, ops, k_topk, *, name, scan, source, replaces, launches, ta
 
 def block_variant(k_topk, plan: dict) -> str:
     """The block a B2 / B5 / B6 / B7 plan runs: "shared" (the shared-memory
-    block), the WIDE block's "gtab" (its table read in place), or past k =
+    block), the in-place block's "gtab" (its tables read where they lie), or past k =
     4096 the select kernels, "select" or "select+gtab"."""
     if not k_topk.wide(plan):
         return "shared"
@@ -833,32 +835,35 @@ def scan_registers(regs: dict, scan: str, fmt: int, w: int, sort: bool = False,
     code format `fmt`, width `w` and path (`sort`: the onehot path on
     direct addresses), the instantiation its `plan` launches (None: the
     shared-memory block): REPRO_ADC_DISPATCH's, or REPRO_ADC_DISPATCH_WIDE's
-    (csrc/adc_topk_common.cuh) for the WIDE block and for the select
-    kernels (`adc_topk_scan_select_kernel`); a compiled width, else 0."""
+    (csrc/adc_topk_common.cuh) for the in-place block
+    (`adc_topk_scan_wide_kernel`) and for the select kernels
+    (`adc_topk_scan_select_kernel`); a compiled width, else 0."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
     wide = plan is not None and (plan["gtab"] or plan["select"])
     widths = ((16,) if fmt < 2 else ()) if wide else ((8, 16, 32) if fmt == 0 else (8, 16))
     wt = w if w in widths else 0
     args = f"I{ctype}Lb{int(fmt == 0)}ELi{wt}ELb{int(sort and fmt > 0)}E"
-    if wide and plan["select"]:
-        want = f"adc_topk_scan_select_kernel{args}"
+    if wide:
+        want = f"adc_topk_scan_{'select' if plan['select'] else 'wide'}_kernel{args}"
     else:
-        want = f"adc_topk_{scan}_kernel{args}Lb{int(wide)}EE"
+        want = f"adc_topk_{scan}_kernel{args}E"
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
 
 
 def topk_registers(regs: dict, kernel: str, fmt: int, w: int, g: int,
                    sort: bool = False) -> str | None:
-    """ptxas' registers and spills of B6 (`adc_topk_kernel`, G tables) or B7
-    (`adc_topk_pairs_kernel`) for code format `fmt`, width `w` and path
-    (`sort`: the onehot path on direct addresses)."""
+    """ptxas' registers and spills of B6 (`adc_topk_kernel`, G tables; the
+    in-place `adc_topk_wide_kernel`, G tables) or B7
+    (`adc_topk_pairs_kernel`; the select's `adc_topk_select_kernel`) for
+    code format `fmt`, width `w` and path (`sort`: the onehot path on
+    direct addresses)."""
     ctype = {0: "h", 1: "t", 2: "i"}[fmt]
-    wide = "wide" in kernel or "select" in kernel  # REPRO_ADC_DISPATCH_WIDE's widths, no G
+    wide = "wide" in kernel or "select" in kernel  # REPRO_ADC_DISPATCH_WIDE's widths
     widths = ((16,) if fmt < 2 else ()) if wide else ((8, 16, 32) if fmt == 0 else (8, 16))
     wt = w if w in widths else 0
     want = (f"{kernel}I{ctype}Lb{int(fmt == 0)}ELi{wt}E"
-            + (f"Li{g}E" if "pairs" not in kernel and not wide else "")
+            + (f"Li{g}E" if "pairs" not in kernel and "select" not in kernel else "")
             + f"Lb{int(sort and fmt > 0)}E")
     hits = [v for k, v in regs.items() if k.startswith(want)]
     return hits[0] if hits else None
@@ -2955,16 +2960,20 @@ def scan_ties_row(torch, ops, k_topk, plan, dv, lut_row, n_tables, regs) -> dict
 def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs) -> list:
     """B6, B7 and B8 past their shared-memory blocks: a full uint16
     direct-address table (`DOMAIN_TABLE` entries, 256 KB: read in place) under
-    `DOMAIN_ROWS` rows of W = 16 (B8; B6 at Q = 4, k = 10; B7 on 30 windows
-    of 65,536 rows at k = `DOMAIN_K`, on the select kernels), B6 at k =
-    `DOMAIN_K` on raw uint8 codes of the index (`codes_raw`, one table: the
-    select kernels), and B6 at k = `DOMAIN_K` where over 8,192 rows tie at
-    the k-th distance (the select's second side: a third digit and the
-    runs' tie counts).  Each bit-equal to its plain version, timed as the
-    other rows are; a select row carries the CUDA launches its counted
-    call made (`cuda_launches`, as the launcher counts them) and one more
-    call's time on the card by step (`split`, CUDA events between the
-    steps).  Returns the rows."""
+    `DOMAIN_ROWS` rows of W = 16 (B8; B6 at Q = 4, k = 10, four interleaved
+    tables a unit; B7 on 30 windows of 65,536 rows at k = `DOMAIN_K`, on the
+    select kernels, and at k' = 64 in place; B2 / B5 at k' = 64 on the same
+    windows as pairs), B6 at k = `DOMAIN_K` on raw uint8 codes of the index
+    (`codes_raw`, one table: the select kernels), and B6 at k = `DOMAIN_K`
+    where over 8,192 rows tie at the k-th distance (the select's second
+    side: a third digit and the runs' tie counts).  Each bit-equal to its
+    plain version, timed as the other rows are; a select or in-place row
+    carries the CUDA launches its counted call made (`cuda_launches`, as
+    the launcher counts them), a select row one more call's time on the
+    card by step (`split`, CUDA events between the steps), an in-place row
+    its tables a unit `g` and its table loads a call (`table_loads`: load
+    instructions a thread issues, counted from the shapes, and their
+    bytes).  Returns the rows."""
     g = torch.Generator(device=dev).manual_seed(27)
     a, n, w = DOMAIN_TABLE, DOMAIN_ROWS, 16
     tables = torch.rand(4, a, device=dev, generator=g)
@@ -2981,7 +2990,8 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         if ops.launches[kname] != 1:
             raise RuntimeError(f"domain: {kname} launched {ops.launches[kname]} times")
         counts.update(launches=ops.launches[kname],
-                      select=k_topk.cuda_launches["adc_topk_select"])
+                      select=k_topk.cuda_launches["adc_topk_select"],
+                      wide=k_topk.cuda_launches["adc_topk_wide"])
         return out
 
     def timed_plain(fn):
@@ -2995,25 +3005,31 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         return addrs[s0:s1].view(torch.int16).long() & 0xFFFF
 
     def row(name, source, replaces, variant, got, want, plain_ms, launch, n_bytes, n_ops,
-            lib, library_call, fmt=None, registers=None, **shape):
+            lib, library_call, fmt=None, registers=None, g=None, table_loads=None, **shape):
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise RuntimeError(f"domain: {name} is not bit-equal to its plain version")
         bms, by = bound_ms(n_bytes, n_ops)
         select = variant.startswith("select")
         kname = "adc_topk_select_kernel" if select else "adc_topk_wide_kernel"
-        # CUDA launches the counted call made (the select: its chain of steps)
-        cuda_launches = counts["select"] if select else counts["launches"]
+        # CUDA launches the counted call made (the select: its chain of steps;
+        # the in-place block: B6's interleave and scan)
+        cuda_launches = (counts["select"] if select else
+                         counts["wide"] if source == "adc_topk_wide.cu" else counts["launches"])
         # one more call, its steps timed on the card
         split = select_split(torch, k_topk, name, launch, cuda_launches) if select else None
         if registers is None and fmt is not None:
-            registers = topk_registers(regs, kname, fmt, 16, 1)
+            registers = topk_registers(regs, kname, fmt, 16, g or 1)
+        extra = {} if g is None else dict(g=g, table_loads=table_loads)
         rows.append(dict(
             name=name, route="cuda", source=f"{SRC_ROOT}/csrc/{source}", replaces=replaces,
             launches=counts["launches"], max_abs_err=0.0, variant=variant,
             ms=cuda_ms(torch, launch, 5), queued_ms=cuda_ms(torch, launch, 5, queued=True),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=cuda_ms(torch, lib, 2),
             library_call=library_call, shape=shape, cuda_launches=cuda_launches, split=split,
-            registers=registers))
+            registers=registers, **extra))
+
+    def loads(count, g=1):  # table load instructions of a call, each 4 * g bytes
+        return dict(count=int(count), bytes=4 * g)
 
     # B8 over the 65,536-entry table, read in place
     table = tables[0].contiguous()
@@ -3028,23 +3044,26 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
     row("adc_scan_gtab", "adc_scan.cu", "src/repro/kernels/adc_scan.py:81",
         "gtab" if k_scan.table_in_place(a, 1, w) else "shared", (got,), (want,), plain_ms,
         lambda: k_scan.launch(table, addrs, out8), n * w * 2 + n * 4 + a * 4, n * w, lib8,
-        "table[addresses].sum(-1) in 4M-row chunks", rows=n, width=w, table_width=a)
+        "table[addresses].sum(-1) in 4M-row chunks", g=1, table_loads=loads(n * w), rows=n,
+        width=w, table_width=a)
     del got, want
 
-    # B6 at Q = 4, k = 10 over the same table (read in place)
+    # B6 at Q = 4, k = 10 over the same table (read in place, G tables a unit)
     plan6 = k_topk.topk_plan([4], [n], K, 1, w, a)
+    g6 = plan6["g"]
     got = counted("adc_topk", lambda: ops.adc_topk_flat(tables, addrs, K, block_n=BLOCK_N))
     inf4 = torch.full((4,), torch.inf, device=dev)
     want, plain_ms = timed_plain(lambda: k_topk.adc_topk_plain(tables, addrs, inf4, K, BLOCK_N))
     ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
     row("adc_topk_gtab", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:702",
         block_variant(k_topk, plan6), got, want, plain_ms,
-        lambda: k_topk.launch_topk(tables, addrs, None, ov, oi, K, BLOCK_N, 1, plan=plan6),
+        lambda: k_topk.launch_topk(tables, addrs, None, ov, oi, K, BLOCK_N, g6, plan=plan6),
         n * w * 2 + tables.numel() * 4 + 4 * K * 8, 4 * n * w,
         lambda: chunked_topk(torch, tables, addr16, n, K, 1 << 20),
         "tables[:, addresses].sum(-1) then torch.topk(largest=False) per 1M-row chunk, "
-        "one more torch.topk over the chunks", fmt=1, queries=4, k=K, rows=n, width=w,
-        table_width=a)
+        "one more torch.topk over the chunks", fmt=1, g=g6,
+        table_loads=loads(-(-4 // g6) * n * w, g6), queries=4, k=K, rows=n, width=w,
+        table_width=a, interleaved_bytes=(-(-4 // g6)) * a * g6 * 4 if g6 > 1 else 0)
     del got, want
 
     # B6 spilled: one raw uint8 table over the index's first DOMAIN_ROWS rows, k = DOMAIN_K
@@ -3127,8 +3146,33 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
         k=DOMAIN_K, valid_rows=valid, table_width=a)
     del got, want
 
+    # B7 at k' = 64 over the same windows and tables: the in-place block
+    kg = 64
+    plan7g = k_topk.topk_plan([1] * p7, [win] * p7, kg, 1, w, a, groups=(1,))
+    got = counted("adc_topk_pairs", lambda: ops.adc_topk_pairs(
+        tab7, win_addrs, n_valid, kg, block_n=BLOCK_N))
+    want, plain_ms = timed_plain(lambda: k_topk.adc_topk_pairs_plain(tab7, win_addrs, n_valid, kg))
+    ov, oi = torch.empty_like(got[0]), torch.empty_like(got[1])
+
+    def lib7g():
+        for s0 in range(0, p7, 4):
+            ad = win_addrs[s0 : s0 + 4].view(torch.int16).long() & 0xFFFF
+            d = tab7[s0 : s0 + 4].gather(1, ad.reshape(ad.shape[0], -1)).reshape(ad.shape)
+            d = torch.where(lane < n_valid[s0 : s0 + 4, None], d.sum(-1), torch.inf)
+            torch.topk(d, kg, dim=1, largest=False)
+
+    row("adc_topk_pairs_gtab", "adc_topk_wide.cu", "src/repro/kernels/adc_topk.py:642",
+        block_variant(k_topk, plan7g), got, want, plain_ms,
+        lambda: k_topk.launch_pairs(tab7, win_addrs, n_valid, ov, oi, kg, BLOCK_N, plan=plan7g),
+        valid * w * 2 + tab7.numel() * 4 + p7 * kg * 8, valid * w, lib7g,
+        "tables.gather(1, windows).sum(-1), rows past n_valid at +inf, then "
+        "torch.topk(k', largest=False), 4 windows at a time", fmt=1, g=plan7g["g"],
+        table_loads=loads(valid * w), pairs=p7, window=win, width=w, k=kg, valid_rows=valid,
+        table_width=a, bound_counts="code bytes, not the table's L2 sectors")
+    del got, want
+
     # B2 / B5 at k' = 64 over the same windows and tables (read in place),
-    # each window a pair of its own query (unpruned): the WIDE block
+    # each window a pair of its own query (unpruned): the in-place block
     codes25 = addrs[: p7 * win].reshape(1, p7 * win, w)
     starts = torch.arange(p7, dtype=torch.int32, device=dev) * win
     own = torch.arange(p7, dtype=torch.int32, device=dev)
@@ -3138,7 +3182,6 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
     tile_pair = torch.repeat_interleave(own, (t1 - t0).long())
     t0, t1, order = k_topk.pair_runs(tile_pair[None], p7)
     filled = torch.nonzero(n_valid > 0).flatten().int()
-    kg = 64
     plan25 = k_topk.scan_plan(kg, a)
     lib25 = scan_library(torch, tab7, own, codes25, starts, n_valid, kg)[0]
     sq = no_b.clone()
@@ -3166,14 +3209,14 @@ def domain_synthetic(torch, ops, k_scan, k_topk, codes_raw, table_raw, dev, regs
                 sq.fill_(torch.inf)
                 k_topk.launch_windows(tab7, own, codes25, filled, starts, n_valid, own, no_lb,
                                       no_b, sq, *outs, stats, kg, BLOCK_N, plan=plan25)
-        row(f"adc_topk_{scan}_gtab", f"adc_topk_{scan}.cu", f"src/repro/kernels/adc_topk.py:{line}",
+        row(f"adc_topk_{scan}_gtab", "adc_topk_wide.cu", f"src/repro/kernels/adc_topk.py:{line}",
             block_variant(k_topk, plan25), got[:2], want[:2], plain_ms, launch25,
             valid * w * 2 + tab7.numel() * 4 + p7 * kg * 8, valid * w, lib25,
             "per window, its valid rows' tables[pair][addresses].sum(-1) then "
             "torch.topk(k', largest=False), windows of like length batched",
-            registers=scan_registers(regs, scan, 1, w, plan=plan25), pairs=p7, window=win,
-            width=w, k=kg, valid_rows=valid, table_width=a,
-            bound_counts="code bytes, not the table's L2 sectors")
+            registers=scan_registers(regs, scan, 1, w, plan=plan25), g=1,
+            table_loads=loads(valid * w), pairs=p7, window=win, width=w, k=kg,
+            valid_rows=valid, table_width=a, bound_counts="code bytes, not the table's L2 sectors")
         del got, want
     return rows
 

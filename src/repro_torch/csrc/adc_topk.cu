@@ -23,8 +23,10 @@
 // reading each code row once for its G tables, and the block that finishes
 // a unit's last run merges the unit's run lists into the output in the same
 // launch.  The wrapper (kernels/adc_topk.py `topk_plan`) picks G from the
-// tables' width, k and the shared memory; k past 4096 or a table that fits
-// beside no list runs the WIDE block of adc_topk_wide.cu instead.  Path: "gather" adds a row's entries in column order,
+// tables' width, k and the shared memory; a table that fits beside no list
+// runs the in-place block of adc_topk_wide.cu (G = 1, 2 or 4 interleaved
+// tables read where they lie) and k past 4096 the select kernels of
+// adc_topk_select.cu instead.  Path: "gather" adds a row's entries in column order,
 // "onehot" (direct addresses) in ascending address order, the reference's
 // multi-hot contraction; the launch's `onehot` flag picks the
 // instantiation.

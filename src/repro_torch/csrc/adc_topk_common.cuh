@@ -3,11 +3,13 @@
 // per-pair windows), the unpruned top-k scans B6 (adc_topk.cu) and B7
 // (adc_topk_pairs.cu), and the plain scan B8 (adc_scan.cu): the row
 // distance for each code format, the skip rule, the shared-memory top-k
-// merge and the query bound `sq`.  B2 and B5 run one block per pair through
-// `scan_pair` and differ only in where a pair's tiles come from; they score
-// and merge a tile's rows through `merge_rows`.  B6 and B7 run the
-// multi-table block of adc_topk_multi.cuh, which merges through the same
-// `merge_candidates`.
+// merge and the query bound `sq`.  B2 and B5's shared-memory blocks run one
+// block per pair through `scan_pair` and differ only in where a pair's
+// tiles come from; they score and merge a tile's rows through `merge_rows`.
+// B6 and B7 run the multi-table block of adc_topk_multi.cuh, which merges
+// through the same `merge_candidates`; so do B2 and B5 with a table read in
+// place (adc_topk_wide.cu: each pair's tiles cut over the grid, the same
+// skip rule against each run's own k-th, `pair_run`).
 //
 // Code formats (template parameters of `scan_pair`):
 //   * uint8_t, OFFSETS = true:  raw PQ codes, the column offset m * 256 is
@@ -47,11 +49,16 @@
 // the table, the list and its merge buffer (4k) and a pass of candidates,
 // 227 KB at most: it runs for k <= 4096 with a table that fits beside them
 // (kernels/adc_topk.py `scan_plan`).  A table too wide to stage at k <=
-// 4096 runs the same `scan_pair` with its WIDE template flag: the table is
-// read where it lies, the rest unchanged, so the results are the same
-// bits.  Past k = 4096 B2 / B5 run the select kernels of
-// adc_topk_select.cu (one pair's tiles cut over many blocks, its k-th key
-// selected, its k winners sorted), under the same contract.
+// 4096 (a uint16 address space of 65,536 entries) runs the in-place block
+// of adc_topk_wide.cu: the pairs become units of the multi-table block,
+// each pair's tiles cut over the whole grid into runs, each run scanning
+// with the rule above against its own list's k-th (never below the pair's,
+// and its rows come before the tile's), so the merged per-query output is
+// the same.  That block is bound by the table's random loads through L1 /
+// L2, not by the code bytes (PERF.md §6).  Past k = 4096 B2 / B5 run the
+// select kernels of adc_topk_select.cu (one pair's tiles cut over many
+// blocks, its k-th key selected, its k winners sorted), under the same
+// contract.
 
 #pragma once
 
@@ -356,12 +363,6 @@ struct TileRef {
   int blk;   // block index of the tile in the device's code array
 };
 
-// Dynamic shared memory of a WIDE scan block (a table read in place): the
-// list and its merge buffer (4k), the candidates.
-inline size_t scan_wide_smem_bytes(int k) {
-  return (4 * static_cast<size_t>(k) + 2 * PASS) * 4;
-}
-
 // One pair's scan, by the whole block: load its table row into shared
 // memory, walk its n_tiles tiles (tile_at(t) -> TileRef, ascending rows),
 // skip, score, merge, tighten sq, and write the pair's (k) outputs and its
@@ -369,10 +370,7 @@ inline size_t scan_wide_smem_bytes(int k) {
 // (cap, W) codes.  Raw codes of a compile-time width address only the
 // first WT * 256 entries, so that many are loaded, a compile-time count
 // that also fixes the shared-memory offsets of the lists behind the table.
-// WIDE: the table is read where it lies (`table_row`) and the lists start
-// the shared memory (`scan_wide_smem_bytes`); the same rows, sums, skips
-// and merges.
-template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool WIDE = false, typename TileAt>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT, typename TileAt>
 __device__ void scan_pair(const float* __restrict__ table_row, int table_width_rt,
                           const CodeT* __restrict__ cdev, int w_rt,
                           int n_tiles, TileAt tile_at, int nv, int qi,
@@ -382,7 +380,7 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
   const int table_width = OFFSETS && WT > 0 ? WT * NCODES : table_width_rt;
   extern __shared__ __align__(16) unsigned char smem[];
   float* table = reinterpret_cast<float*>(smem);
-  float* top_v = WIDE ? table : table + table_width;
+  float* top_v = table + table_width;
   int* top_i = reinterpret_cast<int*>(top_v + k);
   float* nxt_v = reinterpret_cast<float*>(top_i + k);
   int* nxt_i = reinterpret_cast<int*>(nxt_v + k);
@@ -394,10 +392,7 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
 
   const int W = WT > 0 ? WT : w_rt;
   const int tid = threadIdx.x;
-  const float* tab = WIDE ? table_row : table;
-  if constexpr (!WIDE) {
-    for (int i = tid; i < table_width; i += THREADS) table[i] = table_row[i];
-  }
+  for (int i = tid; i < table_width; i += THREADS) table[i] = table_row[i];
   for (int i = tid; i < k; i += THREADS) {
     top_v[i] = CUDART_INF_F;
     top_i[i] = -1;
@@ -423,7 +418,7 @@ __device__ void scan_pair(const float* __restrict__ table_row, int table_width_r
     if (!s_skip) {
       const int n_rows = min(block_n, nv - tr.row0);
       const CodeT* tile = cdev + static_cast<size_t>(tr.blk) * block_n * W;
-      merge_rows<CodeT, OFFSETS, WT, SORT>(tab, tile, W, n_rows, tr.row0, s_qb, top_v,
+      merge_rows<CodeT, OFFSETS, WT, SORT>(table, tile, W, n_rows, tr.row0, s_qb, top_v,
                                      top_i, nxt_v, nxt_i, cand_v, cand_i, &s_ncand, k);
     }
     if (tid == 0) {
@@ -453,29 +448,12 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Blocks of a WIDE launch over n_items pairs: as many as fit on the card
-// at once (a persistent grid), at most n_items.
-template <typename Kernel>
-inline cudaError_t wide_grid(Kernel kernel, size_t smem, int n_items, int* grid) {
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
-      cudaSuccess)
-    return e;
-  long long g = static_cast<long long>(n_sm) * (per_sm > 0 ? per_sm : 1);
-  if (g > n_items) g = n_items;
-  *grid = static_cast<int>(g > 0 ? g : 1);
-  return cudaSuccess;
-}
-
 }  // namespace repro_adc
 
-// The WIDE instantiations of a launcher: compile-time width 16 for raw
-// uint8 codes and uint16 addresses (the main path's widths), a runtime
-// width for the rest; the same sums in the same order at every width.
+// The instantiations of an in-place or select launcher: compile-time width
+// 16 for raw uint8 codes and uint16 addresses (the main path's widths), a
+// runtime width for the rest; the same sums in the same order at every
+// width.
 #define REPRO_ADC_DISPATCH_WIDE(fmt, w, onehot, LAUNCH)                          \
   switch (fmt) {                                                                 \
     case 0:                                                                      \

@@ -58,13 +58,21 @@
 // as LDS.32, 2.91 per entry as LDS.64 and 2.54 per entry as LDS.128, so
 // four tables interleaved cost 0.80x of four scalar lookups.
 //
-// The WIDE block (adc_topk_wide.cu, one table a unit) is this block run on
-// `WideArgs`: the unit's table is read where it lies (`multi_smem_wide`,
-// `stages_tables`).  Every function the shared-memory block runs keeps its
-// code: the WIDE parts are overloads and branches on the arguments' type.
-// Past the lists' k (k > 4096) B6 / B7 (and B2 / B5) run the select
-// kernels of adc_topk_select.cu, which score through `multi_load` /
-// `multi_score`.
+// The in-place block (adc_topk_wide.cu) is this block run on `WideArgs`,
+// for every table too wide to stage at k <= 4096: the unit's tables are
+// read where they lie, through the read-only path (`multi_add` with LDG).
+// B6 / B7 run their units on it at G = 1, 2 or 4 tables a unit: at G = 1
+// from the table row itself, at G > 1 from `WideArgs::ilv`, the units'
+// tables interleaved [A][G] by the launcher's interleave kernel, so one
+// address is one 16-byte load (G = 4) feeding four sums.  B2 / B5 run
+// their pairs on it as G = 1 units (`ScanWideArgs`): a pair's tiles are
+// cut over the grid like any unit's, each run scans its part with the
+// pruning of adc_topk_common.cuh (`pair_run`), the runs' lists merge
+// through `finish_run` and their counters by atomics.  Every function the
+// shared-memory block runs keeps its code: the in-place parts are
+// overloads and branches on the arguments' type.  Past the lists' k (k > 4096) B6 / B7 (and B2 /
+// B5) run the select kernels of adc_topk_select.cu, which score through
+// `multi_load` / `multi_score`.
 
 #pragma once
 
@@ -105,11 +113,56 @@ struct MultiArgs {
   int n_units, n_q, n_rows, w, table_width, k, block_n;
 };
 
-// The WIDE block's arguments (G = 1): gtab reads each unit's table where it
-// lies.
+// The in-place block's arguments: the units of MultiArgs, each unit's G
+// tables read where they lie (G = 1: row q0 of `tables`; G > 1: unit u's
+// [A][G] block of `ilv`), and the units' first tiles `ustart` (the
+// launcher's plan kernel), or null for B6 over one code array, whose unit
+// u starts at tile u * ceil(n_rows / block_n).
 struct WideArgs : MultiArgs {
-  int gtab;
+  const float* ilv;          // (n_units, A, G) interleaved tables, or null at G = 1
+  const long long* ustart;   // (n_units + 1,): the units' first tiles, then T; or null
 };
+
+// B2 / B5's pairs as the in-place block's units (G = 1): unit u is pair
+// order[u], its table row lut_row[pair], its tiles B2's run of the tile
+// queue (pair_t0 / pair_t1 / tile_block / tile_row0, ascending rows) or
+// B5's blocks 0 .. ceil(n_valid / block_n) - 1 of its window from `starts`
+// (the fields of adc_topk_select.cu's ScanSelectArgs), none without a
+// table (`ustart` as WideArgs', always given).  `bound` holds the
+// queries' b0; `counters` (3 n_units int32, zero between calls, left zero)
+// sums a pair's [tiles skipped, rows avoided] over its runs and counts the
+// runs done.
+struct ScanWideArgs : WideArgs {
+  const int* lut_row;     // (P_all,)
+  const int* order;       // (n_units,)
+  const int* pair_t0;     // B2: (P_all,) the pair's tiles [t0, t1) of the queue; null for B5
+  const int* pair_t1;
+  const int* tile_block;  // B2: (ndev * T_queue,)
+  const int* tile_row0;
+  const int* starts;      // B5: (P_all,) the window's first row (block-aligned)
+  const int* pair_nv;     // (P_all,) valid rows
+  const int* pair_q;      // (P_all,)
+  const float* pair_lb;   // (P_all,)
+  float* sq;              // (Q,) the queries' shared bound
+  int* stats;             // (P_all, 2) [tiles skipped, rows avoided]
+  int* counters;          // (n_units, 3)
+  long long cap;          // code rows a device
+  int pairs_per_dev;
+};
+
+template <typename Args>
+constexpr bool kInPlace = std::is_base_of<WideArgs, Args>::value;
+template <typename Args>
+constexpr bool kPairUnits = std::is_same<Args, ScanWideArgs>::value;
+
+// Tiles of B2 / B5's unit u: its pair's run of the tile queue or its
+// window's blocks, none without a table (the select's `unit_tiles`).
+__device__ __forceinline__ long long pair_tiles(const ScanWideArgs& a, int u) {
+  const int p = __ldg(a.order + u);
+  if (__ldg(a.lut_row + p) < 0) return 0;
+  if (a.pair_t0 != nullptr) return max(__ldg(a.pair_t1 + p) - __ldg(a.pair_t0 + p), 0);
+  return (max(__ldg(a.pair_nv + p), 0) + a.block_n - 1) / a.block_n;
+}
 
 struct Unit {
   long long row0;
@@ -139,18 +192,18 @@ __host__ __device__ __forceinline__ int multi_table_width(int table_width, int w
 }
 
 // Dynamic shared memory of a block: G tables, G top-k lists and one merge
-// buffer (k), one pass of candidates (PASS = 1024 at most).  The WIDE
-// block leaves out the tables under gtab.
-inline size_t multi_smem_bytes(int g, int a_used, int k, bool gtab = false) {
-  return (static_cast<size_t>(gtab ? 0 : g) * a_used + 2 * static_cast<size_t>(g) * k + 2 * k +
-          2 * PASS) * 4;
+// buffer (k), one pass of candidates (PASS = 1024 at most).  The in-place
+// block leaves out the tables (`in_place`).
+inline size_t multi_smem_bytes(int g, int a_used, int k, bool in_place = false) {
+  return (static_cast<size_t>(in_place ? 0 : g) * a_used + 2 * static_cast<size_t>(g) * k +
+          2 * k + 2 * PASS) * 4;
 }
 
 inline size_t args_smem_bytes(const MultiArgs& a, int g, int a_used) {
   return multi_smem_bytes(g, a_used, a.k);
 }
 inline size_t args_smem_bytes(const WideArgs& a, int g, int a_used) {
-  return multi_smem_bytes(g, a_used, a.k, a.gtab);
+  return multi_smem_bytes(g, a_used, a.k, true);
 }
 
 // Exclusive prefix sum of v over the block (and the total), `red` holding
@@ -306,17 +359,12 @@ __device__ __forceinline__ MultiSmem multi_smem(unsigned char* smem, int a_used,
   return s;
 }
 
-// The WIDE block's layout (`multi_smem_bytes` with gtab): no table under
-// gtab (the scan reads each unit's table row where it lies).
+// The in-place block's layout (`multi_smem_bytes` in place): no table.
 template <int G>
-__device__ __forceinline__ MultiSmem multi_smem_wide(unsigned char* smem, const WideArgs& a,
-                                                     int a_used) {
-  const int k = a.k;
+__device__ __forceinline__ MultiSmem multi_smem_wide(unsigned char* smem, int k) {
   MultiSmem s;
-  float* p = reinterpret_cast<float*>(smem);
-  s.table = a.gtab ? nullptr : p;
-  p += a.gtab ? 0 : static_cast<size_t>(G) * a_used;
-  s.top_v = p;
+  s.table = nullptr;
+  s.top_v = reinterpret_cast<float*>(smem);
   s.top_i = reinterpret_cast<int*>(s.top_v + G * k);
   s.nxt_v = reinterpret_cast<float*>(s.top_i + G * k);
   s.nxt_i = reinterpret_cast<int*>(s.nxt_v + k);
@@ -325,26 +373,26 @@ __device__ __forceinline__ MultiSmem multi_smem_wide(unsigned char* smem, const 
   return s;
 }
 
-template <int G>
-__device__ __forceinline__ MultiSmem smem_layout(unsigned char* smem, const MultiArgs& a,
-                                                 int a_used) {
-  return multi_smem<G>(smem, a_used, a.k);
-}
-template <int G>
-__device__ __forceinline__ MultiSmem smem_layout(unsigned char* smem, const WideArgs& a,
-                                                 int a_used) {
-  return multi_smem_wide<G>(smem, a, a_used);
-}
 
-// Whether a run stages its unit's tables in shared memory: always, but for
-// the WIDE block under gtab.
-__device__ __forceinline__ constexpr bool stages_tables(const MultiArgs&) { return true; }
-__device__ __forceinline__ bool stages_tables(const WideArgs& a) { return !a.gtab; }
-
-// The G entries of address `addr` added to the G sums.
-template <int G>
+// The G entries of address `addr` added to the G sums.  LDG: the table
+// lies in device memory, interleaved by G; its G entries are one vector
+// load through the read-only path (16 bytes for G = 4, 8 for G = 2).
+template <int G, bool LDG = false>
 __device__ __forceinline__ void multi_add(const float* table, uint32_t addr, float (&d)[G]) {
-  if constexpr (G == 4) {
+  if constexpr (LDG && G == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(table) + addr);
+    d[0] = __fadd_rn(d[0], v.x);
+    d[1] = __fadd_rn(d[1], v.y);
+    d[2] = __fadd_rn(d[2], v.z);
+    d[3] = __fadd_rn(d[3], v.w);
+  } else if constexpr (LDG && G == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(table) + addr);
+    d[0] = __fadd_rn(d[0], v.x);
+    d[1] = __fadd_rn(d[1], v.y);
+  } else if constexpr (LDG) {
+    static_assert(G == 1, "the in-place block interleaves 1, 2 or 4 tables");
+    d[0] = __fadd_rn(d[0], __ldg(table + addr));
+  } else if constexpr (G == 4) {
     const float4 v = reinterpret_cast<const float4*>(table)[addr];
     d[0] = __fadd_rn(d[0], v.x);
     d[1] = __fadd_rn(d[1], v.y);
@@ -398,8 +446,8 @@ __device__ __forceinline__ void multi_load(const CodeT* __restrict__ codes, int 
 // column order (SORT = false) or in ascending address order (SORT: the
 // row's addresses sorted once for all G).  A compile-time width scores the
 // words `multi_load` read; a runtime width (WT = 0) reads its codes here,
-// element by element.
-template <typename CodeT, bool OFFSETS, int WT, int G, int R, bool SORT>
+// element by element.  LDG: the table lies in device memory (`multi_add`).
+template <typename CodeT, bool OFFSETS, int WT, int G, int R, bool SORT, bool LDG = false>
 __device__ __forceinline__ void multi_score(const float* table, const CodeT* __restrict__ codes,
                                             int w_rt, int lo, int hi,
                                             const uint32_t (&wd)[R][row_words<CodeT, WT>()],
@@ -416,20 +464,21 @@ __device__ __forceinline__ void multi_score(const float* table, const CodeT* __r
       for (int m = 0; m < WT; ++m) a[m] = word_elem<CodeT>(wd[j], m);
       sort_network<WT>(a);
 #pragma unroll
-      for (int m = 0; m < WT; ++m) multi_add<G>(table, a[m], d[j]);
+      for (int m = 0; m < WT; ++m) multi_add<G, LDG>(table, a[m], d[j]);
     } else if constexpr (WT > 0) {
 #pragma unroll
       for (int m = 0; m < WT; ++m)
-        multi_add<G>(table, addr_of<OFFSETS>(word_elem<CodeT>(wd[j], m), m), d[j]);
+        multi_add<G, LDG>(table, addr_of<OFFSETS>(word_elem<CodeT>(wd[j], m), m), d[j]);
     } else if (i < hi) {
       const CodeT* row = codes + static_cast<size_t>(i) * w_rt;
       if constexpr (SORT) {
         uint32_t la = 0;
         int lc = -1;
-        for (int s = 0; s < w_rt; ++s) multi_add<G>(table, next_address(row, w_rt, la, lc), d[j]);
+        for (int s = 0; s < w_rt; ++s)
+          multi_add<G, LDG>(table, next_address(row, w_rt, la, lc), d[j]);
       } else {
         for (int m = 0; m < w_rt; ++m)
-          multi_add<G>(table, addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m), d[j]);
+          multi_add<G, LDG>(table, addr_of<OFFSETS>(static_cast<uint32_t>(row[m]), m), d[j]);
       }
     }
     if (i >= hi) {
@@ -440,12 +489,12 @@ __device__ __forceinline__ void multi_score(const float* table, const CodeT* __r
 }
 
 // One pass without prefetch: load, then score.
-template <typename CodeT, bool OFFSETS, int WT, int G, int R, bool SORT>
+template <typename CodeT, bool OFFSETS, int WT, int G, int R, bool SORT, bool LDG = false>
 __device__ __forceinline__ void multi_pass(const float* table, const CodeT* __restrict__ codes,
                                            int w_rt, int lo, int hi, float (&d)[R][G]) {
   uint32_t wd[R][row_words<CodeT, WT>()];
   if constexpr (WT > 0) multi_load<CodeT, WT, R>(codes, lo, hi, wd);
-  multi_score<CodeT, OFFSETS, WT, G, R, SORT>(table, codes, w_rt, lo, hi, wd, d);
+  multi_score<CodeT, OFFSETS, WT, G, R, SORT, LDG>(table, codes, w_rt, lo, hi, wd, d);
 }
 
 // Smallest of each of the G values over the block, to every thread
@@ -563,19 +612,20 @@ __device__ __forceinline__ void multi_collect(const MultiSmem& s, const float (&
 }
 
 // Scan tiles [ta, tz) of unit `un` into the block's G lists (ascending by
-// (distance, row), rows numbered from the unit's row0).  The WIDE block
-// under gtab passes s.table pointing at the unit's table row itself.
+// (distance, row), rows numbered from the unit's row0).  The in-place
+// block passes s.table pointing at the unit's tables in device memory.
 template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT, typename Args>
 __device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long long ta,
                          long long tz, int* s_ncand, float* s_red, float* s_bound) {
   constexpr int R = multi_rows<CodeT, WT>();
   constexpr int P = R * THREADS;
+  constexpr bool LDG = kInPlace<Args>;
   const int tid = threadIdx.x;
   const int k = a.k, bn = a.block_n;
   const int W = WT > 0 ? WT : a.w;
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
   __syncthreads();  // the previous run's readers of the tables and lists are done
-  if (stages_tables(a)) {
+  if constexpr (!LDG) {
     const float* t0 = a.tables + static_cast<size_t>(un.q0) * a.table_width;
 #pragma unroll 4
     for (int e = tid; e < a_used; e += THREADS) {
@@ -616,7 +666,7 @@ __device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long
         multi_load<CodeT, WT, R>(codes, min(lo + P, r1), r1, nxt);
 #pragma unroll
         for (int g = 0; g < G; ++g) kth[g] = s.top_v[g * k + k - 1];
-        multi_score<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, r1), cur, d);
+        multi_score<CodeT, OFFSETS, WT, G, R, SORT, LDG>(s.table, codes, W, lo, min(lo + P, r1), cur, d);
         multi_collect<G, R>(s, d, kth, live, lo, k, s_ncand, s_red);
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -628,7 +678,7 @@ __device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long
       for (int lo = r0; lo < r1; lo += P) {
 #pragma unroll
         for (int g = 0; g < G; ++g) kth[g] = s.top_v[g * k + k - 1];
-        multi_pass<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, r1), d);
+        multi_pass<CodeT, OFFSETS, WT, G, R, SORT, LDG>(s.table, codes, W, lo, min(lo + P, r1), d);
         multi_collect<G, R>(s, d, kth, live, lo, k, s_ncand, s_red);
       }
     }
@@ -642,7 +692,7 @@ __device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long
 #pragma unroll
       for (int g = 0; g < G; ++g) mn[g] = CUDART_INF_F;
       for (int lo = t0; lo < t1; lo += P) {
-        multi_pass<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, t1), d);
+        multi_pass<CodeT, OFFSETS, WT, G, R, SORT, LDG>(s.table, codes, W, lo, min(lo + P, t1), d);
 #pragma unroll
         for (int j = 0; j < R; ++j) {
 #pragma unroll
@@ -656,7 +706,7 @@ __device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long
     for (int lo = t0; lo < t1; lo += P) {
 #pragma unroll
       for (int g = 0; g < G; ++g) kth[g] = s.top_v[g * k + k - 1];
-      multi_pass<CodeT, OFFSETS, WT, G, R, SORT>(s.table, codes, W, lo, min(lo + P, t1), d);
+      multi_pass<CodeT, OFFSETS, WT, G, R, SORT, LDG>(s.table, codes, W, lo, min(lo + P, t1), d);
       if (t1 - t0 <= P) {  // one pass: the tile's minimum from the same sums
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -669,6 +719,121 @@ __device__ void scan_run(const Args& a, const MultiSmem& s, const Unit& un, long
         for (int g = 0; g < G; ++g) keep[g] = live[g] && mn[g] <= s_bound[g];
       }
       multi_collect<G, R>(s, d, kth, keep, lo, k, s_ncand, s_red);
+    }
+  }
+}
+
+// B2 / B5's pair, unit u, over its tiles [ta, tz) (ascending rows) into the
+// block's list, with the pruning of adc_topk_common.cuh: a tile is skipped
+// iff lb >= this run's k-th or lb > min(b0, sq[q]) (and counted), a row
+// kept only if d < k-th and d <= that bound, and sq[q] tightened by
+// atomicMin from a full list after each tile.  A run's k-th over part of
+// the pair's rows is never below the pair's, and the rows of its list come
+// before the tile's, so whatever it drops lies strictly beyond the query's
+// final k-th, as in the shared-memory block.  The run's counters are
+// added to the unit's `counters`; the last of its n_runs runs to add (a
+// ticket after __threadfence) writes their sums to `stats` and resets them.
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
+__device__ void pair_run(const ScanWideArgs& a, const MultiSmem& s, int u, long long ta,
+                         long long tz, int n_runs, int* s_ncand, float* s_red) {
+  constexpr int R = multi_rows<CodeT, WT>();
+  constexpr int P = R * THREADS;
+  constexpr int NW = row_words<CodeT, WT>();
+  __shared__ int s_skip;
+  __shared__ float s_qb;
+  const int tid = threadIdx.x;
+  const int k = a.k, bn = a.block_n;
+  const int W = WT > 0 ? WT : a.w;
+  const int pair = __ldg(a.order + u);
+  const int qi = __ldg(a.pair_q + pair);
+  const float lb = __ldg(a.pair_lb + pair), b0 = __ldg(a.bound + qi);
+  const int nv = __ldg(a.pair_nv + pair);
+  const float* table = a.tables + static_cast<size_t>(__ldg(a.lut_row + pair)) * a.table_width;
+  const CodeT* cdev =
+      static_cast<const CodeT*>(a.codes) + static_cast<size_t>(pair / a.pairs_per_dev) * a.cap * W;
+  __syncthreads();  // the previous run's readers of the list are done
+  for (int i = tid; i < k; i += THREADS) {
+    s.top_v[i] = CUDART_INF_F;
+    s.top_i[i] = -1;
+  }
+  int n_skip = 0, n_avoid = 0;
+  __syncthreads();
+  const bool live[1] = {true};
+  float d[R][1];
+  float kth[1];
+  for (long long t = ta; t < tz; ++t) {
+    int row0;
+    long long blk;
+    if (a.pair_t0 != nullptr) {
+      const long long q = __ldg(a.pair_t0 + pair) + t;
+      row0 = __ldg(a.tile_row0 + q);
+      blk = __ldg(a.tile_block + q);
+    } else {
+      row0 = static_cast<int>(t * bn);
+      blk = __ldg(a.starts + pair) / bn + t;
+    }
+    if (tid == 0) {
+      const float qb = fminf(b0, __ldcg(a.sq + qi));
+      const int skip = (lb >= s.top_v[k - 1]) || (lb > qb);
+      if (skip) {
+        const int rows = min(max(nv - row0, 0), bn);
+        n_skip += rows > 0;
+        n_avoid += rows;
+      }
+      s_skip = skip;
+      s_qb = qb;
+    }
+    __syncthreads();
+    if (!s_skip) {
+      const int n = min(bn, nv - row0);
+      const float qb = s_qb;
+      const CodeT* c = cdev + static_cast<size_t>(blk) * bn * W;
+      // a row above the bound is no candidate: +inf is never below the k-th
+      auto collect = [&](int lo) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) d[j][0] = d[j][0] <= qb ? d[j][0] : CUDART_INF_F;
+        multi_collect<1, R>(s, d, kth, live, row0 + lo, k, s_ncand, s_red);
+      };
+      if constexpr (WT > 0) {
+        // the next pass's codes load while this pass is scored
+        uint32_t cur[R][NW], nxt[R][NW];
+        multi_load<CodeT, WT, R>(c, 0, n, cur);
+        for (int lo = 0; lo < n; lo += P) {
+          multi_load<CodeT, WT, R>(c, min(lo + P, n), n, nxt);
+          kth[0] = s.top_v[k - 1];
+          multi_score<CodeT, OFFSETS, WT, 1, R, SORT, true>(table, c, W, lo, min(lo + P, n), cur,
+                                                            d);
+          collect(lo);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+#pragma unroll
+            for (int q = 0; q < NW; ++q) cur[j][q] = nxt[j][q];
+          }
+        }
+      } else {
+        for (int lo = 0; lo < n; lo += P) {
+          kth[0] = s.top_v[k - 1];
+          multi_pass<CodeT, OFFSETS, WT, 1, R, SORT, true>(table, c, W, lo, min(lo + P, n), d);
+          collect(lo);
+        }
+      }
+    }
+    if (tid == 0) {
+      const float kf = s.top_v[k - 1];
+      if (kf < CUDART_INF_F) atomicMin(reinterpret_cast<int*>(a.sq + qi), __float_as_int(kf));
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    int* c = a.counters + 3 * static_cast<size_t>(u);  // skipped, avoided, runs done
+    if (n_skip) atomicAdd(c, n_skip);
+    if (n_avoid) atomicAdd(c + 1, n_avoid);
+    __threadfence();
+    if (atomicAdd(c + 2, 1) == n_runs - 1) {
+      __threadfence();
+      a.stats[2 * static_cast<size_t>(pair)] = atomicExch(c, 0);
+      a.stats[2 * static_cast<size_t>(pair) + 1] = atomicExch(c + 1, 0);
+      c[2] = 0;
     }
   }
 }
@@ -805,7 +970,7 @@ __device__ void topk_multi(const Args& a) {
   __shared__ int s_ncand, s_last;
   const int tid = threadIdx.x;
   const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
-  const MultiSmem s = smem_layout<G>(smem, a, a_used);
+  const MultiSmem s = multi_smem<G>(smem, a_used, a.k);
   const long long bn = a.block_n;
 
   long long part = 0;
@@ -834,21 +999,77 @@ __device__ void topk_multi(const Args& a) {
       if (count == 0 || start + count <= tb) continue;
       const Unit un = unit_at<G>(a, c0 + j);
       const long long ta = max(tb, start) - start, tz = min(te, start + count) - start;
-      if constexpr (std::is_same<Args, WideArgs>::value) {
-        static_assert(G == 1, "the WIDE block scans one table a unit");
-        MultiSmem su = s;
-        if (a.gtab)  // read in place, never written: staging is skipped
-          su.table = const_cast<float*>(a.tables + static_cast<size_t>(un.q0) * a.table_width);
-        scan_run<CodeT, OFFSETS, WT, G, SORT>(a, su, un, ta, tz, &s_ncand, s_red, s_bound);
-      } else {
-        scan_run<CodeT, OFFSETS, WT, G, SORT>(a, s, un, ta, tz, &s_ncand, s_red, s_bound);
-      }
+      scan_run<CodeT, OFFSETS, WT, G, SORT>(a, s, un, ta, tz, &s_ncand, s_red, s_bound);
       const long long first = ((start + 1) * nb - 1) / T;
       const long long last = ((start + count) * nb - 1) / T;
       finish_run<G>(a, s, un, c0 + j, first, last, &s_ncand, &s_last);
     }
     base += chunk;
     __syncthreads();
+  }
+}
+
+// Tiles of in-place unit u, as the launcher's plan kernel counts them:
+// B6 / B7's rows cut at block_n, B2 / B5's `pair_tiles`.
+__device__ __forceinline__ long long inplace_tiles(const WideArgs& a, int u) {
+  return (unit_at<1>(a, u).n_rows + a.block_n - 1) / a.block_n;
+}
+__device__ __forceinline__ long long inplace_tiles(const ScanWideArgs& a, int u) {
+  return pair_tiles(a, u);
+}
+
+// The in-place block's whole work (B6 / B7's units of G tables, B2 / B5's
+// pairs): tiles [b * T / nb, (b + 1) * T / nb) of the units' T tiles, its
+// first unit found by a binary search of `ustart` (B6 over one code array:
+// unit u starts at tile u * ceil(n_rows / block_n)), and the run of every
+// unit they cover, as `topk_multi` cuts the shared block's units (and the
+// select kernels theirs), finished through the same ticket tree.  A block
+// reads O(log units) starts where `topk_multi` totals every unit's tiles
+// in every block.
+template <typename CodeT, bool OFFSETS, int WT, int G, bool SORT, typename Args>
+__device__ void topk_inplace(const Args& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_red[THREADS / 32 * G];
+  __shared__ float s_bound[G];
+  __shared__ int s_ncand, s_last;
+  const MultiSmem s = multi_smem_wide<G>(smem, a.k);
+  const int a_used = multi_table_width<OFFSETS, WT>(a.table_width, a.w);
+  const long long per = (static_cast<long long>(a.n_rows) + a.block_n - 1) / a.block_n;
+  auto first_tile = [&](int u) {
+    return a.ustart != nullptr ? __ldg(a.ustart + u) : u * per;
+  };
+  const long long T = first_tile(a.n_units);
+  const long long nb = min(static_cast<long long>(gridDim.x), T);
+  const long long b = blockIdx.x;
+  if (b >= nb) return;
+  const long long tb = b * T / nb, te = (b + 1) * T / nb;
+  int lo = 0, hi = a.n_units;  // the unit of tile tb: the last u starting at or before it
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (first_tile(mid) <= tb) lo = mid; else hi = mid;
+  }
+  for (int u = lo; u < a.n_units; ++u) {
+    const long long start = first_tile(u);
+    if (start >= te) break;
+    const long long count = first_tile(u + 1) - start;
+    if (count == 0) continue;
+    const long long ta = max(tb, start) - start, tz = min(te, start + count) - start;
+    const long long first = ((start + 1) * nb - 1) / T;
+    const long long last = ((start + count) * nb - 1) / T;
+    if constexpr (kPairUnits<Args>) {
+      static_assert(G == 1, "B2 / B5's pairs are units of one table");
+      pair_run<CodeT, OFFSETS, WT, SORT>(a, s, u, ta, tz, static_cast<int>(last - first + 1),
+                                         &s_ncand, s_red);
+      const Unit un{0, 0, __ldg(a.order + u), 1};  // the pair's output row
+      finish_run<1>(a, s, un, u, first, last, &s_ncand, &s_last);
+    } else {
+      const Unit un = unit_at<G>(a, u);
+      MultiSmem su = s;  // the unit's tables where they lie, never written
+      su.table = const_cast<float*>(G == 1 ? a.tables + static_cast<size_t>(un.q0) * a.table_width
+                                           : a.ilv + static_cast<size_t>(u) * a_used * G);
+      scan_run<CodeT, OFFSETS, WT, G, SORT>(a, su, un, ta, tz, &s_ncand, s_red, s_bound);
+      finish_run<G>(a, s, un, u, first, last, &s_ncand, &s_last);
+    }
   }
 }
 
@@ -871,8 +1092,8 @@ inline int launch_multi_kernel(Kernel kernel, const Args& a, int g, int n_blocks
 }
 
 template <typename Kernel>
-inline int multi_blocks_per_sm(Kernel kernel, int g, int a_used, int k, bool gtab = false) {
-  const size_t smem = multi_smem_bytes(g, a_used, k, gtab);
+inline int multi_blocks_per_sm(Kernel kernel, int g, int a_used, int k, bool in_place = false) {
+  const size_t smem = multi_smem_bytes(g, a_used, k, in_place);
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int n = 0;

@@ -29,11 +29,14 @@
 // contraction (`adc_row`'s SORT, adc_topk_common.cuh); the launch's
 // `onehot` flag picks the instantiation.
 //
-// A table too wide for shared memory (k <= 4096) runs the WIDE
-// instantiation (adc_topk_common.cuh): a persistent grid walks the pairs in
-// the same order, each reading its table where it lies.  Past k = 4096 the
-// wrapper runs the select kernels of adc_topk_select.cu instead
-// (kernels/adc_topk.py `scan_plan`).
+// A table too wide for shared memory (k <= 4096: a uint16 address space of
+// 65,536 entries) runs the in-place block of adc_topk_wide.cu instead: the
+// pairs become units of the multi-table block, each pair's tiles cut over
+// the whole grid (one block a pair would leave a few long pairs on a few
+// of the card's blocks), each run skipping against its own list's k-th,
+// the runs' lists merged by its ticket tree.  Past k = 4096 the wrapper runs
+// the select kernels of adc_topk_select.cu (kernels/adc_topk.py
+// `scan_plan` picks the block).
 //
 // The per-pair tails past the k-th and the (P, 2) skip counters depend on
 // the launch order and differ from the TPU's; the merged per-query output
@@ -57,7 +60,7 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool WIDE>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 __global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT, SORT>())
 adc_topk_tiles_kernel(const float* __restrict__ tables,     // (R, A)
                       const int* __restrict__ lut_row,      // (P_all,)
@@ -89,23 +92,16 @@ adc_topk_tiles_kernel(const float* __restrict__ tables,     // (R, A)
     auto tile_at = [&](int t) {
       return TileRef{tile_row0[t0 + t], tile_block[t0 + t]};
     };
-    scan_pair<CodeT, OFFSETS, WT, SORT, WIDE>(
+    scan_pair<CodeT, OFFSETS, WT, SORT>(
         tables + static_cast<size_t>(row) * table_width, table_width, cdev, W,
         t1 - t0, tile_at, n_valid[pair], qi, pair_lb[pair], bound[qi], sq, k,
         block_n, out_v + static_cast<size_t>(pair) * k,
         out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair));
   };
-  if constexpr (!WIDE) {
-    run(blockIdx.x);
-  } else {  // a persistent grid over the pairs
-    for (int j = blockIdx.x; j < n_pairs; j += gridDim.x) {
-      run(j);
-      __syncthreads();
-    }
-  }
+  run(blockIdx.x);
 }
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool WIDE>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int launch(const float* tables, const int* lut_row, const void* codes,
            const int* order, const int* t0, const int* t1, const int* tile_block,
            const int* tile_row0, const int* n_valid, const int* pair_q,
@@ -113,16 +109,11 @@ int launch(const float* tables, const int* lut_row, const void* codes,
            int* out_i, int* stats, int n_pairs, int pairs_per_dev,
            long long cap, int w, int table_width, int k, int block_n,
            cudaStream_t stream) {
-  auto kernel = adc_topk_tiles_kernel<CodeT, OFFSETS, WT, SORT, WIDE>;
-  const size_t smem = WIDE ? scan_wide_smem_bytes(k) : scan_smem_bytes(table_width, k);
+  auto kernel = adc_topk_tiles_kernel<CodeT, OFFSETS, WT, SORT>;
+  const size_t smem = scan_smem_bytes(table_width, k);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int grid = n_pairs;
-  if constexpr (WIDE) {
-    if ((e = wide_grid(kernel, smem, n_pairs, &grid)) != cudaSuccess)
-      return static_cast<int>(e);
-  }
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<n_pairs, THREADS, smem, stream>>>(
       tables, lut_row, static_cast<const CodeT*>(codes), order, t0, t1,
       tile_block, tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v,
       out_i, stats, n_pairs, pairs_per_dev, cap, w, table_width, k, block_n);
@@ -133,9 +124,8 @@ int launch(const float* tables, const int* lut_row, const void* codes,
 
 // code_fmt: 0 = uint8 raw codes (+ column offsets), 1 = uint16 direct
 // addresses, 2 = int32 direct addresses; onehot: nonzero for the onehot
-// path.  gtab nonzero: the WIDE block (the table read in place; k <= 4096),
-// else the shared-memory block, one per pair.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// path.  The shared-memory block, one per pair.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int adc_topk_tiles_launch(
     const void* tables, const void* lut_row, const void* codes,
     const void* pair_order, const void* pair_t0, const void* pair_t1,
@@ -143,7 +133,7 @@ extern "C" int adc_topk_tiles_launch(
     const void* pair_q, const void* pair_lb, const void* bound, void* sq,
     void* out_v, void* out_i, void* stats, int n_pairs, int pairs_per_dev,
     long long cap, int w, int table_width, int code_fmt, int onehot, int k,
-    int block_n, int gtab, void* stream) {
+    int block_n, void* stream) {
   if (n_pairs <= 0) return 0;
 #define REPRO_TILES_ARGS                                                        \
       static_cast<const float*>(tables), static_cast<const int*>(lut_row),    \
@@ -156,15 +146,8 @@ extern "C" int adc_topk_tiles_launch(
       static_cast<int*>(out_i), static_cast<int*>(stats), n_pairs,            \
       pairs_per_dev, cap, w, table_width, k, block_n,                         \
       static_cast<cudaStream_t>(stream)
-#define REPRO_TILES_LAUNCH(CodeT, OFF, WT, SORT) \
-  launch<CodeT, OFF, WT, SORT, false>(REPRO_TILES_ARGS)
-#define REPRO_TILES_WIDE(CodeT, OFF, WT, SORT) \
-  launch<CodeT, OFF, WT, SORT, true>(REPRO_TILES_ARGS)
-  if (gtab) {
-    REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_TILES_WIDE)
-  }
+#define REPRO_TILES_LAUNCH(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT>(REPRO_TILES_ARGS)
   REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_TILES_LAUNCH)
-#undef REPRO_TILES_WIDE
 #undef REPRO_TILES_LAUNCH
 #undef REPRO_TILES_ARGS
 }

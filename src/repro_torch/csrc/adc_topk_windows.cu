@@ -20,8 +20,9 @@
 // offsets or uint16 / int32 direct addresses.  The wrapper launches the
 // filled pairs best-first (ascending lower bound), so `sq` tightens early;
 // the merged per-query output does not depend on the order; a table too
-// wide for shared memory runs the WIDE instantiation and k past 4096 the
-// select kernels, as B2's do.  Path: as B2
+// wide for shared memory runs the in-place block of adc_topk_wide.cu (each
+// pair's window tiles cut over the grid) and k past 4096 the select
+// kernels, as B2's do.  Path: as B2
 // ("gather" column order, "onehot" ascending address order, `onehot`).
 //
 // What bounds it on an H100: as B2, not bytes but the shared memory's
@@ -35,7 +36,7 @@ namespace {
 
 using namespace repro_adc;
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool WIDE>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 __global__ void __launch_bounds__(THREADS, scan_min_blocks<CodeT, SORT>())
 adc_topk_windows_kernel(const float* __restrict__ tables,     // (R, A)
                         const int* __restrict__ lut_row,      // (P_all,)
@@ -62,39 +63,27 @@ adc_topk_windows_kernel(const float* __restrict__ tables,     // (R, A)
     const int start_blk = starts[pair] / block_n;  // slots are block-aligned
     const CodeT* cdev = codes + static_cast<size_t>(pair / pairs_per_dev) * cap * W;
     auto tile_at = [&](int t) { return TileRef{t * block_n, start_blk + t}; };
-    scan_pair<CodeT, OFFSETS, WT, SORT, WIDE>(
+    scan_pair<CodeT, OFFSETS, WT, SORT>(
         tables + static_cast<size_t>(row) * table_width, table_width, cdev, W,
         (nv + block_n - 1) / block_n, tile_at, nv, qi, pair_lb[pair], bound[qi],
         sq, k, block_n, out_v + static_cast<size_t>(pair) * k,
         out_i + static_cast<size_t>(pair) * k, stats + 2 * static_cast<size_t>(pair));
   };
-  if constexpr (!WIDE) {
-    run(blockIdx.x);
-  } else {  // a persistent grid over the pairs
-    for (int j = blockIdx.x; j < n_blocks; j += gridDim.x) {
-      run(j);
-      __syncthreads();
-    }
-  }
+  run(blockIdx.x);
 }
 
-template <typename CodeT, bool OFFSETS, int WT, bool SORT, bool WIDE>
+template <typename CodeT, bool OFFSETS, int WT, bool SORT>
 int launch(const float* tables, const int* lut_row, const void* codes,
            const int* order, const int* starts, const int* n_valid,
            const int* pair_q, const float* pair_lb, const float* bound,
            float* sq, float* out_v, int* out_i, int* stats, int n_blocks,
            int pairs_per_dev, long long cap, int w, int table_width, int k,
            int block_n, cudaStream_t stream) {
-  auto kernel = adc_topk_windows_kernel<CodeT, OFFSETS, WT, SORT, WIDE>;
-  const size_t smem = WIDE ? scan_wide_smem_bytes(k) : scan_smem_bytes(table_width, k);
+  auto kernel = adc_topk_windows_kernel<CodeT, OFFSETS, WT, SORT>;
+  const size_t smem = scan_smem_bytes(table_width, k);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int grid = n_blocks;
-  if constexpr (WIDE) {
-    if ((e = wide_grid(kernel, smem, n_blocks, &grid)) != cudaSuccess)
-      return static_cast<int>(e);
-  }
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<n_blocks, THREADS, smem, stream>>>(
       tables, lut_row, static_cast<const CodeT*>(codes), order, starts, n_valid,
       pair_q, pair_lb, bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
       table_width, k, block_n);
@@ -103,15 +92,16 @@ int launch(const float* tables, const int* lut_row, const void* codes,
 
 }  // namespace
 
-// n_blocks: number of entries of pair_order (the filled pairs).  code_fmt,
-// onehot and gtab as adc_topk_tiles_launch.  Returns cudaGetLastError() after the launch.
+// n_blocks: number of entries of pair_order (the filled pairs).  code_fmt
+// and onehot as adc_topk_tiles_launch.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int adc_topk_windows_launch(
     const void* tables, const void* lut_row, const void* codes,
     const void* pair_order, const void* starts, const void* n_valid,
     const void* pair_q, const void* pair_lb, const void* bound, void* sq,
     void* out_v, void* out_i, void* stats, int n_blocks, int pairs_per_dev,
     long long cap, int w, int table_width, int code_fmt, int onehot, int k,
-    int block_n, int gtab, void* stream) {
+    int block_n, void* stream) {
   if (n_blocks <= 0) return 0;
 #define REPRO_WINDOWS_ARGS                                                   \
       static_cast<const float*>(tables), static_cast<const int*>(lut_row),   \
@@ -122,15 +112,8 @@ extern "C" int adc_topk_windows_launch(
       static_cast<float*>(out_v), static_cast<int*>(out_i),                  \
       static_cast<int*>(stats), n_blocks, pairs_per_dev, cap, w, table_width, \
       k, block_n, static_cast<cudaStream_t>(stream)
-#define REPRO_WINDOWS_LAUNCH(CodeT, OFF, WT, SORT) \
-  launch<CodeT, OFF, WT, SORT, false>(REPRO_WINDOWS_ARGS)
-#define REPRO_WINDOWS_WIDE(CodeT, OFF, WT, SORT) \
-  launch<CodeT, OFF, WT, SORT, true>(REPRO_WINDOWS_ARGS)
-  if (gtab) {
-    REPRO_ADC_DISPATCH_WIDE(code_fmt, w, onehot, REPRO_WINDOWS_WIDE)
-  }
+#define REPRO_WINDOWS_LAUNCH(CodeT, OFF, WT, SORT) launch<CodeT, OFF, WT, SORT>(REPRO_WINDOWS_ARGS)
   REPRO_ADC_DISPATCH(code_fmt, w, onehot, REPRO_WINDOWS_LAUNCH)
-#undef REPRO_WINDOWS_WIDE
 #undef REPRO_WINDOWS_LAUNCH
 #undef REPRO_WINDOWS_ARGS
 }

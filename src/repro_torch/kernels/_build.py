@@ -52,12 +52,12 @@ SIGNATURES = {
     # tables, lut_row, codes, pair_order, pair_t0, pair_t1, tile_block,
     # tile_row0, n_valid, pair_q, pair_lb, bound, sq, out_v, out_i, stats,
     # n_pairs, pairs_per_dev, cap, w, table_width, code_fmt, onehot, k,
-    # block_n, gtab, stream
-    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L] + [_I] * 7 + [_P],
+    # block_n, stream
+    "adc_topk_tiles_launch": [_P] * 16 + [_I, _I, _L] + [_I] * 6 + [_P],
     # tables, lut_row, codes, pair_order, starts, n_valid, pair_q, pair_lb,
     # bound, sq, out_v, out_i, stats, n_blocks, pairs_per_dev, cap, w,
-    # table_width, code_fmt, onehot, k, block_n, gtab, stream
-    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L] + [_I] * 7 + [_P],
+    # table_width, code_fmt, onehot, k, block_n, stream
+    "adc_topk_windows_launch": [_P] * 13 + [_I, _I, _L] + [_I] * 6 + [_P],
     # queries, cand, id_dev, id_row, row_base, vectors, out, q, k, d,
     # ids_cap, ndev, vec_is_bf16, plan (`rerank.PLAN_FIELDS` of
     # `rerank.launch_plan`, an int array), stream
@@ -77,12 +77,18 @@ SIGNATURES = {
     # code_fmt, onehot, w, table_width, k
     "adc_topk_pairs_blocks_per_sm": [_I] * 5,
     # tables, codes, bound, units, n_valid (each may be null but tables and
-    # codes), out_v, out_i, part_v, part_i, tickets, win_len, n_units, n_q,
-    # n_rows, w, table_width, code_fmt, onehot, k, block_n, gtab, n_blocks,
-    # stream
-    "adc_topk_wide_launch": [_P] * 10 + [_L] + [_I] * 11 + [_P],
-    # code_fmt, onehot, w, table_width, k, gtab
-    "adc_topk_wide_blocks_per_sm": [_I] * 6,
+    # codes), out_v, out_i, part_v, part_i, tickets, ilv (null at g 1),
+    # ustart (int64 scratch), win_len, n_units, n_q, n_rows, w, table_width,
+    # code_fmt, onehot, k, block_n, g, n_blocks, stream
+    "adc_topk_wide_launch": [_P] * 12 + [_L] + [_I] * 11 + [_P],
+    # tables, lut_row, codes, order, ustart, pair_t0, pair_t1, tile_block,
+    # tile_row0 (B2; null for B5), starts (B5; null for B2), n_valid,
+    # pair_q, pair_lb, bound, sq, out_v, out_i, stats, part_v, part_i,
+    # tickets, n_units, pairs_per_dev, cap, w, table_width, code_fmt,
+    # onehot, k, block_n, n_blocks, stream
+    "adc_topk_scan_wide_launch": [_P] * 21 + [_I, _I, _L] + [_I] * 7 + [_P],
+    # code_fmt, onehot, w, table_width, k, g, pairs (B2 / B5's kernel)
+    "adc_topk_wide_blocks_per_sm": [_I] * 7,
     # tables, codes, bound, units, n_valid (as above), out_v, out_i,
     # scratch, win_len, n_units, n_q, n_rows, w, table_width, code_fmt,
     # onehot, k, block_n, gtab, n_blocks, launched (host int), split_ms

@@ -5,19 +5,21 @@ windows): run planning, plain versions, CUDA launchers.
 The CUDA sources are `csrc/adc_topk_tiles.cu`, `csrc/adc_topk_windows.cu`,
 `csrc/adc_topk.cu` and `csrc/adc_topk_pairs.cu` (their common device code
 in `csrc/adc_topk_common.cuh`, B6 / B7's block in `csrc/adc_topk_multi.cuh`,
-its WIDE instantiations in `csrc/adc_topk_wide.cu`, B6 / B7 past k = 4096
-in `csrc/adc_topk_select.cu`, and B2 / B5 past it too); `ops.adc_topk_tiles`,
-`ops.adc_topk_windows`, `ops.adc_topk` / `ops.adc_topk_flat` /
-`ops.adc_topk_grouped` and `ops.adc_topk_pairs` are the wrappers.  Every
-scan takes any k >= 1 and any table width: `scan_plan` (B2 / B5) and
-`topk_plan` (B6 / B7: G, tables per block, too) keep the shared-memory
-blocks wherever their lists (k <= `SCAN_K_MAX`) and tables fit, else pick
-the WIDE block, whose table is read where it lies (`gtab`), and past
-`SCAN_K_MAX` the select kernels, which select each unit's k-th key and
-sort its k winners (`select` plans, `wide_layout`, `select_scratch`).  B6 /
-B7 are planned here on every device: `topk_plan`, `topk_units`, and
-`run_plan` (the Python twin of how the kernels cut tiles into runs; B2 /
-B5's units for it from `scan_unit_tiles`).  For B2 and B5, arrays
+its in-place instantiations for all four in `csrc/adc_topk_wide.cu`, B6 /
+B7 past k = 4096 in `csrc/adc_topk_select.cu`, and B2 / B5 past it too);
+`ops.adc_topk_tiles`, `ops.adc_topk_windows`, `ops.adc_topk` /
+`ops.adc_topk_flat` / `ops.adc_topk_grouped` and `ops.adc_topk_pairs` are
+the wrappers.  Every scan takes any k >= 1 and any table width:
+`scan_plan` (B2 / B5) and `topk_plan` (B6 / B7: G, tables per block, too)
+keep the shared-memory blocks wherever their lists (k <= `SCAN_K_MAX`) and
+tables fit, else pick the in-place block, whose tables are read where they
+lie (`gtab`; B6 at G = 1, 2 or 4 interleaved tables a unit, B2 / B5's pairs
+as units whose tiles are cut over the grid), and past `SCAN_K_MAX` the
+select kernels, which select each unit's k-th key and sort its k winners
+(`select` plans, `wide_layout`, `select_scratch`).  B6 / B7 are planned
+here on every device: `topk_plan`, `topk_units`, and `run_plan` (the
+Python twin of how the kernels cut tiles into runs; B2 / B5's units for it
+from `scan_unit_tiles`).  For B2 and B5, arrays
 carry a leading logical-device axis `ndev` (the JAX `"dpu"` mesh axis):
 codes (ndev, cap, W), the tile queue (ndev, T) from
 `core.scheduling.emit_tiles`, and the per-pair arrays (ndev, P).  A flat
@@ -134,8 +136,8 @@ def wide_layout(k: int, table_width: int, static: int) -> dict:
     histogram of `_SELECT_BINS` words in place of the lists) and `gtab`
     (the table read where it lies, when it does not fit in `SMEM_BUDGET`
     beside what stays); `smem` the dynamic shared memory that is left
-    (csrc `select_smem_bytes`, or `scan_wide_smem_bytes` /
-    `multi_smem_bytes` at G = 1 under gtab)."""
+    (csrc `select_smem_bytes`, or the in-place block's `multi_smem_bytes`
+    at G = 1)."""
     select = k > SCAN_K_MAX
     rest = 2 * _SCAN_PASS + (0 if select else 4 * k)
     gtab = (table_width + rest) * 4 + static > SMEM_BUDGET
@@ -151,8 +153,9 @@ def scan_plan(k: int, table_width: int) -> dict:
     """How a B2 / B5 launch holds a pair of `table_width` table entries at
     this k: {"gtab", "select", "smem"}.  The shared-memory block (`gtab`
     and `select` False, `smem` from `scan_smem`) when k <= SCAN_K_MAX and
-    everything fits `SMEM_BUDGET`; else, at k <= SCAN_K_MAX, the WIDE
-    block with its table read in place (`gtab`); past SCAN_K_MAX the select
+    everything fits `SMEM_BUDGET`; else, at k <= SCAN_K_MAX, the in-place
+    block (`gtab`: the pairs as G = 1 units of csrc/adc_topk_wide.cu, each
+    pair's tiles cut over the grid); past SCAN_K_MAX the select
     kernels (`select`; `gtab` and `smem` from `wide_layout`, as B6 / B7's
     `topk_plan`).  Raises ValueError for k < 1, which the reference does
     not serve either."""
@@ -164,8 +167,8 @@ def scan_plan(k: int, table_width: int) -> dict:
 
 
 def wide(plan: dict) -> bool:
-    """Whether a plan leaves the shared-memory block (the WIDE block or the
-    select kernels)."""
+    """Whether a plan leaves the shared-memory block (the in-place block or
+    the select kernels)."""
     return plan["gtab"] or plan["select"]
 
 
@@ -309,15 +312,17 @@ def launch(
     """Enqueue `csrc/adc_topk_tiles.cu` on the current stream (checked inputs;
     `luts` (R, A) contiguous; `path` picks the instantiation, `plan` from
     `scan_plan` (default: the plan of this k and width) the block), or for a
-    `select` plan the chain of `csrc/adc_topk_select.cu` over the pairs of
+    `gtab` plan the in-place block of `csrc/adc_topk_wide.cu`, or for a
+    `select` plan the chain of `csrc/adc_topk_select.cu`, over the pairs of
     `order` (`split_ms` as `_launch_wide`'s)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
     plan = plan or scan_plan(k, luts.shape[1])
-    if plan["select"]:
-        _launch_scan_select(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq,
-                            out_v, out_i, stats, k, block_n, path, plan, split_ms,
-                            tiles=(t0, t1, tile_block, tile_row0))
+    tiles = (t0, t1, tile_block, tile_row0)
+    if wide(plan):
+        launch_wide = _launch_scan_select if plan["select"] else _launch_scan_wide
+        launch_wide(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq, out_v,
+                    out_i, stats, k, block_n, path, plan, split_ms, tiles=tiles)
         return
     err = _build.library().adc_topk_tiles_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
@@ -325,7 +330,7 @@ def launch(
         n_valid.data_ptr(), pair_q.data_ptr(), pair_lb.data_ptr(),
         bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         stats.data_ptr(), n_pairs, n_pairs // ndev, cap, w, luts.shape[1],
-        code_format(codes), int(path == "onehot"), k, block_n, int(plan["gtab"]),
+        code_format(codes), int(path == "onehot"), k, block_n,
         torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_tiles")
@@ -371,17 +376,16 @@ def launch_windows(
     plan: dict | None = None, split_ms: dict | None = None,
 ) -> None:
     """Enqueue `csrc/adc_topk_windows.cu` on the current stream (checked
-    inputs): one block per entry of `order` (the filled pairs), or the WIDE
-    block's persistent grid over them, or for a `select` plan the chain of
-    `csrc/adc_topk_select.cu` over them (`plan` and `split_ms` as
-    `launch`)."""
+    inputs): one block per entry of `order` (the filled pairs), or for a
+    `gtab` / `select` plan the in-place block / the select chain over them
+    (`plan` and `split_ms` as `launch`)."""
     ndev, cap, w = codes.shape
     n_pairs = lut_row.shape[0]
     plan = plan or scan_plan(k, luts.shape[1])
-    if plan["select"]:
-        _launch_scan_select(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq,
-                            out_v, out_i, stats, k, block_n, path, plan, split_ms,
-                            starts=starts)
+    if wide(plan):
+        launch_wide = _launch_scan_select if plan["select"] else _launch_scan_wide
+        launch_wide(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq, out_v,
+                    out_i, stats, k, block_n, path, plan, split_ms, starts=starts)
         return
     err = _build.library().adc_topk_windows_launch(
         luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
@@ -389,27 +393,36 @@ def launch_windows(
         pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), stats.data_ptr(), order.shape[0], n_pairs // ndev, cap,
         w, luts.shape[-1], code_format(codes), int(path == "onehot"), k, block_n,
-        int(plan["gtab"]), torch.cuda.current_stream(luts.device).cuda_stream,
+        torch.cuda.current_stream(luts.device).cuda_stream,
     )
     _build.check(err, "adc_topk_windows")
 
 
-def scan_unit_tiles(order, lut_row, n_valid, block_n: int, t0=None, t1=None) -> np.ndarray:
-    """B2 / B5's units under a `select` plan (the twin of csrc
-    `unit_tiles` on `ScanSelectArgs`): unit u is pair order[u], with its
-    tiles t1 - t0 of the queue (B2: `t0` / `t1` from `pair_runs`) or its
-    window's ceil(n_valid / block_n) blocks (B5), none without a table
-    (lut_row < 0).  All inputs flat over the pairs; returns the units' tile
-    counts, the `unit_tiles` of `run_plan`, as int64 numpy."""
-    def host(x):
-        return np.asarray(torch.as_tensor(x).cpu(), np.int64)
-
-    pair = host(order)
+def scan_unit_starts(order, lut_row, n_valid, block_n: int, t0=None, t1=None) -> torch.Tensor:
+    """B2 / B5's units under a `gtab` or `select` plan: unit u is pair
+    order[u], with its tiles t1 - t0 of the queue (B2: `t0` / `t1` from
+    `pair_runs`) or its window's ceil(n_valid / block_n) blocks (B5), none
+    without a table (lut_row < 0) -- csrc `pair_tiles` (the select's
+    `unit_tiles`).  All inputs flat over the pairs; returns the units'
+    first tiles and then their total, (n_units + 1,) int64: the twin of the
+    in-place launcher's plan kernel (`ustart`)."""
+    pair = torch.as_tensor(order).long()
     if t0 is not None:
-        nt = np.maximum(host(t1)[pair] - host(t0)[pair], 0)
+        nt = (t1.long()[pair] - t0.long()[pair]).clamp_min(0)
     else:
-        nt = (np.maximum(host(n_valid)[pair], 0) + block_n - 1) // block_n
-    return np.where(host(lut_row)[pair] >= 0, nt, 0)
+        nt = (n_valid.long()[pair].clamp_min(0) + block_n - 1) // block_n
+    nt = torch.where(lut_row.long()[pair] >= 0, nt, 0)
+    return torch.cat([nt.new_zeros(1), torch.cumsum(nt, 0)])
+
+
+def scan_unit_tiles(order, lut_row, n_valid, block_n: int, t0=None, t1=None) -> np.ndarray:
+    """The tile counts of B2 / B5's units (`scan_unit_starts`), the
+    `unit_tiles` of `run_plan`, as int64 numpy."""
+    def dev(x):
+        return None if x is None else torch.as_tensor(x)
+
+    ustart = scan_unit_starts(dev(order), dev(lut_row), dev(n_valid), block_n, dev(t0), dev(t1))
+    return np.diff(ustart.cpu().numpy()).astype(np.int64)
 
 
 # -- B6 / B7: the multi-table block (csrc/adc_topk_multi.cuh) --------------
@@ -426,6 +439,15 @@ _SM_LOOKUPS_PER_S = 132 * 1.98e9
 _HBM_BYTES_PER_S = 3.35e12
 # what the multi-table block declares statically beside the dynamic part
 _MULTI_STATIC_SMEM = 4096
+# tables a unit of the in-place block may hold (G), widest first, and its
+# SM clocks (at the model's 1.98 GHz) per warp-wide lookup of one table's
+# entry read where it lies (random addresses of a 65,536-entry table: one
+# 4-byte load a table at G = 1, one 8- / 16-byte load of the interleaved
+# tables at G = 2 / 4), in the role of `_LOOKUP_CLOCKS`: B6 at Q = 4 over
+# 2M uint16 rows of W = 16 at each G, tools/probe_inplace.py's `g_sweep`
+# on an NVIDIA H100 80GB HBM3, 700.00 W (0.901 / 0.508 / 0.354 ms)
+INPLACE_GROUPS = (4, 2, 1)
+_INPLACE_CLOCKS = {1: 58.9, 2: 33.2, 4: 23.1}
 
 
 def topk_table_width(fmt: int, w: int, table_width: int) -> int:
@@ -441,6 +463,21 @@ def topk_smem(g: int, k: int, a_used: int) -> int:
     return (g * a_used + 2 * g * k + 2 * k + 2 * _SCAN_PASS) * 4
 
 
+def _least_cost(nq, rows, w: int, item: int, groups, clocks: dict, fits) -> int | None:
+    """The G of `groups` that `fits` with the least modelled time: per unit
+    of G tables, its rows times the larger of their code bytes over the HBM
+    rate and their W * G lookups at `clocks[G]`."""
+    best = best_cost = None
+    for g in groups:
+        if not fits(g):
+            continue
+        per_row = max(w * item / _HBM_BYTES_PER_S, w * g * clocks[g] / 32 / _SM_LOOKUPS_PER_S)
+        cost = sum(-(-int(q) // g) * int(r) for q, r in zip(nq, rows)) * per_row
+        if best is None or cost < best_cost:
+            best, best_cost = g, cost
+    return best
+
+
 def topk_plan(
     nq, rows, k: int, fmt: int, w: int, table_width: int, groups=TOPK_GROUPS
 ) -> dict:
@@ -449,28 +486,29 @@ def topk_plan(
 
     With k <= SCAN_K_MAX, of the G in `groups` whose shared-memory block
     fits `SMEM_BUDGET` (G tables beside their lists), the one of least
-    modelled time: per unit of G tables, its rows times the larger of their
-    code bytes over the HBM rate and their W * G lookups at
-    `_LOOKUP_CLOCKS[G]`.  When none fits, the WIDE block at G = 1 (the
-    table read where it lies, `gtab`); past SCAN_K_MAX the select kernels
-    (`select`: no list is kept; `gtab` and `smem` from `wide_layout`).  The
-    same on every device; raises ValueError for k < 1 only.
+    modelled time (`_least_cost` at `_LOOKUP_CLOCKS`).  When none fits, the
+    in-place block (`gtab`: the tables read where they lie) at the G of
+    `INPLACE_GROUPS` up to max(groups) of least modelled time at
+    `_INPLACE_CLOCKS` (B7's groups=(1,) keeps G = 1); past SCAN_K_MAX the
+    select kernels (`select`: no list is kept; `gtab` and `smem` from
+    `wide_layout`).  The same on every device; raises ValueError for k < 1
+    only.
     """
     _check_k(k)
     a_used = topk_table_width(fmt, w, table_width)
+    if k > SCAN_K_MAX:
+        return dict(g=1, **wide_layout(k, a_used, _MULTI_STATIC_SMEM))
     item = (1, 2, 4)[fmt]
-    best = best_cost = None
-    for g in groups if k <= SCAN_K_MAX else ():
-        if topk_smem(g, k, a_used) + _MULTI_STATIC_SMEM > SMEM_BUDGET:
-            continue
-        per_row = max(w * item / _HBM_BYTES_PER_S,
-                      w * g * _LOOKUP_CLOCKS[g] / 32 / _SM_LOOKUPS_PER_S)
-        cost = sum(-(-int(q) // g) * int(r) for q, r in zip(nq, rows)) * per_row
-        if best is None or cost < best_cost:
-            best, best_cost = g, cost
-    if best is not None:
-        return dict(g=best, gtab=False, select=False, smem=topk_smem(best, k, a_used))
-    return dict(g=1, **wide_layout(k, a_used, _MULTI_STATIC_SMEM))
+
+    def fits(used):
+        return lambda g: topk_smem(g, k, used) + _MULTI_STATIC_SMEM <= SMEM_BUDGET
+
+    g = _least_cost(nq, rows, w, item, groups, _LOOKUP_CLOCKS, fits(a_used))
+    if g is not None:
+        return dict(g=g, gtab=False, select=False, smem=topk_smem(g, k, a_used))
+    inplace = [g for g in INPLACE_GROUPS if g <= max(groups)]
+    g = _least_cost(nq, rows, w, item, inplace, _INPLACE_CLOCKS, fits(0))
+    return dict(g=g, gtab=True, select=False, smem=topk_smem(g, k, 0))
 
 
 def topk_group_size(
@@ -679,28 +717,72 @@ def select_sort_smem(k: int) -> int:
 # overflows), the bucket pass, the sort
 SELECT_STEPS = ("memset", "plan", "hist0", "hist1", "compact", "hist2", "compact2", "ties",
                 "bucket", "sort")
-# CUDA launches (kernels and memsets) the select chain enqueued since
-# `ops.reset_launches()`, as its launcher counts them
-cuda_launches = {"adc_topk_select": 0}
+# CUDA launches (kernels and memsets) since `ops.reset_launches()`: the
+# select chain's, as its launcher counts them, and the in-place block's
+# (its plan kernel but for B6 over one code array, the interleave at G >
+# 1, the scan)
+cuda_launches = {"adc_topk_select": 0, "adc_topk_wide": 0}
+
+
+# per (device, stream): the in-place block's interleaved tables (B6 at G >
+# 1: n_units * A * G floats), grown as calls need and kept
+_INTERLEAVE_WORKSPACE: dict = {}
+
+
+def _interleave_workspace(dev: torch.device, floats: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _INTERLEAVE_WORKSPACE.get(key)
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty((floats,), dtype=torch.float32, device=dev)
+        _INTERLEAVE_WORKSPACE[key] = buf
+    return buf
+
+
+def _unit_starts(dev: torch.device, n_units: int) -> torch.Tensor:
+    """The in-place launchers' (n_units + 1,) int64 scratch for the units'
+    first tiles (their plan kernel's `ustart`), in the select's workspace."""
+    return _select_workspace(dev, 2 * (n_units + 1))[: 2 * (n_units + 1)].view(torch.int64)
+
+
+def interleave_plain(tables: torch.Tensor, units: torch.Tensor | None, g: int,
+                     a_used: int) -> torch.Tensor:
+    """The in-place block's interleaved tables in plain tensor code (csrc
+    `adc_topk_interleave_kernel`): unit u's nq <= g tables, rows q0 .. q0 +
+    nq - 1 of `tables` (units (n_units, 4) {row0, n_rows, q0, nq}, or None:
+    ceil(Q / g) units of consecutive tables), entries [0, a_used), as
+    (n_units, a_used, g), 0.0 past nq."""
+    q_n = tables.shape[0]
+    if units is None:
+        q0 = torch.arange(0, q_n, g)
+        nq = (q_n - q0).clamp(max=g)
+    else:
+        q0, nq = units[:, 2].long().cpu(), units[:, 3].long().cpu()
+    out = torch.zeros((q0.shape[0], a_used, g), dtype=tables.dtype, device=tables.device)
+    for j in range(g):
+        live = torch.nonzero(nq > j).flatten()
+        out[live.to(tables.device), :, j] = tables[(q0[live] + j).to(tables.device), :a_used]
+    return out
 
 
 def _launch_wide(tables, codes, bound, units, n_valid, out_v, out_i, k: int, block_n: int,
                  plan: dict, n_units: int, win_len: int, path: str,
                  split_ms: dict | None = None) -> None:
-    """Enqueue the WIDE block at G = 1 for B6 (`units` or None, `n_valid`
-    None) or B7 (`n_valid`, `win_len`): `csrc/adc_topk_select.cu` for a
-    `select` plan, else `csrc/adc_topk_wide.cu` (the table read in place).
-    A select call adds its CUDA launches to `cuda_launches`; given a dict
-    `split_ms`, it waits for its steps and fills in each one's ms on the
-    card (`SELECT_STEPS`, timed by CUDA events)."""
+    """Enqueue B6 (`units` or None, `n_valid` None) or B7 (`n_valid`,
+    `win_len`) past the shared-memory block: `csrc/adc_topk_select.cu` for
+    a `select` plan (G = 1), else the in-place block of
+    `csrc/adc_topk_wide.cu` at the plan's G (at G > 1 its interleave kernel
+    first, into `_interleave_workspace`).  Either adds its CUDA launches to
+    `cuda_launches`; a select call given a dict `split_ms` waits for its
+    steps and fills in each one's ms on the card (`SELECT_STEPS`, timed by
+    CUDA events)."""
     q_n = tables.shape[0]
     dev = tables.device
     w, fmt = codes.shape[-1], code_format(codes)
     onehot = int(path == "onehot")
-    gtab = int(plan["gtab"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [None if x is None else x.data_ptr() for x in (bound, units, n_valid)]
     if plan["select"]:
+        gtab = int(plan["gtab"])
         n_blocks = _grid(dev, "adc_topk_select_blocks_per_sm", fmt, onehot, w, tables.shape[1],
                          gtab, 0)
         scratch = _select_workspace(dev, select_scratch(n_units, n_blocks))
@@ -710,20 +792,62 @@ def _launch_wide(tables, codes, bound, units, n_valid, out_v, out_i, k: int, blo
             scratch.data_ptr(), win_len, n_units, q_n, codes.shape[0], w, tables.shape[1], fmt,
             onehot, k, block_n, gtab, n_blocks)
         return
-    n_blocks = _grid(dev, "adc_topk_wide_blocks_per_sm", fmt, onehot, w, tables.shape[1], k,
-                     gtab)
-    buf_v, buf_i, tickets = _workspace(dev, (n_blocks + n_units) * k, n_blocks + 2 * n_units)
+    g = plan["g"]
+    n_blocks = _grid(dev, "adc_topk_wide_blocks_per_sm", fmt, onehot, w, tables.shape[1], k, g, 0)
+    buf_v, buf_i, tickets = _workspace(dev, (n_blocks + n_units) * g * k, n_blocks + 2 * n_units)
+    ilv = None
+    if g > 1:
+        ilv = _interleave_workspace(dev, n_units * topk_table_width(fmt, w, tables.shape[1]) * g)
     err = _build.library().adc_topk_wide_launch(
         tables.data_ptr(), codes.data_ptr(), *ptr, out_v.data_ptr(), out_i.data_ptr(),
-        buf_v.data_ptr(), buf_i.data_ptr(), tickets.data_ptr(), win_len, n_units, q_n,
-        codes.shape[0], w, tables.shape[1], fmt, onehot, k, block_n, gtab, n_blocks, stream,
+        buf_v.data_ptr(), buf_i.data_ptr(), tickets.data_ptr(),
+        None if ilv is None else ilv.data_ptr(), _unit_starts(dev, n_units).data_ptr(), win_len,
+        n_units, q_n, codes.shape[0], w, tables.shape[1], fmt, onehot, k, block_n, g, n_blocks,
+        stream,
     )
     _build.check(err, "adc_topk_wide")
+    # the plan (grouped units, B7's windows), the interleave (G > 1), the scan
+    planned = units is not None or n_valid is not None
+    cuda_launches["adc_topk_wide"] += planned + (g > 1) + 1
+
+
+def _launch_scan_wide(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq, out_v,
+                      out_i, stats, k: int, block_n: int, path: str, plan: dict,
+                      split_ms: dict | None = None, tiles=None, starts=None) -> None:
+    """Enqueue B2 (`tiles` = (t0, t1, tile_block, tile_row0)) or B5
+    (`starts`) under a `gtab` plan: the in-place block of
+    `csrc/adc_topk_wide.cu` over the pairs of `order` as G = 1 units, each
+    pair's tiles cut over the grid (its plan kernel's `ustart`, the twin
+    of `scan_unit_starts`, in the select's scratch), arguments as `launch`
+    / `launch_windows` take them (`split_ms` unused).  Adds its 2 CUDA
+    launches (plan, scan) to `cuda_launches`."""
+    ndev, cap, w = codes.shape
+    dev = luts.device
+    fmt, onehot = code_format(codes), int(path == "onehot")
+    n_units = order.shape[0]
+    t0, t1, tb, tr = (None,) * 4 if tiles is None else tiles
+    ustart = _unit_starts(dev, n_units)
+    n_blocks = _grid(dev, "adc_topk_wide_blocks_per_sm", fmt, onehot, w, luts.shape[1], k, 1, 1)
+    part_v, part_i, tickets = _workspace(dev, (n_blocks + n_units) * k, n_blocks + 5 * n_units)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    err = _build.library().adc_topk_scan_wide_launch(
+        luts.data_ptr(), lut_row.data_ptr(), codes.data_ptr(), order.data_ptr(),
+        ustart.data_ptr(), ptr(t0), ptr(t1), ptr(tb), ptr(tr), ptr(starts), n_valid.data_ptr(),
+        pair_q.data_ptr(), pair_lb.data_ptr(), bound.data_ptr(), sq.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), stats.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+        tickets.data_ptr(), n_units, lut_row.shape[0] // ndev, cap, w, luts.shape[1], fmt,
+        onehot, k, block_n, n_blocks, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "adc_topk_scan_wide")
+    cuda_launches["adc_topk_wide"] += 2
 
 
 def _launch_scan_select(luts, lut_row, codes, order, n_valid, pair_q, pair_lb, bound, sq,
                         out_v, out_i, stats, k: int, block_n: int, path: str, plan: dict,
-                        split_ms: dict | None, tiles=None, starts=None) -> None:
+                        split_ms: dict | None = None, tiles=None, starts=None) -> None:
     """Enqueue B2 (`tiles` = (t0, t1, tile_block, tile_row0)) or B5
     (`starts`) under a `select` plan: `csrc/adc_topk_select.cu` over the
     pairs of `order`, arguments as `launch` / `launch_windows` take them.
@@ -764,8 +888,9 @@ def launch_topk(
     tables, codes, bound, out_v, out_i, k: int, block_n: int, g: int, units=None,
     path: str = "gather", plan: dict | None = None, split_ms: dict | None = None,
 ) -> None:
-    """Enqueue `csrc/adc_topk.cu` (or, for a WIDE `plan` from `topk_plan`,
-    `adc_topk_wide.cu`; None: the shared-memory block at G = g) on the
+    """Enqueue `csrc/adc_topk.cu` (or, for a `gtab` / `select` `plan` from
+    `topk_plan`, `adc_topk_wide.cu` / `adc_topk_select.cu`; a plan's G
+    stands for `g`; None: the shared-memory block at G = g) on the
     current stream (checked inputs: tables (Q, A), codes (N, W), bound (Q,)
     or None, out (Q, k); `units` a (n_units, 4) int32 tensor on the card
     from `topk_units`, or None for ceil(Q / g) units over all N rows): one
@@ -774,6 +899,7 @@ def launch_topk(
     q_n, n = tables.shape[0], codes.shape[0]
     dev = tables.device
     w, fmt = codes.shape[1], code_format(codes)
+    g = g if plan is None else plan["g"]
     n_units = -(-q_n // g) if units is None else units.shape[0]
     if plan is not None and wide(plan):
         _launch_wide(tables, codes, bound, units, None, out_v, out_i, k, block_n, plan,
@@ -825,8 +951,8 @@ def adc_topk_pairs_plain(
 def launch_pairs(tables, addrs, n_valid, out_v, out_i, k: int, block_n: int,
                  path: str = "gather", plan: dict | None = None,
                  split_ms: dict | None = None) -> None:
-    """Enqueue `csrc/adc_topk_pairs.cu` (or, for a WIDE `plan` from
-    `topk_plan`, `adc_topk_wide.cu` / `adc_topk_select.cu`, `split_ms` as
+    """Enqueue `csrc/adc_topk_pairs.cu` (or, for a `gtab` / `select` `plan`
+    from `topk_plan`, `adc_topk_wide.cu` / `adc_topk_select.cu`, `split_ms` as
     `_launch_wide`'s) on the current stream (checked inputs:
     tables (P, A), addrs (P, L, W), n_valid (P,) int32, out (P, k)
     pre-filled with (+inf, -1)): one launch, each pair's valid tiles cut

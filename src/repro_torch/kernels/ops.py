@@ -243,8 +243,9 @@ def adc_topk_tiles(
     Any k >= 1 and any table width.  On the card `adc_topk.scan_plan`
     picks the block: the shared-memory block up to k = `SCAN_K_MAX` (4096)
     with a table that fits beside the list in 227 KB (39,664 entries at k
-    = 4096, 55,792 at k = 64), else the WIDE block (a wider table read
-    where it lies); past 4096 the select kernels (each pair's tiles cut
+    = 4096, 55,792 at k = 64), else the in-place block (a wider table read
+    where it lies, each pair's tiles cut over the grid into runs whose
+    lists merge in the launch); past 4096 the select kernels (each pair's tiles cut
     over the grid, its k-th key selected, its winners sorted; a table too
     wide read in place).  The merged per-query answer is the same either
     way; the pairs' tails past the query's k-th and the counters may
@@ -573,9 +574,9 @@ def adc_topk(
     of the merged tiles by (distance, row): ((Q, k) f32 ascending, (Q, k)
     int32 row indices), (+inf, -1) in lanes without a row.  One kernel
     launch on the card, for any k >= 1 and table width: `adc_topk.topk_plan`
-    picks the shared-memory block (k <= `ADC_TOPK_K_MAX`, tables that fit)
-    or the WIDE one (lists in device memory, a wide table read where it
-    lies).
+    picks the shared-memory block (k <= `ADC_TOPK_K_MAX`, tables that fit),
+    the in-place one (tables too wide read where they lie, 1, 2 or 4 a
+    unit) or past that k the select kernels.
     """
     dev = codes.device
     _check_codes(codes, "codes", 2, False, dev)
@@ -594,8 +595,8 @@ def adc_topk_flat(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`adc_topk` over direct addresses (kernel B6): ext_luts (Q, A) f32,
     addrs (N, W) uint16 / int32 addresses into each table (a uint16
-    address space of 65,536 entries too: the WIDE block reads a table too
-    wide for shared memory where it lies)."""
+    address space of 65,536 entries too: the in-place block reads tables
+    too wide for shared memory where they lie)."""
     dev = addrs.device
     _check_codes(addrs, "addrs", 2, True, dev)
     _check(ext_luts, "ext_luts", torch.float32, 2, dev)

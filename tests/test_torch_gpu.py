@@ -46,7 +46,9 @@ per-query merge pruned, and equal to the shared block when forced at k =
 4096; B6 / B7
 past k = 4096 (the select kernels: thousands of rows tied at the k-th,
 k at and past a unit's rows, grouped units, k 40,000 sorted past shared
-memory, B7 windows of 0 / 7 / all / k valid rows) and in place, B8 and
+memory, B7 windows of 0 / 7 / all / k valid rows) and in place (B6 at
+the planned G and at each of G = 1, 2 and 4 interleaved tables, ragged
+and grouped units; B2 / B5's pairs cut over blocks), B8 and
 B4 / B9 in place, bit-equal; B10's general kernel (staged and element by
 element) at head dims 8-1040, aligned and at an odd offset, peaked at
 hd 256, within the tolerances, and its grid at 65,536 row tiles.
@@ -378,14 +380,18 @@ def _wide_scan_case(dev, k, width, seed=0):
 
 
 def _split_pairs(dev, c, k, scan):
-    """The pairs whose tiles a select launch cuts over several blocks
-    (`adc_topk.run_plan` on `scan_unit_tiles`, the kernel's mapping)."""
+    """The pairs whose tiles a select or in-place launch cuts over several
+    blocks (`adc_topk.run_plan` on `scan_unit_tiles`, the kernels'
+    mapping, on the grid the launch takes)."""
     p = c["n_valid"].shape[0]
     lut_row = torch.arange(p, dtype=torch.int32)
     plan = adc_topk.scan_plan(k, c["luts"].shape[1])
-    n_blocks = adc_topk._grid(dev, "adc_topk_select_blocks_per_sm",
-                              adc_topk.code_format(c["codes"]), 0, c["codes"].shape[1],
-                              c["luts"].shape[1], int(plan["gtab"]), 1)
+    fmt, w, a = adc_topk.code_format(c["codes"]), c["codes"].shape[1], c["luts"].shape[1]
+    if plan["select"]:
+        n_blocks = adc_topk._grid(dev, "adc_topk_select_blocks_per_sm", fmt, 0, w, a,
+                                  int(plan["gtab"]), 1)
+    else:
+        n_blocks = adc_topk._grid(dev, "adc_topk_wide_blocks_per_sm", fmt, 0, w, a, k, 1, 1)
     if scan == "tiles":
         t0, t1, order = adc_topk.pair_runs(c["tile_pair"][None].cpu(), p)
         tiles = adc_topk.scan_unit_tiles(order, lut_row, c["n_valid"].cpu(), c["block_n"], t0, t1)
@@ -401,11 +407,14 @@ def _assert_scan_select(c, scan, path="gather"):
     per-query merge, one launch each."""
     run = _run_tiles if scan == "tiles" else _run_windows
     select = adc_topk.scan_plan(c["k"], c["luts"].shape[1])["select"]
+    plan = adc_topk.scan_plan(c["k"], c["luts"].shape[1])
     ops.reset_launches()
     kv, ki, _ = run(c, bounds=False, plain=False, path=path)
     assert ops.launches["adc_topk_" + scan] == 1
-    # the select chain's launcher counts each of its steps once
+    # the select chain's launcher counts each of its steps once; the
+    # in-place block is its plan kernel and its scan
     assert adc_topk.cuda_launches["adc_topk_select"] == select * len(adc_topk.SELECT_STEPS)
+    assert adc_topk.cuda_launches["adc_topk_wide"] == 2 * int(plan["gtab"] and not select)
     pv, pi, _ = run(c, bounds=False, plain=True, path=path)
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
@@ -430,9 +439,29 @@ def test_scan_wide_kernels_match_plain(cuda, scan, k, width):
     c = _wide_scan_case(cuda, k, width)
     plan = adc_topk.scan_plan(k, c["luts"].shape[1])
     assert adc_topk.wide(plan) and plan["select"] == (k > ops.SCAN_K_MAX)
-    if plan["select"]:
-        split, most, share = _split_pairs(cuda, c, k, scan)
-        assert split > 0 and most > share
+    split, most, share = _split_pairs(cuda, c, k, scan)
+    assert split > 0 and most > share
+    _assert_scan_select(c, scan)
+
+
+@pytest.mark.parametrize("k", [1, 64, 4096])
+@pytest.mark.parametrize("scan", ["tiles", "windows"])
+def test_scan_inplace_split_pairs(cuda, scan, k):
+    """B2 / B5 in place (a 65,536-entry uint16 table, k <= 4096): the pairs
+    are units of the in-place block, some pair's tiles cut over several
+    blocks.  Each pair's table is offset by its own constant, so its lower
+    bound W * offset is exact and the pairs of a query prune each other
+    through sq: unpruned bit-equal per pair, pruned the same per-query
+    merge, the counters within their limits."""
+    c = _wide_scan_case(cuda, k, 65_536, seed=k)
+    plan = adc_topk.scan_plan(k, 65_536)
+    assert plan["gtab"] and not plan["select"]
+    p = c["luts"].shape[0]
+    off = (torch.arange(p, device=cuda) % 4).float() * 0.25
+    c["luts"] = c["luts"] + off[:, None]
+    c["pair_lb"] = off * c["codes"].shape[1]
+    split, most, share = _split_pairs(cuda, c, k, scan)
+    assert split > 0 and most > share
     _assert_scan_select(c, scan)
 
 
@@ -716,11 +745,86 @@ def test_adc_topk_pairs_kernel_bit_equal(cuda, dtype, k):
     assert bool((got[1][0] == -1).all()) and bool((got[1][1, 7:] == -1).all())
 
 
+def _inplace_case(dev, seed, q, n, dtype):
+    """Q tables of a uint16 address space (65,536 entries) or a wider int32
+    one (70,000), the sentinel's 0.0 last, and n rows of addresses."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = 65_536 if dtype == torch.uint16 else 70_000
+    w = 16 if dtype == torch.uint16 else 8
+    tables = torch.rand(q, a, device=dev, generator=g)
+    tables[:, -1] = 0.0
+    return tables, torch.randint(0, a, (n, w), device=dev, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+@pytest.mark.parametrize("path", ["gather", "onehot"])
+@pytest.mark.parametrize("q", [1, 2, 3, 4, 5, 8])
+def test_adc_topk_inplace_bit_equal(cuda, q, path, dtype):
+    """B6 on tables too wide for shared memory, read in place: at the G
+    `topk_plan` picks and forced to each of G = 1, 2 and 4 (interleaved
+    tables; at Q 3 / 5 a last unit of fewer than G), with and without a
+    finite bound, k 10 and 257: bit-equal to the plain version, one counted
+    launch (at G > 1 the interleave's CUDA launch beside the scan's)."""
+    n = 50_003
+    tables, codes = _inplace_case(cuda, q * 7 + (dtype == torch.int32), q, n, dtype)
+    fmt, w, a = adc_topk.code_format(codes), codes.shape[1], tables.shape[1]
+    inf = torch.full((q,), torch.inf, device=cuda)
+    for k in (10, 257):
+        plan = adc_topk.topk_plan([q], [n], k, fmt, w, a)
+        assert plan["gtab"] and not plan["select"] and plan["g"] in adc_topk.INPLACE_GROUPS
+        for bound in (None, _tile_bound(tables, codes, 1024, q)):
+            want = adc_topk.adc_topk_plain(tables, codes, inf if bound is None else bound, k,
+                                           1024, path)
+            ops.reset_launches()
+            got = ops.adc_topk_flat(tables, codes, k, bound=bound, path=path)
+            torch.cuda.synchronize()
+            assert ops.launches["adc_topk"] == 1
+            assert adc_topk.cuda_launches["adc_topk_wide"] == 1 + (plan["g"] > 1)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            for g in adc_topk.INPLACE_GROUPS:
+                ov = torch.full((q, k), torch.inf, device=cuda)
+                oi = torch.full((q, k), -1, dtype=torch.int32, device=cuda)
+                adc_topk.launch_topk(tables, codes, bound, ov, oi, k, 1024, g, None, path,
+                                     plan=dict(plan, g=g, smem=adc_topk.topk_smem(g, k, 0)))
+                torch.cuda.synchronize()
+                assert torch.equal(ov, want[0]) and torch.equal(oi, want[1]), g
+
+
+@pytest.mark.parametrize("path", ["gather", "onehot"])
+def test_adc_topk_grouped_inplace_bit_equal(cuda, path):
+    """Grouped B6 (the flat search's call) on 65,536-entry tables read in
+    place: groups of 4, 3, 0 (no rows), 1 and 6 tables, so units of fewer
+    than G, at the plan's G and at each G forced, with a finite bound on
+    table 0: bit-equal to the plain version, one counted launch."""
+    n = 30_000
+    tables, codes = _inplace_case(cuda, 11, 14, n, torch.uint16)
+    r_off, t_off = [0, 9000, 15000, 15000, 21000, n], [0, 4, 7, 8, 9, 14]
+    nq = [b - a_ for a_, b in zip(t_off[:-1], t_off[1:])]
+    rows = [b - a_ for a_, b in zip(r_off[:-1], r_off[1:])]
+    plan = adc_topk.topk_plan(nq, rows, 10, 1, 16, tables.shape[1])
+    assert plan["gtab"]
+    bound = _tile_bound(tables, codes[: r_off[1]], 1024, 14)
+    want = adc_topk.adc_topk_grouped_plain(tables, codes, bound, 10, 1024, r_off, t_off, path)
+    ops.reset_launches()
+    got = ops.adc_topk_grouped(tables, codes, 10, r_off, t_off, bound=bound, path=path)
+    torch.cuda.synchronize()
+    assert ops.launches["adc_topk"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g in adc_topk.INPLACE_GROUPS:
+        units = adc_topk.topk_units(r_off, t_off, g).to(cuda)
+        ov = torch.full((14, 10), torch.inf, device=cuda)
+        oi = torch.full((14, 10), -1, dtype=torch.int32, device=cuda)
+        adc_topk.launch_topk(tables, codes, bound, ov, oi, 10, 1024, g, units, path,
+                             plan=dict(plan, g=g, smem=adc_topk.topk_smem(g, 10, 0)))
+        torch.cuda.synchronize()
+        assert torch.equal(ov, want[0]) and torch.equal(oi, want[1]), g
+
+
 @pytest.mark.parametrize("call", ["adc_topk_flat", "adc_topk_grouped", "adc_topk_pairs"])
 def test_topk_table_too_wide_refused_on_card(cuda, call):
     """A 65,536-entry uint16 direct-address table, wider than a block's
-    shared memory: the WIDE block reads it in place, one launch, bit-equal
-    to the plain version."""
+    shared memory: the in-place block reads it where it lies, one launch,
+    bit-equal to the plain version."""
     g = torch.Generator(device=cuda).manual_seed(3)
     a = 65_536
     tables = torch.rand(2, a, device=cuda, generator=g)

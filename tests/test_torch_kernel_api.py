@@ -292,7 +292,7 @@ def test_refusals():
         with pytest.raises(ValueError, match="path must be"):
             call(path="mxu")
     # k past the shared-memory block's range (ADC_TOPK_K_MAX) is served, as
-    # the reference serves it (the WIDE block on the card)
+    # the reference serves it (the in-place block on the card)
     rng = np.random.default_rng(7)
     big_lut = rng.random((1, 8, 256), dtype=np.float32)
     big_codes = rng.integers(0, 256, (4500, 8)).astype(np.uint8)

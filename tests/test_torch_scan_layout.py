@@ -7,7 +7,7 @@ every code format at the compiled widths and at a runtime width fits 227 KB
 up to k = 4096.  Past that range (k > `SCAN_K_MAX`, or a table too wide to
 sit beside the lists) the planners (`adc_topk.scan_plan`, `topk_plan`,
 `adc_scan.table_in_place`, `lut_build.ext_table_in_place`,
-`flash_attn.kernel_variant`) pick the WIDE block or the general kernel,
+`flash_attn.kernel_variant`) pick the in-place block or the general kernel,
 and every such input gives the reference's answer: each case that the port
 once refused (ROADMAP C5) is held here to the reference's Pallas kernel
 (interpret mode) on the same numpy inputs, at the parity tests' tolerance
@@ -94,8 +94,9 @@ ALIGNED, ODD = 0, 1  # B10's views: 16-byte aligned, or one element past
     ("flash", 20, ALIGNED, "general"), ("flash", 1040, ALIGNED, "general"),
 ])
 def test_planners_choice(kernel, k, width, want):
-    """Which (k, table width) takes the shared-memory block, which the WIDE
-    block's global table and which the select kernels (past SCAN_K_MAX,
+    """Which (k, table width) takes the shared-memory block, which the
+    in-place block (its table read where it lies) and which the select
+    kernels (past SCAN_K_MAX,
     their table staged or read in place): B2 / B5 (`scan_plan`), B6 / B7
     (`topk_plan` on uint16 addresses, one table a block); whether B8 and
     B4 / B9 read their table in place;
@@ -271,8 +272,8 @@ def test_topk_group_size():
 @pytest.mark.parametrize("call", ["adc_topk_flat", "adc_topk_grouped", "adc_topk_pairs"])
 def test_topk_table_too_wide_refused(call):
     """uint16 direct addresses into a 65,536-entry table (256 KB, more than
-    one block's shared memory): the WIDE block's global table on the card,
-    the reference's answer here."""
+    one block's shared memory): the in-place block reads it where it lies
+    on the card, the reference's answer here."""
     a = 65_536
     rng = np.random.default_rng(11)
     tables = rng.random((2, a), dtype=np.float32)

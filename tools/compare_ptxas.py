@@ -11,7 +11,9 @@ translation unit's hash and a template's parameter list taken out (a
 kernel whose arguments changed is still the same instance), and prints one
 JSON line: the kernels
 of both trees whose registers, spill stores or spill loads agree, those
-that differ (each with both reports), and those only one tree has.
+that differ (each with both reports), and those only one tree has (each
+with its report, so an instance whose template arguments changed can be
+matched by hand).
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ def main() -> int:
     print(json.dumps(dict(
         probe="compare_ptxas", kernels_same=sum(new[k] == old[k] for k in both),
         kernels_differ={k: dict(parent=old[k], new=new[k]) for k in both if new[k] != old[k]},
-        only_parent=sorted(set(old) - set(new)), only_new=sorted(set(new) - set(old)))))
+        only_parent={k: old[k] for k in sorted(set(old) - set(new))},
+        only_new={k: new[k] for k in sorted(set(new) - set(old))})))
     return 0
 
 
